@@ -1,0 +1,58 @@
+"""Carry parameters over from the JAX package into the port's objects.
+
+The port imports nothing of the JAX package, so this module works by names:
+it takes an object of the JAX package (or any object with the same fields)
+whose class name is one of the port's (``MLP``, ``FluxNNs``,
+``PackedFluxNNs``, ``ZeroMeanUnitVarianceScaling``, ``WindMixingScalings``,
+``MPPParameters``, ``BoundaryConditions``, ``WindMixingModel``), reads each
+field the port's class declares, and turns every array leaf into a tensor
+through numpy (``np.asarray``). Static fields (``Nz``, flags, activation
+names) pass through unchanged. The JAX RNG is never re-seeded on this side:
+weights cross as numbers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from climateparameterizations_jl_tpu_torch.closures.mlp import MLP
+from climateparameterizations_jl_tpu_torch.core.scalings import ZeroMeanUnitVarianceScaling
+from climateparameterizations_jl_tpu_torch.device import resolve_device
+from climateparameterizations_jl_tpu_torch.models.wind_mixing import (
+    BoundaryConditions,
+    FluxNNs,
+    PackedFluxNNs,
+    WindMixingModel,
+    WindMixingScalings,
+)
+from climateparameterizations_jl_tpu_torch.physics.mpp import MPPParameters
+
+_CLASSES = {
+    cls.__name__: cls
+    for cls in (MLP, FluxNNs, PackedFluxNNs, ZeroMeanUnitVarianceScaling, WindMixingScalings,
+                MPPParameters, BoundaryConditions, WindMixingModel)
+}
+
+
+def from_reference(obj, device=None, dtype=torch.float32):
+    """Convert a JAX-package object (parameters as arrays) into the port's twin on ``device``."""
+    return _convert(obj, resolve_device(device), dtype)
+
+
+def _convert(obj, device, dtype):
+    if obj is None or isinstance(obj, (bool, int, str)):
+        return obj
+    cls = _CLASSES.get(type(obj).__name__)
+    if cls is FluxNNs:
+        return FluxNNs(*(_convert(getattr(obj, name), device, dtype) for name in FluxNNs._fields))
+    if cls is not None:
+        return cls(**{f.name: _convert(getattr(obj, f.name), device, dtype) for f in dataclasses.fields(cls)})
+    if isinstance(obj, (tuple, list)):
+        return tuple(_convert(o, device, dtype) for o in obj)
+    arr = np.asarray(obj)
+    if arr.dtype.kind not in "fiu":
+        raise TypeError(f"cannot carry over a leaf of type {type(obj).__name__} ({arr.dtype})")
+    return torch.tensor(arr, dtype=dtype, device=device)

@@ -1,0 +1,324 @@
+"""Wind-mixing coupled NDE, forward half: triple-NN fluxes + mPP base closure.
+
+Port of ``climateparameterizations_jl_tpu/models/wind_mixing.py`` (reference
+``wind_mixing/src/NDE_training.jl:56-165``). The state is the scaled
+``x = [u; v; T]`` vector (``3 Nz`` centers); three MLPs predict the interior
+scaled fluxes ``u'w', v'w', w'T'`` from ``x``; the mPP Ri-dependent
+diffusivity is the physical base closure; and the non-dimensional PDE
+
+    du/dt_hat = -tau/H * sigma_uw/sigma_u * d/dz_hat(uw) + f tau/sigma_u (sigma_v v + mu_v)
+    dv/dt_hat = -tau/H * sigma_vw/sigma_v * d/dz_hat(vw) - f tau/sigma_v (sigma_u u + mu_u)
+    dT/dt_hat = -tau/H * sigma_wT/sigma_T * d/dz_hat(wT)
+
+is integrated by :func:`solve_wind_mixing_nde`. Everything batches over
+leading axes. The split stepper and the ``fast_assembly`` paths are not
+ported yet (``ROADMAP.md``, queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from climateparameterizations_jl_tpu_torch.closures.mlp import _ACTIVATIONS, MLP, mlp_apply
+from climateparameterizations_jl_tpu_torch.core.constants import diurnal_cycle
+from climateparameterizations_jl_tpu_torch.core.filters import smoothing_filter
+from climateparameterizations_jl_tpu_torch.core.operators import d_center_to_face, d_face_to_center, pad_faces
+from climateparameterizations_jl_tpu_torch.core.scalings import ZeroMeanUnitVarianceScaling
+from climateparameterizations_jl_tpu_torch.models.timestepper import _STEPPERS, solve_fixed_step
+from climateparameterizations_jl_tpu_torch.physics.mpp import MPPParameters, mpp_diffusivity
+from climateparameterizations_jl_tpu_torch.physics.richardson import local_richardson_scaled
+
+
+class FluxNNs(NamedTuple):
+    """The three flux closures. Any of them may be ``None`` (physics-only runs)."""
+
+    uw: MLP | None
+    vw: MLP | None
+    wT: MLP | None
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedFluxNNs:
+    """The three flux MLPs fused into ONE block matmul chain.
+
+    Layer 0 places the three first layers side by side (all read the same
+    ``x``); deeper layers are block-diagonal. Build with :func:`pack_flux_nns`.
+    """
+
+    matrices: tuple  # right-multiply: (in, out) per layer
+    biases: tuple  # (out,) per layer
+    activation: str = "mish"
+
+    def __call__(self, x):
+        """Concatenated interior fluxes ``(..., 3 (Nz-1))`` in uw|vw|wT order."""
+        act = _ACTIVATIONS[self.activation]
+        n = len(self.matrices)
+        for i, (A, b) in enumerate(zip(self.matrices, self.biases)):
+            x = x @ A + b
+            if i < n - 1:
+                x = act(x)
+        return x
+
+
+def pack_flux_nns(nns) -> PackedFluxNNs | None:
+    """Fuse three same-depth, same-activation ``MLP`` closures; else ``None``."""
+    if isinstance(nns, PackedFluxNNs):
+        return nns
+    mlps = [nns.uw, nns.vw, nns.wT]
+    if any(not isinstance(m, MLP) for m in mlps):
+        return None
+    depth = len(mlps[0].weights)
+    if any(len(m.weights) != depth for m in mlps[1:]):
+        return None
+    if len({m.activation for m in mlps}) != 1:
+        return None
+    if len({m.weights[0].shape[1] for m in mlps}) != 1:  # all read the same x
+        return None
+    if len({m.weights[-1].shape[0] for m in mlps}) != 1:  # equal thirds on split
+        return None
+    matrices, biases = [], []
+    for layer in range(depth):
+        Ws = [m.weights[layer].T for m in mlps]  # (in_i, out_i)
+        matrices.append(torch.cat(Ws, dim=1) if layer == 0 else torch.block_diag(*Ws))
+        biases.append(torch.cat([m.biases[layer] for m in mlps]))
+    return PackedFluxNNs(matrices=tuple(matrices), biases=tuple(biases), activation=mlps[0].activation)
+
+
+@dataclasses.dataclass(frozen=True)
+class WindMixingScalings:
+    u: ZeroMeanUnitVarianceScaling
+    v: ZeroMeanUnitVarianceScaling
+    T: ZeroMeanUnitVarianceScaling
+    uw: ZeroMeanUnitVarianceScaling
+    vw: ZeroMeanUnitVarianceScaling
+    wT: ZeroMeanUnitVarianceScaling
+
+
+@dataclasses.dataclass(frozen=True)
+class BoundaryConditions:
+    """Scaled flux boundary conditions ``(uw, vw, wT) x (bottom, top)``.
+
+    ``diurnal_amplitude`` is the dimensional heat-flux amplitude; when the
+    model's ``diurnal`` flag is set, the top ``wT`` BC becomes
+    ``wT_scaling(amplitude * sin(2 pi t / day))``. Fields may carry leading
+    batch axes (per-simulation BCs), broadcast left-aligned.
+    """
+
+    uw_bot: torch.Tensor
+    uw_top: torch.Tensor
+    vw_bot: torch.Tensor
+    vw_top: torch.Tensor
+    wT_bot: torch.Tensor
+    wT_top: torch.Tensor
+    diurnal_amplitude: torch.Tensor = dataclasses.field(default_factory=lambda: torch.tensor(0.0))
+
+    @classmethod
+    def from_vector(cls, v) -> "BoundaryConditions":
+        """From the reference's 6-vector layout ``NDE_training.jl:59``."""
+        return cls(uw_bot=v[..., 0], uw_top=v[..., 1], vw_bot=v[..., 2], vw_top=v[..., 3], wT_bot=v[..., 4], wT_top=v[..., 5])
+
+
+@dataclasses.dataclass(frozen=True)
+class WindMixingModel:
+    """Configuration + physical constants (0-d tensors) for a wind-mixing column."""
+
+    H: torch.Tensor  # column depth [m]
+    tau: torch.Tensor  # simulation span [s] (time scale of t_hat)
+    f: torch.Tensor  # Coriolis parameter [1/s]
+    g: torch.Tensor  # gravity [m/s^2]
+    alpha: torch.Tensor  # thermal expansion [1/K]
+    kappa: torch.Tensor  # convective-adjustment diffusivity [m^2/s]
+    scalings: WindMixingScalings
+    mpp: MPPParameters
+    Nz: int = 32
+    use_mpp: bool = True
+    use_conv_adj: bool = False
+    zero_weights: bool = True
+    smooth_NN: bool = False
+    smooth_Ri: bool = False
+    diurnal: bool = False
+
+    @property
+    def dz_hat(self) -> float:
+        return 1.0 / self.Nz
+
+
+def split_uvT(x, Nz: int):
+    """Split ``(..., 3 Nz)`` into ``u, v, T`` (reference ``loss.jl:5-7``)."""
+    return x[..., :Nz], x[..., Nz : 2 * Nz], x[..., 2 * Nz :]
+
+
+def join_uvT(u, v, T):
+    return torch.cat([u, v, T], dim=-1)
+
+
+def _effective_bcs(model: WindMixingModel, bcs: BoundaryConditions, t):
+    """Resolve the (possibly time-dependent) top heat-flux BC at time ``t_hat``.
+
+    Per-sim amplitude: constant-flux members (amplitude 0) keep their
+    frozen ``wT_top``.
+    """
+    if not model.diurnal:
+        return bcs
+    wT_top_dim = bcs.diurnal_amplitude * diurnal_cycle(t * model.tau)
+    wT_top = torch.where(bcs.diurnal_amplitude != 0.0, model.scalings.wT.scale(wT_top_dim), bcs.wT_top)
+    return dataclasses.replace(bcs, wT_top=wT_top)
+
+
+
+def _nn_fluxes(model: WindMixingModel, nns, bcs: BoundaryConditions, x):
+    """Scaled NN flux faces for (uw, vw, wT); reference ``NDE_training.jl:94-112``."""
+    if isinstance(nns, PackedFluxNNs):
+        packed = nns(x)
+        ni = packed.shape[-1] // 3
+        interiors = [packed[..., :ni], packed[..., ni : 2 * ni], packed[..., 2 * ni :]]
+        if model.smooth_NN:
+            interiors = [smoothing_filter(o, 3) for o in interiors]
+    else:
+        zeros_interior = torch.zeros(x.shape[:-1] + (model.Nz - 1,), dtype=x.dtype, device=x.device)
+        interiors = []
+        for nn in (nns.uw, nns.vw, nns.wT):
+            out = mlp_apply(nn, x) if nn is not None else zeros_interior
+            if model.smooth_NN:
+                out = smoothing_filter(out, 3)
+            interiors.append(out)
+
+    if model.zero_weights:
+        z = torch.zeros_like(torch.as_tensor(bcs.uw_bot))
+        pads = [(z, z)] * 3
+    else:
+        pads = [(bcs.uw_bot, bcs.uw_top), (bcs.vw_bot, bcs.vw_top), (bcs.wT_bot, bcs.wT_top)]
+    return tuple(pad_faces(i, b, t) for i, (b, t) in zip(interiors, pads))
+
+
+def _face_nu(model: WindMixingModel, x):
+    """Shared mPP face diffusivity: gradients (+eps) -> Ri (opt. smoothed) -> nu.
+
+    Returns ``(nu, (dudz, dvdz, dTdz))``.
+    """
+    s = model.scalings
+    u, v, T = split_uvT(x, model.Nz)
+    dz_hat = model.dz_hat
+    eps = 1e-7
+    dudz = d_center_to_face(u, dz_hat)
+    dvdz = d_center_to_face(v, dz_hat)
+    dTdz = d_center_to_face(T, dz_hat)
+    Ri = local_richardson_scaled(dudz + eps, dvdz + eps, dTdz + eps, model.H, model.g, model.alpha,
+                                 s.u.sigma, s.v.sigma, s.T.sigma)
+    if model.smooth_Ri:
+        Ri = smoothing_filter(Ri, 3)
+    return mpp_diffusivity(Ri, model.mpp), (dudz, dvdz, dTdz)
+
+
+def _mpp_fluxes(model: WindMixingModel, bcs: BoundaryConditions, x):
+    """mPP downgradient flux faces ``nu * dphi/dz`` terms; ``NDE_training.jl:114-139``."""
+    s = model.scalings
+    nu, (dudz, dvdz, dTdz) = _face_nu(model, x)
+
+    cu = s.u.sigma / s.uw.sigma / model.H
+    cv = s.v.sigma / s.vw.sigma / model.H
+    cT = s.T.sigma / s.wT.sigma / model.H / model.mpp.Pr
+
+    if model.zero_weights:
+        # Boundary faces: the (scaled) BC flux rides on the mPP term so the
+        # total face flux equals the prescribed one (NDE_training.jl:130-132).
+        zero_u = s.uw.scale(torch.zeros_like(torch.as_tensor(bcs.uw_bot)))
+        zero_v = s.vw.scale(torch.zeros_like(torch.as_tensor(bcs.vw_bot)))
+        zero_T = s.wT.scale(torch.zeros_like(torch.as_tensor(bcs.wT_bot)))
+        nu_dudz = pad_faces(cu * nu[..., 1:-1] * dudz[..., 1:-1], -(bcs.uw_bot - zero_u), -(bcs.uw_top - zero_u))
+        nu_dvdz = pad_faces(cv * nu[..., 1:-1] * dvdz[..., 1:-1], -(bcs.vw_bot - zero_v), -(bcs.vw_top - zero_v))
+        nu_dTdz = pad_faces(cT * nu[..., 1:-1] * dTdz[..., 1:-1], -(bcs.wT_bot - zero_T), -(bcs.wT_top - zero_T))
+    else:
+        nu_dudz = cu * nu * dudz
+        nu_dvdz = cv * nu * dvdz
+        nu_dTdz = cT * nu * dTdz
+    return nu_dudz, nu_dvdz, nu_dTdz
+
+
+def predict_flux(model: WindMixingModel, nns, bcs: BoundaryConditions, x, t=0.0):
+    """Total scaled flux faces ``(uw, vw, wT)`` each ``(..., Nz+1)``; ``NDE_training.jl:83-147``."""
+    bcs = _effective_bcs(model, bcs, t)
+    uw, vw, wT = _nn_fluxes(model, nns, bcs, x)
+
+    if model.use_mpp:
+        nu_dudz, nu_dvdz, nu_dTdz = _mpp_fluxes(model, bcs, x)
+        return uw - nu_dudz, vw - nu_dvdz, wT - nu_dTdz
+    s = model.scalings
+    if model.use_conv_adj:
+        _, _, T = split_uvT(x, model.Nz)
+        dTdz = d_center_to_face(T, model.dz_hat)
+        kap = s.T.sigma / s.wT.sigma / model.H * model.kappa * torch.clamp(dTdz, max=0.0)
+        wT = wT - kap
+    if model.zero_weights:
+        # Without the mPP term to carry them, the prescribed BC fluxes are
+        # set on the total boundary faces directly (bc - scale(0)).
+        zu = s.uw.scale(torch.zeros_like(torch.as_tensor(bcs.uw_bot)))
+        zv = s.vw.scale(torch.zeros_like(torch.as_tensor(bcs.vw_bot)))
+        zT = s.wT.scale(torch.zeros_like(torch.as_tensor(bcs.wT_bot)))
+        uw = pad_faces(uw[..., 1:-1], bcs.uw_bot - zu, bcs.uw_top - zu)
+        vw = pad_faces(vw[..., 1:-1], bcs.vw_bot - zv, bcs.vw_top - zv)
+        wT = pad_faces(wT[..., 1:-1], bcs.wT_bot - zT, bcs.wT_top - zT)
+    return uw, vw, wT
+
+
+def _tendencies(model: WindMixingModel, x, uw, vw, wT, coriolis: bool = True):
+    """Flux divergence + Coriolis; ``predict_NDE`` (``NDE_training.jl:149-165``).
+
+    ``coriolis=False`` returns the flux-divergence part alone.
+    """
+    s = model.scalings
+    u, v, _ = split_uvT(x, model.Nz)
+    r = model.tau / model.H
+    dudt = -r * s.uw.sigma / s.u.sigma * d_face_to_center(uw, model.dz_hat)
+    dvdt = -r * s.vw.sigma / s.v.sigma * d_face_to_center(vw, model.dz_hat)
+    if coriolis:
+        dudt = dudt + model.f * model.tau / s.u.sigma * (s.v.sigma * v + s.v.mu)
+        dvdt = dvdt - model.f * model.tau / s.v.sigma * (s.u.sigma * u + s.u.mu)
+    dTdt = -r * s.wT.sigma / s.T.sigma * d_face_to_center(wT, model.dz_hat)
+    return join_uvT(dudt, dvdt, dTdt)
+
+
+def wind_mixing_rhs(model: WindMixingModel, nns, bcs: BoundaryConditions, x, t):
+    """Full NDE right-hand side ``dx/dt_hat`` at scaled state ``x`` ``(..., 3 Nz)``."""
+    uw, vw, wT = predict_flux(model, nns, bcs, x, t)
+    return _tendencies(model, x, uw, vw, wT)
+
+
+def solve_wind_mixing_nde(model: WindMixingModel, nns, bcs: BoundaryConditions, x0, t0, dt_save, n_save: int,
+                          n_substeps: int = 4, method: str = "rk4", checkpoint: bool = True, unroll: int = 1,
+                          fast_assembly=False):
+    """Integrate the fully-explicit NDE; returns ``(n_save + 1, ..., 3 Nz)``.
+
+    ``rk4`` integrates the full RHS. For ``euler``/``heun`` the Coriolis
+    rotation is split out and applied forward-backward after each flux
+    substep: rotation inside a plain forward-Euler (or Heun) step amplifies
+    inertial oscillations by ``~sqrt(1 + (f tau dt)^2)`` per step.
+    ``checkpoint`` and ``unroll`` are accepted for parity and have no effect.
+    """
+    if fast_assembly:
+        raise NotImplementedError(
+            "fast_assembly=True/'fold' is not ported yet (ROADMAP.md, queue 1); use fast_assembly=False"
+        )
+    if method in ("euler", "heun"):
+        base_step = _STEPPERS[method]
+
+        def rhs_flux(x, t):
+            return _tendencies(model, x, *predict_flux(model, nns, bcs, x, t), coriolis=False)
+
+        def fb_step(_rhs, x, t, dt):
+            x = base_step(rhs_flux, x, t, dt)
+            s = model.scalings
+            u, v, T = split_uvT(x, model.Nz)
+            u = u + dt * model.f * model.tau / s.u.sigma * (s.v.sigma * v + s.v.mu)
+            v = v - dt * model.f * model.tau / s.v.sigma * (s.u.sigma * u + s.u.mu)
+            return join_uvT(u, v, T)
+
+        return solve_fixed_step(None, x0, t0, dt_save, n_save, n_substeps, fb_step, checkpoint, unroll)
+
+    def rhs(x, t):
+        return wind_mixing_rhs(model, nns, bcs, x, t)
+
+    return solve_fixed_step(rhs, x0, t0, dt_save, n_save, n_substeps, method, checkpoint, unroll)

@@ -1,0 +1,101 @@
+"""Card-only tests of the port's CUDA kernel against its plain version.
+
+Every test carries the ``cuda`` marker and skips where
+``torch.cuda.is_available()`` is false (decided inside the test). This file
+imports neither JAX nor the JAX package, so it also runs on a machine that
+has only PyTorch, without the JAX test configuration:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerance: the JAX package's own for its fused kernel against the XLA path
+(``rtol=2e-4, atol=2e-6``, ``tests/test_fused_rhs.py``): f32 with different
+summation orders, amplified by the stiff tendency scaling.
+"""
+
+import dataclasses
+from pathlib import Path
+
+import pytest
+import torch
+
+from climateparameterizations_jl_tpu_torch import benchmarks
+from climateparameterizations_jl_tpu_torch.models import wind_mixing as twm
+from climateparameterizations_jl_tpu_torch.ops import _cuda
+from climateparameterizations_jl_tpu_torch.ops import fused_rhs as tfr
+from climateparameterizations_jl_tpu_torch.train.checkpoint import load_flux_nns
+
+RTOL, ATOL = 2e-4, 2e-6
+DT = benchmarks.FORWARD_DT
+FLAGSHIP = Path(__file__).resolve().parents[1] / "runs" / "wm_flagship_fold"
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _setup(dev, n_columns, trained=True, seed=0):
+    nns = load_flux_nns(str(FLAGSHIP), device=dev) if trained else None
+    return benchmarks.make_setup(32, n_columns, seed=seed, nns=nns, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make", [tfr.make_fused_runner_mxu, tfr.make_fused_runner])
+@pytest.mark.parametrize("n_columns", [1, 61, 1024])
+def test_kernel_matches_plain(card, make, n_columns):
+    model, nns, bcs, x0 = _setup(card, n_columns)
+    run = make(model, nns, bcs, DT, 8, n_columns, device=card)
+    before = _cuda.FUSED_RK4.launches
+    got = run(x0)
+    torch.cuda.synchronize()
+    assert _cuda.FUSED_RK4.launches == before + 1
+    want = tfr._multistep_plain(x0, run.operands, run.consts, 32, run.activation, DT, 8)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_solve_random_weights(card):
+    model, nns, bcs, x0 = _setup(card, 256, trained=False, seed=3)
+    got = tfr.make_fused_runner_mxu(model, nns, bcs, DT, 16, 256, device=card)(x0)
+    want = twm.solve_wind_mixing_nde(model, nns, bcs, x0, 0.0, 16 * DT, 1, n_substeps=16)[-1]
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_kernel_relu(card):
+    model, nns, bcs, x0 = _setup(card, 64)
+    nns = twm.FluxNNs(*[dataclasses.replace(m, activation="relu") for m in nns])
+    run = tfr.make_fused_runner_mxu(model, nns, bcs, DT, 8, 64, device=card)
+    want = tfr._multistep_plain(x0, run.operands, run.consts, 32, "relu", DT, 8)
+    torch.testing.assert_close(run(x0), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_zero_steps_returns_input(card):
+    model, nns, bcs, x0 = _setup(card, 16)
+    out = tfr.make_fused_runner_mxu(model, nns, bcs, DT, 0, 16, device=card)(x0)
+    assert torch.equal(out, x0)
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_bad_input(card):
+    model, nns, bcs, x0 = _setup(card, 16)
+    run = tfr.make_fused_runner_mxu(model, nns, bcs, DT, 1, 16, device=card)
+    with pytest.raises(ValueError):
+        run(x0[:8])
+    with pytest.raises(ValueError):
+        _cuda.FUSED_RK4(x0.double(), run.kernel_weights, run.kernel_params)
+    with pytest.raises(ValueError):
+        _cuda.FUSED_RK4(x0.t().contiguous().t(), run.kernel_weights, run.kernel_params)
+    with pytest.raises(ValueError):
+        _cuda.FUSED_RK4(x0, run.kernel_weights[:-1], run.kernel_params)
+
+
+@pytest.mark.cuda
+def test_bench_nde_forward_counts_launches(card):
+    before = _cuda.FUSED_RK4.launches
+    stats = benchmarks.bench_nde_forward(128, n_steps=16, repeats=2, device=card)
+    assert _cuda.FUSED_RK4.launches - before == stats["calls"] == 3
+    assert stats["ms_min"] > 0 and stats["column_timesteps_per_sec"] > 0

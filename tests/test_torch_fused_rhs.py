@@ -1,0 +1,197 @@
+"""Port parity: the fused RK4 runners and their host-side constant builders.
+
+The JAX side runs its Pallas kernels in interpret mode on the CPU, as
+``tests/test_fused_rhs.py`` does; the port's runners run the kernel's plain
+version (``_multistep_plain``) for CPU tensors. The CUDA kernel itself is
+held against the plain version by ``tests/test_torch_cuda.py`` (card only).
+
+Tolerances: the constant builders are numpy in both packages and must
+agree to the bit. Trajectories use the JAX package's own tolerance for its
+fused kernel against the XLA path (``rtol=2e-4, atol=2e-6``): f32 with
+different summation orders, amplified by the stiff tendency scaling.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__ as graft
+from climateparameterizations_jl_tpu.closures.mlp import wind_mixing_mlp
+from climateparameterizations_jl_tpu.models import wind_mixing as jwm
+from climateparameterizations_jl_tpu.ops import fused_rhs as jfr
+from climateparameterizations_jl_tpu.train.checkpoint import load_checkpoint as j_load_checkpoint
+from climateparameterizations_jl_tpu_torch.bridge import from_reference
+from climateparameterizations_jl_tpu_torch.models import wind_mixing as twm
+from climateparameterizations_jl_tpu_torch.ops import _cuda
+from climateparameterizations_jl_tpu_torch.ops import fused_rhs as tfr
+
+RTOL, ATOL = 2e-4, 2e-6
+DT = 1e-5
+
+
+def _setup(n_columns=64, Nz=32, trained=False):
+    model, nns, bcs, _ = graft._make_setup(Nz=Nz, n_columns=1)
+    if trained:
+        skeleton = jwm.FluxNNs(*[wind_mixing_mlp(k, Nz) for k in jax.random.split(jax.random.PRNGKey(0), 3)])
+        nns, _ = j_load_checkpoint("runs/wm_flagship_fold", skeleton)
+        nns = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), nns)
+    x0 = np.random.default_rng(n_columns).normal(size=(n_columns, 3 * Nz)).astype(np.float32) * 0.1
+    j = (model, nns, bcs, jnp.asarray(x0, jnp.float32))
+    t = (from_reference(model, "cpu"), from_reference(nns, "cpu"), from_reference(bcs, "cpu"), torch.tensor(x0))
+    return j, t
+
+
+def _close(t, j, rtol=RTOL, atol=ATOL):
+    np.testing.assert_allclose(np.asarray(t), np.asarray(j), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("pad_to_block", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_pack_block_weights_bitwise(pad_to_block, dtype):
+    (jm, jn, jb, _), (tm, tn, tb, _) = _setup(trained=True)
+    jw, jdims = jfr._pack_block_weights(jn, 32, dtype, pad_to_block)
+    tw, tdims = tfr._pack_block_weights(tn, 32, dtype, pad_to_block)
+    assert tdims == jdims
+    for a, b in zip(tw, jw):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("with_bcs", [False, True])
+def test_scalar_constants_bitwise(with_bcs):
+    (jm, _, jb, _), (tm, _, tb, _) = _setup()
+    assert tfr._scalar_constants(tm, tb if with_bcs else None) == jfr._scalar_constants(jm, jb if with_bcs else None)
+
+
+@pytest.mark.parametrize("Nz", [16, 32])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_assembly_builders_bitwise(Nz, dtype):
+    (jm, _, jb, _), (tm, _, tb, _) = _setup(Nz=Nz)
+    consts = jfr._scalar_constants(jm, jb)
+    for a, b in zip(tfr._assembly_constants(consts, Nz, dtype), jfr._assembly_constants(consts, Nz, dtype)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(tfr.fold_divergence_constants(consts, Nz, dtype), jfr.fold_divergence_constants(consts, Nz, dtype)):
+        np.testing.assert_array_equal(a, b)
+    R = tfr.tendency_coefficients(*consts[15:16], consts[14], *consts[6:9], *consts[1:4])
+    assert R == jfr.tendency_coefficients(*consts[15:16], consts[14], *consts[6:9], *consts[1:4])
+    np.testing.assert_array_equal(tfr.divergence_matrix(*R, Nz, dtype), jfr.divergence_matrix(*R, Nz, dtype))
+    bots, tops = (0.1, -0.2, 0.3), (0.4, 0.0, -0.6)
+    np.testing.assert_array_equal(tfr.bc_tendency_row(*R, bots, tops, Nz), jfr.bc_tendency_row(*R, bots, tops, Nz))
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("trained", [False, True])
+def test_make_fast_rhs(fold, trained):
+    (jm, jn, jb, jx), (tm, tn, tb, tx) = _setup(n_columns=8, trained=trained)
+    got = tfr.make_fast_rhs(tm, tn, tb, fold_divergence=fold, device="cpu")(tx, 0.0)
+    # Same assembly in both packages: agrees to the f32 roundoff of the
+    # largest tendencies (~1e2 to 1e4).
+    want_jax = jfr.make_fast_rhs(jm, jn, jb, fold_divergence=fold)(jx, 0.0)
+    scale = float(np.abs(np.asarray(want_jax)).max())
+    _close(got, want_jax, rtol=1e-5, atol=16 * np.finfo(np.float32).eps * scale)
+    # Against the per-variable RHS: the JAX package's tolerance for the same
+    # comparison (tests/test_fused_rhs.py), scaled to the largest tendency.
+    want_port = twm.wind_mixing_rhs(tm, tn, tb, tx, 0.0)
+    _close(got, want_port, rtol=1e-3, atol=1e-4 * max(1.0, scale / 1e2))
+
+
+def test_make_fast_rhs_unbatched():
+    (_, _, _, _), (tm, tn, tb, tx) = _setup(n_columns=2)
+    got = tfr.make_fast_rhs(tm, tn, tb, device="cpu")(tx[0], 0.0)
+    assert got.shape == (96,)
+
+
+@pytest.mark.parametrize("trained", [False, True])
+def test_multistep_plain_matches_pallas_mxu(trained):
+    (jm, jn, jb, jx), (tm, tn, tb, tx) = _setup(trained=trained)
+    want = jfr.fused_wind_mixing_multistep_mxu(jm, jn, jb, jx, DT, 8, interpret=True)
+    got = tfr.fused_wind_mixing_multistep_mxu(tm, tn, tb, tx, DT, 8, device="cpu")
+    _close(got, want)
+    assert float((got - tx).abs().max()) > 1e-5
+
+
+def test_multistep_plain_matches_pallas_v1():
+    (jm, jn, jb, jx), (tm, tn, tb, tx) = _setup()
+    want = jfr.fused_wind_mixing_multistep(jm, jn, jb, jx, DT, 8, interpret=True)
+    got = tfr.fused_wind_mixing_multistep(tm, tn, tb, tx, DT, 8, device="cpu")
+    _close(got, want)
+
+
+def test_runners_agree_with_port_solve():
+    (_, _, _, _), (tm, tn, tb, tx) = _setup(n_columns=16, trained=True)
+    want = twm.solve_wind_mixing_nde(tm, tn, tb, tx, 0.0, 8 * DT, 1, n_substeps=8)[-1]
+    for make in (tfr.make_fused_runner_mxu, tfr.make_fused_runner):
+        _close(make(tm, tn, tb, DT, 8, 16, device="cpu")(tx), want)
+
+
+@pytest.mark.parametrize("make", [tfr.make_fused_runner_mxu, tfr.make_fused_runner])
+def test_column_block_does_not_change_result(make):
+    (_, _, _, _), (tm, tn, tb, tx) = _setup(n_columns=48)
+    a = make(tm, tn, tb, DT, 4, 48, column_block=16, device="cpu")(tx)
+    b = make(tm, tn, tb, DT, 4, 48, column_block=48, device="cpu")(tx)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("change", [
+    dict(diurnal=True), dict(use_mpp=False), dict(zero_weights=False), dict(smooth_NN=True), dict(smooth_Ri=True),
+])
+def test_rejects_what_jax_rejects(change):
+    (jm, jn, jb, _), (tm, tn, tb, _) = _setup(n_columns=4)
+    jm, tm = dataclasses.replace(jm, **change), dataclasses.replace(tm, **change)
+    with pytest.raises(AssertionError):
+        jfr.make_fused_runner_mxu(jm, jn, jb, DT, 1, 4, interpret=True)
+    for make in (tfr.make_fused_runner_mxu, tfr.make_fused_runner):
+        with pytest.raises(ValueError):
+            make(tm, tn, tb, DT, 1, 4, device="cpu")
+    with pytest.raises(ValueError):
+        tfr.make_fast_rhs(tm, tn, tb, device="cpu")
+
+
+def test_rejects_other_activation():
+    (jm, jn, jb, _), (tm, tn, tb, _) = _setup(n_columns=4)
+    jn = jwm.FluxNNs(*[dataclasses.replace(m, activation="tanh") for m in jn])
+    tn = twm.FluxNNs(*[dataclasses.replace(m, activation="tanh") for m in tn])
+    with pytest.raises(NotImplementedError):
+        jfr.make_fused_runner_mxu(jm, jn, jb, DT, 1, 4, interpret=True)
+    with pytest.raises(NotImplementedError):
+        tfr.make_fused_runner_mxu(tm, tn, tb, DT, 1, 4, device="cpu")
+
+
+def test_bf16_not_ported_and_bad_input_rejected():
+    (_, _, _, _), (tm, tn, tb, tx) = _setup(n_columns=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfr.make_fused_runner_mxu(tm, tn, tb, DT, 1, 4, matmul_dtype="bfloat16", device="cpu")
+    with pytest.raises(ValueError):
+        tfr.make_fused_runner_mxu(tm, tn, tb, DT, 1, 4, matmul_dtype="float16", device="cpu")
+    run = tfr.make_fused_runner_mxu(tm, tn, tb, DT, 1, 4, device="cpu")
+    with pytest.raises(ValueError):
+        run(tx[:3])
+    assert run(tx.numpy()).shape == (4, 96)
+
+
+def test_kernel_weight_buffer_layout():
+    (_, _, _, _), (tm, tn, tb, _) = _setup(n_columns=4, trained=True)
+    (A1, b1, A2, b2, A3, b3), (h1, h2, ni) = tfr._pack_block_weights(tn, 32, pad_to_block=True)
+    Dr, Krow, w1, w2 = tfr._assembly_constants(tfr._scalar_constants(tm, tb), 32)
+    buf = _cuda.pack_weights(A1, b1, A2, b2, A3, b3, Krow, w1, w2, 32, h1, h2)
+    assert buf.dtype == np.float32 and buf.size == 96 * 150 + 150 + 3 * 50 * 20 + 60 + 3 * 20 * 31 + 93 + 3 * 96
+    o = 96 * 150 + 150
+    np.testing.assert_array_equal(buf[o:o + 1000].reshape(50, 20), tn.uw.weights[1].numpy().T)
+    o += 3 * 50 * 20 + 60
+    np.testing.assert_array_equal(buf[o + 620:o + 1240].reshape(20, 31), tn.vw.weights[2].numpy().T)
+    np.testing.assert_array_equal(buf[o + 1860 + 62:o + 1860 + 93], tn.wT.biases[2].numpy())
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    (_, _, _, _), (tm, tn, tb, tx) = _setup(n_columns=4)
+    run = tfr.make_fused_runner_mxu(tm, tn, tb, DT, 1, 4, device="cpu")
+    params = _cuda.make_params(n_columns=4, n_steps=1, Nz=32, h1=50, h2=20, activation="mish", dt=DT,
+                               coefficients=tfr._rhs_coefficients(run.consts, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        _cuda.FUSED_RK4(tx, torch.zeros(10), params)
+    assert _cuda.FUSED_RK4.launches == 0
+
