@@ -81,18 +81,18 @@ def compare(name, got, want):
 
 
 def cuda_ms(fn, repeats: int = 1):
-    """Median milliseconds of ``fn()`` over ``repeats`` runs, timed with CUDA events."""
+    """``(median ms, last result)`` of ``fn()`` over ``repeats`` runs, timed with CUDA events."""
     import torch
 
     times = []
     for _ in range(repeats):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        out = fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(times), out
 
 
 def main() -> int:
@@ -163,8 +163,7 @@ def main() -> int:
         def plain():
             return _multistep_plain(x0, run.operands, run.consts, NZ, run.activation, dt, FULL_STEPS)
 
-        want_plain = plain()
-        plain_ms_64 = cuda_ms(plain)
+        plain_ms_64, want_plain = cuda_ms(plain)
         want_solve = solve_wind_mixing_nde(model, nns, bcs, x0, 0.0, dt * FULL_STEPS, 1, n_substeps=FULL_STEPS)[-1]
         errors["mxu_vs_plain"] = compare("make_fused_runner_mxu kernel vs _multistep_plain", got, want_plain)
         errors["mxu_vs_solve"] = compare("make_fused_runner_mxu kernel vs solve_wind_mixing_nde", got, want_solve)
@@ -195,10 +194,17 @@ def main() -> int:
         if missing:
             raise RuntimeError(f"kernels not launched on the main path: {missing}")
 
+        # The timed trajectory itself, held against its plain version: a fault
+        # that grows over a long loop does not show at 64 steps. These launches
+        # come after the counts were read.
         model, nns, bcs, x0 = benchmarks.make_setup(NZ, FULL_COLUMNS, seed=0, nns=flagship, device=dev)
         run = make_fused_runner_mxu(model, nns, bcs, dt, BENCH_STEPS, FULL_COLUMNS, device=dev)
-        plain_ms = cuda_ms(lambda: _multistep_plain(x0, run.operands, run.consts, NZ, run.activation, dt, BENCH_STEPS))
+        got_long = run(x0)
+        plain_ms, want_long = cuda_ms(
+            lambda: _multistep_plain(x0, run.operands, run.consts, NZ, run.activation, dt, BENCH_STEPS))
         log(f"plain version, {BENCH_STEPS} steps: {plain_ms:.2f} ms")
+        errors[f"mxu_{BENCH_STEPS}_steps_vs_plain"] = compare(
+            f"make_fused_runner_mxu kernel vs _multistep_plain, {BENCH_STEPS} steps", got_long, want_long)
 
         h1 = nns.uw.weights[0].shape[0]
         h2 = nns.uw.weights[1].shape[0]

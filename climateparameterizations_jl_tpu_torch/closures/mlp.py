@@ -15,6 +15,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from climateparameterizations_jl_tpu_torch.device import resolve_device
+
 
 def softplus(x):
     """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it: ``max(x, 0) + log1p(exp(-|x|))``."""
@@ -53,13 +55,15 @@ class MLP:
 
 
 def mlp_init(generator: torch.Generator, sizes: Sequence[int], activation: str = "relu",
-             dtype=torch.float32, scale: float = 1.0, device="cpu") -> MLP:
+             dtype=torch.float32, scale: float = 1.0, device=None) -> MLP:
     """Glorot-uniform init (Flux's default for ``Dense``) with an optional weight scale.
 
     ``scale`` supports the reference's ``weights ./ 1f5`` near-zero init
     (``wind_mixing/train_NDE.jl:102-109``). Draws come from ``generator``
-    (a CPU ``torch.Generator``) and are then moved to ``device``.
+    (a CPU ``torch.Generator``) and are then moved to ``device``: ``cuda``
+    unless the caller asks for the CPU (:func:`resolve_device`).
     """
+    device = resolve_device(device)
     if activation not in _ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}; choose from {sorted(_ACTIVATIONS)}")
     weights, biases = [], []
@@ -83,6 +87,6 @@ def mlp_apply(nn: MLP, x):
 
 
 def wind_mixing_mlp(generator: torch.Generator, Nz: int = 32, hidden=(50, 20), activation: str = "mish",
-                    dtype=torch.float32, scale: float = 1.0, device="cpu") -> MLP:
+                    dtype=torch.float32, scale: float = 1.0, device=None) -> MLP:
     """``3Nz -> hidden... -> Nz-1`` momentum/heat-flux closure (``train_NDE.jl:97-109``)."""
     return mlp_init(generator, (3 * Nz, *hidden, Nz - 1), activation, dtype, scale=scale, device=device)

@@ -24,7 +24,7 @@
 //     20.97 ms at 1,024 x 1,024 for this shape against 22.67 ms for 8
 //     columns and 10 warps per CTA, 25.15 ms for 4 columns and 10 warps, and
 //     28.03 ms for 8 columns and 20 warps: more warps per SM did not help,
-//     fewer instructions per FMA did (studies/fused_rk4_sweep.py, PERF.md).
+//     fewer instructions per FMA did (PERF.md, Findings).
 //   - Weights in dynamic shared memory: A1 (3Nz x 3h1) dense, A2 and A3 as
 //     their three diagonal blocks (not the zero-padded packed matrices), then
 //     the bias, Krow, w1 and w2 rows. The stage state, the RK4 accumulator
@@ -48,30 +48,14 @@
 #include <math.h>
 #include <stddef.h>
 
-// Launch shape. The defaults are the shipped configuration; the -D overrides
-// exist for the launch-shape sweep (studies/fused_rk4_sweep.py in the port).
-#ifndef FUSED_RK4_TC
-#define FUSED_RK4_TC 4        // columns per CTA
-#endif
-#ifndef FUSED_RK4_THREADS
-#define FUSED_RK4_THREADS 160  // 5 warps: the 150 layer-1 work items fit in one pass
-#endif
-#ifndef FUSED_RK4_CPT1
-#define FUSED_RK4_CPT1 4  // columns per thread in layer 1
-#endif
-#ifndef FUSED_RK4_CPT2
-#define FUSED_RK4_CPT2 2  // ... in layer 2
-#endif
-#ifndef FUSED_RK4_CPT3
-#define FUSED_RK4_CPT3 2  // ... in layer 3
-#endif
-
 namespace {
 
-constexpr int TC = FUSED_RK4_TC;
-constexpr int THREADS = FUSED_RK4_THREADS;
-constexpr int CPT[3] = {FUSED_RK4_CPT1, FUSED_RK4_CPT2, FUSED_RK4_CPT3};
-constexpr int MIN_BLOCKS = TC >= 8 ? 1 : 8 / TC;  // CTAs per SM the register budget must allow
+// Launch shape: columns per CTA, threads per CTA, and columns per thread in
+// each of the three dense layers.
+constexpr int TC = 4;
+constexpr int THREADS = 160;  // 5 warps: the 150 layer-1 work items fit in one pass
+constexpr int CPT[3] = {4, 2, 2};
+constexpr int MIN_BLOCKS = 2;  // CTAs per SM the register budget must allow (256 CTAs on 132 SMs)
 static_assert(TC % CPT[0] == 0 && TC % CPT[1] == 0 && TC % CPT[2] == 0, "CPT must divide TC");
 
 }  // namespace

@@ -49,7 +49,7 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build_library(source: Path, extra_flags: tuple = ()) -> tuple[Path, str]:
+def build_library(source: Path) -> tuple[Path, str]:
     """Compile ``source`` into ``BUILD_DIR`` unless an identical build exists.
 
     Returns ``(library path, ptxas report)``. The report (``-Xptxas -v``:
@@ -57,15 +57,14 @@ def build_library(source: Path, extra_flags: tuple = ()) -> tuple[Path, str]:
     The library is written under a temporary name and renamed into place, so
     a build cut short leaves nothing that a later call would load.
     """
-    flags = (*NVCC_FLAGS, *extra_flags)
-    key = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"{source.stem}-{key}.so"
     report = lib.with_suffix(".ptxas.txt")
     if lib.exists():
         return lib, report.read_text() if report.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *flags, "-o", str(tmp), str(source)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -124,16 +123,11 @@ def make_params(*, n_columns, n_steps, Nz, h1, h2, activation, dt, coefficients:
 
 
 class FusedRK4Kernel:
-    """``csrc/fused_rk4.cu``: ``n_steps`` of RK4 on the wind-mixing RHS in one launch.
-
-    ``extra_flags`` (``-D`` overrides of the launch shape) serve the
-    launch-shape sweep only; the shipped kernel is built without them.
-    """
+    """``csrc/fused_rk4.cu``: ``n_steps`` of RK4 on the wind-mixing RHS in one launch."""
 
     source = SOURCE_DIR / "fused_rk4.cu"
 
-    def __init__(self, extra_flags: tuple = ()):
-        self.extra_flags = tuple(extra_flags)
+    def __init__(self):
         self.launches = 0
         self.build_seconds = None
         self.ptxas_report = ""
@@ -143,7 +137,7 @@ class FusedRK4Kernel:
         """Build (if needed) and load the library; returns the ``ctypes`` handle."""
         if self._lib is None:
             t0 = time.perf_counter()
-            path, self.ptxas_report = build_library(self.source, self.extra_flags)
+            path, self.ptxas_report = build_library(self.source)
             lib = ctypes.CDLL(str(path))
             lib.fused_rk4_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, _Params, ctypes.c_int, ctypes.c_void_p,

@@ -232,7 +232,7 @@ def _rhs_coefficients(consts: tuple, Nz: int) -> dict:
     )
 
 
-def _make_mxu_rhs(consts: tuple, Nz: int, activation: str, matmul_dtype=None, fold_divergence: bool = False):
+def _make_mxu_rhs(consts: tuple, Nz: int, activation: str, fold_divergence: bool = False):
     """The MXU-assembly RHS body: the plain version of the CUDA kernel's RHS.
 
     Packed roll-by-1 gradients, the 3-matmul NN chain, divergence as one
@@ -242,8 +242,6 @@ def _make_mxu_rhs(consts: tuple, Nz: int, activation: str, matmul_dtype=None, fo
     ``rhs(x, A1, b1, A2, b2, A3f, b3f, C2a, C2b, Krow, w1, w2)`` where the
     caller precomposed ``A3f = A3 @ Dr``, ``b3f = b3 @ Dr``.
     """
-    if matmul_dtype is not None:
-        raise NotImplementedError("reduced-precision NN matmuls are not ported yet (ROADMAP.md, queue 2)")
     c = _rhs_coefficients(consts, Nz)
     epsdz, au, av, aT = c["epsdz"], c["au"], c["av"], c["aT"]
     n_a, n_b, t_a, t_b = c["n_a"], c["n_b"], c["t_a"], c["t_b"]

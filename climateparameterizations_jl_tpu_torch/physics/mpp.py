@@ -12,6 +12,8 @@ import dataclasses
 
 import torch
 
+from climateparameterizations_jl_tpu_torch.device import resolve_device
+
 
 def tanh_step(x):
     """Smooth step from 1 (x -> -inf) to 0 (x -> +inf); ``NDE_training.jl:54``."""
@@ -29,7 +31,9 @@ class MPPParameters:
     Pr: torch.Tensor
 
     @classmethod
-    def default(cls, dtype=torch.float32, device="cpu") -> "MPPParameters":
+    def default(cls, dtype=torch.float32, device=None) -> "MPPParameters":
+        """The reference's values, on ``cuda`` unless the caller asks for the CPU."""
+        device = resolve_device(device)
         f = lambda x: torch.tensor(x, dtype=dtype, device=device)  # noqa: E731
         return cls(nu_0=f(1e-4), nu_minus=f(1e-1), Ri_c=f(0.25), delta_Ri=f(1.0), Pr=f(1.0))
 

@@ -102,7 +102,7 @@ def test_tanh_step():
 def test_mpp_diffusivity(scale):
     j, t = _pair(np.random.default_rng(6).normal(size=(4, 33)) * scale)
     jp = jmpp.MPPParameters.default(jnp.float32)
-    tp = tmpp.MPPParameters.default(torch.float32)
+    tp = tmpp.MPPParameters.default(torch.float32, device="cpu")
     np.testing.assert_array_equal(tp.as_vector().numpy(), np.asarray(jp.as_vector()))
     # 1 - tanh(x) cancels near saturation: one f32 ulp of tanh (6e-8) times
     # nu_minus (0.1) is 6e-9 absolute.

@@ -9,7 +9,9 @@ import torch
 import climateparameterizations_jl_tpu_torch as port
 from climateparameterizations_jl_tpu_torch import benchmarks
 from climateparameterizations_jl_tpu_torch.bridge import from_reference
+from climateparameterizations_jl_tpu_torch.closures import mlp
 from climateparameterizations_jl_tpu_torch.ops import fused_rhs
+from climateparameterizations_jl_tpu_torch.physics.mpp import MPPParameters
 from climateparameterizations_jl_tpu_torch.train import checkpoint
 
 REPO = Path(__file__).resolve().parents[1]
@@ -73,6 +75,17 @@ def test_entry_points_raise_without_card(no_card):
             make(model, nns, bcs, 1e-5, 1, 4)
     with pytest.raises(RuntimeError):
         fused_rhs.make_fast_rhs(model, nns, bcs)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: mlp.mlp_init(torch.Generator().manual_seed(0), (4, 4)),
+    lambda: mlp.wind_mixing_mlp(torch.Generator().manual_seed(0), 8),
+    lambda: MPPParameters.default(),
+], ids=["mlp_init", "wind_mixing_mlp", "MPPParameters.default"])
+def test_constructors_raise_without_card(no_card, make):
+    # Public constructors follow the entry points: cuda unless asked, never a quiet CPU.
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
 
 
 def test_bench_refuses_cpu():

@@ -82,15 +82,15 @@ def test_mish_matches_jax_softplus(x):
 
 def test_wind_mixing_mlp_init():
     gen = torch.Generator().manual_seed(3)
-    nn = tmlp.wind_mixing_mlp(gen, 32, scale=1e-5)
+    nn = tmlp.wind_mixing_mlp(gen, 32, scale=1e-5, device="cpu")
     assert nn.sizes == (96, 50, 20, 31) and nn.activation == "mish"
     bound = np.sqrt(6.0 / (96 + 50)) * 1e-5
     assert float(nn.weights[0].abs().max()) <= bound and float(nn.weights[0].abs().max()) > 0.5 * bound
     assert all(float(b.abs().max()) == 0.0 for b in nn.biases)
-    again = tmlp.wind_mixing_mlp(torch.Generator().manual_seed(3), 32, scale=1e-5)
+    again = tmlp.wind_mixing_mlp(torch.Generator().manual_seed(3), 32, scale=1e-5, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(nn.weights, again.weights))
     with pytest.raises(ValueError):
-        tmlp.mlp_init(gen, (4, 4), activation="elu")
+        tmlp.mlp_init(gen, (4, 4), activation="elu", device="cpu")
 
 
 def test_pack_flux_nns():
