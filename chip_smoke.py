@@ -3,13 +3,20 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path (the wind-mixing NDE forward solve of
-``climateparameterizations_jl_tpu_torch``) on the card at full width:
-1,024 columns, Nz = 32, the trained flagship flux MLPs of
-``runs/wm_flagship_fold`` (3 x 96 -> 50 -> 20 -> 31, mish). It builds the
-hand-written CUDA kernel from ``csrc/``, holds it against its plain PyTorch
-version and against the per-variable RK4 solve, times it, and checks that
-the timed forward run went through the kernel.
+Drives the port's two paths on the card at full width, with the trained
+flagship flux MLPs of ``runs/wm_flagship_fold`` (3 x 96 -> 50 -> 20 -> 31,
+mish), Nz = 32:
+
+- serving (phases 3-5): the wind-mixing NDE forward solve, 1,024 columns,
+  through the fused RK4 kernel ``csrc/fused_rk4.cu``;
+- training (phases 6-10): the flagship NDE training step, 18 simulations x
+  1,152 split substeps, IFT gradients and adam, with every implicit solve
+  through the batched Thomas kernel ``csrc/thomas.cu``.
+
+It builds both kernels from ``csrc/`` (one ``nvcc`` each, side by side),
+holds each against its plain PyTorch version, times it, and checks that each
+path's run went through its kernel (launch counts set to 0 just before the
+path and read just after).
 
 Every phase prints a line before and after, with the elapsed time, so a hang
 shows where it stopped. Any failure raises and the script exits non-zero.
@@ -45,6 +52,18 @@ BENCH_STEPS, BENCH_REPEATS = 1024, 5
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
+# Thomas kernel vs its plain version (_thomas_scan), f32: the same recurrence,
+# with the kernel's multiply-adds contracted to FMAs, on diagonally dominant
+# systems (condition number below 10), so a few f32 ulps of the solution.
+THOMAS_RTOL, THOMAS_ATOL = 1e-5, 1e-6
+THOMAS_SHAPES = ((3, 18, 32), (16384, 32), (3, 18, 128), (1000, 33), (100, 1), (40, 256))
+# One flagship step, kernel-backed vs "scan"-backed from the same parameters:
+# per-solve f32 differences of a few ulps, carried through 1,152 substeps and
+# the backward pass, and amplified where the mPP tanh switch is steep.
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_RTOL = 1e-3  # relative to the gradient's 2-norm
+TRAIN_TIMED_STEPS, SCAN_TIMED_STEPS = 3, 1
+
 
 def log(msg: str) -> None:
     print(f"[{time.perf_counter() - T0:8.2f}s] {msg}", flush=True)
@@ -62,8 +81,8 @@ def phase(name: str):
     log(f"end {name} ({time.perf_counter() - t:.2f}s)")
 
 
-def compare(name, got, want):
-    """Print max abs / max rel error; raise outside ``allclose(RTOL, ATOL)``."""
+def compare(name, got, want, rtol=RTOL, atol=ATOL):
+    """Print max abs / max rel error; raise outside ``allclose(rtol, atol)``."""
     import torch
 
     if got.shape != want.shape:
@@ -73,11 +92,22 @@ def compare(name, got, want):
     diff = (got - want).abs()
     max_abs = float(diff.max())
     max_rel = float((diff / want.abs().clamp_min(1e-6)).max())
-    ok = bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL))
-    log(f"{name}: max_abs={max_abs:.3e} max_rel={max_rel:.3e} allclose(rtol={RTOL}, atol={ATOL})={ok}")
+    ok = bool(torch.allclose(got, want, rtol=rtol, atol=atol))
+    log(f"{name}: max_abs={max_abs:.3e} max_rel={max_rel:.3e} allclose(rtol={rtol}, atol={atol})={ok}")
     if not ok:
         raise RuntimeError(f"{name}: outside tolerance (max_abs={max_abs:.3e})")
     return max_abs
+
+
+def diag_dominant_systems(shape, seed):
+    """``(dl, d, du, b)`` f32 on the card: ``|dl|, |du| < 0.5 < 2 <= d``, from a numpy seed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    arrays = (rng.uniform(-0.5, 0.5, shape), rng.uniform(2.0, 3.0, shape), rng.uniform(-0.5, 0.5, shape),
+              rng.normal(size=shape))
+    return tuple(torch.tensor(a, dtype=torch.float32, device="cuda") for a in arrays)
 
 
 def cuda_ms(fn, repeats: int = 1):
@@ -105,6 +135,7 @@ def main() -> int:
         from climateparameterizations_jl_tpu_torch import benchmarks
         from climateparameterizations_jl_tpu_torch.models.wind_mixing import solve_wind_mixing_nde
         from climateparameterizations_jl_tpu_torch.ops import _cuda
+        from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
         from climateparameterizations_jl_tpu_torch.ops.fused_rhs import (
             _multistep_plain,
             make_fused_runner,
@@ -134,12 +165,14 @@ def main() -> int:
         log("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, torch.backends.cudnn.allow_tf32 = False")
         print(smi, flush=True)
 
-    with phase("2 build fused_rk4"):
+    with phase("2 build fused_rk4 and thomas (one nvcc each, side by side)"):
+        _cuda.load_all()
+        for k in _cuda.KERNELS.values():
+            log(f"{k.source.name}: nvcc+load {k.build_seconds:.2f}s from {k.source.relative_to(REPO)}")
+            for line in k.ptxas_report.splitlines():
+                if line.strip():
+                    log(f"  {line.strip()}")
         lib = kernel.load()
-        log(f"build+load {kernel.build_seconds:.2f}s from {kernel.source.relative_to(REPO)}")
-        for line in kernel.ptxas_report.splitlines():
-            if line.strip():
-                log(f"  {line.strip()}")
         log(f"launch: {lib.fused_rk4_columns_per_block()} columns and {lib.fused_rk4_threads_per_block()} threads "
             f"per CTA, {lib.fused_rk4_smem_bytes(NZ, 50, 20)} B dynamic shared memory per CTA (flagship widths)")
 
@@ -187,12 +220,9 @@ def main() -> int:
         log(f"kernel ms: min={stats['ms_min']:.3f} median={stats['ms_median']:.3f} max={stats['ms_max']:.3f} "
             f"all={[round(t, 3) for t in stats['ms']]}")
         log(f"column-timesteps/s (median) = {stats['column_timesteps_per_sec']:.4e}")
-        log(f"launch counts on the main path: {launches}; runner calls made: {stats['calls']}")
-        if launches["fused_rk4"] != stats["calls"]:
+        log(f"launch counts on the serving path: {launches}; runner calls made: {stats['calls']}")
+        if launches["fused_rk4"] != stats["calls"] or stats["calls"] == 0:
             raise RuntimeError(f"fused_rk4 counted {launches['fused_rk4']} launches for {stats['calls']} calls")
-        missing = [k for k, n in launches.items() if n == 0]
-        if missing:
-            raise RuntimeError(f"kernels not launched on the main path: {missing}")
 
         # The timed trajectory itself, held against its plain version: a fault
         # that grows over a long loop does not show at 64 steps. These launches
@@ -233,8 +263,134 @@ def main() -> int:
         "shape": {"columns": FULL_COLUMNS, "steps": BENCH_STEPS, "Nz": NZ},
         "build_s": kernel.build_seconds,
     }
+    thomas = _cuda.THOMAS
+    thomas_errors = {}
+    with phase("6 thomas: tiny launch (1 system, N = 4)"):
+        tlib = thomas.load()
+        log(f"thomas: {tlib.thomas_systems_per_block()} systems per CTA, N <= {tlib.thomas_max_n()}, "
+            f"{tlib.thomas_smem_bytes(32)} B shared memory per CTA at N = 32, {tlib.thomas_smem_bytes(256)} at N = 256")
+        args = diag_dominant_systems((1, 4), seed=0)
+        got = thomas(*args)
+        torch.cuda.synchronize()
+        compare("tiny thomas vs _thomas_scan", got, tri._thomas_scan(*args))
+
+    with phase("7 thomas vs _thomas_scan on the card"):
+        for i, shape in enumerate(THOMAS_SHAPES):
+            args = diag_dominant_systems(shape, seed=10 + i)
+            got = tri._thomas_cuda(*args)
+            torch.cuda.synchronize()
+            want = tri._thomas_scan(*args)
+            name_ = "x".join(map(str, shape))
+            thomas_errors[name_] = compare(f"thomas {name_} vs _thomas_scan", got, want,
+                                           rtol=THOMAS_RTOL, atol=THOMAS_ATOL)
+        # The IFT gradient through the kernel against the IFT gradient through scan.
+        args = diag_dominant_systems((3, 18, 32), seed=30)
+        weight = torch.randn(3, 18, 32, generator=torch.Generator().manual_seed(31)).cuda()
+        grads = {}
+        for backend in ("cuda", "scan"):
+            leaves = [a.clone().requires_grad_(True) for a in args]
+            x = tri.tridiagonal_solve(*leaves, backend=backend)
+            torch.sum(weight * x * x).backward()
+            grads[backend] = [leaf.grad for leaf in leaves]
+        for label, gk, gs in zip(("dl", "d", "du", "b"), grads["cuda"], grads["scan"]):
+            thomas_errors[f"ift_grad_{label}"] = compare(f"IFT gradient d(loss)/d({label}), cuda vs scan", gk, gs,
+                                                         rtol=THOMAS_RTOL, atol=THOMAS_ATOL)
+
+    with phase("8 flagship set-up: 18-sim suite (generated on the CPU), model, batch, trained MLPs"):
+        t_setup = time.perf_counter()
+        setup = benchmarks.flagship_train_setup(nns=flagship, device=dev)
+        setup_s = time.perf_counter() - t_setup
+        batch = setup["batch"]
+        log(f"set-up {setup_s:.2f}s: suite T {tuple(setup['ds'].T.shape)}, x0 {tuple(batch.x0.shape)}, "
+            f"targets {tuple(batch.targets.shape)}, {setup['substeps']} substeps per step, config {setup['config']}")
+
+    with phase(f"9 training step at full width ({TRAIN_TIMED_STEPS} timed steps, kernel-backed)"):
+        _cuda.reset_launch_counts()
+        train = benchmarks.bench_train_step(setup, n_timed=TRAIN_TIMED_STEPS, device=dev)
+        train_launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+        expected = train["presolve_substeps"] + 3 * train["substeps"] * train["steps"]
+        log(f"backend {train['tridiag_backend']}: ms per step min={train['ms_min']:.1f} "
+            f"median={train['ms_median']:.1f} max={train['ms_max']:.1f} all={[round(t, 1) for t in train['ms']]}")
+        log(f"losses {train['losses']}")
+        log(f"launch counts on the training path: {train_launches}; expected thomas launches "
+            f"{expected} = {train['presolve_substeps']} (loss-scaling pre-solve) + 3 (forward, checkpoint "
+            f"recompute, transposed solve) x {train['substeps']} substeps x {train['steps']} steps")
+        if train["tridiag_backend"] != "cuda":
+            raise RuntimeError(f"tridiag_backend='auto' resolved to {train['tridiag_backend']!r} on the card")
+        if train_launches["thomas"] != expected or expected == 0:
+            raise RuntimeError(f"thomas counted {train_launches['thomas']} launches, expected {expected}")
+
+        scan = benchmarks.bench_train_step(setup, n_timed=SCAN_TIMED_STEPS, device=dev, tridiag_backend="scan")
+        log(f"same step, tridiag_backend='scan': ms per step {[round(t, 1) for t in scan['ms']]} "
+            f"(median {scan['ms_median']:.1f}) vs kernel median {train['ms_median']:.1f}")
+
+        loss_k, grad_k = benchmarks.train_step_loss_and_grad(setup)
+        loss_s, grad_s = benchmarks.train_step_loss_and_grad(setup, tridiag_backend="scan")
+        loss_rel = abs(float(loss_k) - float(loss_s)) / abs(float(loss_s))
+        grad_rel = float((grad_k - grad_s).norm() / grad_s.norm())
+        ok = bool(torch.isfinite(grad_k).all()) and loss_rel <= STEP_LOSS_RTOL and grad_rel <= STEP_GRAD_RTOL
+        log(f"one step, kernel vs scan: loss {float(loss_k):.8e} vs {float(loss_s):.8e} (rel {loss_rel:.3e}, "
+            f"limit {STEP_LOSS_RTOL}); gradient ({grad_k.numel()} entries) |g_k - g_s| / |g_s| = {grad_rel:.3e} "
+            f"(limit {STEP_GRAD_RTOL}); max abs {float((grad_k - grad_s).abs().max()):.3e} of "
+            f"max |g| {float(grad_s.abs().max()):.3e}. Reason: per-solve f32 roundoff (FMA in the kernel) "
+            f"through 1,152 substeps and the backward pass, amplified by the mPP tanh switch")
+        if not ok:
+            raise RuntimeError("kernel-backed and scan-backed steps disagree")
+
+        prof = benchmarks.profile_train_step(setup, n_saves=2, device=dev)
+        log(f"profiled step over {prof['substeps']} substeps (torch.profiler): wall {prof['wall_ms']:.1f} ms, "
+            f"device busy {prof['device_busy_ms']:.2f} ms, idle share {prof['device_idle_share']:.3f}, "
+            f"{prof['device_ops']} device ops ({prof['device_ops_per_substep']:.0f} per substep)")
+        for key, n, ms in prof["top"]:
+            log(f"  {key}: {n} x, {ms:.3f} ms")
+
+    tbench = {}
+    with phase("10 bench_tridiagonal: kernel, plain versions, torch.linalg.solve"):
+        for n_sys in (16384, 54):
+            r = benchmarks.bench_tridiagonal(n_sys, 32, device=dev)
+            tbench[n_sys] = r
+            log(f"{n_sys} x 32, device us per call, torch.profiler (wall us per call back to back, host work "
+                f"included): "
+                + ", ".join(f"{k} {r[k + '_ms'] * 1e3:.2f} ({r[k + '_wall_ms'] * 1e3:.2f})"
+                            for k in ("cuda", "scan", "pcr", "library"))
+                + f"; kernel vs scan max abs {r['max_abs_err_vs_scan']:.3e}")
+        big = tbench[16384]
+        t_bytes = big["bytes"] / PEAK_BYTES_PER_S * 1e3
+        t_ops = 8 * 16384 * 32 / PEAK_F32_FLOPS * 1e3
+        t_bound, t_bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        log(f"bound at 16384 x 32: {big['bytes']} B / 3.35 TB/s = {t_bytes * 1e3:.2f} us; {8 * 16384 * 32} flop / "
+            f"67 TFLOP/s = {t_ops * 1e3:.3f} us; share of bound reached = {t_bound / big['cuda_ms']:.3f}")
+        small_bound = tbench[54]["bytes"] / PEAK_BYTES_PER_S * 1e3
+        log(f"bound at 54 x 32: {tbench[54]['bytes']} B / 3.35 TB/s = {small_bound * 1e3:.3f} us; share = "
+            f"{small_bound / tbench[54]['cuda_ms']:.4f} (launch-bound)")
+        thomas_errors["bench_16384x32"] = big["max_abs_err_vs_scan"]
+
+    thomas_record = {
+        "name": "thomas",
+        "route": "cuda",
+        "source": "climateparameterizations_jl_tpu_torch/csrc/thomas.cu",
+        "replaces": "climateparameterizations_jl_tpu/ops/tridiagonal.py:159",
+        "launches": train_launches["thomas"],
+        "max_abs_err": max(thomas_errors.values()),
+        "errors": thomas_errors,
+        "ms": big["cuda_ms"],
+        "plain_ms": big["scan_ms"],
+        "bound_ms": t_bound,
+        "bound_by": t_bound_by,
+        "library_ms": big["library_ms"],
+        "shape": {"systems": 16384, "N": 32},
+        "wall_ms": big["cuda_wall_ms"],
+        "training_shape": {"systems": 54, "N": 32, "ms": tbench[54]["cuda_ms"], "wall_ms": tbench[54]["cuda_wall_ms"],
+                           "plain_ms": tbench[54]["scan_ms"], "library_ms": tbench[54]["library_ms"],
+                           "bound_ms": small_bound, "bound_by": "bytes"},
+        "train_step_ms": {"kernel": train["ms"], "scan": scan["ms"]},
+        "train_step_profile": {k: prof[k] for k in ("substeps", "wall_ms", "device_busy_ms", "device_idle_share",
+                                                    "device_ops_per_substep")},
+        "train_setup_s": setup_s,
+        "build_s": thomas.build_seconds,
+    }
     print(smi, flush=True)
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": [record, thomas_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}), flush=True)
     return 0
 

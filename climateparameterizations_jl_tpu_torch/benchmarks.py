@@ -1,15 +1,23 @@
-"""Forward benchmark of the port on the card.
+"""Benchmarks of the port on the card.
 
-Port of ``climateparameterizations_jl_tpu/benchmarks.py:192``
-(``bench_nde_forward``): the flagship wind-mixing model, 1,024 columns x
-1,024 RK4 steps, through the fused runner, i.e. the hand-written CUDA
-kernel ``csrc/fused_rk4.cu``. Timed with CUDA events after one warm-up
-call. Runs on the card only: with no card it raises.
+- :func:`bench_nde_forward` (``climateparameterizations_jl_tpu/benchmarks.py:192``):
+  the flagship wind-mixing model, 1,024 columns x 1,024 RK4 steps, through
+  the fused runner, i.e. the CUDA kernel ``csrc/fused_rk4.cu``.
+- :func:`bench_train_step` (``studies/flagship_training.py:566 step_bench``):
+  one flagship NDE training step, 18 simulations x 1,152 split substeps,
+  every implicit solve through the CUDA kernel ``csrc/thomas.cu``.
+- :func:`bench_tridiagonal` (``benchmarks.py:420``): the batched solve
+  alone, kernel against its plain versions and a dense library solve.
+
+Each is timed with CUDA events after a warm-up, and runs on the card only:
+with no card it raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import statistics
+import time
 
 import numpy as np
 import torch
@@ -27,6 +35,23 @@ from climateparameterizations_jl_tpu_torch.ops.fused_rhs import make_fused_runne
 from climateparameterizations_jl_tpu_torch.physics.mpp import MPPParameters
 
 FORWARD_DT = 1e-5  # non-dimensional step of the JAX package's forward benchmark
+
+# The flagship training suite (studies/flagship_training.py:45-55, reference
+# train_NDE_args.jl:39-59) and its final curriculum stage
+# (window, stride, maxiters, learning rate), studies/flagship_training.py:87.
+TRAIN_FILES = (
+    "wind_-5e-4_cooling_3e-8_new", "wind_-5e-4_cooling_1e-8_new",
+    "wind_-2e-4_cooling_3e-8_new", "wind_-2e-4_cooling_1e-8_new",
+    "wind_-5e-4_heating_-3e-8_new", "wind_-2e-4_heating_-1e-8_new",
+    "wind_-2e-4_heating_-3e-8_new", "wind_-5e-4_heating_-1e-8_new",
+    "wind_-3.5e-4_cooling_2e-8_new", "wind_-3.5e-4_heating_-2e-8_new",
+    "wind_-5e-4_cooling_2e-8_new", "wind_-3.5e-4_cooling_3e-8_new",
+    "wind_-3.5e-4_cooling_1e-8_new", "wind_-2e-4_cooling_2e-8_new",
+    "wind_-3.5e-4_heating_-3e-8_new", "wind_-3.5e-4_heating_-1e-8_new",
+    "wind_-2e-4_heating_-2e-8_new", "wind_-5e-4_heating_-2e-8_new",
+)
+N_FRAMES = 1153  # 8 days of 600 s saves
+FINAL_STAGE = (1153, 9, 200, 2e-4)
 
 
 def make_setup(Nz: int = 32, n_columns: int = 1024, seed: int = 0, nns=None, device=None):
@@ -89,4 +114,253 @@ def bench_nde_forward(n_columns: int = 1024, Nz: int = 32, n_steps: int = 1024, 
         "ms": times, "ms_min": min(times), "ms_median": median, "ms_max": max(times),
         "column_timesteps_per_sec": n_columns * n_steps / (median * 1e-3),
         "calls": repeats + 1,
+    }
+
+
+def _require_card(device, what: str) -> torch.device:
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise RuntimeError(f"{what} times the CUDA kernels; it needs a card")
+    return device
+
+
+def flagship_train_setup(nns=None, names=TRAIN_FILES, Nz: int = 32, n_frames: int = N_FRAMES, seed: int = 0,
+                         device=None) -> dict:
+    """The flagship step's inputs: suite, model, flux MLPs, config and batch.
+
+    The suite is generated on the CPU and moved to ``device``
+    (``cli/main.py::_load_suite``); the model is fitted on it; ``nns`` are
+    the given MLPs, else random at the reference's 1e-5 scale from a
+    ``torch.Generator`` seeded with ``seed``. The batch is the final stage's
+    ``arange(0, window, stride)`` with its config: split stepper, ``stride``
+    substeps per save, the flagship loss fractions, ``fast_assembly`` and
+    ``tridiag_backend`` on ``"auto"``.
+    """
+    device = resolve_device(device)
+    from climateparameterizations_jl_tpu_torch.cli.main import _load_suite, _wind_model
+    from climateparameterizations_jl_tpu_torch.data.containers import training_tensors
+    from climateparameterizations_jl_tpu_torch.train.nde import NDETrainConfig
+
+    ds = _load_suite(list(names), Nz, None, n_frames - 1, 600.0, device=device)
+    model = _wind_model(ds, Nz)
+    if nns is None:
+        gen = torch.Generator().manual_seed(seed)
+        nns = FluxNNs(*(wind_mixing_mlp(gen, Nz, scale=1e-5, device=device) for _ in range(3)))
+    window, stride, _, lr = FINAL_STAGE
+    config = NDETrainConfig(learning_rate=lr, n_substeps=stride, method="split",
+                            training_fractions={"T": 0.8, "dTdz": 0.8, "profile": 0.5},
+                            tridiag_backend="auto", fast_assembly="auto")
+    tsteps = np.arange(0, min(window, n_frames), stride)
+    batch = training_tensors(ds, model.scalings, tsteps, tau=model.tau)
+    return dict(ds=ds, model=model, nns=nns, config=config, batch=batch,
+                substeps=(len(tsteps) - 1) * stride)
+
+
+def _clone_nns(nns) -> FluxNNs:
+    return FluxNNs(*(dataclasses.replace(m, weights=tuple(w.detach().clone() for w in m.weights),
+                                         biases=tuple(b.detach().clone() for b in m.biases)) for m in nns))
+
+
+def train_step_loss_and_grad(setup: dict, **config_overrides):
+    """One step's scaled loss and flattened gradient at the setup's parameters (left unchanged)."""
+    from climateparameterizations_jl_tpu_torch.train.nde import (
+        determine_loss_scalings,
+        make_wind_mixing_loss_fn,
+        nn_parameters,
+    )
+
+    config = dataclasses.replace(setup["config"], **config_overrides)
+    nns = _clone_nns(setup["nns"])
+    params = [p.requires_grad_(True) for p in nn_parameters(nns)]
+    scalings = determine_loss_scalings(setup["model"], nns, setup["batch"], config)
+    total, _ = make_wind_mixing_loss_fn(setup["model"], setup["batch"], scalings, config)(nns)
+    grads = torch.autograd.grad(total, params)
+    return total.detach(), torch.cat([g.reshape(-1) for g in grads])
+
+
+def bench_train_step(setup: dict | None = None, n_timed: int = 5, device=None, **config_overrides) -> dict:
+    """Time the flagship training step on the card: loss, IFT backward and adam.
+
+    One warm-up step, then ``n_timed`` steps, each between two CUDA events
+    (host work of the step included, as it delays the next launch). The
+    loss scalings come from one pre-solve first (no autograd). Starts from a
+    copy of ``setup["nns"]``. ``config_overrides`` replace config fields
+    (e.g. ``tridiag_backend="scan"``). Returns ms per step (min/median/max),
+    the losses and the work done: ``presolve_substeps`` solves without
+    autograd, and ``steps`` steps of ``substeps`` substeps each.
+    """
+    device = _require_card(device, "bench_train_step")
+    from climateparameterizations_jl_tpu_torch.train.nde import (
+        _make_optimizer,
+        determine_loss_scalings,
+        make_wind_mixing_loss_fn,
+        resolve_tridiag_backend,
+    )
+
+    if setup is None:
+        setup = flagship_train_setup(device=device)
+    config = dataclasses.replace(setup["config"], **config_overrides)
+    model, batch = setup["model"], setup["batch"]
+    nns = _clone_nns(setup["nns"])
+    scalings = determine_loss_scalings(model, nns, batch, config)
+    loss_fn = make_wind_mixing_loss_fn(model, batch, scalings, config)
+    optimizer = _make_optimizer(config, nns)
+
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        total, _ = loss_fn(nns)
+        total.backward()
+        optimizer.step()
+        return total.detach()
+
+    losses = [step()]  # warm-up
+    torch.cuda.synchronize(device)
+    times = []
+    for _ in range(n_timed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step())
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    losses = torch.stack(losses).tolist()
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"training step produced a non-finite loss: {losses}")
+    median = statistics.median(times)
+    sims = batch.x0.shape[0]
+    return {
+        "device": torch.cuda.get_device_name(device),
+        "tridiag_backend": resolve_tridiag_backend(config.tridiag_backend, setup["substeps"], device),
+        "sims": sims, "substeps": setup["substeps"], "Nz": model.Nz,
+        "ms": times, "ms_min": min(times), "ms_median": median, "ms_max": max(times),
+        "column_timesteps_per_sec": sims * setup["substeps"] / (median * 1e-3),
+        "losses": losses, "steps": 1 + n_timed, "presolve_substeps": setup["substeps"],
+    }
+
+
+def _device_ms(on_device_events) -> float:
+    """Summed device time (ms) of profiler events: kernels, memcpys, memsets."""
+    return sum(e.self_device_time_total for e in on_device_events) * 1e-3
+
+
+def _on_device(prof) -> list:
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def _per_call_ms(fn, repeats: int, device) -> dict:
+    """ms per call of ``fn``: ``wall`` back to back (host work included) and ``device``.
+
+    ``wall``: CUDA events around ``repeats`` calls. ``device``: the summed
+    execution time of the kernels the calls ran, from ``torch.profiler``,
+    over ``repeats`` (gaps between kernels excluded).
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize(device)
+    start.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    end.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize(device)
+    return {"wall": start.elapsed_time(end) / repeats, "device": _device_ms(_on_device(prof)) / repeats}
+
+
+def bench_tridiagonal(n_systems: int = 16384, N: int = 32, repeats: int = 50, seed: int = 0, device=None) -> dict:
+    """The batched solve alone on the card: ms per call of each backend.
+
+    Diagonally dominant systems from a numpy seed (as the JAX benchmark's
+    ``0.1 N(0,1)`` off-diagonals, ``1 + |N(0,1)|`` diagonal). ``cuda`` is the
+    kernel through its wrapper ``_thomas_cuda``; ``scan`` (its plain version)
+    and ``pcr`` are the plain backends; ``library`` is ``torch.linalg.solve``
+    on the same systems densified to ``(B, N, N)`` before timing (a yardstick
+    the port never calls). For each, ``<name>_ms`` is the device time per
+    call and ``<name>_wall_ms`` the time per call back to back with the host
+    work (:func:`_per_call_ms`). Also returns the kernel's largest deviation
+    from ``scan``.
+    """
+    device = _require_card(device, "bench_tridiagonal")
+    from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
+
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    dl = f(rng.normal(size=(n_systems, N)) * 0.1)
+    du = f(rng.normal(size=(n_systems, N)) * 0.1)
+    d = f(1.0 + np.abs(rng.normal(size=(n_systems, N))))
+    b = f(rng.normal(size=(n_systems, N)))
+    A = torch.diag_embed(d) + torch.diag_embed(dl[:, 1:], -1) + torch.diag_embed(du[:, :-1], 1)
+    calls = {
+        "cuda": lambda: tri._thomas_cuda(dl, d, du, b),
+        "scan": lambda: tri._thomas_scan(dl, d, du, b),
+        "pcr": lambda: tri._thomas_pcr(dl, d, du, b),
+        "library": lambda: torch.linalg.solve(A, b[..., None])[..., 0],
+    }
+    out = {"n_systems": n_systems, "N": N, "repeats": repeats}
+    results = {name: fn() for name, fn in calls.items()}
+    for name, fn in calls.items():
+        t = _per_call_ms(fn, repeats, device)
+        out[f"{name}_ms"], out[f"{name}_wall_ms"] = t["device"], t["wall"]
+    out["max_abs_err_vs_scan"] = float((results["cuda"] - results["scan"]).abs().max())
+    out["bytes"] = 5 * n_systems * N * 4
+    return out
+
+
+def profile_train_step(setup: dict, n_saves: int = 2, device=None, **config_overrides) -> dict:
+    """Where one training step's time goes: ``torch.profiler`` over a short window.
+
+    One step (loss, backward, adam) over the first ``n_saves`` save intervals
+    of the setup's batch, after one unprofiled warm-up step. Returns the
+    wall time, the device time of every CUDA kernel, memcpy and memset the
+    profiler saw, the device's idle share of the wall time, the device ops
+    per substep and the eight largest by device time. Profiling adds host
+    time, so the idle share is that of the profiled step. ``device_ops == 0``
+    means the profiler saw no device activity (then nothing is measured).
+    """
+    device = _require_card(device, "profile_train_step")
+    from torch.profiler import ProfilerActivity, profile
+
+    from climateparameterizations_jl_tpu_torch.train.nde import (
+        _make_optimizer,
+        determine_loss_scalings,
+        make_wind_mixing_loss_fn,
+    )
+
+    config = dataclasses.replace(setup["config"], **config_overrides)
+    batch = setup["batch"]
+    batch = dataclasses.replace(batch, targets=batch.targets[:, : n_saves + 1], t=batch.t[: n_saves + 1])
+    nns = _clone_nns(setup["nns"])
+    scalings = determine_loss_scalings(setup["model"], nns, batch, config)
+    loss_fn = make_wind_mixing_loss_fn(setup["model"], batch, scalings, config)
+    optimizer = _make_optimizer(config, nns)
+
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        total, _ = loss_fn(nns)
+        total.backward()
+        optimizer.step()
+
+    step()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_device = _on_device(prof)
+    busy_ms = _device_ms(on_device)
+    ops = sum(e.count for e in on_device)
+    substeps = n_saves * config.n_substeps
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]
+    return {
+        "substeps": substeps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms, "device_ops": ops, "device_ops_per_substep": ops / substeps,
+        "top": [(e.key[:60], e.count, e.self_device_time_total * 1e-3) for e in top],
     }

@@ -1,15 +1,17 @@
 """Fixed-step explicit timesteppers.
 
-Port of ``climateparameterizations_jl_tpu/models/timestepper.py:23-91``,
-forward only: the JAX package's ``lax.scan`` becomes a Python loop, and its
-``checkpoint`` (rematerialization for the backward pass) is accepted and has
-no effect here. All steppers advance ``dx/dt = rhs(x, t)`` with arbitrary
-leading batch axes on ``x``.
+Port of ``climateparameterizations_jl_tpu/models/timestepper.py:23-91``:
+the JAX package's ``lax.scan`` becomes a Python loop, and its
+``jax.checkpoint`` around one save interval becomes
+``torch.utils.checkpoint`` (non-reentrant): a backward pass keeps only the
+saved states and recomputes each interval's substeps. All steppers advance
+``dx/dt = rhs(x, t)`` with arbitrary leading batch axes on ``x``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 
 def euler_step(rhs, x, t, dt):
@@ -38,19 +40,30 @@ def solve_fixed_step(rhs, x0, t0, dt_save, n_save: int, n_substeps: int = 1, met
     """Integrate and save ``n_save + 1`` states (including ``x0``) at uniform intervals.
 
     ``method`` is ``euler | heun | rk4`` or a callable ``step(rhs, x, t, dt)``.
-    ``checkpoint`` and ``unroll`` are the JAX package's scan knobs; they do
-    not change the result and are accepted so that callers carry over.
-    Returns a tensor of shape ``(n_save + 1, *x0.shape)``.
+    ``checkpoint=True`` wraps each save interval in
+    ``torch.utils.checkpoint.checkpoint`` where autograd records the solve
+    (the substeps run again in the backward pass instead of being stored);
+    it does not change the result. ``unroll`` is the JAX package's scan knob
+    and has no effect here. Returns a tensor of shape ``(n_save + 1, *x0.shape)``.
     """
-    del checkpoint, unroll
+    del unroll
     step = method if callable(method) else _STEPPERS[method]
     dt = dt_save / n_substeps
+
+    def interval(x, t_start):
+        for j in range(n_substeps):
+            x = step(rhs, x, t_start + j * dt, dt)
+        return x
+
+    remat = checkpoint and torch.is_grad_enabled()
     xs = [x0]
     x = x0
     for i in range(n_save):
         t_start = t0 + i * dt_save
-        for j in range(n_substeps):
-            x = step(rhs, x, t_start + j * dt, dt)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(interval, x, t_start, use_reentrant=False)
+        else:
+            x = interval(x, t_start)
         xs.append(x)
     return torch.stack(xs, dim=0)
 

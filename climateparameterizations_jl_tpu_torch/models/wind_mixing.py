@@ -10,9 +10,11 @@ diffusivity is the physical base closure; and the non-dimensional PDE
     dv/dt_hat = -tau/H * sigma_vw/sigma_v * d/dz_hat(vw) - f tau/sigma_v (sigma_u u + mu_u)
     dT/dt_hat = -tau/H * sigma_wT/sigma_T * d/dz_hat(wT)
 
-is integrated by :func:`solve_wind_mixing_nde`. Everything batches over
-leading axes. The split stepper and the ``fast_assembly`` paths are not
-ported yet (``ROADMAP.md``, queue 1).
+is integrated by :func:`solve_wind_mixing_nde` (fully explicit) or
+:func:`solve_wind_mixing_split` (operator split, backward-Euler mPP
+diffusion through the batched tridiagonal solve). Everything batches over
+leading axes. ``fast_assembly=True/"fold"`` is ported for the split stepper;
+for :func:`solve_wind_mixing_nde` it is not yet (``ROADMAP.md``, queue 1).
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from climateparameterizations_jl_tpu_torch.core.filters import smoothing_filter
 from climateparameterizations_jl_tpu_torch.core.operators import d_center_to_face, d_face_to_center, pad_faces
 from climateparameterizations_jl_tpu_torch.core.scalings import ZeroMeanUnitVarianceScaling
 from climateparameterizations_jl_tpu_torch.models.timestepper import _STEPPERS, solve_fixed_step
+from climateparameterizations_jl_tpu_torch.ops.fused_rhs import bc_tendency_row, divergence_matrix, tendency_coefficients
+from climateparameterizations_jl_tpu_torch.ops.tridiagonal import implicit_diffusion_step
 from climateparameterizations_jl_tpu_torch.physics.mpp import MPPParameters, mpp_diffusivity
 from climateparameterizations_jl_tpu_torch.physics.richardson import local_richardson_scaled
 
@@ -322,3 +326,191 @@ def solve_wind_mixing_nde(model: WindMixingModel, nns, bcs: BoundaryConditions, 
         return wind_mixing_rhs(model, nns, bcs, x, t)
 
     return solve_fixed_step(rhs, x0, t0, dt_save, n_save, n_substeps, method, checkpoint, unroll)
+
+
+def _explicit_rhs_split(model: WindMixingModel, nns, bcs: BoundaryConditions, x, t):
+    """Explicit flux part of the split stepper: NN fluxes + BC faces, no Coriolis.
+
+    The split stepper rotates forward-backward after the flux update, and
+    the interior mPP diffusion is implicit; in ``zero_weights`` mode the
+    boundary faces carry the BC fluxes (``bc - scale(0)``).
+    """
+    bcs_t = _effective_bcs(model, bcs, t)
+    uw, vw, wT = _nn_fluxes(model, nns, bcs_t, x)
+    if model.zero_weights:
+        s = model.scalings
+        zu = s.uw.scale(torch.zeros_like(torch.as_tensor(bcs_t.uw_bot)))
+        zv = s.vw.scale(torch.zeros_like(torch.as_tensor(bcs_t.vw_bot)))
+        zT = s.wT.scale(torch.zeros_like(torch.as_tensor(bcs_t.wT_bot)))
+        uw = pad_faces(uw[..., 1:-1], bcs_t.uw_bot - zu, bcs_t.uw_top - zu)
+        vw = pad_faces(vw[..., 1:-1], bcs_t.vw_bot - zv, bcs_t.vw_top - zv)
+        wT = pad_faces(wT[..., 1:-1], bcs_t.wT_bot - zT, bcs_t.wT_top - zT)
+    return _tendencies(model, x, uw, vw, wT, coriolis=False)
+
+
+def resolve_fast_assembly(model: WindMixingModel, nns, method: str, value):
+    """Resolve ``fast_assembly="auto"``: ``"fold"`` for the split stepper where it applies.
+
+    The split assembly needs packable MLPs and no NN smoothing; anything
+    else resolves to ``False`` (the per-variable stencil path). The explicit
+    solver's fast assembly (``rk4``) is not ported yet, so ``"auto"`` gives
+    ``False`` there, the same trajectory by the stencil path. The
+    member-folded ensemble chain is not ported either, so every packed chain
+    here has the 3-flux layout. Non-``"auto"`` values pass through.
+    """
+    if value != "auto":
+        return value
+    packed = nns if isinstance(nns, PackedFluxNNs) else pack_flux_nns(nns)
+    if method != "split" or packed is None or model.smooth_NN:
+        return False
+    return "fold"
+
+
+def _tendency_coefficients(model: WindMixingModel):
+    """``(R_u, R_v, R_T)`` nondimensional flux-divergence coefficients."""
+    s = model.scalings
+    return tendency_coefficients(model.tau, model.H, s.uw.sigma, s.vw.sigma, s.wT.sigma,
+                                 s.u.sigma, s.v.sigma, s.T.sigma)
+
+
+def _split_bc_row(model: WindMixingModel, bcs_t: BoundaryConditions, batch):
+    """Constant tendency row carrying the boundary-face BC fluxes.
+
+    ``+R_b bot_b / dz`` at cell 0 and ``-R_b top_b / dz`` at cell ``Nz - 1``
+    of each variable block (``bc - scale(0)`` in ``zero_weights`` mode, the
+    raw BC otherwise). BCs broadcast left-aligned over ``batch``; the result
+    broadcasts against ``batch + (3 Nz,)``.
+    """
+    s = model.scalings
+
+    def expand(c):
+        c = torch.as_tensor(c)
+        return c.reshape(tuple(c.shape) + (1,) * (len(batch) - c.dim()))[..., None]
+
+    bots, tops = [], []
+    for bot, top, fscale in (
+        (bcs_t.uw_bot, bcs_t.uw_top, s.uw),
+        (bcs_t.vw_bot, bcs_t.vw_top, s.vw),
+        (bcs_t.wT_bot, bcs_t.wT_top, s.wT),
+    ):
+        if model.zero_weights:
+            z = fscale.scale(torch.zeros_like(torch.as_tensor(bot)))
+            bot, top = bot - z, top - z
+        bots.append(expand(bot))
+        tops.append(expand(top))
+    Ru, Rv, RT = _tendency_coefficients(model)
+    return bc_tendency_row(Ru, Rv, RT, bots, tops, model.Nz)
+
+
+def _pad_to_block(y, Nz: int):
+    """``(..., 3 (Nz-1))`` interior fluxes -> the block-aligned ``(..., 3 Nz)``
+    layout (seam lane per block zero) that :func:`divergence_matrix` expects."""
+    batch = tuple(y.shape[:-1])
+    return torch.nn.functional.pad(y.reshape(batch + (3, Nz - 1)), (0, 1)).reshape(batch + (3 * Nz,))
+
+
+def _fast_explicit_tendencies(model: WindMixingModel, packed, Dr, bcs: BoundaryConditions, x, t):
+    """Matmul-assembled :func:`_explicit_rhs_split`: packed chain + divergence matmul + BC row."""
+    bcs_t = _effective_bcs(model, bcs, t)
+    y = _pad_to_block(packed(x), model.Nz)
+    return y @ Dr + _split_bc_row(model, bcs_t, tuple(x.shape[:-1]))
+
+
+def _pad_packed_chain(packed: PackedFluxNNs, Nz: int):
+    """Padded-last-layer view of a :class:`PackedFluxNNs`: the final matmul
+    writes straight into the block-aligned ``(..., 3 Nz)`` layout (seam lanes
+    structurally zero). Differentiable (pad/reshape). Single-member chains
+    only: the member-folded ensemble chain is not ported yet."""
+    n_out = Nz - 1
+    A3, b3 = packed.matrices[-1], packed.biases[-1]
+    A3p = torch.nn.functional.pad(A3.reshape(A3.shape[0], 3, n_out), (0, 1)).reshape(A3.shape[0], 3 * Nz)
+    b3p = torch.nn.functional.pad(b3.reshape(3, n_out), (0, 1)).reshape(3 * Nz)
+    return (*packed.matrices[:-1], A3p), (*packed.biases[:-1], b3p)
+
+
+def _interior_nu(model: WindMixingModel, x):
+    """Face mPP diffusivity with zero boundary faces, for the implicit solve."""
+    nu, _ = _face_nu(model, x)
+    return torch.nn.functional.pad(nu[..., 1:-1], (1, 1))
+
+
+def solve_wind_mixing_split(model: WindMixingModel, nns, bcs: BoundaryConditions, x0, t0, dt_save, n_save: int,
+                            n_substeps: int = 1, tridiag_backend: str = "scan", checkpoint: bool = True,
+                            unroll: int = 1, fast_assembly=False, implicit_solve_grad: bool = True):
+    """Operator-split semi-implicit integration; returns ``(n_save + 1, ..., 3 Nz)``.
+
+    Per substep: explicit Euler on the NN fluxes + BC faces, a
+    forward-backward Coriolis rotation, then a backward-Euler solve of the
+    interior mPP diffusion (diffusivity lagged at the start-of-substep
+    state) as ONE batched tridiagonal solve over ``(3, ..., Nz)``
+    (``NDE_oceananigans.jl:61-101``). With ``use_conv_adj`` instead of mPP,
+    the implicit step is the convective adjustment on ``T``.
+
+    ``fast_assembly=True`` computes the explicit part as the packed NN chain,
+    one divergence matmul and a BC row; ``"fold"`` precomposes the divergence
+    matrix into the packed last layer once per call. ``tridiag_backend`` is
+    ``"scan"``, ``"pcr"`` or ``"cuda"`` (the kernel); ``implicit_solve_grad``
+    differentiates the solves by the implicit function theorem.
+    ``checkpoint`` recomputes each save interval in the backward pass.
+    """
+    dt = dt_save / n_substeps
+    Nz = model.Nz
+    s = model.scalings
+    # Non-dimensional diffusion coefficient: nu * tau / H^2.
+    nu_scale = model.tau / (model.H * model.H)
+    # Loop-invariant scalars, hoisted as XLA hoists them in the JAX package.
+    rot_u = dt * model.f * model.tau / s.u.sigma
+    rot_v = dt * model.f * model.tau / s.v.sigma
+
+    if fast_assembly:
+        if fast_assembly not in (True, "fold"):
+            raise ValueError(f"fast_assembly must be False, True or 'fold' (got {fast_assembly!r})")
+        if model.smooth_NN:
+            raise ValueError("fast_assembly does not apply the NN smoothing filter; use the default path")
+        packed = nns if isinstance(nns, PackedFluxNNs) else pack_flux_nns(nns)
+        if packed is None:
+            raise ValueError("fast_assembly needs three packable (same-depth, same-activation) MLP closures")
+        Ru, Rv, RT = _tendency_coefficients(model)
+        unit = lambda *r: torch.as_tensor(divergence_matrix(*r, Nz), dtype=x0.dtype, device=x0.device)  # noqa: E731
+        Dr = (Ru * unit(1.0, 0.0, 0.0) + Rv * unit(0.0, 1.0, 0.0) + RT * unit(0.0, 0.0, 1.0)).to(x0.dtype)
+        if fast_assembly == "fold":
+            mats, biases = _pad_packed_chain(packed, Nz)
+            folded = dataclasses.replace(
+                packed, matrices=(*mats[:-1], mats[-1] @ Dr), biases=(*biases[:-1], biases[-1] @ Dr)
+            )
+            # The BC row is constant unless the top heat flux follows the diurnal cycle.
+            K_const = None if model.diurnal else _split_bc_row(model, bcs, tuple(x0.shape[:-1]))
+
+    def substep(_rhs, x, t, dt):
+        if fast_assembly == "fold":
+            K = K_const if K_const is not None else _split_bc_row(model, _effective_bcs(model, bcs, t),
+                                                                  tuple(x.shape[:-1]))
+            x_adv = x + dt * (folded(x) + K)
+        elif fast_assembly:
+            x_adv = x + dt * _fast_explicit_tendencies(model, packed, Dr, bcs, x, t)
+        else:
+            x_adv = x + dt * _explicit_rhs_split(model, nns, bcs, x, t)
+        # Forward-backward Coriolis (v uses the already-rotated u): neutrally
+        # stable where forward Euler amplifies inertial oscillations.
+        u, v, T = split_uvT(x_adv, Nz)
+        u = u + rot_u * (s.v.sigma * v + s.v.mu)
+        v = v - rot_v * (s.u.sigma * u + s.u.mu)
+        if model.use_mpp:
+            nu = _interior_nu(model, x) * nu_scale
+            # One batched solve: (u, v, T) stacked on a new leading axis.
+            phi = torch.stack([u, v, T], dim=0)
+            nu3 = torch.stack([nu, nu, nu / model.mpp.Pr], dim=0)
+            phi = implicit_diffusion_step(phi, nu3, dt, model.dz_hat, backend=tridiag_backend, unroll=8,
+                                          implicit_grad=implicit_solve_grad)
+            return join_uvT(phi[0], phi[1], phi[2])
+        if model.use_conv_adj:
+            # Implicit convective adjustment on T, switch lagged at the
+            # start-of-substep state: kappa tau / H^2 where unstable.
+            _, _, T_lag = split_uvT(x, Nz)
+            dTdz = d_center_to_face(T_lag, model.dz_hat)
+            Kc = model.kappa * (dTdz < 0.0) * nu_scale
+            T = implicit_diffusion_step(T, Kc, dt, model.dz_hat, backend=tridiag_backend, zero_boundary_faces=True,
+                                        unroll=8, implicit_grad=implicit_solve_grad)
+        return join_uvT(u, v, T)
+
+    return solve_fixed_step(None, x0, t0, dt_save, n_save, n_substeps, substep, checkpoint, unroll)

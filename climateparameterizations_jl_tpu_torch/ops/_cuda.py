@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -122,10 +123,10 @@ def make_params(*, n_columns, n_steps, Nz, h1, h2, activation, dt, coefficients:
     )
 
 
-class FusedRK4Kernel:
-    """``csrc/fused_rk4.cu``: ``n_steps`` of RK4 on the wind-mixing RHS in one launch."""
+class _Kernel:
+    """One ``csrc/`` source: built and loaded on first use, with a launch count."""
 
-    source = SOURCE_DIR / "fused_rk4.cu"
+    source: Path
 
     def __init__(self):
         self.launches = 0
@@ -133,27 +134,49 @@ class FusedRK4Kernel:
         self.ptxas_report = ""
         self._lib = None
 
+    def _bind(self, lib) -> None:
+        """Declare ``argtypes``/``restype`` of the library's C functions."""
+        raise NotImplementedError
+
     def load(self):
         """Build (if needed) and load the library; returns the ``ctypes`` handle."""
         if self._lib is None:
             t0 = time.perf_counter()
             path, self.ptxas_report = build_library(self.source)
             lib = ctypes.CDLL(str(path))
-            lib.fused_rk4_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, _Params, ctypes.c_int, ctypes.c_void_p,
-            ]
-            lib.fused_rk4_launch.restype = ctypes.c_int
-            lib.fused_rk4_error_string.argtypes = [ctypes.c_int]
-            lib.fused_rk4_error_string.restype = ctypes.c_char_p
-            for name in ("fused_rk4_smem_bytes", "fused_rk4_weight_count"):
-                getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-                getattr(lib, name).restype = ctypes.c_int
-            for name in ("fused_rk4_columns_per_block", "fused_rk4_threads_per_block"):
-                getattr(lib, name).argtypes = []
-                getattr(lib, name).restype = ctypes.c_int
+            self._bind(lib)
             self._lib = lib
             self.build_seconds = time.perf_counter() - t0
         return self._lib
+
+    def _check(self, rc: int, name: str) -> None:
+        if rc != 0:
+            msg = getattr(self._lib, f"{name}_error_string")(rc).decode()
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def _device_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
+
+
+class FusedRK4Kernel(_Kernel):
+    """``csrc/fused_rk4.cu``: ``n_steps`` of RK4 on the wind-mixing RHS in one launch."""
+
+    source = SOURCE_DIR / "fused_rk4.cu"
+
+    def _bind(self, lib) -> None:
+        lib.fused_rk4_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, _Params, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.fused_rk4_launch.restype = ctypes.c_int
+        lib.fused_rk4_error_string.argtypes = [ctypes.c_int]
+        lib.fused_rk4_error_string.restype = ctypes.c_char_p
+        for name in ("fused_rk4_smem_bytes", "fused_rk4_weight_count"):
+            getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_int
+        for name in ("fused_rk4_columns_per_block", "fused_rk4_threads_per_block"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
 
     def __call__(self, x0: torch.Tensor, weights: torch.Tensor, params: _Params) -> torch.Tensor:
         """Launch on ``x0 (n_columns, 3 Nz)``; returns the state after ``params.n_steps`` steps."""
@@ -174,18 +197,82 @@ class FusedRK4Kernel:
         stream = torch.cuda.current_stream(x0.device).cuda_stream
         rc = lib.fused_rk4_launch(
             ctypes.c_void_p(x0.data_ptr()), ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(weights.data_ptr()),
-            params, x0.device.index if x0.device.index is not None else torch.cuda.current_device(),
-            ctypes.c_void_p(stream),
+            params, _device_index(x0), ctypes.c_void_p(stream),
         )
-        if rc != 0:
-            raise RuntimeError(f"fused_rk4 launch failed: CUDA error {rc} ({lib.fused_rk4_error_string(rc).decode()})")
+        self._check(rc, "fused_rk4")
+        self.launches += 1
+        return out
+
+
+class ThomasKernel(_Kernel):
+    """``csrc/thomas.cu``: batched tridiagonal solve of contiguous f32 ``(B, N)`` systems."""
+
+    source = SOURCE_DIR / "thomas.cu"
+
+    def _bind(self, lib) -> None:
+        lib.thomas_launch.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.thomas_launch.restype = ctypes.c_int
+        lib.thomas_error_string.argtypes = [ctypes.c_int]
+        lib.thomas_error_string.restype = ctypes.c_char_p
+        for name in ("thomas_max_n", "thomas_systems_per_block"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+        lib.thomas_smem_bytes.argtypes = [ctypes.c_int]
+        lib.thomas_smem_bytes.restype = ctypes.c_int
+
+    def __call__(self, dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Solve on ``(B, N)`` inputs (``dl[:, 0]``, ``du[:, N-1]`` ignored); returns ``x (B, N)``."""
+        args = (dl, d, du, b)
+        if b.device.type != "cuda" or any(a.device != b.device for a in args):
+            raise ValueError(f"thomas needs all four inputs on one CUDA device, got {[str(a.device) for a in args]}")
+        if any(a.dtype != torch.float32 for a in args):
+            raise ValueError(f"thomas takes float32, got {[a.dtype for a in args]}")
+        if b.dim() != 2 or any(a.shape != b.shape for a in args):
+            raise ValueError(f"thomas expects four (B, N) tensors of one shape, got {[tuple(a.shape) for a in args]}")
+        if not all(a.is_contiguous() for a in args):
+            raise ValueError("thomas takes contiguous tensors")
+        lib = self.load()
+        n_systems, n = b.shape
+        if not 1 <= n <= lib.thomas_max_n():
+            raise ValueError(f"thomas supports 1 <= N <= {lib.thomas_max_n()}, got N = {n}")
+        out = torch.empty_like(b)
+        if n_systems == 0:
+            return out
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        rc = lib.thomas_launch(
+            *(ctypes.c_void_p(a.data_ptr()) for a in (*args, out)),
+            n_systems, n, _device_index(b), ctypes.c_void_p(stream),
+        )
+        self._check(rc, "thomas")
         self.launches += 1
         return out
 
 
 FUSED_RK4 = FusedRK4Kernel()
+THOMAS = ThomasKernel()
 
-KERNELS = {"fused_rk4": FUSED_RK4}
+KERNELS = {"fused_rk4": FUSED_RK4, "thomas": THOMAS}
+
+
+def _timed_build(source: Path) -> float:
+    t0 = time.perf_counter()
+    build_library(source)
+    return time.perf_counter() - t0
+
+
+def load_all() -> None:
+    """Build every kernel at once (one ``nvcc`` per source, run side by side), then load each.
+
+    Each kernel's ``build_seconds`` is then its own ``nvcc`` time plus its load.
+    """
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        seconds = [f.result() for f in [pool.submit(_timed_build, k.source) for k in KERNELS.values()]]
+    for k, s in zip(KERNELS.values(), seconds):
+        if k._lib is None:
+            k.load()
+            k.build_seconds += s
 
 
 def reset_launch_counts() -> None:

@@ -143,7 +143,8 @@ def divergence_matrix(Ru: float, Rv: float, RT: float, Nz: int, dtype=np.float32
 def bc_tendency_row(Ru, Rv, RT, bots, tops, Nz: int):
     """Boundary-face BC contribution to the packed tendencies.
 
-    ``sum_b R_b Nz (bot_b e_{b Nz} - top_b e_{b Nz + Nz - 1})``.
+    ``sum_b R_b Nz (bot_b e_{b Nz} - top_b e_{b Nz + Nz - 1})``. Floats give
+    a numpy row; tensor BCs (with a trailing unit axis) a tensor row.
     """
     K = None
     for b, R in enumerate((Ru, Rv, RT)):
@@ -151,6 +152,9 @@ def bc_tendency_row(Ru, Rv, RT, bots, tops, Nz: int):
         e_bot[b * Nz] = 1.0
         e_top = np.zeros(3 * Nz, np.float32)
         e_top[b * Nz + Nz - 1] = 1.0
+        if isinstance(bots[b], torch.Tensor):  # traced BCs (the split stepper's row)
+            e_bot = torch.as_tensor(e_bot, dtype=bots[b].dtype, device=bots[b].device)
+            e_top = torch.as_tensor(e_top, dtype=bots[b].dtype, device=bots[b].device)
         term = (R * Nz) * (bots[b] * e_bot - tops[b] * e_top)
         K = term if K is None else K + term
     return K

@@ -99,3 +99,77 @@ def test_bench_nde_forward_counts_launches(card):
     stats = benchmarks.bench_nde_forward(128, n_steps=16, repeats=2, device=card)
     assert _cuda.FUSED_RK4.launches - before == stats["calls"] == 3
     assert stats["ms_min"] > 0 and stats["column_timesteps_per_sec"] > 0
+
+
+# --- csrc/thomas.cu against its plain version, _thomas_scan -----------------
+# Tolerance: the same recurrence in f32, the kernel's multiply-adds contracted
+# to FMAs, on diagonally dominant systems: a few f32 ulps of the solution.
+THOMAS_RTOL, THOMAS_ATOL = 1e-5, 1e-6
+
+
+def _systems(dev, shape, seed, dtype=torch.float32):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    arrays = (rng.uniform(-0.5, 0.5, shape), rng.uniform(2.0, 3.0, shape), rng.uniform(-0.5, 0.5, shape),
+              rng.normal(size=shape))
+    return tuple(torch.tensor(a, dtype=dtype, device=dev) for a in arrays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1000, 33), (100, 1), (3, 18, 128), (3, 18, 32), (40, 256), (31, 2)])
+def test_thomas_matches_scan(card, shape):
+    from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
+
+    args = _systems(card, shape, seed=sum(shape))
+    before = _cuda.THOMAS.launches
+    got = tri._thomas_cuda(*args)
+    torch.cuda.synchronize()
+    assert _cuda.THOMAS.launches == before + 1
+    torch.testing.assert_close(got, tri._thomas_scan(*args), rtol=THOMAS_RTOL, atol=THOMAS_ATOL)
+
+
+@pytest.mark.cuda
+def test_thomas_ift_gradient_matches_scan(card):
+    from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
+
+    args = _systems(card, (3, 18, 32), seed=5)
+    grads = {}
+    for backend in ("cuda", "scan"):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        torch.sum(torch.sin(tri.tridiagonal_solve(*leaves, backend=backend)) ** 2).backward()
+        grads[backend] = [leaf.grad for leaf in leaves]
+    for gk, gs in zip(grads["cuda"], grads["scan"]):
+        torch.testing.assert_close(gk, gs, rtol=THOMAS_RTOL, atol=THOMAS_ATOL)
+
+
+@pytest.mark.cuda
+def test_thomas_dtypes_and_refusals(card):
+    from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
+
+    args = _systems(card, (64, 32), seed=6)
+    with pytest.raises(ValueError, match="f32-only"):
+        tri._thomas_cuda(*(a.double() for a in args))
+    half = tuple(a.half() for a in args)
+    got = tri._thomas_cuda(*half)
+    assert got.dtype == torch.float16
+    want = tri._thomas_scan(*(a.float() for a in half)).half()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)  # one f16 rounding of the f32 result
+    with pytest.raises(ValueError, match="N <= 256"):
+        tri._thomas_cuda(*_systems(card, (2, 257), seed=7))
+    with pytest.raises(ValueError, match="contiguous"):
+        _cuda.THOMAS(*(a.t() for a in _systems(card, (32, 32), seed=8)))
+    with pytest.raises(ValueError, match="CUDA device"):
+        _cuda.THOMAS(*(a.cpu() for a in args))
+
+
+@pytest.mark.cuda
+def test_thomas_broadcast_noncontiguous_input(card):
+    # The split stepper's (nu, nu, nu/Pr) stack, expanded over the batch.
+    from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
+
+    dl, d, du, b = _systems(card, (18, 32), seed=9)
+    b3 = torch.stack([b, 2 * b, -b], dim=0)
+    got = tri.tridiagonal_solve(dl, d, du.t().contiguous().t(), b3, backend="cuda")
+    want = tri.tridiagonal_solve(dl, d, du, b3, backend="scan")
+    torch.testing.assert_close(got, want, rtol=THOMAS_RTOL, atol=THOMAS_ATOL)

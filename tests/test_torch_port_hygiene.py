@@ -88,6 +88,22 @@ def test_constructors_raise_without_card(no_card, make):
         make()
 
 
-def test_bench_refuses_cpu():
+@pytest.mark.parametrize("bench", [
+    lambda: benchmarks.bench_nde_forward(8, n_steps=1, repeats=1, device="cpu"),
+    lambda: benchmarks.bench_train_step({}, device="cpu"),
+    lambda: benchmarks.bench_tridiagonal(8, 4, device="cpu"),
+], ids=["bench_nde_forward", "bench_train_step", "bench_tridiagonal"])
+def test_bench_refuses_cpu(bench):
     with pytest.raises(RuntimeError, match="card"):
-        benchmarks.bench_nde_forward(8, n_steps=1, repeats=1, device="cpu")
+        bench()
+
+
+def test_training_entry_points_raise_without_card(no_card):
+    from climateparameterizations_jl_tpu_torch.cli.main import _load_suite
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        benchmarks.flagship_train_setup()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _load_suite(["wind_-5e-4_new"], 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        benchmarks.bench_tridiagonal(8, 4)
