@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on the card at full width, with the trained
+Drives the port's paths on the card at full width, with the trained
 flagship flux MLPs of ``runs/wm_flagship_fold`` (3 x 96 -> 50 -> 20 -> 31,
 mish), Nz = 32:
 
@@ -11,12 +11,17 @@ mish), Nz = 32:
   through the fused RK4 kernel ``csrc/fused_rk4.cu``;
 - training (phases 6-10): the flagship NDE training step, 18 simulations x
   1,152 split substeps, IFT gradients and adam, with every implicit solve
-  through the batched Thomas kernel ``csrc/thomas.cu``.
+  through the batched Thomas kernel ``csrc/thomas.cu``;
+- the Gaussian-process closure (phases 11-17): three flux GPs at n = 1,024
+  training points and D = 96 features (squared exponential, f32), their
+  build, one ML-II step, the GP-closure DE over 1,024 columns and the
+  ``train-gp`` command, with every Gram through ``csrc/gram.cu``; and the
+  blocked Cholesky kernel ``csrc/cholesky.cu`` on the slice's own Gram.
 
-It builds both kernels from ``csrc/`` (one ``nvcc`` each, side by side),
-holds each against its plain PyTorch version, times it, and checks that each
-path's run went through its kernel (launch counts set to 0 just before the
-path and read just after).
+It builds the four kernels from ``csrc/`` (one ``nvcc`` each, side by
+side), holds each against its plain PyTorch version, times it, and checks
+that each path's run went through its kernel (launch counts set to 0 just
+before the path and read just after).
 
 Every phase prints a line before and after, with the elapsed time, so a hang
 shows where it stopped. Any failure raises and the script exits non-zero.
@@ -28,10 +33,14 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 from pathlib import Path
@@ -63,6 +72,45 @@ THOMAS_SHAPES = ((3, 18, 32), (16384, 32), (3, 18, 128), (1000, 33), (100, 1), (
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_RTOL = 1e-3  # relative to the gradient's 2-norm
 TRAIN_TIMED_STEPS, SCAN_TIMED_STEPS = 3, 1
+
+# Gram kernel vs gram_plain, the JAX test's tolerance (tests/test_gp.py::
+# TestPallasGram): two f32 Gram-trick evaluations that sum in other orders.
+# It holds off the coincident pairs. A coincident pair (A_i = B_j, the
+# diagonal of a training Gram) has d2 = aa + bb - 2ab = 0 computed as an f32
+# cancellation of numbers of size aa + bb, so both sides return k(d2) for
+# some d2 in [0, delta], delta = 2 gamma_{D+2} (aa + bb) with
+# gamma_k = k u / (1 - k u), u = 2^-24 (the forward error bound of the
+# D-term dot products and the two additions); sqrt amplifies it (matern12:
+# k drops by 1 - exp(-sqrt(delta) / gamma)). Their difference is held to
+# |k(0) - k(delta)|. Pairs are called coincident by the JAX backward's
+# mask d2 <= 1e-7 (aa + bb) (ops/gram.py:227), evaluated in f64: in f32 the
+# cancellation noise itself can exceed 1e-7 (aa + bb) and would leave
+# diagonal pairs unmasked.
+GRAM_RTOL, GRAM_ATOL = 2e-5, 2e-6
+GRAM_SHAPES = ((37, 23, 12), (300, 257, 130), (1024, 1024, 96))
+GP_N, GP_D, GP_NZ = 1024, 96, 32
+# Cholesky kernel vs cholesky_plain and torch.linalg.cholesky: the JAX test's
+# tolerance (tests/test_tridiagonal.py::TestPallasCholesky), f32 blocked
+# factorizations that sum in other orders.
+CHOL_TOL = 5e-4
+# One ML-II step, kernel vs plain backend from the same parameters. At these
+# inputs K is the identity to f32 precision off the diagonal (exp(-96)), so
+# the two training Grams differ only on the diagonal, by the coincident-pair
+# noise above (up to 1.3e-5 for the squared exponential at D = 96, measured
+# by phase 11 on the card). The loss is ~1.45e3 and moves by ~1e-8 of it. The
+# gradient in log sigma (~ -0.68) is the remainder of two terms of size
+# n / 2 = 512 (the data fit and the log-determinant), so the diagonal noise
+# moves it by up to about 512 x 1.3e-5 = 6.7e-3, 1 % of the gradient's norm;
+# the gradient in log gamma is made of that noise alone. The phase also
+# prints the first-order prediction of the difference from the diagonals,
+# to show that the diagonal explains it.
+ML2_LOSS_RTOL = 1e-4
+ML2_GRAD_RTOL = 1e-2  # relative to the gradient's 2-norm
+# GP-closure DE, kernel-backed vs plain-backed GPs with the same weights,
+# from states off the training points: f32 Gram roundoff (~1e-7 relative)
+# through 128 RK4 steps, amplified by the flux divergence (~32 / dz_hat).
+DE_RTOL, DE_ATOL = 1e-4, 1e-5
+DE_SAVES, DE_SUBSTEPS, DE_DT_SAVE = 32, 4, 1e-4
 
 
 def log(msg: str) -> None:
@@ -99,6 +147,82 @@ def compare(name, got, want, rtol=RTOL, atol=ATOL):
     return max_abs
 
 
+def ptxas_summary(report: str) -> list:
+    """Registers, shared memory and spills of each kernel in an ``nvcc -Xptxas -v`` report."""
+    out, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = demangled(m.group(1)), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spills = int(m.group(1))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            out.append({"function": name, "registers": int(m.group(1)), "smem_bytes": int(m.group(2) or 0),
+                        "spill_store_bytes": spills})
+            name = None
+    return out
+
+
+def demangled(symbol: str) -> str:
+    """The last name of an Itanium-mangled symbol, with an integer template argument: ``gram_kernel<3>``."""
+    rest = re.sub(r"^_ZN?", "", symbol)
+    name = symbol
+    while (m := re.match(r"(\d+)", rest)):
+        n = int(m.group(1))
+        name, rest = rest[len(m.group(1)):len(m.group(1)) + n], rest[len(m.group(1)) + n:]
+    t = re.match(r"ILi(\d+)E", rest)
+    return name + (f"<{t.group(1)}>" if t else "")
+
+
+def gamma_bound(k: int) -> float:
+    u = 2.0**-24
+    return k * u / (1 - k * u)
+
+
+def compare_gram(name, got, want, A, B, family, hyp):
+    """Kernel vs plain Gram: ``allclose(GRAM_RTOL, GRAM_ATOL)`` off the coincident pairs, the f32
+    cancellation bound on them. Returns ``(max abs error off them, max abs error on them, count)``."""
+    import torch
+
+    from climateparameterizations_jl_tpu_torch.ops import gram as ops_gram
+
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}, or non-finite values")
+    d2, aa, bb = ops_gram._sq_distances(A.double(), B.double())
+    co = d2 <= 1e-7 * (aa + bb)
+    diff = (got - want).abs()
+    off = ~co
+    ok_off = bool(torch.allclose(got[off], want[off], rtol=GRAM_RTOL, atol=GRAM_ATOL))
+    max_off = float(diff[off].max()) if bool(off.any()) else 0.0
+    max_co, ok_co = 0.0, True
+    if bool(co.any()):
+        delta = (2.0 * gamma_bound(A.shape[1] + 2) * (aa + bb)).expand_as(d2)[co]
+        h = [torch.as_tensor(v, dtype=torch.float64, device=got.device) for v in hyp]
+        bound = (ops_gram._epilogue(family, torch.zeros_like(delta), *h)
+                 - ops_gram._epilogue(family, delta, *h)).abs()
+        max_co = float(diff[co].max())
+        ok_co = bool((diff[co].double() <= bound).all())
+        extra = f"; {int(co.sum())} coincident pairs: max_abs={max_co:.3e} (bound up to {float(bound.max()):.3e})"
+    else:
+        extra = "; no coincident pairs"
+    log(f"{name}: off-coincident max_abs={max_off:.3e} allclose(rtol={GRAM_RTOL}, atol={GRAM_ATOL})={ok_off}{extra}")
+    if not (ok_off and ok_co):
+        raise RuntimeError(f"{name}: kernel and plain Gram disagree")
+    return max_off, max_co, int(co.sum())
+
+
+def device_args(n_rows, n_cols, seed, dev, scale=1.0):
+    """A standard-normal ``(n_rows, n_cols)`` f32 tensor on the card, from a numpy seed."""
+    import numpy as np
+    import torch
+
+    return torch.tensor(scale * np.random.default_rng(seed).normal(size=(n_rows, n_cols)), dtype=torch.float32,
+                        device=dev)
+
+
 def diag_dominant_systems(shape, seed):
     """``(dl, d, du, b)`` f32 on the card: ``|dl|, |du| < 0.5 < 2 <= d``, from a numpy seed."""
     import numpy as np
@@ -123,6 +247,283 @@ def cuda_ms(fn, repeats: int = 1):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), out
+
+
+def gp_phases(dev):
+    """Phases 11-17, the Gaussian-process path; returns the gram and cholesky records."""
+    import torch
+
+    from climateparameterizations_jl_tpu_torch import benchmarks
+    from climateparameterizations_jl_tpu_torch.closures import gp as tgp
+    from climateparameterizations_jl_tpu_torch.models import gp_closure as tgc
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.ops import cholesky as ops_chol
+    from climateparameterizations_jl_tpu_torch.ops import gram as ops_gram
+
+    gram_k, chol_k = _cuda.GRAM, _cuda.CHOLESKY
+    gram_errors, gram_coincident = {}, {}
+    with phase("11 gram: tiny launch, then every family x metric vs gram_plain"):
+        glib = gram_k.load()
+        log(f"gram: {glib.gram_tile()} x {glib.gram_tile()} output tile and {glib.gram_threads_per_block()} threads "
+            f"per CTA")
+        A, B = device_args(3, 2, 40, dev), device_args(2, 2, 41, dev)
+        got = ops_gram.gram_cuda(A, B, 1.0, 1.0)
+        torch.cuda.synchronize()
+        compare_gram("tiny gram vs gram_plain", got, ops_gram.gram_plain(A, B, 1.0, 1.0), A, B,
+                     "squared_exponential", (1.0, 1.0, 1.0))
+        hyp = (1.7, 0.8, 1.3)
+        for i, (M, N, D) in enumerate(GRAM_SHAPES):
+            A = device_args(M, D, 50 + i, dev)
+            B = A if (M, N, D) == (GP_N, GP_N, GP_D) else device_args(N, D, 60 + i, dev)
+            z = torch.linspace(0.0, 1.0, D, device=dev)
+            for metric in ("euclidean", "derivative"):
+                tf = tgp._DISTANCE_TRANSFORMS[metric]
+                At, Bt = tf(A, z), tf(B, z)
+                for family in _cuda.GRAM_FAMILIES:
+                    got = ops_gram.gram_cuda(At, Bt, *hyp, family=family)
+                    torch.cuda.synchronize()
+                    want = ops_gram.gram_plain(At, Bt, *hyp, family=family)
+                    key = f"{M}x{N}x{D} {family} {metric}"
+                    gram_errors[key], gram_coincident[key], _ = compare_gram(
+                        f"gram {key}{' (training Gram, B is A)' if B is A else ''}", got, want, At, Bt, family, hyp)
+
+    chol_errors = {}
+    with phase("12 cholesky vs cholesky_plain and torch.linalg.cholesky (n = 256 and 1,024)"):
+        log(f"cholesky: {chol_k.load().cholesky_tile()} x {chol_k.load().cholesky_tile()} tiles")
+        x_gp = benchmarks.gp_inputs(GP_N, GP_D, device=dev)[0]
+        K_se = ops_gram.gram_cuda(x_gp, x_gp, 1.0, 1.0)
+        K_se = K_se + K_se.max() * tgp.default_jitter(K_se.dtype) * torch.eye(GP_N, device=dev)
+        cases = []
+        for n, block, seed in ((256, 128, 70), (1024, 128, 71)):
+            A = device_args(n, n, seed, dev)
+            cases.append((f"A A^T + n I, n = {n}, block {block}", A @ A.T + n * torch.eye(n, device=dev), block))
+        cases.append((f"jittered squared-exponential Gram, n = {GP_N}, block 128", K_se, 128))
+        _cuda.reset_launch_counts()
+        factors = [ops_chol.cholesky_cuda(K, block) for _, K, block in cases]
+        torch.cuda.synchronize()
+        chol_launches = chol_k.launches
+        expected_chol = sum(chol_k.launches_per_call(K.shape[0]) for _, K, _ in cases)
+        log(f"cholesky: {len(cases)} factorizations, {chol_launches} kernel launches counted; expected "
+            f"{expected_chol} = sum of 3 ceil(n / 32) - 1 over n = {[K.shape[0] for _, K, _ in cases]}")
+        if chol_launches != expected_chol:
+            raise RuntimeError(f"cholesky counted {chol_launches} launches, expected {expected_chol}")
+        for (label, K, block), L in zip(cases, factors):
+            upper = float(torch.triu(L, 1).abs().max())
+            log(f"{label}: upper triangle max |L_ij| = {upper}")
+            if upper != 0.0:
+                raise RuntimeError(f"{label}: the upper triangle is not exactly zero")
+            chol_errors[f"{label} vs plain"] = compare(f"cholesky {label} vs cholesky_plain", L,
+                                                       ops_chol.cholesky_plain(K, block), rtol=CHOL_TOL, atol=CHOL_TOL)
+            chol_errors[f"{label} vs library"] = compare(f"cholesky {label} vs torch.linalg.cholesky", L,
+                                                         torch.linalg.cholesky(K), rtol=CHOL_TOL, atol=CHOL_TOL)
+
+    gram_launches, path_checks = {}, {}
+    with phase(f"13 bench_gp({GP_N}, {GP_D}, backend='cuda'): three flux GPs, kernel vs plain build"):
+        _cuda.reset_launch_counts()
+        gp = benchmarks.bench_gp(GP_N, GP_D, backend="cuda", repeats=5, device=dev)
+        gram_launches["bench_gp"] = gram_k.launches
+        log(f"cuda backend: ms per build min={gp['ms_min']:.3f} median={gp['ms_median']:.3f} max={gp['ms_max']:.3f} "
+            f"all={[round(t, 3) for t in gp['ms']]}; gram launches {gram_k.launches} for {gp['builds']} builds "
+            f"(expected 3 per build)")
+        if gram_k.launches != 3 * gp["builds"]:
+            raise RuntimeError(f"bench_gp counted {gram_k.launches} gram launches for {gp['builds']} builds")
+        plain_gp = benchmarks.bench_gp(GP_N, GP_D, backend="plain", repeats=3, device=dev)
+        log(f"plain backend (one shared factorization): ms per build median={plain_gp['ms_median']:.3f} "
+            f"all={[round(t, 3) for t in plain_gp['ms']]}")
+        # The two training Grams differ only on their diagonal (coincident pairs, bound of phase 11 for the
+        # squared exponential), and K is within 4e-4 of the identity here: alpha differs by at most that bound.
+        aa = (x_gp.double() ** 2).sum(1)
+        alpha_rtol = 1.0 - math.exp(-gamma_bound(GP_D + 2) * 2.0 * float(aa.max()))
+        for flux, mk, mp in zip(("uw", "vw", "wT"), gp["models"], plain_gp["models"]):
+            rel = float((mk.alpha - mp.alpha).norm() / mp.alpha.norm())
+            log(f"alpha[{flux}] kernel vs plain build: |da| / |a| = {rel:.3e} (limit {alpha_rtol:.3e}, the diagonal's "
+                f"f32 cancellation bound for the squared exponential)")
+            if not rel <= alpha_rtol:
+                raise RuntimeError("kernel-built and plain-built GPs disagree")
+            path_checks[f"bench_gp alpha[{flux}] rel"] = rel
+
+    with phase(f"14 bench_gp_ml2_step({GP_N}, {GP_D}, 'cuda'): one ML-II step, kernel vs plain"):
+        _cuda.reset_launch_counts()
+        ml2 = benchmarks.bench_gp_ml2_step(GP_N, GP_D, backend="cuda", repeats=5, device=dev)
+        gram_launches["ml2_step"] = gram_k.launches
+        log(f"cuda backend: ms per step min={ml2['ms_min']:.3f} median={ml2['ms_median']:.3f} max={ml2['ms_max']:.3f} "
+            f"all={[round(t, 3) for t in ml2['ms']]}; gram launches {gram_k.launches} for {ml2['steps']} steps")
+        if gram_k.launches != ml2["steps"]:
+            raise RuntimeError(f"bench_gp_ml2_step counted {gram_k.launches} gram launches for {ml2['steps']} steps")
+        plain_ml2 = benchmarks.bench_gp_ml2_step(GP_N, GP_D, backend="plain", repeats=3, device=dev)
+        log(f"plain backend: ms per step median={plain_ml2['ms_median']:.3f}")
+        loss_k, grad_k = benchmarks.ml2_loss_and_grad(GP_N, GP_D, "cuda", device=dev)
+        loss_p, grad_p = benchmarks.ml2_loss_and_grad(GP_N, GP_D, "plain", device=dev)
+        loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        grad_rel = float((grad_k - grad_p).norm() / grad_p.norm())
+        # First order in the diagonal difference dK_ii at gamma = sigma = 1:
+        # the log sigma gradient is g = (n - tr(K^-1 Y Y^T) / D) / 2 (K and its
+        # jitter both scale with sigma), so dg = sum_i |(K^-1 Y)_i|^2 dK_ii / (2 D).
+        x_ml, ys_ml, _ = benchmarks.gp_inputs(GP_N, GP_D, device=dev)
+        one = torch.ones((), device=dev)
+        K_k = tgp.GPKernel(one, one, one, backend="cuda").gram(x_ml, x_ml, None)
+        K_p = tgp.GPKernel(one, one, one).gram(x_ml, x_ml, None)
+        dK = torch.diagonal(K_k) - torch.diagonal(K_p)
+        K_j = K_p.double() + float(K_p.max()) * tgp.default_jitter(torch.float32) * torch.eye(GP_N, device=dev, dtype=torch.float64)
+        Kinv_y = torch.linalg.solve(K_j, ys_ml[0].double())
+        predicted = float(((Kinv_y**2).sum(1) * dK.double()).sum()) / (2 * ys_ml[0].shape[1])
+        log(f"diagonal of the two training Grams: max |dK_ii| = {float(dK.abs().max()):.3e}, mean dK_ii = "
+            f"{float(dK.mean()):.3e}; first-order prediction of the log sigma gradient's difference "
+            f"sum_i |(K^-1 Y)_i|^2 dK_ii / 2D = {predicted:.4e}, measured {float(grad_k[1] - grad_p[1]):.4e}")
+        log(f"one step, kernel vs plain: loss {float(loss_k):.8e} vs {float(loss_p):.8e} (rel {loss_rel:.3e}, limit "
+            f"{ML2_LOSS_RTOL}); gradient (log gamma, log sigma, log alpha) {grad_k.tolist()} vs {grad_p.tolist()}: "
+            f"|g_k - g_p| / |g_p| = {grad_rel:.3e} (limit {ML2_GRAD_RTOL})")
+        if not (bool(torch.isfinite(grad_k).all()) and loss_rel <= ML2_LOSS_RTOL and grad_rel <= ML2_GRAD_RTOL):
+            raise RuntimeError("kernel-backed and plain ML-II steps disagree")
+
+    with phase(f"15 solve_gp_closure: {GP_N} columns x {DE_SAVES} saves x {DE_SUBSTEPS} RK4 substeps, kernel GPs"):
+        model = benchmarks.make_setup(GP_NZ, 8, device=dev)[0]
+        gps = tgc.FluxGPs(*gp["models"])
+        if not tgc._share_gram(gps):
+            raise RuntimeError("the three kernel-backed GPs do not share one Gram")
+        plain_kernel = dataclasses.replace(gps.uw.kernel, backend="plain")
+        plain_gps = tgc.FluxGPs(*(dataclasses.replace(m, kernel=plain_kernel) for m in gps))
+        x0 = gps.uw.x_train + device_args(GP_N, GP_D, 80, dev, scale=0.1)
+        _cuda.reset_launch_counts()
+        t_de = time.perf_counter()
+        traj = tgc.solve_gp_closure(model, gps, x0, 0.0, DE_DT_SAVE, DE_SAVES, n_substeps=DE_SUBSTEPS)
+        torch.cuda.synchronize()
+        de_s = time.perf_counter() - t_de
+        gram_launches["gp_closure_de"] = gram_k.launches
+        expected_de = DE_SAVES * DE_SUBSTEPS * 4
+        log(f"GP-closure DE: {de_s * 1e3:.1f} ms wall; gram launches {gram_k.launches}, expected {expected_de} = "
+            f"{DE_SAVES} saves x {DE_SUBSTEPS} substeps x 4 RK4 stages (one shared Gram per stage)")
+        if gram_k.launches != expected_de:
+            raise RuntimeError(f"the GP-closure DE counted {gram_k.launches} gram launches, expected {expected_de}")
+        t_de = time.perf_counter()
+        want_de = tgc.solve_gp_closure(model, plain_gps, x0, 0.0, DE_DT_SAVE, DE_SAVES, n_substeps=DE_SUBSTEPS)
+        torch.cuda.synchronize()
+        de_plain_s = time.perf_counter() - t_de
+        log(f"plain-backed DE: {de_plain_s * 1e3:.1f} ms wall; max |x - x0| = {float((traj[-1] - x0).abs().max()):.3e}")
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t_p = time.perf_counter()
+            tgc.solve_gp_closure(model, gps, x0, 0.0, DE_DT_SAVE, 2, n_substeps=DE_SUBSTEPS)
+            torch.cuda.synchronize()
+            de_prof_wall = (time.perf_counter() - t_p) * 1e3
+        on_dev = benchmarks._on_device(prof)
+        de_busy = benchmarks._device_ms(on_dev)
+        de_ops = sum(e.count for e in on_dev)
+        log(f"profiled DE window, 2 saves x {DE_SUBSTEPS} substeps x 4 stages (torch.profiler): wall {de_prof_wall:.2f} ms, "
+            f"device busy {de_busy:.3f} ms, idle share {1.0 - de_busy / de_prof_wall:.3f}, {de_ops} device ops "
+            f"({de_ops / (2 * DE_SUBSTEPS * 4):.1f} per stage)")
+        for e in sorted(on_dev, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"  {e.key[:60]}: {e.count} x, {e.self_device_time_total * 1e-3:.3f} ms")
+        if not float((traj[-1] - x0).abs().max()) > 1e-4:
+            raise RuntimeError("the GP-closure DE did not evolve")
+        path_checks["gp_closure_de_trajectory"] = compare(
+            "GP-closure DE trajectory, kernel vs plain Gram", traj, want_de, rtol=DE_RTOL, atol=DE_ATOL)
+
+    with phase("16 train-gp CLI on the card: two synthetic sims, ML-II with --gram-backend cuda, --integrate"):
+        with tempfile.TemporaryDirectory() as out:
+            cmd = [sys.executable, "-m", "climateparameterizations_jl_tpu_torch.cli", "train-gp",
+                   "--sims", "strong_wind", "--test-sims", "strong_wind_weak_cooling", "--fluxes", "uw,vw,wT",
+                   "--optimize-hyperparams", "--hyperopt-iters", "5", "--gram-backend", "cuda", "--integrate",
+                   "--output", out]
+            t_cli = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+            cli_s = time.perf_counter() - t_cli
+            for line in (proc.stdout + proc.stderr).strip().splitlines()[-12:]:
+                log(f"  {line}")
+            if proc.returncode != 0:
+                raise RuntimeError(f"train-gp exited {proc.returncode}")
+            with open(Path(out) / "gp_report.json") as f:
+                report = json.load(f)
+        log(f"train-gp took {cli_s:.1f}s; gp_report.json: {json.dumps(report)}")
+        if sorted(report) != ["gp_de", "uw", "vw", "wT"] or not all(
+                math.isfinite(report[f]["mse"]) and report[f]["mean_posterior_variance"] >= 0.0 for f in ("uw", "vw", "wT")):
+            raise RuntimeError("gp_report.json lacks a flux or holds a non-finite value")
+        if not (math.isfinite(report["gp_de"]["trajectory_mse"]) and report["gp_de"]["frames"] == 33):
+            raise RuntimeError("gp_report.json has no finite GP-closure DE result")
+
+    with phase("17 bench_gram / bench_cholesky at the path's shapes"):
+        gbench = {fam: benchmarks.bench_gram(GP_N, GP_N, GP_D, family=fam, device=dev)
+                  for fam in ("squared_exponential", "matern12")}
+        for fam, r in gbench.items():
+            log(f"gram {GP_N}x{GP_N}x{GP_D} {fam}, device us per call, torch.profiler (wall us back to back): "
+                + ", ".join(f"{k} {r[k + '_ms'] * 1e3:.2f} ({r[k + '_wall_ms'] * 1e3:.2f})" for k in ("cuda", "plain", "cdist"))
+                + f"; kernel vs plain max abs off the coincident pairs {r['max_abs_err_vs_plain']:.3e}")
+        g = gbench["squared_exponential"]
+        g_ops, g_bytes = g["flops"] / PEAK_F32_FLOPS * 1e3, g["bytes"] / PEAK_BYTES_PER_S * 1e3
+        g_bound, g_bound_by = (g_ops, "operations") if g_ops >= g_bytes else (g_bytes, "bytes")
+        log(f"gram bound: {g['flops']:.4e} flop / 67 TFLOP/s = {g_ops * 1e3:.3f} us; {g['bytes']} B / 3.35 TB/s = "
+            f"{g_bytes * 1e3:.3f} us; share of bound reached = {g_bound / g['cuda_ms']:.3f}")
+        cb = benchmarks.bench_cholesky(GP_N, 128, repeats=3, device=dev)
+        log(f"cholesky n = {GP_N}, device us per call, torch.profiler (wall us back to back): "
+            + ", ".join(f"{k} {cb[k + '_ms'] * 1e3:.2f} ({cb[k + '_wall_ms'] * 1e3:.2f})" for k in ("cuda", "plain", "library"))
+            + f"; kernel vs plain {cb['max_abs_err_vs_plain']:.3e}, vs library {cb['max_abs_err_vs_library']:.3e}")
+        # The same factorization of a matrix without subnormal entries (the SE
+        # Gram's off-diagonal exp(-d^2 / 2) ~ exp(-96) are subnormal in f32).
+        A = device_args(GP_N, GP_N, 90, dev)
+        K_dense = A @ A.T + GP_N * torch.eye(GP_N, device=dev)
+        dense_ms = {name: cuda_ms(fn, repeats=10)[0] for name, fn in (
+            ("cuda", lambda: ops_chol.cholesky_cuda(K_dense, 128)), ("library", lambda: torch.linalg.cholesky(K_dense)),
+            ("cuda_se", lambda: ops_chol.cholesky_cuda(cb["matrix"], 128)))}
+        log(f"cholesky n = {GP_N}, median ms per call by CUDA events (back to back): A A^T + n I: kernel "
+            f"{dense_ms['cuda']:.3f}, library {dense_ms['library']:.3f}; jittered SE Gram: kernel {dense_ms['cuda_se']:.3f}; "
+            f"subnormal entries in the SE Gram: {int(((cb['matrix'] != 0) & (cb['matrix'].abs() < 1.1754944e-38)).sum())}")
+        c_ops, c_bytes = cb["flops"] / PEAK_F32_FLOPS * 1e3, cb["bytes"] / PEAK_BYTES_PER_S * 1e3
+        c_bound, c_bound_by = (c_ops, "operations") if c_ops >= c_bytes else (c_bytes, "bytes")
+        log(f"cholesky bound: {cb['flops']:.4e} flop / 67 TFLOP/s = {c_ops * 1e3:.3f} us; {cb['bytes']} B / 3.35 TB/s = "
+            f"{c_bytes * 1e3:.3f} us; share of bound reached = {c_bound / cb['cuda_ms']:.4f}")
+
+    gram_record = {
+        "name": "gram",
+        "route": "cuda",
+        "source": "climateparameterizations_jl_tpu_torch/csrc/gram.cu",
+        "replaces": "climateparameterizations_jl_tpu/ops/gram.py:125",
+        "launches": gram_launches["gp_closure_de"],
+        "launches_by_path": gram_launches,
+        "max_abs_err": max(gram_errors.values()),
+        "coincident_max_abs_err": max(gram_coincident.values()),
+        "errors": gram_errors,
+        "path_checks": path_checks,
+        "ms": g["cuda_ms"],
+        "plain_ms": g["plain_ms"],
+        "bound_ms": g_bound,
+        "bound_by": g_bound_by,
+        "library_ms": None,
+        "cdist_ms": g["cdist_ms"],
+        "wall_ms": g["cuda_wall_ms"],
+        "matern12_ms": gbench["matern12"]["cuda_ms"],
+        "shape": {"M": GP_N, "N": GP_N, "D": GP_D, "family": "squared_exponential"},
+        "bench_gp_ms": {"cuda": gp["ms"], "plain": plain_gp["ms"]},
+        "ml2_step_ms": {"cuda": ml2["ms"], "plain": plain_ml2["ms"]},
+        "gp_closure_de_s": {"cuda": de_s, "plain": de_plain_s},
+        "gp_closure_de_profile": {"stages": 2 * DE_SUBSTEPS * 4, "wall_ms": de_prof_wall, "device_busy_ms": de_busy,
+                                  "device_idle_share": 1.0 - de_busy / de_prof_wall, "device_ops": de_ops},
+        "train_gp_cli_s": cli_s,
+        "ptxas": ptxas_summary(gram_k.ptxas_report),
+        "build_s": gram_k.build_seconds,
+    }
+    chol_record = {
+        "name": "cholesky",
+        "route": "cuda",
+        "source": "climateparameterizations_jl_tpu_torch/csrc/cholesky.cu",
+        "replaces": "climateparameterizations_jl_tpu/ops/cholesky.py:122",
+        "launches": chol_launches,
+        "factorizations": len(cases),
+        "max_abs_err": max(chol_errors.values()),
+        "errors": chol_errors,
+        "ms": cb["cuda_ms"],
+        "plain_ms": cb["plain_ms"],
+        "bound_ms": c_bound,
+        "bound_by": c_bound_by,
+        "library_ms": cb["library_ms"],
+        "wall_ms": cb["cuda_wall_ms"],
+        "library_wall_ms": cb["library_wall_ms"],
+        "dense_matrix_event_ms": dense_ms,
+        "shape": {"n": GP_N, "block": 128, "launches_per_call": chol_k.launches_per_call(GP_N)},
+        "ptxas": ptxas_summary(chol_k.ptxas_report),
+        "build_s": chol_k.build_seconds,
+    }
+    return gram_record, chol_record
 
 
 def main() -> int:
@@ -165,7 +566,7 @@ def main() -> int:
         log("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, torch.backends.cudnn.allow_tf32 = False")
         print(smi, flush=True)
 
-    with phase("2 build fused_rk4 and thomas (one nvcc each, side by side)"):
+    with phase("2 build fused_rk4, thomas, gram and cholesky (one nvcc each, side by side)"):
         _cuda.load_all()
         for k in _cuda.KERNELS.values():
             log(f"{k.source.name}: nvcc+load {k.build_seconds:.2f}s from {k.source.relative_to(REPO)}")
@@ -389,8 +790,11 @@ def main() -> int:
         "train_setup_s": setup_s,
         "build_s": thomas.build_seconds,
     }
+    gram_record, chol_record = gp_phases(dev)
+    record["ptxas"] = ptxas_summary(kernel.ptxas_report)
+    thomas_record["ptxas"] = ptxas_summary(thomas.ptxas_report)
     print(smi, flush=True)
-    print(json.dumps({"kernels": [record, thomas_record]}), flush=True)
+    print(json.dumps({"kernels": [record, thomas_record, gram_record, chol_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}), flush=True)
     return 0
 

@@ -8,6 +8,14 @@
   every implicit solve through the CUDA kernel ``csrc/thomas.cu``.
 - :func:`bench_tridiagonal` (``benchmarks.py:420``): the batched solve
   alone, kernel against its plain versions and a dense library solve.
+- :func:`bench_gp` (``benchmarks.py:116``) and :func:`bench_gp_ml2_step`
+  (``:151``): the exact-GP build of three flux models at n = 1,024 and
+  D = 96 (the reference's ``Benchmarking.jl:40-52``), and one ML-II step,
+  with every Gram through the CUDA kernel ``csrc/gram.cu`` on the
+  ``"cuda"`` backend.
+- :func:`bench_gram` and :func:`bench_cholesky`: the Gram kernel and the
+  Cholesky kernel ``csrc/cholesky.cu`` alone, beside their plain versions
+  and yardsticks.
 
 Each is timed with CUDA events after a warm-up, and runs on the card only:
 with no card it raises.
@@ -82,6 +90,26 @@ def make_setup(Nz: int = 32, n_columns: int = 1024, seed: int = 0, nns=None, dev
     return model, nns, bcs, torch.tensor(x0, dtype=torch.float32, device=device)
 
 
+def _timed(fn, repeats: int, device) -> tuple[list, object]:
+    """CUDA-event ms of ``repeats`` calls of ``fn`` after one warm-up; returns ``(times, last result)``."""
+    out = fn()
+    torch.cuda.synchronize(device)
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, out
+
+
+def _stats(times: list, device) -> dict:
+    return {"device": torch.cuda.get_device_name(device), "ms": times, "ms_min": min(times),
+            "ms_median": statistics.median(times), "ms_max": max(times)}
+
+
 def bench_nde_forward(n_columns: int = 1024, Nz: int = 32, n_steps: int = 1024, repeats: int = 5,
                       nns=None, seed: int = 0, device=None) -> dict:
     """Time the fused forward solve; returns ms (min/median/max) and column-timesteps/s.
@@ -94,25 +122,14 @@ def bench_nde_forward(n_columns: int = 1024, Nz: int = 32, n_steps: int = 1024, 
         raise RuntimeError("bench_nde_forward times the CUDA kernel; it needs a card")
     model, nns, bcs, x0 = make_setup(Nz, n_columns, seed, nns, device)
     run = make_fused_runner_mxu(model, nns, bcs, FORWARD_DT, n_steps, n_columns, device=device)
-    out = run(x0)  # warm-up: builds and loads the kernel on first use
-    torch.cuda.synchronize(device)
-    times = []
-    for _ in range(repeats):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = run(x0)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+    # The warm-up call builds and loads the kernel on first use.
+    times, out = _timed(lambda: run(x0), repeats, device)
     if not bool(torch.isfinite(out).all()):
         raise RuntimeError("forward solve produced non-finite values")
-    median = statistics.median(times)
+    stats = _stats(times, device)
     return {
-        "device": torch.cuda.get_device_name(device),
-        "n_columns": n_columns, "n_steps": n_steps, "repeats": repeats,
-        "ms": times, "ms_min": min(times), "ms_median": median, "ms_max": max(times),
-        "column_timesteps_per_sec": n_columns * n_steps / (median * 1e-3),
+        **stats, "n_columns": n_columns, "n_steps": n_steps, "repeats": repeats,
+        "column_timesteps_per_sec": n_columns * n_steps / (stats["ms_median"] * 1e-3),
         "calls": repeats + 1,
     }
 
@@ -206,35 +223,26 @@ def bench_train_step(setup: dict | None = None, n_timed: int = 5, device=None, *
     loss_fn = make_wind_mixing_loss_fn(model, batch, scalings, config)
     optimizer = _make_optimizer(config, nns)
 
+    losses = []
+
     def step():
         optimizer.zero_grad(set_to_none=True)
         total, _ = loss_fn(nns)
         total.backward()
         optimizer.step()
-        return total.detach()
+        losses.append(total.detach())
 
-    losses = [step()]  # warm-up
-    torch.cuda.synchronize(device)
-    times = []
-    for _ in range(n_timed):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        losses.append(step())
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+    times, _ = _timed(step, n_timed, device)
     losses = torch.stack(losses).tolist()
     if not all(np.isfinite(losses)):
         raise RuntimeError(f"training step produced a non-finite loss: {losses}")
-    median = statistics.median(times)
+    stats = _stats(times, device)
     sims = batch.x0.shape[0]
     return {
-        "device": torch.cuda.get_device_name(device),
+        **stats,
         "tridiag_backend": resolve_tridiag_backend(config.tridiag_backend, setup["substeps"], device),
         "sims": sims, "substeps": setup["substeps"], "Nz": model.Nz,
-        "ms": times, "ms_min": min(times), "ms_median": median, "ms_max": max(times),
-        "column_timesteps_per_sec": sims * setup["substeps"] / (median * 1e-3),
+        "column_timesteps_per_sec": sims * setup["substeps"] / (stats["ms_median"] * 1e-3),
         "losses": losses, "steps": 1 + n_timed, "presolve_substeps": setup["substeps"],
     }
 
@@ -364,3 +372,180 @@ def profile_train_step(setup: dict, n_saves: int = 2, device=None, **config_over
         "device_idle_share": 1.0 - busy_ms / wall_ms, "device_ops": ops, "device_ops_per_substep": ops / substeps,
         "top": [(e.key[:60], e.count, e.self_device_time_total * 1e-3) for e in top],
     }
+
+
+# ---------------------------------------------------------------------------
+# Gaussian-process closure
+# ---------------------------------------------------------------------------
+
+GP_TARGETS = 33  # Nz + 1 flux faces per flux at Nz = 32
+
+
+def gp_inputs(n_train: int = 1024, n_features: int = 96, n_targets: int = GP_TARGETS, seed: int = 0, device=None):
+    """``(x, ys, z)`` of the GP benchmarks: standard-normal predictors and three target sets.
+
+    The shapes are the JAX package's ``bench_gp`` (reference
+    ``Benchmarking.jl:40-52``); the numbers come from a ``torch.Generator``
+    seeded with ``seed``, so they are not JAX's (its ``jax.random`` keys).
+    """
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n_train, n_features, generator=gen)
+    ys = [torch.randn(n_train, n_targets, generator=gen) for _ in range(3)]
+    z = torch.linspace(0.0, 1.0, n_features)
+    return x.to(device), [y.to(device) for y in ys], z.to(device)
+
+
+def gp_build_three(x, ys, z, backend: str = "cuda"):
+    """The three flux GPs of the benchmark: one squared-exponential kernel, shared predictors.
+
+    ``gp_fit_multi`` factorizes once with stacked targets on the plain
+    backend and fits each flux alone on the kernel backend (one Gram launch
+    each), as the JAX package's ``bench_gp`` does for its two backends.
+    """
+    from climateparameterizations_jl_tpu_torch.closures.gp import get_kernel, gp_fit_multi
+
+    kernel = get_kernel(1, 0.0, 0.0, "euclidean", dtype=torch.float32, backend=backend, device=x.device)
+    return gp_fit_multi(x, ys, [kernel] * 3, z)
+
+
+def bench_gp(n_train: int = 1024, n_features: int = 96, backend: str = "cuda", repeats: int = 5, seed: int = 0,
+             device=None) -> dict:
+    """Time the exact-GP build of three flux models (Gram + Cholesky + solve each).
+
+    One warm-up build, then ``repeats`` builds between CUDA events. Returns
+    ms per build (min/median/max), ``builds`` (warm-up included) and the
+    last build's models.
+    """
+    device = _require_card(device, "bench_gp")
+    x, ys, z = gp_inputs(n_train, n_features, seed=seed, device=device)
+    times, models = _timed(lambda: gp_build_three(x, ys, z, backend), repeats, device)
+    if not all(bool(torch.isfinite(m.alpha).all()) for m in models):
+        raise RuntimeError("GP build produced non-finite weights")
+    return {**_stats(times, device), "n_train": n_train, "n_features": n_features, "backend": backend,
+            "builds": repeats + 1, "models": models}
+
+
+def _ml2_raw(device):
+    return {n: torch.zeros((), dtype=torch.float32, device=device, requires_grad=True)
+            for n in ("gamma", "sigma", "alpha")}
+
+
+def _ml2_loss(x, y, z, raw, backend: str):
+    from climateparameterizations_jl_tpu_torch.closures.gp import GPKernel, gp_fit, mean_log_marginal_loss
+
+    k = GPKernel(gamma=torch.exp(raw["gamma"]), sigma=torch.exp(raw["sigma"]), alpha=torch.exp(raw["alpha"]),
+                 backend=backend)
+    return mean_log_marginal_loss(gp_fit(x, y, k, z), y, add_constant=True)
+
+
+def ml2_loss_and_grad(n_train: int = 1024, n_features: int = 96, backend: str = "cuda", seed: int = 0, device=None):
+    """One ML-II loss and its gradient in ``(log gamma, log sigma, log alpha)`` at zero, on the benchmark's inputs."""
+    device = resolve_device(device)
+    x, ys, z = gp_inputs(n_train, n_features, seed=seed, device=device)
+    raw = _ml2_raw(device)
+    loss = _ml2_loss(x, ys[0], z, raw, backend)
+    # The squared exponential leaves alpha unused: its gradient is zero.
+    grads = torch.autograd.grad(loss, list(raw.values()), allow_unused=True, materialize_grads=True)
+    return loss.detach(), torch.stack(grads)
+
+
+def bench_gp_ml2_step(n_train: int = 1024, n_features: int = 96, backend: str = "cuda", repeats: int = 5,
+                      seed: int = 0, device=None) -> dict:
+    """Time one ML-II step: the negative log marginal likelihood, its gradient and an adam update.
+
+    The JAX package's ``bench_gp_ml2_step``: a squared-exponential
+    :class:`GPKernel` over ``(gamma, sigma, alpha)`` in log space, from 0,
+    with adam at learning rate 0.05. Each step builds one Gram (one kernel
+    launch on ``backend="cuda"``), factorizes it and differentiates through
+    the factorization. Returns ms per step and ``steps`` (warm-up included).
+    """
+    device = _require_card(device, "bench_gp_ml2_step")
+    x, ys, z = gp_inputs(n_train, n_features, seed=seed, device=device)
+    raw = _ml2_raw(device)
+    optimizer = torch.optim.Adam(list(raw.values()), lr=0.05, betas=(0.9, 0.999), eps=1e-8)
+
+    def step():
+        optimizer.zero_grad(set_to_none=True)
+        loss = _ml2_loss(x, ys[0], z, raw, backend)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    times, loss = _timed(step, repeats, device)
+    if not bool(torch.isfinite(loss)):
+        raise RuntimeError(f"ML-II step produced a non-finite loss: {float(loss)}")
+    return {**_stats(times, device), "n_train": n_train, "n_features": n_features, "backend": backend,
+            "steps": repeats + 1, "loss": float(loss)}
+
+
+def bench_gram(M: int = 1024, N: int = 1024, D: int = 96, family: str = "squared_exponential",
+               repeats: int = 50, seed: int = 0, device=None) -> dict:
+    """The Gram kernel alone on the card: device and wall ms per call, beside its plain version.
+
+    ``cuda`` is ``ops/gram.py::gram_cuda`` (the kernel), ``plain`` its plain
+    version ``gram_plain``. No single PyTorch call computes a kernel matrix,
+    so there is no library yardstick; ``cdist`` (``torch.cdist``, the
+    distance part alone) is timed beside it for scale. Times as in
+    :func:`bench_tridiagonal`. Also returns the kernel's largest deviation
+    from ``gram_plain`` off the coincident pairs.
+    """
+    device = _require_card(device, "bench_gram")
+    from climateparameterizations_jl_tpu_torch.ops import gram as ops_gram
+
+    gen = torch.Generator().manual_seed(seed)
+    A = torch.randn(M, D, generator=gen).to(device)
+    B = torch.randn(N, D, generator=gen).to(device)
+    hyp = [torch.tensor(v, device=device) for v in (1.0, 1.0, 1.0)]
+    calls = {
+        "cuda": lambda: ops_gram.gram_cuda(A, B, *hyp, family=family),
+        "plain": lambda: ops_gram.gram_plain(A, B, *hyp, family=family),
+        "cdist": lambda: torch.cdist(A, B),
+    }
+    out = {"M": M, "N": N, "D": D, "family": family, "repeats": repeats}
+    results = {name: fn() for name, fn in calls.items()}
+    for name, fn in calls.items():
+        t = _per_call_ms(fn, repeats, device)
+        out[f"{name}_ms"], out[f"{name}_wall_ms"] = t["device"], t["wall"]
+    d2, aa, bb = ops_gram._sq_distances(A, B)
+    off = ~(d2 <= 1e-7 * (aa + bb))
+    out["max_abs_err_vs_plain"] = float((results["cuda"] - results["plain"]).abs()[off].max())
+    out["flops"] = 2 * M * N * D + 2 * (M + N) * D
+    out["bytes"] = 4 * (M * D + N * D + M * N)
+    return out
+
+
+def bench_cholesky(n: int = 1024, block: int = 128, repeats: int = 20, seed: int = 0, device=None) -> dict:
+    """The Cholesky kernel alone on the card, beside ``cholesky_plain`` and ``torch.linalg.cholesky``.
+
+    The matrix is the jittered squared-exponential Gram of the GP benchmark's
+    inputs (``gp_inputs``; gamma = sigma = 1), f32. ``library`` is
+    ``torch.linalg.cholesky`` (cuSOLVER), a yardstick the port never calls
+    on this kernel's behalf. Times as in :func:`bench_tridiagonal`. Also
+    returns the kernel's largest deviation from ``cholesky_plain`` and from
+    the library factor, and the factorized ``matrix``.
+    """
+    device = _require_card(device, "bench_cholesky")
+    from climateparameterizations_jl_tpu_torch.closures.gp import default_jitter
+    from climateparameterizations_jl_tpu_torch.ops import cholesky as ops_chol
+    from climateparameterizations_jl_tpu_torch.ops import gram as ops_gram
+
+    x = gp_inputs(n, seed=seed, device=device)[0]
+    K = ops_gram.gram_plain(x, x, 1.0, 1.0)
+    K = K + K.max() * default_jitter(K.dtype) * torch.eye(n, device=device)
+    calls = {
+        "cuda": lambda: ops_chol.cholesky_cuda(K, block),
+        "plain": lambda: ops_chol.cholesky_plain(K, block),
+        "library": lambda: torch.linalg.cholesky(K),
+    }
+    out = {"n": n, "block": block, "repeats": repeats}
+    results = {name: fn() for name, fn in calls.items()}
+    for name, fn in calls.items():
+        t = _per_call_ms(fn, repeats, device)
+        out[f"{name}_ms"], out[f"{name}_wall_ms"] = t["device"], t["wall"]
+    out["max_abs_err_vs_plain"] = float((results["cuda"] - results["plain"]).abs().max())
+    out["max_abs_err_vs_library"] = float((results["cuda"] - results["library"]).abs().max())
+    out["flops"] = n**3 / 3
+    out["bytes"] = 8 * n * n
+    out["matrix"] = K
+    return out

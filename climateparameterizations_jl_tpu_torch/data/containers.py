@@ -215,3 +215,17 @@ def training_tensors(ds: ColumnTimeSeries, scalings: WindMixingScalings, tsteps,
         t=t_row.index_select(0, idx) / tau,
         tau=tau,
     )
+
+
+def direct_regression_pairs(ds: ColumnTimeSeries, scalings: WindMixingScalings, flux: str = "wT"):
+    """(predictor, target) pairs for direct flux regression.
+
+    Predictors are scaled states ``(S * Nt, 3 Nz)``; targets the scaled flux
+    faces ``(S * Nt, Nz + 1)``. Parity: the ``training_data`` pairs in
+    ``FluxData`` (``data_containers.jl:410-414``).
+    """
+    if flux not in ("uw", "vw", "wT"):
+        raise KeyError(f"flux must be one of uw/vw/wT, got {flux!r}")
+    x = scaled_state_array(ds, scalings)
+    y = getattr(scalings, flux).scale(getattr(ds, flux))
+    return x.reshape(-1, x.shape[-1]), y.reshape(-1, y.shape[-1])

@@ -250,10 +250,103 @@ class ThomasKernel(_Kernel):
         return out
 
 
+GRAM_FAMILIES = ("squared_exponential", "matern12", "matern32", "matern52", "rational_quadratic")
+
+
+class GramKernel(_Kernel):
+    """``csrc/gram.cu``: fused Gram matrix ``K = k(||A_i - B_j||)`` of contiguous f32 rows."""
+
+    source = SOURCE_DIR / "gram.cu"
+
+    def _bind(self, lib) -> None:
+        lib.gram_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.gram_launch.restype = ctypes.c_int
+        lib.gram_error_string.argtypes = [ctypes.c_int]
+        lib.gram_error_string.restype = ctypes.c_char_p
+        for name in ("gram_tile", "gram_threads_per_block"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+
+    def __call__(self, A: torch.Tensor, B: torch.Tensor, params: torch.Tensor, family: str) -> torch.Tensor:
+        """Launch on ``A (M, D)``, ``B (N, D)`` and ``params = (gamma, sigma, alpha)``; returns ``K (M, N)``."""
+        args = (A, B, params)
+        if A.device.type != "cuda" or any(a.device != A.device for a in args):
+            raise ValueError(f"gram needs A, B and params on one CUDA device, got {[str(a.device) for a in args]}")
+        if any(a.dtype != torch.float32 for a in args):
+            raise ValueError(f"gram takes float32, got {[a.dtype for a in args]}")
+        if A.dim() != 2 or B.dim() != 2 or A.shape[1] != B.shape[1]:
+            raise ValueError(f"gram expects A (M, D) and B (N, D), got {tuple(A.shape)} and {tuple(B.shape)}")
+        if params.shape != (3,):
+            raise ValueError(f"gram expects params (gamma, sigma, alpha) of shape (3,), got {tuple(params.shape)}")
+        if not all(a.is_contiguous() for a in args):
+            raise ValueError("gram takes contiguous tensors")
+        if family not in GRAM_FAMILIES:
+            raise ValueError(f"unknown kernel family {family!r}")
+        (M, D), N = A.shape, B.shape[0]
+        if M == 0 or N == 0 or D == 0:
+            raise ValueError(f"gram needs M, N, D >= 1, got {M}, {N}, {D}")
+        lib = self.load()
+        out = torch.empty((M, N), dtype=torch.float32, device=A.device)
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        rc = lib.gram_launch(
+            *(ctypes.c_void_p(a.data_ptr()) for a in (*args, out)),
+            M, N, D, GRAM_FAMILIES.index(family), _device_index(A), ctypes.c_void_p(stream),
+        )
+        self._check(rc, "gram")
+        self.launches += 1
+        return out
+
+
+class CholeskyKernel(_Kernel):
+    """``csrc/cholesky.cu``: blocked Cholesky factor of a contiguous f32 ``(n, n)`` SPD matrix.
+
+    One call launches ``cholesky_launch_count(n)`` kernels on the current
+    stream; ``launches`` counts every one of them.
+    """
+
+    source = SOURCE_DIR / "cholesky.cu"
+
+    def _bind(self, lib) -> None:
+        lib.cholesky_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+        lib.cholesky_launch.restype = ctypes.c_int
+        lib.cholesky_error_string.argtypes = [ctypes.c_int]
+        lib.cholesky_error_string.restype = ctypes.c_char_p
+        lib.cholesky_tile.argtypes = []
+        lib.cholesky_tile.restype = ctypes.c_int
+        lib.cholesky_launch_count.argtypes = [ctypes.c_int]
+        lib.cholesky_launch_count.restype = ctypes.c_int
+
+    def launches_per_call(self, n: int) -> int:
+        return self.load().cholesky_launch_count(n)
+
+    def __call__(self, K: torch.Tensor) -> torch.Tensor:
+        """Factorize ``K (n, n)``; returns the lower factor ``L`` with a zero upper triangle."""
+        if K.device.type != "cuda":
+            raise ValueError(f"cholesky needs a CUDA tensor, got {K.device}")
+        if K.dtype != torch.float32:
+            raise ValueError(f"cholesky takes float32, got {K.dtype}")
+        if K.dim() != 2 or K.shape[0] != K.shape[1] or K.shape[0] == 0:
+            raise ValueError(f"cholesky expects a non-empty square matrix, got {tuple(K.shape)}")
+        if not K.is_contiguous():
+            raise ValueError("cholesky takes a contiguous tensor")
+        lib = self.load()
+        out = torch.empty_like(K)
+        launched = ctypes.c_int(0)
+        stream = torch.cuda.current_stream(K.device).cuda_stream
+        rc = lib.cholesky_launch(ctypes.c_void_p(K.data_ptr()), ctypes.c_void_p(out.data_ptr()), K.shape[0],
+                                 _device_index(K), ctypes.c_void_p(stream), ctypes.byref(launched))
+        self.launches += launched.value
+        self._check(rc, "cholesky")
+        return out
+
+
 FUSED_RK4 = FusedRK4Kernel()
 THOMAS = ThomasKernel()
+GRAM = GramKernel()
+CHOLESKY = CholeskyKernel()
 
-KERNELS = {"fused_rk4": FUSED_RK4, "thomas": THOMAS}
+KERNELS = {"fused_rk4": FUSED_RK4, "thomas": THOMAS, "gram": GRAM, "cholesky": CHOLESKY}
 
 
 def _timed_build(source: Path) -> float:

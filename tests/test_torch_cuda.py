@@ -1,4 +1,4 @@
-"""Card-only tests of the port's CUDA kernel against its plain version.
+"""Card-only tests of the port's CUDA kernels against their plain versions.
 
 Every test carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is false (decided inside the test). This file
@@ -173,3 +173,110 @@ def test_thomas_broadcast_noncontiguous_input(card):
     got = tri.tridiagonal_solve(dl, d, du.t().contiguous().t(), b3, backend="cuda")
     want = tri.tridiagonal_solve(dl, d, du, b3, backend="scan")
     torch.testing.assert_close(got, want, rtol=THOMAS_RTOL, atol=THOMAS_ATOL)
+
+
+# --- csrc/gram.cu against its plain version, gram_plain ---------------------
+# Tolerance: the JAX test's (tests/test_gp.py::TestPallasGram), two f32
+# Gram-trick evaluations summed in other orders; the inputs have no
+# coincident pairs (A and B drawn apart), where the f32 cancellation of
+# aa + bb - 2ab would dominate (see chip_smoke.py).
+GRAM_RTOL, GRAM_ATOL = 2e-5, 2e-6
+GRAM_FAMILIES = ["squared_exponential", "matern12", "matern32", "matern52", "rational_quadratic"]
+
+
+def _normal(dev, shape, seed):
+    import numpy as np
+
+    return torch.tensor(np.random.default_rng(seed).normal(size=shape), dtype=torch.float32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", GRAM_FAMILIES)
+@pytest.mark.parametrize("shape", [(37, 23, 12), (300, 257, 130), (1, 65, 1), (1024, 1024, 96)])
+def test_gram_matches_plain(card, family, shape):
+    from climateparameterizations_jl_tpu_torch.ops import gram
+
+    M, N, D = shape
+    A, B = _normal(card, (M, D), sum(shape)), _normal(card, (N, D), sum(shape) + 1)
+    before = _cuda.GRAM.launches
+    got = gram.gram_cuda(A, B, 1.7, 0.8, 1.3, family=family)
+    torch.cuda.synchronize()
+    assert _cuda.GRAM.launches == before + 1 and got.shape == (M, N)
+    torch.testing.assert_close(got, gram.gram_plain(A, B, 1.7, 0.8, 1.3, family=family), rtol=GRAM_RTOL,
+                               atol=GRAM_ATOL)
+
+
+@pytest.mark.cuda
+def test_gram_backward_matches_plain_autograd(card):
+    from climateparameterizations_jl_tpu_torch.closures.gp import GPKernel
+
+    A, B, Kbar = _normal(card, (11, 5), 1), _normal(card, (9, 5), 2), _normal(card, (11, 9), 3)
+    grads = {}
+    for backend in ("cuda", "plain"):
+        leaves = [A.clone().requires_grad_(True), B.clone().requires_grad_(True)] + [
+            torch.tensor(v, device=card, requires_grad=True) for v in (1.3, 0.9, 1.4)]
+        k = GPKernel(*leaves[2:], family="rational_quadratic", backend=backend)
+        torch.sum(Kbar * k.gram(leaves[0], leaves[1], None)).backward()
+        grads[backend] = [leaf.grad for leaf in leaves]
+    for gk, gp in zip(grads["cuda"], grads["plain"]):
+        torch.testing.assert_close(gk, gp, rtol=2e-4, atol=2e-4)  # the JAX gradient test's tolerance
+
+
+@pytest.mark.cuda
+def test_gram_refusals(card):
+    from climateparameterizations_jl_tpu_torch.ops import gram
+
+    A = _normal(card, (8, 4), 4)
+    params = torch.ones(3, device=card)
+    with pytest.raises(ValueError, match="float32"):
+        _cuda.GRAM(A.double(), A.double(), params.double(), "matern12")
+    with pytest.raises(ValueError, match="contiguous"):
+        _cuda.GRAM(A.t(), A.t(), params, "matern12")
+    with pytest.raises(ValueError, match="CUDA device"):
+        _cuda.GRAM(A.cpu(), A.cpu(), params.cpu(), "matern12")
+    with pytest.raises(ValueError, match="unknown kernel family"):
+        _cuda.GRAM(A, A, params, "cosine")
+    with pytest.raises(ValueError, match="feature mismatch"):
+        gram.gram_cuda(A, A[:, :3], 1.0, 1.0)
+    assert gram.gram_cuda(A.double(), A.double(), 1.0, 1.0).dtype == torch.float32
+
+
+# --- csrc/cholesky.cu against cholesky_plain and torch.linalg.cholesky ------
+# Tolerance: the JAX test's 5e-4 (tests/test_tridiagonal.py::TestPallasCholesky).
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,block", [(256, 128), (256, 256), (1024, 128), (1000, 8), (33, 1)])
+def test_cholesky_matches_plain_and_library(card, n, block):
+    from climateparameterizations_jl_tpu_torch.ops import cholesky
+
+    A = _normal(card, (n, n), n)
+    K = A @ A.T + n * torch.eye(n, device=card)
+    before = _cuda.CHOLESKY.launches
+    L = cholesky.cholesky_cuda(K, block)
+    torch.cuda.synchronize()
+    assert _cuda.CHOLESKY.launches - before == _cuda.CHOLESKY.launches_per_call(n) == 3 * -(-n // 32) - 1
+    assert float(torch.triu(L, 1).abs().max()) == 0.0
+    torch.testing.assert_close(L, cholesky.cholesky_plain(K, block), rtol=5e-4, atol=5e-4)
+    torch.testing.assert_close(L, torch.linalg.cholesky(K), rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.cuda
+def test_cholesky_not_positive_definite_gives_nan(card):
+    from climateparameterizations_jl_tpu_torch.ops import cholesky
+
+    L = cholesky.cholesky_cuda(-torch.eye(64, device=card), 32)
+    assert bool(torch.isnan(L).any())
+    with pytest.raises(ValueError, match="multiple of block"):
+        cholesky.cholesky_cuda(torch.eye(100, device=card), 32)
+
+
+@pytest.mark.cuda
+def test_gp_closure_shares_one_gram_per_stage(card):
+    from climateparameterizations_jl_tpu_torch.models import gp_closure
+
+    models = benchmarks.gp_build_three(*benchmarks.gp_inputs(128, 96, device=card), backend="cuda")
+    model = benchmarks.make_setup(32, 4, device=card)[0]
+    x0 = models[0].x_train[:16] + 0.1
+    before = _cuda.GRAM.launches
+    traj = gp_closure.solve_gp_closure(model, gp_closure.FluxGPs(*models), x0, 0.0, 1e-4, 2, n_substeps=2)
+    torch.cuda.synchronize()
+    assert _cuda.GRAM.launches - before == 2 * 2 * 4 and bool(torch.isfinite(traj).all())
