@@ -89,23 +89,31 @@ TRAIN_TIMED_STEPS, SCAN_TIMED_STEPS = 3, 1
 GRAM_RTOL, GRAM_ATOL = 2e-5, 2e-6
 GRAM_SHAPES = ((37, 23, 12), (300, 257, 130), (1024, 1024, 96))
 GP_N, GP_D, GP_NZ = 1024, 96, 32
+# The JAX benchmark's length scale gamma = 1 leaves a Gram of standard-normal
+# features at D = 96 equal to the identity in f32 (off-diagonal entries
+# exp(-d^2 / 2) with d^2 ~ 2 D), so a wrong off-diagonal entry or a wrong
+# dK/dgamma cannot show there. Every GP check also runs where K is not
+# trivial: gamma^2 = median(d^2) / 2 for the Gram checks, gamma = sqrt(D) for
+# the GP build and the ML-II step (off-diagonal entries near exp(-1)).
+GP_WIDE_GAMMA = math.sqrt(GP_D)
 # Cholesky kernel vs cholesky_plain and torch.linalg.cholesky: the JAX test's
 # tolerance (tests/test_tridiagonal.py::TestPallasCholesky), f32 blocked
 # factorizations that sum in other orders.
 CHOL_TOL = 5e-4
-# One ML-II step, kernel vs plain backend from the same parameters. At these
-# inputs K is the identity to f32 precision off the diagonal (exp(-96)), so
-# the two training Grams differ only on the diagonal, by the coincident-pair
-# noise above (up to 1.3e-5 for the squared exponential at D = 96, measured
-# by phase 11 on the card). The loss is ~1.45e3 and moves by ~1e-8 of it. The
-# gradient in log sigma (~ -0.68) is the remainder of two terms of size
-# n / 2 = 512 (the data fit and the log-determinant), so the diagonal noise
-# moves it by up to about 512 x 1.3e-5 = 6.7e-3, 1 % of the gradient's norm;
-# the gradient in log gamma is made of that noise alone. The phase also
-# prints the first-order prediction of the difference from the diagonals,
-# to show that the diagonal explains it.
+# One ML-II step, kernel vs plain backend from the same parameters, on three
+# seeds' inputs, at two points:
+# - gamma = sqrt(D): the gradients are compared directly.
+# - gamma = sigma = 1 (the benchmark's point): K is the identity to f32
+#   precision off the diagonal, so the two training Grams differ only on the
+#   diagonal, by the coincident-pair noise above (dK_ii up to about 6e-5).
+#   The gradient in log sigma (-0.7 to -7) is the remainder of two terms of
+#   size n / 2 = 512, so that noise moves it by sum_i |(K^-1 Y)_i|^2 dK_ii /
+#   (2 D), about 3e-3, which the smoke computes from the two diagonals and
+#   subtracts; what is left is held to the same limit. The gradient in
+#   log gamma there is made of that noise and is ~1e-4.
 ML2_LOSS_RTOL = 1e-4
-ML2_GRAD_RTOL = 1e-2  # relative to the gradient's 2-norm
+ML2_GRAD_RTOL = 1e-3  # relative to the gradient's 2-norm
+ML2_SEEDS = (0, 1, 2)
 # GP-closure DE, kernel-backed vs plain-backed GPs with the same weights,
 # from states off the training points: f32 Gram roundoff (~1e-7 relative)
 # through 128 RK4 steps, amplified by the flux divergence (~32 / dz_hat).
@@ -271,7 +279,6 @@ def gp_phases(dev):
         torch.cuda.synchronize()
         compare_gram("tiny gram vs gram_plain", got, ops_gram.gram_plain(A, B, 1.0, 1.0), A, B,
                      "squared_exponential", (1.0, 1.0, 1.0))
-        hyp = (1.7, 0.8, 1.3)
         for i, (M, N, D) in enumerate(GRAM_SHAPES):
             A = device_args(M, D, 50 + i, dev)
             B = A if (M, N, D) == (GP_N, GP_N, GP_D) else device_args(N, D, 60 + i, dev)
@@ -279,25 +286,34 @@ def gp_phases(dev):
             for metric in ("euclidean", "derivative"):
                 tf = tgp._DISTANCE_TRANSFORMS[metric]
                 At, Bt = tf(A, z), tf(B, z)
-                for family in _cuda.GRAM_FAMILIES:
-                    got = ops_gram.gram_cuda(At, Bt, *hyp, family=family)
-                    torch.cuda.synchronize()
-                    want = ops_gram.gram_plain(At, Bt, *hyp, family=family)
-                    key = f"{M}x{N}x{D} {family} {metric}"
-                    gram_errors[key], gram_coincident[key], _ = compare_gram(
-                        f"gram {key}{' (training Gram, B is A)' if B is A else ''}", got, want, At, Bt, family, hyp)
+                # The JAX test's hyperparameters, then a length scale with
+                # gamma^2 = median(d^2) / 2, where the entries are O(0.1-1).
+                gamma_med = math.sqrt(0.5 * float(ops_gram._sq_distances(At.double(), Bt.double())[0].median()))
+                for hyp in ((1.7, 0.8, 1.3), (gamma_med, 0.8, 1.3)):
+                    for family in _cuda.GRAM_FAMILIES:
+                        got = ops_gram.gram_cuda(At, Bt, *hyp, family=family)
+                        torch.cuda.synchronize()
+                        want = ops_gram.gram_plain(At, Bt, *hyp, family=family)
+                        key = f"{M}x{N}x{D} {family} {metric} gamma={hyp[0]:.5g}"
+                        gram_errors[key], gram_coincident[key], _ = compare_gram(
+                            f"gram {key}{' (training Gram, B is A)' if B is A else ''}; median |K| "
+                            f"{float(want.abs().median()):.3e}", got, want, At, Bt, family, hyp)
 
     chol_errors = {}
     with phase("12 cholesky vs cholesky_plain and torch.linalg.cholesky (n = 256 and 1,024)"):
         log(f"cholesky: {chol_k.load().cholesky_tile()} x {chol_k.load().cholesky_tile()} tiles")
         x_gp = benchmarks.gp_inputs(GP_N, GP_D, device=dev)[0]
-        K_se = ops_gram.gram_cuda(x_gp, x_gp, 1.0, 1.0)
-        K_se = K_se + K_se.max() * tgp.default_jitter(K_se.dtype) * torch.eye(GP_N, device=dev)
+        def jittered_se(gamma):
+            K = ops_gram.gram_cuda(x_gp, x_gp, gamma, 1.0)
+            return K + K.max() * tgp.default_jitter(K.dtype) * torch.eye(GP_N, device=dev)
+
         cases = []
         for n, block, seed in ((256, 128, 70), (1024, 128, 71)):
             A = device_args(n, n, seed, dev)
             cases.append((f"A A^T + n I, n = {n}, block {block}", A @ A.T + n * torch.eye(n, device=dev), block))
-        cases.append((f"jittered squared-exponential Gram, n = {GP_N}, block 128", K_se, 128))
+        cases.append((f"jittered squared-exponential Gram, n = {GP_N}, block 128", jittered_se(1.0), 128))
+        cases.append((f"jittered squared-exponential Gram at gamma = sqrt(D), n = {GP_N}, block 128",
+                      jittered_se(GP_WIDE_GAMMA), 128))
         _cuda.reset_launch_counts()
         factors = [ops_chol.cholesky_cuda(K, block) for _, K, block in cases]
         torch.cuda.synchronize()
@@ -341,6 +357,37 @@ def gp_phases(dev):
             if not rel <= alpha_rtol:
                 raise RuntimeError("kernel-built and plain-built GPs disagree")
             path_checks[f"bench_gp alpha[{flux}] rel"] = rel
+        # The same build at gamma = sqrt(D), where K is far from the identity.
+        # The two builds solve in f32 with other Grams and other solves, so
+        # alpha may differ by the first-order error of a backward-stable solve,
+        # kappa(K_j) u with u = 2^-24; a kernel error of relative size e off the
+        # diagonal would add up to kappa e.
+        x_gp, ys_gp, z_gp = benchmarks.gp_inputs(GP_N, GP_D, device=dev)
+        before = gram_k.launches
+        wide = {be: benchmarks.gp_build_three(x_gp, ys_gp, z_gp, be, gamma=GP_WIDE_GAMMA) for be in ("cuda", "plain")}
+        if gram_k.launches != before + 3:
+            raise RuntimeError(f"the build at gamma = sqrt(D) counted {gram_k.launches - before} gram launches, not 3")
+        K_p = wide["plain"][0].kernel.gram(x_gp, x_gp, z_gp).double()
+        K_k = wide["cuda"][0].kernel.gram(x_gp, x_gp, z_gp).double()
+        K_j = K_p + float(K_p.max()) * tgp.default_jitter(torch.float32) * torch.eye(GP_N, device=dev,
+                                                                                        dtype=torch.float64)
+        eig = torch.linalg.eigvalsh(K_j)
+        kappa = float(eig[-1] / eig[0])
+        wide_rtol = kappa * 2.0**-24
+        off = ~torch.eye(GP_N, dtype=torch.bool, device=dev)
+        log(f"gamma = sqrt(D) = {GP_WIDE_GAMMA:.4f}: off-diagonal K median {float(K_p[off].median()):.3e}, min "
+            f"{float(K_p[off].min()):.3e}; kernel vs plain Gram max |dK| off the diagonal "
+            f"{float((K_k - K_p)[off].abs().max()):.3e}, on it {float((K_k - K_p).diagonal().abs().max()):.3e}; "
+            f"kappa(K_j) = {kappa:.4e}")
+        for flux, mk, mp in zip(("uw", "vw", "wT"), wide["cuda"], wide["plain"]):
+            a_p = mp.alpha.double()
+            rel = float((mk.alpha.double() - a_p).norm() / a_p.norm())
+            gram_part = float(torch.linalg.solve(K_j, (K_k - K_p) @ a_p).norm() / a_p.norm())
+            log(f"alpha[{flux}] at gamma = sqrt(D), kernel vs plain build: |da| / |a| = {rel:.3e} (limit kappa u = "
+                f"{wide_rtol:.3e}; the Grams' difference alone, to first order: {gram_part:.3e})")
+            if not (bool(torch.isfinite(mk.alpha).all()) and rel <= wide_rtol):
+                raise RuntimeError("kernel-built and plain-built GPs disagree at gamma = sqrt(D)")
+            path_checks[f"bench_gp gamma=sqrt(D) alpha[{flux}] rel"] = rel
 
     with phase(f"14 bench_gp_ml2_step({GP_N}, {GP_D}, 'cuda'): one ML-II step, kernel vs plain"):
         _cuda.reset_launch_counts()
@@ -352,29 +399,43 @@ def gp_phases(dev):
             raise RuntimeError(f"bench_gp_ml2_step counted {gram_k.launches} gram launches for {ml2['steps']} steps")
         plain_ml2 = benchmarks.bench_gp_ml2_step(GP_N, GP_D, backend="plain", repeats=3, device=dev)
         log(f"plain backend: ms per step median={plain_ml2['ms_median']:.3f}")
-        loss_k, grad_k = benchmarks.ml2_loss_and_grad(GP_N, GP_D, "cuda", device=dev)
-        loss_p, grad_p = benchmarks.ml2_loss_and_grad(GP_N, GP_D, "plain", device=dev)
-        loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-        grad_rel = float((grad_k - grad_p).norm() / grad_p.norm())
-        # First order in the diagonal difference dK_ii at gamma = sigma = 1:
-        # the log sigma gradient is g = (n - tr(K^-1 Y Y^T) / D) / 2 (K and its
-        # jitter both scale with sigma), so dg = sum_i |(K^-1 Y)_i|^2 dK_ii / (2 D).
-        x_ml, ys_ml, _ = benchmarks.gp_inputs(GP_N, GP_D, device=dev)
-        one = torch.ones((), device=dev)
-        K_k = tgp.GPKernel(one, one, one, backend="cuda").gram(x_ml, x_ml, None)
-        K_p = tgp.GPKernel(one, one, one).gram(x_ml, x_ml, None)
-        dK = torch.diagonal(K_k) - torch.diagonal(K_p)
-        K_j = K_p.double() + float(K_p.max()) * tgp.default_jitter(torch.float32) * torch.eye(GP_N, device=dev, dtype=torch.float64)
-        Kinv_y = torch.linalg.solve(K_j, ys_ml[0].double())
-        predicted = float(((Kinv_y**2).sum(1) * dK.double()).sum()) / (2 * ys_ml[0].shape[1])
-        log(f"diagonal of the two training Grams: max |dK_ii| = {float(dK.abs().max()):.3e}, mean dK_ii = "
-            f"{float(dK.mean()):.3e}; first-order prediction of the log sigma gradient's difference "
-            f"sum_i |(K^-1 Y)_i|^2 dK_ii / 2D = {predicted:.4e}, measured {float(grad_k[1] - grad_p[1]):.4e}")
-        log(f"one step, kernel vs plain: loss {float(loss_k):.8e} vs {float(loss_p):.8e} (rel {loss_rel:.3e}, limit "
-            f"{ML2_LOSS_RTOL}); gradient (log gamma, log sigma, log alpha) {grad_k.tolist()} vs {grad_p.tolist()}: "
-            f"|g_k - g_p| / |g_p| = {grad_rel:.3e} (limit {ML2_GRAD_RTOL})")
-        if not (bool(torch.isfinite(grad_k).all()) and loss_rel <= ML2_LOSS_RTOL and grad_rel <= ML2_GRAD_RTOL):
-            raise RuntimeError("kernel-backed and plain ML-II steps disagree")
+        for gamma in (GP_WIDE_GAMMA, 1.0):
+            for seed in ML2_SEEDS:
+                label = f"gamma={gamma:.4g} seed={seed}"
+                loss_k, grad_k = benchmarks.ml2_loss_and_grad(GP_N, GP_D, "cuda", seed=seed, gamma=gamma, device=dev)
+                loss_p, grad_p = benchmarks.ml2_loss_and_grad(GP_N, GP_D, "plain", seed=seed, gamma=gamma, device=dev)
+                loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+                gap = grad_k - grad_p
+                extra = ""
+                if gamma == 1.0:
+                    # First order in the diagonal difference dK_ii at gamma =
+                    # sigma = 1: the log sigma gradient is g = (n - tr(K^-1 Y
+                    # Y^T) / D) / 2 (K and its jitter both scale with sigma), so
+                    # dg = sum_i |(K^-1 Y)_i|^2 dK_ii / (2 D).
+                    x_ml, ys_ml, _ = benchmarks.gp_inputs(GP_N, GP_D, seed=seed, device=dev)
+                    one = torch.ones((), device=dev)
+                    K_k = tgp.GPKernel(one, one, one, backend="cuda").gram(x_ml, x_ml, None)
+                    K_p = tgp.GPKernel(one, one, one).gram(x_ml, x_ml, None)
+                    dK = torch.diagonal(K_k) - torch.diagonal(K_p)
+                    K_j = K_p.double() + float(K_p.max()) * tgp.default_jitter(torch.float32) * torch.eye(
+                        GP_N, device=dev, dtype=torch.float64)
+                    Kinv_y = torch.linalg.solve(K_j, ys_ml[0].double())
+                    predicted = float(((Kinv_y**2).sum(1) * dK.double()).sum()) / (2 * ys_ml[0].shape[1])
+                    gap = gap - torch.tensor([0.0, predicted, 0.0], device=dev)
+                    extra = (f"; diagonals: max |dK_ii| = {float(dK.abs().max()):.3e}, mean dK_ii = "
+                             f"{float(dK.mean()):.3e}; log sigma gap {float(grad_k[1] - grad_p[1]):.4e}, first-order "
+                             f"prediction {predicted:.4e}; raw |g_k - g_p| / |g_p| = "
+                             f"{float((grad_k - grad_p).norm() / grad_p.norm()):.3e}")
+                    path_checks[f"ml2 {label} max |dK_ii|"] = float(dK.abs().max())
+                grad_rel = float(gap.norm() / grad_p.norm())
+                log(f"ML-II {label}, kernel vs plain: loss {float(loss_k):.8e} vs {float(loss_p):.8e} (rel "
+                    f"{loss_rel:.3e}, limit {ML2_LOSS_RTOL}); gradient (log gamma, log sigma, log alpha) "
+                    f"{grad_k.tolist()} vs {grad_p.tolist()}: |g_k - g_p{' - prediction' if extra else ''}| / |g_p| "
+                    f"= {grad_rel:.3e} (limit {ML2_GRAD_RTOL}){extra}")
+                if not (bool(torch.isfinite(grad_k).all()) and loss_rel <= ML2_LOSS_RTOL and grad_rel <= ML2_GRAD_RTOL):
+                    raise RuntimeError(f"kernel-backed and plain ML-II steps disagree ({label})")
+                path_checks[f"ml2 {label} loss rel"] = loss_rel
+                path_checks[f"ml2 {label} grad rel"] = grad_rel
 
     with phase(f"15 solve_gp_closure: {GP_N} columns x {DE_SAVES} saves x {DE_SUBSTEPS} RK4 substeps, kernel GPs"):
         model = benchmarks.make_setup(GP_NZ, 8, device=dev)[0]
@@ -464,9 +525,12 @@ def gp_phases(dev):
         K_dense = A @ A.T + GP_N * torch.eye(GP_N, device=dev)
         dense_ms = {name: cuda_ms(fn, repeats=10)[0] for name, fn in (
             ("cuda", lambda: ops_chol.cholesky_cuda(K_dense, 128)), ("library", lambda: torch.linalg.cholesky(K_dense)),
-            ("cuda_se", lambda: ops_chol.cholesky_cuda(cb["matrix"], 128)))}
+            ("cuda_se", lambda: ops_chol.cholesky_cuda(cb["matrix"], 128)),
+            ("cuda_se_wide", lambda: ops_chol.cholesky_cuda(cases[-1][1], 128)),
+            ("library_se_wide", lambda: torch.linalg.cholesky(cases[-1][1])))}
         log(f"cholesky n = {GP_N}, median ms per call by CUDA events (back to back): A A^T + n I: kernel "
             f"{dense_ms['cuda']:.3f}, library {dense_ms['library']:.3f}; jittered SE Gram: kernel {dense_ms['cuda_se']:.3f}; "
+            f"at gamma = sqrt(D): kernel {dense_ms['cuda_se_wide']:.3f}, library {dense_ms['library_se_wide']:.3f}; "
             f"subnormal entries in the SE Gram: {int(((cb['matrix'] != 0) & (cb['matrix'].abs() < 1.1754944e-38)).sum())}")
         c_ops, c_bytes = cb["flops"] / PEAK_F32_FLOPS * 1e3, cb["bytes"] / PEAK_BYTES_PER_S * 1e3
         c_bound, c_bound_by = (c_ops, "operations") if c_ops >= c_bytes else (c_bytes, "bytes")

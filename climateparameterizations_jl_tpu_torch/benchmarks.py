@@ -24,6 +24,7 @@ with no card it raises.
 from __future__ import annotations
 
 import dataclasses
+import math
 import statistics
 import time
 
@@ -396,16 +397,17 @@ def gp_inputs(n_train: int = 1024, n_features: int = 96, n_targets: int = GP_TAR
     return x.to(device), [y.to(device) for y in ys], z.to(device)
 
 
-def gp_build_three(x, ys, z, backend: str = "cuda"):
+def gp_build_three(x, ys, z, backend: str = "cuda", gamma: float = 1.0):
     """The three flux GPs of the benchmark: one squared-exponential kernel, shared predictors.
 
     ``gp_fit_multi`` factorizes once with stacked targets on the plain
     backend and fits each flux alone on the kernel backend (one Gram launch
     each), as the JAX package's ``bench_gp`` does for its two backends.
+    ``gamma`` is the length scale; the JAX package's benchmark uses 1.
     """
     from climateparameterizations_jl_tpu_torch.closures.gp import get_kernel, gp_fit_multi
 
-    kernel = get_kernel(1, 0.0, 0.0, "euclidean", dtype=torch.float32, backend=backend, device=x.device)
+    kernel = get_kernel(1, math.log10(gamma), 0.0, "euclidean", dtype=torch.float32, backend=backend, device=x.device)
     return gp_fit_multi(x, ys, [kernel] * 3, z)
 
 
@@ -426,9 +428,10 @@ def bench_gp(n_train: int = 1024, n_features: int = 96, backend: str = "cuda", r
             "builds": repeats + 1, "models": models}
 
 
-def _ml2_raw(device):
-    return {n: torch.zeros((), dtype=torch.float32, device=device, requires_grad=True)
-            for n in ("gamma", "sigma", "alpha")}
+def _ml2_raw(device, gamma: float = 1.0):
+    """The ML-II parameters ``(log gamma, log sigma, log alpha)`` at ``(gamma, 1, 1)``."""
+    return {n: torch.tensor(math.log(gamma) if n == "gamma" else 0.0, dtype=torch.float32, device=device,
+                            requires_grad=True) for n in ("gamma", "sigma", "alpha")}
 
 
 def _ml2_loss(x, y, z, raw, backend: str):
@@ -439,11 +442,16 @@ def _ml2_loss(x, y, z, raw, backend: str):
     return mean_log_marginal_loss(gp_fit(x, y, k, z), y, add_constant=True)
 
 
-def ml2_loss_and_grad(n_train: int = 1024, n_features: int = 96, backend: str = "cuda", seed: int = 0, device=None):
-    """One ML-II loss and its gradient in ``(log gamma, log sigma, log alpha)`` at zero, on the benchmark's inputs."""
+def ml2_loss_and_grad(n_train: int = 1024, n_features: int = 96, backend: str = "cuda", seed: int = 0,
+                      gamma: float = 1.0, device=None):
+    """One ML-II loss and its gradient in ``(log gamma, log sigma, log alpha)`` on the benchmark's inputs.
+
+    The parameters are ``(log gamma, 0, 0)``; ``gamma = 1`` is where the
+    JAX package's ``bench_gp_ml2_step`` starts.
+    """
     device = resolve_device(device)
     x, ys, z = gp_inputs(n_train, n_features, seed=seed, device=device)
-    raw = _ml2_raw(device)
+    raw = _ml2_raw(device, gamma)
     loss = _ml2_loss(x, ys[0], z, raw, backend)
     # The squared exponential leaves alpha unused: its gradient is zero.
     grads = torch.autograd.grad(loss, list(raw.values()), allow_unused=True, materialize_grads=True)

@@ -244,7 +244,6 @@ def _add_common(p):
     p.add_argument("--n-save", type=int, default=96, help="LES frames to generate")
     p.add_argument("--dt-save", type=float, default=600.0)
     p.add_argument("--output", default="runs/latest")
-    p.add_argument("--seed", type=int, default=0)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -59,8 +59,18 @@ def gram_plain(A, B, gamma, sigma, alpha=1.0, *, family: str = "squared_exponent
     return _epilogue(family, _sq_distances(A, B)[0], gamma, sigma, alpha)
 
 
-def _f32_scalar(v, device):
-    return torch.as_tensor(v, device=device).to(torch.float32).reshape(())
+def _on_device(v, device, name: str):
+    """``v`` as a tensor on ``device``; a tensor that lives on another device raises.
+
+    Python numbers and numpy arrays become tensors on ``device``. A tensor is
+    never copied between devices: a CPU tensor beside CUDA ones would
+    otherwise pull the card's data to the host (or the reverse) unseen.
+    """
+    if isinstance(v, torch.Tensor):
+        if v.device != device:
+            raise ValueError(f"{name} is on {v.device} but A is on {device}; put the Gram's inputs on one device")
+        return v
+    return torch.as_tensor(v, device=device)
 
 
 def gram_cuda(A, B, gamma, sigma, alpha=1.0, *, family: str = "squared_exponential", bm: int = 256,
@@ -71,18 +81,20 @@ def gram_cuda(A, B, gamma, sigma, alpha=1.0, *, family: str = "squared_exponenti
     f64). ``D`` must be at most 4096, the TPU kernel's limit. ``bm``/``bn``
     are the TPU kernel's tile sizes and are ignored: the CUDA kernel has its
     own 64 x 64 tiles. CUDA tensors launch the kernel (or raise); CPU
-    tensors run :func:`gram_plain` on the same f32 inputs.
+    tensors run :func:`gram_plain` on the same f32 inputs. ``B`` and tensor
+    hyperparameters on another device than ``A`` raise ``ValueError``.
     """
     del bm, bn
     if family not in _FAMILIES:
         raise ValueError(f"unknown kernel family {family!r}")
     A = torch.as_tensor(A).to(torch.float32)
-    B = torch.as_tensor(B, device=A.device).to(torch.float32)
+    B = _on_device(B, A.device, "B").to(torch.float32)
     if A.dim() != 2 or B.dim() != 2 or A.shape[1] != B.shape[1]:
         raise ValueError(f"feature mismatch: {tuple(A.shape)} vs {tuple(B.shape)}")
     if A.shape[1] > MAX_FEATURES:
         raise ValueError(f"gram_cuda supports D <= {MAX_FEATURES} features, got {A.shape[1]}; use the plain backend")
-    params = [_f32_scalar(v, A.device) for v in (gamma, sigma, alpha)]
+    params = [_on_device(v, A.device, name).to(torch.float32).reshape(())
+              for v, name in ((gamma, "gamma"), (sigma, "sigma"), (alpha, "alpha"))]
     if A.device.type == "cpu":
         return gram_plain(A, B, *params, family=family)
     return _cuda.GRAM(A.contiguous(), B.contiguous(), torch.stack(params), family)
@@ -166,9 +178,11 @@ def gram_cuda_diff(family: str, A, B, gamma, sigma, alpha):
     The twin of JAX ``gram_pallas_diff``. The value is f32; the gradients
     come back in the dtypes (and shapes) of ``A``, ``B`` and the three
     hyperparameters. The backward never forms an ``(M, N, D)`` tensor: with
-    ``W = Kbar * dK/d(d2)`` the feature cotangents are two matmuls.
+    ``W = Kbar * dK/d(d2)`` the feature cotangents are two matmuls. Inputs
+    on another device than ``A`` raise, as in :func:`gram_cuda`.
     """
     A = torch.as_tensor(A)
-    B = torch.as_tensor(B, device=A.device)
-    gamma, sigma, alpha = (torch.as_tensor(v, device=A.device) for v in (gamma, sigma, alpha))
+    B = _on_device(B, A.device, "B")
+    gamma, sigma, alpha = (_on_device(v, A.device, name)
+                           for v, name in ((gamma, "gamma"), (sigma, "sigma"), (alpha, "alpha")))
     return _GramDiff.apply(family, A, B, gamma, sigma, alpha)

@@ -224,6 +224,7 @@ def test_gram_backward_matches_plain_autograd(card):
 
 @pytest.mark.cuda
 def test_gram_refusals(card):
+    from climateparameterizations_jl_tpu_torch.closures.gp import GPKernel
     from climateparameterizations_jl_tpu_torch.ops import gram
 
     A = _normal(card, (8, 4), 4)
@@ -239,6 +240,18 @@ def test_gram_refusals(card):
     with pytest.raises(ValueError, match="feature mismatch"):
         gram.gram_cuda(A, A[:, :3], 1.0, 1.0)
     assert gram.gram_cuda(A.double(), A.double(), 1.0, 1.0).dtype == torch.float32
+    # Tensors on two devices raise; none is copied to the other device.
+    with pytest.raises(ValueError, match="on one device"):
+        gram.gram_cuda(A.cpu(), A, 1.0, 1.0)
+    with pytest.raises(ValueError, match="on one device"):
+        gram.gram_cuda(A, A.cpu(), 1.0, 1.0)
+    with pytest.raises(ValueError, match="on one device"):
+        gram.gram_cuda(A, A, torch.tensor(1.0), 1.0)
+    before = _cuda.GRAM.launches
+    one = torch.ones((), device=card)
+    with pytest.raises(ValueError, match="on one device"):
+        GPKernel(one, one, one, backend="cuda").gram(A.cpu(), A, None)
+    assert _cuda.GRAM.launches == before
 
 
 # --- csrc/cholesky.cu against cholesky_plain and torch.linalg.cholesky ------

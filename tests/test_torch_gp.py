@@ -26,6 +26,8 @@ import dataclasses
 import importlib
 import json
 import os
+import sys
+import types
 from unittest import mock
 
 import jax
@@ -325,8 +327,11 @@ def _run_cli(pkg, case, out):
     args = ["train-gp", "--test-sims", "strong_wind_weak_cooling", *TINY, *CLI_CASES[case], "--output", out]
     if pkg == "jax":
         args = [a.replace("cuda", "pallas") for a in args]
+        # The JAX command's PNG comes from a stand-in module: importing the
+        # real one loads matplotlib, seconds of test time for a plot unused here.
+        no_plot = types.SimpleNamespace(plot_gp_uncertainty=lambda *a, **k: None)
         with mock.patch.object(jcli, "_load_suite", _f64_suite), \
-                mock.patch("climateparameterizations_jl_tpu.eval.animations.plot_gp_uncertainty"):
+                mock.patch.dict(sys.modules, {"climateparameterizations_jl_tpu.eval.animations": no_plot}):
             assert jcli.main(["--platform", "cpu", *args]) == 0
     else:
         def handed(*a, device=None, **k):

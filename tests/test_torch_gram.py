@@ -85,6 +85,18 @@ def test_gram_casts_f64_to_f32_and_validates():
         GPKernel(gamma=_t(1.0), sigma=_t(1.0), alpha=_t(1.0), backend="pallas")
 
 
+def test_inputs_on_another_device_raise():
+    # No silent copy between devices: a B or a hyperparameter tensor that is
+    # not on A's device is refused ("meta" stands in for the card here).
+    A = torch.ones(4, 3)
+    with pytest.raises(ValueError, match="on one device"):
+        tgram.gram_cuda(A, torch.ones(2, 3, device="meta"), 1.0, 1.0)
+    with pytest.raises(ValueError, match="on one device"):
+        tgram.gram_cuda(A, A, torch.ones((), device="meta"), 1.0)
+    with pytest.raises(ValueError, match="on one device"):
+        tgram.gram_cuda_diff("matern32", A, A, 1.0, 1.0, torch.ones((), device="meta"))
+
+
 def test_cpu_tensors_never_launch():
     before = _cuda.GRAM.launches
     tgram.gram_cuda(torch.ones(4, 3), torch.ones(2, 3), 1.0, 1.0)
