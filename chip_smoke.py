@@ -16,9 +16,14 @@ mish), Nz = 32:
   training points and D = 96 features (squared exponential, f32), their
   build, one ML-II step, the GP-closure DE over 1,024 columns and the
   ``train-gp`` command, with every Gram through ``csrc/gram.cu``; and the
-  blocked Cholesky kernel ``csrc/cholesky.cu`` on the slice's own Gram.
+  blocked Cholesky kernel ``csrc/cholesky.cu`` on the slice's own Gram;
+- serving with bf16 NN products (phases 18-20): the forward solve of phases
+  3-5 through ``csrc/fused_rk4_bf16.cu``, whose products run on the tensor
+  cores (checked in its SASS), and the rk4 fast-assembly training step
+  (phase 21: ``bench_nde_train_step(method="rk4")``, "fold" against the
+  default path).
 
-It builds the four kernels from ``csrc/`` (one ``nvcc`` each, side by
+It builds the five kernels from ``csrc/`` (one ``nvcc`` each, side by
 side), holds each against its plain PyTorch version, times it, and checks
 that each path's run went through its kernel (launch counts set to 0 just
 before the path and read just after).
@@ -120,6 +125,27 @@ ML2_SEEDS = (0, 1, 2)
 DE_RTOL, DE_ATOL = 1e-4, 1e-5
 DE_SAVES, DE_SUBSTEPS, DE_DT_SAVE = 32, 4, 1e-4
 
+# The bf16 fused RK4 kernel against its plain version (the runner's ``plain``:
+# _multistep_plain with bf16 products): the f32 kernel's tolerance. Both sides
+# round the same f32 inputs to bf16 to nearest even, so every product is
+# exact; they differ by the order of the f32 sums (the MMA accumulates in its
+# own order) and, where an activation lies within that roundoff of a bf16
+# rounding midpoint, by one bf16 ulp in one input. The RK4 map at dt = 1e-5 does not amplify such
+# differences over 1,024 steps (the f32 kernel holds 2.98e-7 there).
+BF16_RTOL, BF16_ATOL = RTOL, ATOL
+# Against the f32 kernel: the JAX package's own bf16 tolerance, over its own
+# horizon (tests/test_fused_rhs.py::test_bf16_matmuls_close). The 1,024-step
+# gap is printed, not held.
+JAX_BF16_RTOL, JAX_BF16_ATOL, JAX_BF16_STEPS = 3e-2, 3e-3, 4
+# Published H100 SXM dense bf16 tensor-core peak at 700 W (NVIDIA data sheet).
+PEAK_BF16_FLOPS = 989e12
+# The rk4 fast-assembly training step, "fold" against the default path from
+# the same parameters: the loss within 1e-5 relative, each gradient leaf
+# within the JAX suite's tolerance for the same comparison
+# (tests/test_fused_rhs.py::TestFastRK4::test_gradients_match).
+FAST_LOSS_RTOL, FAST_GRAD_RTOL, FAST_GRAD_ATOL = 1e-5, 1e-4, 1e-6
+FAST_TIMED_STEPS = 2
+
 
 def log(msg: str) -> None:
     print(f"[{time.perf_counter() - T0:8.2f}s] {msg}", flush=True)
@@ -175,14 +201,15 @@ def ptxas_summary(report: str) -> list:
 
 
 def demangled(symbol: str) -> str:
-    """The last name of an Itanium-mangled symbol, with an integer template argument: ``gram_kernel<3>``."""
+    """The last name of an Itanium-mangled symbol, with its integer template arguments: ``gram_kernel<3>``."""
     rest = re.sub(r"^_ZN?", "", symbol)
     name = symbol
     while (m := re.match(r"(\d+)", rest)):
         n = int(m.group(1))
         name, rest = rest[len(m.group(1)):len(m.group(1)) + n], rest[len(m.group(1)) + n:]
-    t = re.match(r"ILi(\d+)E", rest)
-    return name + (f"<{t.group(1)}>" if t else "")
+    t = re.match(r"I((?:Li\d+E)+)E", rest)
+    args = re.findall(r"Li(\d+)E", t.group(1)) if t else []
+    return name + (f"<{','.join(args)}>" if args else "")
 
 
 def gamma_bound(k: int) -> float:
@@ -590,6 +617,178 @@ def gp_phases(dev):
     return gram_record, chol_record
 
 
+def nonmatmul_flops_per_column_step(Nz: int, h1: int, h2: int) -> int:
+    """The f32 work of ``csrc/fused_rk4_bf16.cu`` outside its three NN products, per column and RK4 step.
+
+    Counted from the source per RHS evaluation (an FMA is 2; expf, log1pf,
+    tanhf and a division 1 each, so this is a lower bound): the face
+    viscosity (3 differences, 3 eps adds, Ri 7, the tanh argument 2, tanh,
+    nu 2) on each interior face, the bias adds, mish (max, abs, expf,
+    log1pf, add, tanhf, mul) on each hidden activation, the mPP term
+    (difference, nu d, coefficient, subtraction) on each interior face
+    flux, and the stencil, Coriolis and BC row (7) on each lane; then 13
+    per lane and step for the RK4 stage inputs and combination.
+    """
+    F, ni = 3 * Nz, Nz - 1
+    per_rhs = 18 * ni + 3 * (h1 + h2 + ni) + 7 * 3 * (h1 + h2) + 4 * 3 * ni + 7 * F
+    return 4 * per_rhs + 13 * F
+
+
+def bf16_phases(dev, flagship, f32_ms: float) -> dict:
+    """Phases 18-21: the bf16 fused RK4 kernel and the rk4 fast-assembly training step; returns the kernel's record."""
+    import torch
+
+    from climateparameterizations_jl_tpu_torch import benchmarks
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.ops.fused_rhs import make_fused_runner_mxu
+    from climateparameterizations_jl_tpu_torch.train.nde import nn_parameters
+
+    kernel = _cuda.FUSED_RK4_BF16
+    dt = benchmarks.FORWARD_DT
+    errors = {}
+    with phase("18 fused_rk4_bf16: tiny launch (8 columns x 1 step)"):
+        lib = kernel.load()
+        shapes = kernel.shapes()
+        smem = [lib.fused_rk4_bf16_smem_bytes(NZ, 50, 20, i) for i in range(len(shapes))]
+        log(f"fused_rk4_bf16 launch shapes (columns, warps per CTA; the first is the default): {shapes}; dynamic "
+            f"shared memory per CTA at the flagship widths: {smem} B")
+        model, nns, bcs, x0 = benchmarks.make_setup(NZ, 8, seed=1, nns=flagship, device=dev)
+        run = make_fused_runner_mxu(model, nns, bcs, dt, 1, 8, matmul_dtype="bfloat16", device=dev)
+        got = run(x0)
+        torch.cuda.synchronize()
+        errors["tiny_vs_plain"] = compare("tiny bf16 kernel vs bf16 plain version", got, run.plain(x0),
+                                          rtol=BF16_RTOL, atol=BF16_ATOL)
+
+    with phase(f"19 fused_rk4_bf16 at full width ({FULL_COLUMNS} columns x {BENCH_STEPS} steps, flagship weights)"):
+        model, nns, bcs, x0 = benchmarks.make_setup(NZ, FULL_COLUMNS, seed=0, nns=flagship, device=dev)
+        run = make_fused_runner_mxu(model, nns, bcs, dt, BENCH_STEPS, FULL_COLUMNS, matmul_dtype="bfloat16",
+                                    device=dev)
+        before = kernel.launches
+        got = run(x0)
+        torch.cuda.synchronize()
+        log(f"fused_rk4_bf16 launches for one runner call: {kernel.launches - before}")
+        if kernel.launches != before + 1:
+            raise RuntimeError(f"one bf16 runner call counted {kernel.launches - before} launches, expected 1")
+        plain_ms, want = cuda_ms(lambda: run.plain(x0))
+        log(f"bf16 plain version, {BENCH_STEPS} steps: {plain_ms:.2f} ms")
+        errors[f"{BENCH_STEPS}_steps_vs_plain"] = compare(
+            f"bf16 kernel vs bf16 plain version, {BENCH_STEPS} steps", got, want, rtol=BF16_RTOL, atol=BF16_ATOL)
+        moved = float((got - x0).abs().max())
+        log(f"max |x - x0| after {BENCH_STEPS} steps = {moved:.3e}")
+        if not moved > 1e-4:
+            raise RuntimeError("the state did not evolve")
+        short = {mdt: make_fused_runner_mxu(model, nns, bcs, dt, JAX_BF16_STEPS, FULL_COLUMNS, matmul_dtype=mdt,
+                                            device=dev)(x0) for mdt in ("bfloat16", "float32")}
+        errors[f"{JAX_BF16_STEPS}_steps_vs_f32_kernel"] = compare(
+            f"bf16 kernel vs f32 kernel, {JAX_BF16_STEPS} steps (the JAX bf16 test's horizon and tolerance)",
+            short["bfloat16"], short["float32"], rtol=JAX_BF16_RTOL, atol=JAX_BF16_ATOL)
+        f32_long = make_fused_runner_mxu(model, nns, bcs, dt, BENCH_STEPS, FULL_COLUMNS, device=dev)(x0)
+        gap = (got - f32_long).abs()
+        gap_max = float(gap.max())
+        gap_ok = bool(torch.allclose(got, f32_long, rtol=JAX_BF16_RTOL, atol=JAX_BF16_ATOL))
+        log(f"bf16 kernel vs f32 kernel, {BENCH_STEPS} steps (printed, not held): max_abs={gap_max:.3e} "
+            f"median_abs={float(gap.median()):.3e} max |x| {float(f32_long.abs().max()):.3e}; inside "
+            f"allclose(rtol={JAX_BF16_RTOL}, atol={JAX_BF16_ATOL}): {gap_ok}")
+
+    with phase(f"20 timing: bench_nde_forward with bf16 matmuls ({FULL_COLUMNS} x {BENCH_STEPS}, {BENCH_REPEATS} "
+               f"repeats), launch shapes, tensor-core check"):
+        _cuda.reset_launch_counts()
+        stats = benchmarks.bench_nde_forward(FULL_COLUMNS, NZ, BENCH_STEPS, BENCH_REPEATS, nns=flagship, device=dev,
+                                             matmul_dtype="bfloat16")
+        launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+        log(f"bf16 kernel ms: min={stats['ms_min']:.3f} median={stats['ms_median']:.3f} max={stats['ms_max']:.3f} "
+            f"all={[round(t, 3) for t in stats['ms']]}; f32 kernel (phase 5, same run) median {f32_ms:.3f} ms")
+        log(f"launch counts on the bf16 serving path: {launches}; runner calls made: {stats['calls']}")
+        if launches["fused_rk4_bf16"] != stats["calls"] or stats["calls"] == 0 or launches["fused_rk4"] != 0:
+            raise RuntimeError(f"the bf16 serving path counted {launches} for {stats['calls']} runner calls")
+        sweep = {}
+        for i, (cols, warps) in enumerate(shapes):
+            def launch(i=i):
+                return kernel(x0, run.kernel_weights, run.kernel_frags, run.kernel_params, shape=i)
+
+            launch()
+            sweep[f"{cols} columns x {warps} warps"] = cuda_ms(launch, repeats=BENCH_REPEATS)[0]
+        log(f"launch-shape sweep, median ms of {BENCH_REPEATS} at {FULL_COLUMNS} x {BENCH_STEPS}: {sweep}")
+        cuobjdump = Path(_cuda.find_nvcc()).with_name("cuobjdump")
+        if not cuobjdump.exists():
+            raise RuntimeError(f"{cuobjdump} is missing: the tensor-core check cannot run")
+        sass = subprocess.run([str(cuobjdump), "-sass", str(kernel.library_path)], capture_output=True, text=True,
+                              timeout=120, check=True).stdout
+        hmma = [line.split(";")[0].split("*/")[-1].strip() for line in sass.splitlines() if "HMMA" in line]
+        log(f"cuobjdump -sass {kernel.library_path.name}: {len(hmma)} HMMA instructions (over {len(shapes)} "
+            f"instantiations), e.g. {hmma[:1]}")
+        if not hmma:
+            raise RuntimeError("no HMMA instruction in the bf16 kernel's SASS: its products are not on the tensor cores")
+        h1, h2 = nns.uw.weights[0].shape[0], nns.uw.weights[1].shape[0]
+        F, ni, col_steps = 3 * NZ, NZ - 1, FULL_COLUMNS * BENCH_STEPS
+        mm_flops = col_steps * 4 * 2 * (F * 3 * h1 + 3 * h1 * h2 + 3 * h2 * ni)
+        ew_flops = col_steps * nonmatmul_flops_per_column_step(NZ, h1, h2)
+        n_bytes = 4 * (2 * FULL_COLUMNS * F + run.kernel_weights.numel()) + 2 * run.kernel_frags.numel()
+        t_tc, t_cc = mm_flops / PEAK_BF16_FLOPS * 1e3, ew_flops / PEAK_F32_FLOPS * 1e3
+        t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+        bound_ms = max(t_tc, t_cc, t_bytes)
+        bound_by = "bytes" if t_bytes == bound_ms else "operations"
+        log(f"bound: tensor cores {mm_flops:.4e} bf16 FLOP / 989 TFLOP/s = {t_tc:.4f} ms; CUDA cores {ew_flops:.4e} "
+            f"f32 FLOP / 67 TFLOP/s = {t_cc:.4f} ms; {n_bytes} B / 3.35 TB/s = {t_bytes:.5f} ms; bound {bound_ms:.4f} "
+            f"ms ({bound_by}); share of bound reached = {bound_ms / stats['ms_median']:.4f}")
+
+    with phase("21 rk4 fast-assembly training step: bench_nde_train_step(method='rk4'), fast_assembly 'fold' vs False"):
+        steps = {}
+        for fa in ("fold", False):
+            steps[fa] = benchmarks.bench_nde_train_step(method="rk4", fast_assembly=fa, n_timed=FAST_TIMED_STEPS,
+                                                        nns=flagship, device=dev)
+            r = steps[fa]
+            log(f"fast_assembly={fa!r} (resolved {r['fast_assembly']!r}): ms per step min={r['ms_min']:.1f} "
+                f"median={r['ms_median']:.1f} max={r['ms_max']:.1f} all={[round(t, 1) for t in r['ms']]}; losses "
+                f"{r['losses']}")
+        if steps["fold"]["fast_assembly"] != "fold" or steps[False]["fast_assembly"] is not False:
+            raise RuntimeError("bench_nde_train_step did not run the requested assembly")
+        setup = benchmarks.nde_train_step_setup(method="rk4", nns=flagship, device=dev)
+        sizes = [p.numel() for p in nn_parameters(setup["nns"])]
+        (loss_f, grad_f), (loss_d, grad_d) = (benchmarks.train_step_loss_and_grad(setup, fast_assembly=fa)
+                                              for fa in ("fold", False))
+        loss_rel = abs(float(loss_f) - float(loss_d)) / abs(float(loss_d))
+        worst, ok = 0.0, bool(torch.isfinite(grad_f).all()) and loss_rel <= FAST_LOSS_RTOL
+        for gf, gd in zip(torch.split(grad_f, sizes), torch.split(grad_d, sizes)):
+            limit = FAST_GRAD_ATOL * max(1.0, float(gd.abs().max())) + FAST_GRAD_RTOL * gd.abs()
+            worst = max(worst, float(((gf - gd).abs() / limit).max()))
+        ok = ok and worst <= 1.0
+        log(f"one step, fold vs default: loss {float(loss_f):.8e} vs {float(loss_d):.8e} (rel {loss_rel:.3e}, limit "
+            f"{FAST_LOSS_RTOL}); {len(sizes)} gradient leaves, worst |g_f - g_d| / (atol + rtol |g_d|) = {worst:.3e} "
+            f"(limit 1; rtol {FAST_GRAD_RTOL}, atol {FAST_GRAD_ATOL} max(1, max|g|)); max |g| {float(grad_d.abs().max()):.3e}")
+        if not ok:
+            raise RuntimeError("the rk4 fast-assembly step and the default step disagree")
+
+    return {
+        "name": "fused_rk4_bf16",
+        "route": "cuda",
+        "source": "climateparameterizations_jl_tpu_torch/csrc/fused_rk4_bf16.cu",
+        "replaces": "climateparameterizations_jl_tpu/ops/fused_rhs.py:535 (matmul_dtype=bfloat16)",
+        "launches": launches["fused_rk4_bf16"],
+        "max_abs_err": max(errors["tiny_vs_plain"], errors[f"{BENCH_STEPS}_steps_vs_plain"]),
+        "errors": errors,
+        "ms": stats["ms_median"],
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "tensor_core_bound_ms": t_tc,
+        "cuda_core_bound_ms": t_cc,
+        "bytes_bound_ms": t_bytes,
+        "f32_kernel_ms": f32_ms,
+        "gap_to_f32_kernel": {"steps": BENCH_STEPS, "max_abs": gap_max, "inside_jax_bf16_tolerance": gap_ok},
+        "launch_shape_sweep_ms": sweep,
+        "hmma_instructions": len(hmma),
+        "smem_bytes_per_shape": dict(zip([f"{c}x{w}" for c, w in shapes], smem)),
+        "shape": {"columns": FULL_COLUMNS, "steps": BENCH_STEPS, "Nz": NZ},
+        "rk4_fast_assembly_step": {
+            "ms": {str(fa): steps[fa]["ms"] for fa in steps}, "loss_rel": loss_rel, "worst_grad_ratio": worst,
+        },
+        "ptxas": ptxas_summary(kernel.ptxas_report),
+        "build_s": kernel.build_seconds,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -601,11 +800,7 @@ def main() -> int:
         from climateparameterizations_jl_tpu_torch.models.wind_mixing import solve_wind_mixing_nde
         from climateparameterizations_jl_tpu_torch.ops import _cuda
         from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
-        from climateparameterizations_jl_tpu_torch.ops.fused_rhs import (
-            _multistep_plain,
-            make_fused_runner,
-            make_fused_runner_mxu,
-        )
+        from climateparameterizations_jl_tpu_torch.ops.fused_rhs import make_fused_runner, make_fused_runner_mxu
         from climateparameterizations_jl_tpu_torch.train.checkpoint import load_flux_nns
     except ImportError as e:
         print(f"chip_smoke: the port package is not beside this script ({e})", file=sys.stderr)
@@ -630,7 +825,7 @@ def main() -> int:
         log("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, torch.backends.cudnn.allow_tf32 = False")
         print(smi, flush=True)
 
-    with phase("2 build fused_rk4, thomas, gram and cholesky (one nvcc each, side by side)"):
+    with phase("2 build fused_rk4, fused_rk4_bf16, thomas, gram and cholesky (one nvcc each, side by side)"):
         _cuda.load_all()
         for k in _cuda.KERNELS.values():
             log(f"{k.source.name}: nvcc+load {k.build_seconds:.2f}s from {k.source.relative_to(REPO)}")
@@ -648,8 +843,7 @@ def main() -> int:
         run = make_fused_runner_mxu(model, nns, bcs, dt, 1, 8, device=dev)
         got = run(x0)
         torch.cuda.synchronize()
-        compare("tiny kernel vs plain", got,
-                _multistep_plain(x0, run.operands, run.consts, NZ, run.activation, dt, 1))
+        compare("tiny kernel vs plain", got, run.plain(x0))
 
     errors = {}
     with phase(f"4 full width ({FULL_COLUMNS} columns x {FULL_STEPS} steps, flagship weights)"):
@@ -657,11 +851,7 @@ def main() -> int:
         run = make_fused_runner_mxu(model, nns, bcs, dt, FULL_STEPS, FULL_COLUMNS, device=dev)
         got = run(x0)
         torch.cuda.synchronize()
-
-        def plain():
-            return _multistep_plain(x0, run.operands, run.consts, NZ, run.activation, dt, FULL_STEPS)
-
-        plain_ms_64, want_plain = cuda_ms(plain)
+        plain_ms_64, want_plain = cuda_ms(lambda: run.plain(x0))
         want_solve = solve_wind_mixing_nde(model, nns, bcs, x0, 0.0, dt * FULL_STEPS, 1, n_substeps=FULL_STEPS)[-1]
         errors["mxu_vs_plain"] = compare("make_fused_runner_mxu kernel vs _multistep_plain", got, want_plain)
         errors["mxu_vs_solve"] = compare("make_fused_runner_mxu kernel vs solve_wind_mixing_nde", got, want_solve)
@@ -673,7 +863,7 @@ def main() -> int:
 
         run1 = make_fused_runner(model, nns, bcs, dt, V1_STEPS, FULL_COLUMNS, device=dev)
         got1 = run1(x0)
-        want1_plain = _multistep_plain(x0, run1.operands, run1.consts, NZ, run1.activation, dt, V1_STEPS)
+        want1_plain = run1.plain(x0)
         want1_solve = solve_wind_mixing_nde(model, nns, bcs, x0, 0.0, dt * V1_STEPS, 1, n_substeps=V1_STEPS)[-1]
         errors["v1_vs_plain"] = compare("make_fused_runner kernel vs _multistep_plain", got1, want1_plain)
         errors["v1_vs_solve"] = compare("make_fused_runner kernel vs solve_wind_mixing_nde", got1, want1_solve)
@@ -696,7 +886,7 @@ def main() -> int:
         run = make_fused_runner_mxu(model, nns, bcs, dt, BENCH_STEPS, FULL_COLUMNS, device=dev)
         got_long = run(x0)
         plain_ms, want_long = cuda_ms(
-            lambda: _multistep_plain(x0, run.operands, run.consts, NZ, run.activation, dt, BENCH_STEPS))
+            lambda: run.plain(x0))
         log(f"plain version, {BENCH_STEPS} steps: {plain_ms:.2f} ms")
         errors[f"mxu_{BENCH_STEPS}_steps_vs_plain"] = compare(
             f"make_fused_runner_mxu kernel vs _multistep_plain, {BENCH_STEPS} steps", got_long, want_long)
@@ -855,10 +1045,11 @@ def main() -> int:
         "build_s": thomas.build_seconds,
     }
     gram_record, chol_record = gp_phases(dev)
+    bf16_record = bf16_phases(dev, flagship, stats["ms_median"])
     record["ptxas"] = ptxas_summary(kernel.ptxas_report)
     thomas_record["ptxas"] = ptxas_summary(thomas.ptxas_report)
     print(smi, flush=True)
-    print(json.dumps({"kernels": [record, thomas_record, gram_record, chol_record]}), flush=True)
+    print(json.dumps({"kernels": [record, thomas_record, gram_record, chol_record, bf16_record]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}), flush=True)
     return 0
 

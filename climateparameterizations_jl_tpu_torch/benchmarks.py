@@ -2,10 +2,14 @@
 
 - :func:`bench_nde_forward` (``climateparameterizations_jl_tpu/benchmarks.py:192``):
   the flagship wind-mixing model, 1,024 columns x 1,024 RK4 steps, through
-  the fused runner, i.e. the CUDA kernel ``csrc/fused_rk4.cu``.
+  the fused runner, i.e. the CUDA kernel ``csrc/fused_rk4.cu`` (or, with bf16
+  NN products, ``csrc/fused_rk4_bf16.cu``).
 - :func:`bench_train_step` (``studies/flagship_training.py:566 step_bench``):
   one flagship NDE training step, 18 simulations x 1,152 split substeps,
   every implicit solve through the CUDA kernel ``csrc/thomas.cu``.
+- :func:`bench_nde_train_step` (``benchmarks.py:274``): one gradient step
+  of 8 simulations x a 32-save window, split or rk4 (with or without the
+  matmul assembly).
 - :func:`bench_tridiagonal` (``benchmarks.py:420``): the batched solve
   alone, kernel against its plain versions and a dense library solve.
 - :func:`bench_gp` (``benchmarks.py:116``) and :func:`bench_gp_ml2_step`
@@ -39,6 +43,7 @@ from climateparameterizations_jl_tpu_torch.models.wind_mixing import (
     FluxNNs,
     WindMixingModel,
     WindMixingScalings,
+    resolve_fast_assembly,
 )
 from climateparameterizations_jl_tpu_torch.ops.fused_rhs import make_fused_runner_mxu
 from climateparameterizations_jl_tpu_torch.physics.mpp import MPPParameters
@@ -112,9 +117,10 @@ def _stats(times: list, device) -> dict:
 
 
 def bench_nde_forward(n_columns: int = 1024, Nz: int = 32, n_steps: int = 1024, repeats: int = 5,
-                      nns=None, seed: int = 0, device=None) -> dict:
+                      nns=None, seed: int = 0, device=None, matmul_dtype: str = "float32") -> dict:
     """Time the fused forward solve; returns ms (min/median/max) and column-timesteps/s.
 
+    ``matmul_dtype="bfloat16"`` times the bf16 kernel ``csrc/fused_rk4_bf16.cu``.
     ``calls`` is the number of runner calls made (warm-up included), each
     one kernel launch.
     """
@@ -122,7 +128,8 @@ def bench_nde_forward(n_columns: int = 1024, Nz: int = 32, n_steps: int = 1024, 
     if device.type != "cuda":
         raise RuntimeError("bench_nde_forward times the CUDA kernel; it needs a card")
     model, nns, bcs, x0 = make_setup(Nz, n_columns, seed, nns, device)
-    run = make_fused_runner_mxu(model, nns, bcs, FORWARD_DT, n_steps, n_columns, device=device)
+    run = make_fused_runner_mxu(model, nns, bcs, FORWARD_DT, n_steps, n_columns, matmul_dtype=matmul_dtype,
+                                device=device)
     # The warm-up call builds and loads the kernel on first use.
     times, out = _timed(lambda: run(x0), repeats, device)
     if not bool(torch.isfinite(out).all()):
@@ -205,7 +212,8 @@ def bench_train_step(setup: dict | None = None, n_timed: int = 5, device=None, *
     copy of ``setup["nns"]``. ``config_overrides`` replace config fields
     (e.g. ``tridiag_backend="scan"``). Returns ms per step (min/median/max),
     the losses and the work done: ``presolve_substeps`` solves without
-    autograd, and ``steps`` steps of ``substeps`` substeps each.
+    autograd (none when the config has no training fractions), and ``steps``
+    steps of ``substeps`` substeps each.
     """
     device = _require_card(device, "bench_train_step")
     from climateparameterizations_jl_tpu_torch.train.nde import (
@@ -241,11 +249,64 @@ def bench_train_step(setup: dict | None = None, n_timed: int = 5, device=None, *
     sims = batch.x0.shape[0]
     return {
         **stats,
+        "fast_assembly": resolve_fast_assembly(model, setup["nns"], config.method, config.fast_assembly),
         "tridiag_backend": resolve_tridiag_backend(config.tridiag_backend, setup["substeps"], device),
         "sims": sims, "substeps": setup["substeps"], "Nz": model.Nz,
         "column_timesteps_per_sec": sims * setup["substeps"] / (stats["ms_median"] * 1e-3),
-        "losses": losses, "steps": 1 + n_timed, "presolve_substeps": setup["substeps"],
+        "losses": losses, "steps": 1 + n_timed,
+        "presolve_substeps": setup["substeps"] if config.training_fractions is not None else 0,
     }
+
+
+def nde_train_step_setup(n_sims: int = 8, Nz: int = 32, n_window: int = 32, method: str = "split",
+                         fast_assembly: bool | str = "auto", implicit_solve_grad: bool = True,
+                         tridiag_backend: str = "auto", nns=None, device=None) -> dict:
+    """The inputs of the JAX package's ``bench_nde_train_step`` (``benchmarks.py:274``).
+
+    ``make_setup``'s model with one MLP triple (``nns``, else random at the
+    1e-5 scale), ``n_sims`` states ``0.1 N(0, 1)`` from ``numpy`` seed 0,
+    constant BCs (``uw_top = -0.5``, ``wT_top = 0.3``), targets that repeat
+    the initial state over ``n_window`` saves 1e-3 apart, 4 substeps per
+    save, and the fixed loss weights ``LossChannels.ones(gradient_scaling)``
+    (no training fractions, so no pre-solve). The keys are those of
+    :func:`flagship_train_setup`, so :func:`bench_train_step` and
+    :func:`train_step_loss_and_grad` take it.
+    """
+    device = resolve_device(device)
+    from climateparameterizations_jl_tpu_torch.data.containers import TrainingBatch
+    from climateparameterizations_jl_tpu_torch.train.nde import NDETrainConfig
+
+    model, nns, _, _ = make_setup(Nz, 1, nns=nns, device=device)
+    x0 = torch.tensor(np.random.default_rng(0).normal(size=(n_sims, 3 * Nz)) * 0.1, dtype=torch.float32,
+                      device=device)
+    zeros = torch.zeros(n_sims, dtype=torch.float32, device=device)
+    bcs = BoundaryConditions(uw_bot=zeros, uw_top=zeros - 0.5, vw_bot=zeros, vw_top=zeros, wT_bot=zeros,
+                             wT_top=zeros + 0.3, diurnal_amplitude=zeros)
+    batch = TrainingBatch(x0=x0, targets=x0[:, None, :].repeat(1, n_window, 1), bcs=bcs,
+                          t=torch.linspace(0.0, 1e-3 * (n_window - 1), n_window, device=device),
+                          tau=torch.tensor(691200.0, device=device))
+    config = NDETrainConfig(n_substeps=4, method=method, fast_assembly=fast_assembly,
+                            implicit_solve_grad=implicit_solve_grad, tridiag_backend=tridiag_backend)
+    return dict(model=model, nns=nns, config=config, batch=batch, substeps=(n_window - 1) * 4)
+
+
+def bench_nde_train_step(n_sims: int = 8, Nz: int = 32, n_window: int = 32, method: str = "split",
+                         fast_assembly: bool | str = "auto", implicit_solve_grad: bool = True,
+                         tridiag_backend: str = "auto", n_timed: int = 5, nns=None, device=None) -> dict:
+    """One NDE gradient step of :func:`nde_train_step_setup`, timed on the card.
+
+    The JAX package's ``bench_nde_train_step`` with the same knobs (the
+    solver A/B axes: split or rk4, the matmul assembly, IFT solve
+    gradients, the tridiagonal backend), timed as :func:`bench_train_step`
+    times: CUDA events, one warm-up step, the median of ``n_timed``.
+    ``tridiag_backend="auto"`` puts a split step's solves on the Thomas
+    kernel (the JAX default, ``"scan"``, is one of the plain versions here).
+    """
+    device = _require_card(device, "bench_nde_train_step")
+    setup = nde_train_step_setup(n_sims, Nz, n_window, method, fast_assembly, implicit_solve_grad,
+                                 tridiag_backend, nns=nns, device=device)
+    stats = bench_train_step(setup, n_timed=n_timed, device=device)
+    return {**stats, "train_steps_per_sec": 1e3 / stats["ms_median"]}
 
 
 def _device_ms(on_device_events) -> float:

@@ -1,6 +1,6 @@
 """Fixed-step explicit timesteppers.
 
-Port of ``climateparameterizations_jl_tpu/models/timestepper.py:23-91``:
+Port of ``climateparameterizations_jl_tpu/models/timestepper.py``:
 the JAX package's ``lax.scan`` becomes a Python loop, and its
 ``jax.checkpoint`` around one save interval becomes
 ``torch.utils.checkpoint`` (non-reentrant): a backward pass keeps only the
@@ -9,6 +9,8 @@ saved states and recomputes each interval's substeps. All steppers advance
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.utils.checkpoint
@@ -71,3 +73,15 @@ def solve_fixed_step(rhs, x0, t0, dt_save, n_save: int, n_substeps: int = 1, met
 def trajectory_times(t0, dt_save, n_save: int):
     """Save times matching :func:`solve_fixed_step` output."""
     return t0 + dt_save * torch.arange(n_save + 1)
+
+
+def stable_substeps(nu_max: float, dt_save: float, dz: float, method: str = "rk4", safety: float = 0.5) -> int:
+    """Substep count keeping explicit diffusion stable: ``dt < safety * dz^2 / (2 nu)``.
+
+    The Euler bound scaled by ``safety`` for every ``method`` (RK4's
+    real-axis stability interval, about 2.79, would allow a little more).
+    """
+    if nu_max <= 0:
+        return 1
+    dt_stable = safety * dz * dz / (2.0 * nu_max)
+    return max(1, int(math.ceil(dt_save / dt_stable)))

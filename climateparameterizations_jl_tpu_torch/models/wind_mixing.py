@@ -13,8 +13,8 @@ diffusivity is the physical base closure; and the non-dimensional PDE
 is integrated by :func:`solve_wind_mixing_nde` (fully explicit) or
 :func:`solve_wind_mixing_split` (operator split, backward-Euler mPP
 diffusion through the batched tridiagonal solve). Everything batches over
-leading axes. ``fast_assembly=True/"fold"`` is ported for the split stepper;
-for :func:`solve_wind_mixing_nde` it is not yet (``ROADMAP.md``, queue 1).
+leading axes. Both solvers take ``fast_assembly=True/"fold"``: the packed NN
+chain with a matmul-assembled divergence (:func:`_fast_full_rhs` for rk4).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from climateparameterizations_jl_tpu_torch.closures.mlp import _ACTIVATIONS, MLP, mlp_apply
@@ -30,7 +31,15 @@ from climateparameterizations_jl_tpu_torch.core.filters import smoothing_filter
 from climateparameterizations_jl_tpu_torch.core.operators import d_center_to_face, d_face_to_center, pad_faces
 from climateparameterizations_jl_tpu_torch.core.scalings import ZeroMeanUnitVarianceScaling
 from climateparameterizations_jl_tpu_torch.models.timestepper import _STEPPERS, solve_fixed_step
-from climateparameterizations_jl_tpu_torch.ops.fused_rhs import bc_tendency_row, divergence_matrix, tendency_coefficients
+from climateparameterizations_jl_tpu_torch.ops.fused_rhs import (
+    _assembly_constants,
+    _make_mxu_rhs,
+    _scalar_constants,
+    bc_tendency_row,
+    divergence_matrix,
+    fold_divergence_constants,
+    tendency_coefficients,
+)
 from climateparameterizations_jl_tpu_torch.ops.tridiagonal import implicit_diffusion_step
 from climateparameterizations_jl_tpu_torch.physics.mpp import MPPParameters, mpp_diffusivity
 from climateparameterizations_jl_tpu_torch.physics.richardson import local_richardson_scaled
@@ -296,16 +305,17 @@ def solve_wind_mixing_nde(model: WindMixingModel, nns, bcs: BoundaryConditions, 
                           fast_assembly=False):
     """Integrate the fully-explicit NDE; returns ``(n_save + 1, ..., 3 Nz)``.
 
-    ``rk4`` integrates the full RHS. For ``euler``/``heun`` the Coriolis
-    rotation is split out and applied forward-backward after each flux
-    substep: rotation inside a plain forward-Euler (or Heun) step amplifies
-    inertial oscillations by ``~sqrt(1 + (f tau dt)^2)`` per step.
-    ``checkpoint`` and ``unroll`` are accepted for parity and have no effect.
+    ``rk4`` integrates the full RHS. ``fast_assembly=True`` (``rk4`` and mPP
+    only) integrates the matmul-assembled full RHS (:func:`_fast_full_rhs`);
+    ``"fold"`` also precomposes the divergence matrix into the last NN layer,
+    once per solve. For ``euler``/``heun`` the Coriolis rotation is split out
+    and applied forward-backward after each flux substep: rotation inside a
+    plain forward-Euler (or Heun) step amplifies inertial oscillations by
+    ``~sqrt(1 + (f tau dt)^2)`` per step. ``checkpoint`` recomputes each save
+    interval in the backward pass; ``unroll`` has no effect.
     """
-    if fast_assembly:
-        raise NotImplementedError(
-            "fast_assembly=True/'fold' is not ported yet (ROADMAP.md, queue 1); use fast_assembly=False"
-        )
+    if fast_assembly and method != "rk4":
+        raise ValueError(f"fast_assembly supports method='rk4' here (got {method!r})")
     if method in ("euler", "heun"):
         base_step = _STEPPERS[method]
 
@@ -322,8 +332,16 @@ def solve_wind_mixing_nde(model: WindMixingModel, nns, bcs: BoundaryConditions, 
 
         return solve_fixed_step(None, x0, t0, dt_save, n_save, n_substeps, fb_step, checkpoint, unroll)
 
-    def rhs(x, t):
-        return wind_mixing_rhs(model, nns, bcs, x, t)
+    if fast_assembly:
+        if fast_assembly not in (True, "fold"):
+            raise ValueError(f"fast_assembly must be False, True or 'fold' (got {fast_assembly!r})")
+        packed = nns if isinstance(nns, PackedFluxNNs) else pack_flux_nns(nns)
+        if packed is None:
+            raise ValueError("fast_assembly needs three packable (same-depth, same-activation) MLP closures")
+        rhs = _fast_full_rhs(model, packed, bcs, fold_divergence=fast_assembly == "fold")
+    else:
+        def rhs(x, t):
+            return wind_mixing_rhs(model, nns, bcs, x, t)
 
     return solve_fixed_step(rhs, x0, t0, dt_save, n_save, n_substeps, method, checkpoint, unroll)
 
@@ -349,19 +367,29 @@ def _explicit_rhs_split(model: WindMixingModel, nns, bcs: BoundaryConditions, x,
 
 
 def resolve_fast_assembly(model: WindMixingModel, nns, method: str, value):
-    """Resolve ``fast_assembly="auto"``: ``"fold"`` for the split stepper where it applies.
+    """Resolve ``fast_assembly="auto"``: ``"fold"`` wherever the configuration supports it.
 
-    The split assembly needs packable MLPs and no NN smoothing; anything
-    else resolves to ``False`` (the per-variable stencil path). The explicit
-    solver's fast assembly (``rk4``) is not ported yet, so ``"auto"`` gives
-    ``False`` there, the same trajectory by the stencil path. The
-    member-folded ensemble chain is not ported either, so every packed chain
-    here has the 3-flux layout. Non-``"auto"`` values pass through.
+    Every assembly needs packable MLPs and no NN smoothing. The split
+    assembly is depth- and activation-generic; ``rk4`` also needs the fused
+    RHS body's constraints: a 3-layer mish or relu chain, the mPP base
+    closure and no Ri smoothing. Anything else resolves to ``False`` (the
+    per-variable stencil path, which handles every configuration), as does
+    ``euler``/``heun``. The member-folded ensemble chain is not ported, so
+    every packed chain here has the 3-flux layout. Non-``"auto"`` values
+    pass through (explicit requests keep their errors).
     """
     if value != "auto":
         return value
     packed = nns if isinstance(nns, PackedFluxNNs) else pack_flux_nns(nns)
-    if method != "split" or packed is None or model.smooth_NN:
+    if packed is None or model.smooth_NN:
+        return False
+    if method == "rk4":
+        if len(packed.matrices) != 3 or packed.activation not in ("mish", "relu"):
+            return False
+        if model.smooth_Ri or not model.use_mpp:
+            return False
+        return "fold"
+    if method != "split":
         return False
     return "fold"
 
@@ -426,6 +454,61 @@ def _pad_packed_chain(packed: PackedFluxNNs, Nz: int):
     A3p = torch.nn.functional.pad(A3.reshape(A3.shape[0], 3, n_out), (0, 1)).reshape(A3.shape[0], 3 * Nz)
     b3p = torch.nn.functional.pad(b3.reshape(3, n_out), (0, 1)).reshape(3 * Nz)
     return (*packed.matrices[:-1], A3p), (*packed.biases[:-1], b3p)
+
+
+def _fast_full_rhs(model: WindMixingModel, packed: PackedFluxNNs, bcs: BoundaryConditions,
+                   fold_divergence: bool = False):
+    """The full NDE right-hand side (mPP + Coriolis) by the MXU assembly.
+
+    :func:`ops.fused_rhs.make_fast_rhs` with per-call BCs (left-aligned
+    broadcast, diurnal top flux) and trainable packed weights: the same math
+    as :func:`wind_mixing_rhs` for the ``use_mpp`` configuration. With
+    ``fold_divergence`` the divergence matrix ``Dr`` is precomposed into the
+    last layer once, here (differentiably), and the mPP divergence becomes
+    the :func:`fold_divergence_constants` roll-subtract. The constants are
+    built in f64 and cast to the state's dtype, so an f64 solve stays f64;
+    the casts are made once per dtype and device.
+    """
+    if model.smooth_NN or model.smooth_Ri:
+        raise ValueError("fast_assembly does not apply the NN/Ri smoothing filters; use the default path")
+    if not model.use_mpp:
+        raise ValueError("fast_assembly's full RHS covers the mPP base closure; use the default path")
+    if len(packed.matrices) != 3:
+        raise ValueError(f"fast_assembly requires the 3-layer flux MLP architecture "
+                         f"(got {len(packed.matrices)} packed layers); use the default path")
+    Nz = model.Nz
+    consts = _scalar_constants(model)
+    body = _make_mxu_rhs(consts, Nz, packed.activation, fold_divergence=fold_divergence)
+    (A1, A2, A3p), (b1, b2, b3p) = _pad_packed_chain(packed, Nz)
+    # The zeroed BC tail of _scalar_constants(model) makes Krow the pure
+    # Coriolis-mean row; the BC row is added per call.
+    Dr, K_mu, w1, w2 = _assembly_constants(consts, Nz, dtype=np.float64)
+    if fold_divergence:
+        Dr_w = torch.as_tensor(Dr, dtype=A3p.dtype, device=A3p.device)
+        A3p, b3p = A3p @ Dr_w, b3p @ Dr_w
+        C2a, C2b = fold_divergence_constants(consts, Nz, dtype=np.float64)
+        rows = (C2a, C2b)
+    else:
+        rows = (Dr,)
+    rows += (K_mu[0], w1[0], w2[0])  # 1-D: a (1, n) row would add an axis to unbatched states
+    cast = {}
+    bc_rows = {}
+
+    def rhs(x, t):
+        key = (x.dtype, x.device)
+        if key not in cast:
+            cast[key] = tuple(torch.as_tensor(a, dtype=x.dtype, device=x.device) for a in rows)
+        *lead, K_mu_x, w1_x, w2_x = cast[key]
+        batch = tuple(x.shape[:-1])
+        if model.diurnal:
+            K_bc = _split_bc_row(model, _effective_bcs(model, bcs, t), batch)
+        else:  # the BC row is constant unless the top heat flux follows the diurnal cycle
+            if (batch, key) not in bc_rows:
+                bc_rows[batch, key] = _split_bc_row(model, bcs, batch)
+            K_bc = bc_rows[batch, key]
+        return body(x, A1, b1, A2, b2, A3p, b3p, *lead, K_bc + K_mu_x, w1_x, w2_x)
+
+    return rhs
 
 
 def _interior_nu(model: WindMixingModel, x):

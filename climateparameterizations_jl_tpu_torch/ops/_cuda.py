@@ -77,7 +77,7 @@ def build_library(source: Path) -> tuple[Path, str]:
 
 
 class _Params(ctypes.Structure):
-    """Mirror of ``FusedRK4Params`` in ``csrc/fused_rk4.cu``, field by field."""
+    """Mirror of ``FusedRK4Params`` in ``csrc/fused_rk4.cu`` and ``csrc/fused_rk4_bf16.cu``, field by field."""
 
     _fields_ = [
         ("n_columns", ctypes.c_int), ("n_steps", ctypes.c_int), ("Nz", ctypes.c_int),
@@ -110,6 +110,61 @@ def pack_weights(A1, b1, A2, b2, A3, b3, Krow, w1, w2, Nz: int, h1: int, h2: int
     return np.concatenate([np.asarray(a, np.float32).reshape(-1) for a in parts])
 
 
+MMA_M, MMA_K = 16, 16  # mma.sync m16n8k16: the weight (A) operand is 16 x 16 per tile
+
+
+def _bf16_bits(a) -> np.ndarray:
+    """The bf16 bit patterns (uint16) of ``a``: rounded to nearest even, as ``.to(torch.bfloat16)`` rounds."""
+    t = torch.as_tensor(a).detach().cpu()
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+def mma_a_fragments(W) -> np.ndarray:
+    """``mma.m16n8k16`` A-operand fragments of ``W.T`` for a right-multiply ``W (K, M)``, as bf16 bits.
+
+    ``W.T`` is zero-padded to ``(16 MT, 16 KT)`` and cut into 16 x 16 tiles;
+    the result has shape ``(MT, KT, 32, 8)``: for tile ``(mt, kt)`` and lane
+    ``l`` (``g = l // 4``, ``t = l % 4``), the lane's four 32-bit registers
+    ``a0..a3`` hold rows ``g, g + 8, g, g + 8`` at columns ``2t, 2t, 2t + 8,
+    2t + 8`` and the next column, the lower column in the lower half
+    (the PTX ISA's fragment layout for ``.bf16`` A operands).
+    """
+    W = _bf16_bits(W)
+    K, M = W.shape
+    MT, KT = -(-M // MMA_M), -(-K // MMA_K)
+    A = np.zeros((MT * MMA_M, KT * MMA_K), np.uint16)
+    A[:M, :K] = W.T
+    tiles = A.reshape(MT, MMA_M, KT, MMA_K).transpose(0, 2, 1, 3)  # (MT, KT, 16, 16)
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+    rows = np.repeat(np.stack([g, g + 8, g, g + 8], 1), 2, axis=1)  # (32, 8)
+    cols = np.repeat(np.stack([2 * t, 2 * t, 2 * t + 8, 2 * t + 8], 1), 2, axis=1) + np.tile([0, 1], 4)
+    return np.ascontiguousarray(tiles[:, :, rows, cols])
+
+
+def pack_weights_bf16(A1, b1, A2, b2, A3, b3, Krow, w1, w2, Nz: int, h1: int, h2: int):
+    """The bf16 kernel's two weight buffers from the MXU-layout operands.
+
+    Returns ``(vecs, frags)``: ``vecs`` the f32 rows ``b1, b2``, the three
+    ``b3`` blocks, ``Krow, w1, w2`` (the f32 kernel's order); ``frags`` the
+    bf16 bits (uint16) of the three NN products' weight fragments
+    (:func:`mma_a_fragments`): ``A1 (3Nz, 3h1)`` dense, then the three
+    diagonal blocks of ``A2`` and the three of ``A3`` (block ``b`` of the
+    block-aligned ``A3`` in lanes ``[b Nz, b Nz + Nz - 1)``), each padded to
+    whole 16 x 16 tiles. The order is the one ``make_layout`` in
+    ``csrc/fused_rk4_bf16.cu`` reads.
+    """
+    ni = Nz - 1
+    A2 = torch.as_tensor(A2)
+    A3 = torch.as_tensor(A3)
+    b3 = np.asarray(b3, np.float32).reshape(-1)
+    b3b = np.stack([b3[b * Nz:b * Nz + ni] for b in range(3)])
+    vecs = np.concatenate([np.asarray(a, np.float32).reshape(-1) for a in (b1, b2, b3b, Krow, w1, w2)])
+    frags = [mma_a_fragments(A1)]
+    frags += [mma_a_fragments(A2[b * h1:(b + 1) * h1, b * h2:(b + 1) * h2]) for b in range(3)]
+    frags += [mma_a_fragments(A3[b * h2:(b + 1) * h2, b * Nz:b * Nz + ni]) for b in range(3)]
+    return vecs, np.concatenate([f.reshape(-1) for f in frags])
+
+
 def make_params(*, n_columns, n_steps, Nz, h1, h2, activation, dt, coefficients: dict) -> _Params:
     """Kernel scalars; ``coefficients`` are the folded RHS constants of ``fused_rhs._rhs_coefficients``."""
     c = coefficients
@@ -132,6 +187,7 @@ class _Kernel:
         self.launches = 0
         self.build_seconds = None
         self.ptxas_report = ""
+        self.library_path = None
         self._lib = None
 
     def _bind(self, lib) -> None:
@@ -143,6 +199,7 @@ class _Kernel:
         if self._lib is None:
             t0 = time.perf_counter()
             path, self.ptxas_report = build_library(self.source)
+            self.library_path = path
             lib = ctypes.CDLL(str(path))
             self._bind(lib)
             self._lib = lib
@@ -200,6 +257,74 @@ class FusedRK4Kernel(_Kernel):
             params, _device_index(x0), ctypes.c_void_p(stream),
         )
         self._check(rc, "fused_rk4")
+        self.launches += 1
+        return out
+
+
+class FusedRK4Bf16Kernel(_Kernel):
+    """``csrc/fused_rk4_bf16.cu``: the fused RK4 trajectory with bf16 NN products on the tensor cores.
+
+    ``shape`` picks one of the source's compiled launch shapes (columns and
+    warps per CTA; :meth:`shapes`); ``None`` is its default, the one the
+    runners use.
+    """
+
+    source = SOURCE_DIR / "fused_rk4_bf16.cu"
+
+    def _bind(self, lib) -> None:
+        lib.fused_rk4_bf16_launch.argtypes = [ctypes.c_void_p] * 4 + [_Params, ctypes.c_int, ctypes.c_int,
+                                                                       ctypes.c_void_p]
+        lib.fused_rk4_bf16_launch.restype = ctypes.c_int
+        lib.fused_rk4_bf16_error_string.argtypes = [ctypes.c_int]
+        lib.fused_rk4_bf16_error_string.restype = ctypes.c_char_p
+        for name in ("fused_rk4_bf16_vec_count", "fused_rk4_bf16_frag_count"):
+            getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_int
+        lib.fused_rk4_bf16_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.fused_rk4_bf16_smem_bytes.restype = ctypes.c_int
+        lib.fused_rk4_bf16_shape_count.argtypes = []
+        lib.fused_rk4_bf16_shape_count.restype = ctypes.c_int
+        for name in ("fused_rk4_bf16_shape_columns", "fused_rk4_bf16_shape_warps"):
+            getattr(lib, name).argtypes = [ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_int
+
+    def shapes(self) -> list[tuple[int, int]]:
+        """``(columns, warps)`` per CTA of each compiled launch shape; the first is the default."""
+        lib = self.load()
+        return [(lib.fused_rk4_bf16_shape_columns(i), lib.fused_rk4_bf16_shape_warps(i))
+                for i in range(lib.fused_rk4_bf16_shape_count())]
+
+    def __call__(self, x0: torch.Tensor, vecs: torch.Tensor, frags: torch.Tensor, params: _Params,
+                 shape: int | None = None) -> torch.Tensor:
+        """Launch on ``x0 (n_columns, 3 Nz)``; returns the state after ``params.n_steps`` steps."""
+        F = 3 * params.Nz
+        args = (x0, vecs, frags)
+        if x0.device.type != "cuda" or any(a.device != x0.device for a in args):
+            raise ValueError(f"fused_rk4_bf16 needs x0, vecs and frags on one CUDA device, got "
+                             f"{[str(a.device) for a in args]}")
+        if x0.dtype != torch.float32 or vecs.dtype != torch.float32 or frags.dtype != torch.bfloat16:
+            raise ValueError(f"fused_rk4_bf16 takes float32 x0 and vecs and bfloat16 frags, got "
+                             f"{[a.dtype for a in args]}")
+        if x0.dim() != 2 or x0.shape != (params.n_columns, F):
+            raise ValueError(f"fused_rk4_bf16 expects x0 of shape ({params.n_columns}, {F}), got {tuple(x0.shape)}")
+        if not all(a.is_contiguous() for a in args) or frags.data_ptr() % 16:
+            raise ValueError("fused_rk4_bf16 takes contiguous tensors, frags on a 16-byte boundary")
+        lib = self.load()
+        dims = (params.Nz, params.h1, params.h2)
+        if vecs.numel() != lib.fused_rk4_bf16_vec_count(*dims) or frags.numel() != lib.fused_rk4_bf16_frag_count(*dims):
+            raise ValueError(f"fused_rk4_bf16 expects {lib.fused_rk4_bf16_vec_count(*dims)} f32 and "
+                             f"{lib.fused_rk4_bf16_frag_count(*dims)} bf16 weights, got {vecs.numel()} and "
+                             f"{frags.numel()}")
+        n_shapes = lib.fused_rk4_bf16_shape_count()
+        if shape is not None and not 0 <= shape < n_shapes:
+            raise ValueError(f"fused_rk4_bf16 has launch shapes 0..{n_shapes - 1}, got {shape}")
+        out = torch.empty_like(x0)
+        stream = torch.cuda.current_stream(x0.device).cuda_stream
+        rc = lib.fused_rk4_bf16_launch(
+            *(ctypes.c_void_p(a.data_ptr()) for a in (x0, out, vecs, frags)),
+            params, 0 if shape is None else shape, _device_index(x0), ctypes.c_void_p(stream),
+        )
+        self._check(rc, "fused_rk4_bf16")
         self.launches += 1
         return out
 
@@ -342,11 +467,12 @@ class CholeskyKernel(_Kernel):
 
 
 FUSED_RK4 = FusedRK4Kernel()
+FUSED_RK4_BF16 = FusedRK4Bf16Kernel()
 THOMAS = ThomasKernel()
 GRAM = GramKernel()
 CHOLESKY = CholeskyKernel()
 
-KERNELS = {"fused_rk4": FUSED_RK4, "thomas": THOMAS, "gram": GRAM, "cholesky": CHOLESKY}
+KERNELS = {"fused_rk4": FUSED_RK4, "fused_rk4_bf16": FUSED_RK4_BF16, "thomas": THOMAS, "gram": GRAM, "cholesky": CHOLESKY}
 
 
 def _timed_build(source: Path) -> float:

@@ -3,20 +3,22 @@
 Port of ``climateparameterizations_jl_tpu/ops/fused_rhs.py``. The JAX
 package runs a whole RK4 trajectory segment inside one Pallas TPU kernel
 (two variants: ``make_fused_runner_mxu`` and ``make_fused_runner``). Here
-both runners launch the one hand-written CUDA kernel ``csrc/fused_rk4.cu``
-(``ops/_cuda.py``) for CUDA tensors, and run its plain PyTorch version,
-:func:`_multistep_plain` (RK4 over :func:`_make_mxu_rhs`), for CPU tensors.
-There is no fallback from the kernel to the plain version.
+both runners launch the hand-written CUDA kernel ``csrc/fused_rk4.cu``
+(``ops/_cuda.py``) for CUDA tensors; ``make_fused_runner_mxu(...,
+matmul_dtype="bfloat16")`` launches ``csrc/fused_rk4_bf16.cu``, whose three
+NN products run on the tensor cores. For CPU tensors the runners run the
+kernels' plain PyTorch version, :func:`_multistep_plain` (RK4 over
+:func:`_make_mxu_rhs`). There is no fallback from a kernel to the plain
+version.
 
 The host-side constant builders (:func:`_pack_block_weights`,
 :func:`_scalar_constants`, :func:`divergence_matrix`, ...) are numpy, as in
 the JAX package, and give the same arrays to the bit.
 
 Scope, as the TPU kernels: non-diurnal, mPP + ``zero_weights``, no
-smoothing, forward only, f32 matmuls (``matmul_dtype="bfloat16"`` is not
-ported yet: ``ROADMAP.md``). ``column_block`` and ``loop_unroll`` are the
-TPU's tiling knobs; they are accepted so that callers carry over and do
-not change the result.
+smoothing, forward only. ``column_block`` and ``loop_unroll`` are the TPU's
+tiling knobs; they are accepted so that callers carry over and do not
+change the result.
 """
 
 from __future__ import annotations
@@ -236,8 +238,8 @@ def _rhs_coefficients(consts: tuple, Nz: int) -> dict:
     )
 
 
-def _make_mxu_rhs(consts: tuple, Nz: int, activation: str, fold_divergence: bool = False):
-    """The MXU-assembly RHS body: the plain version of the CUDA kernel's RHS.
+def _make_mxu_rhs(consts: tuple, Nz: int, activation: str, matmul_dtype=None, fold_divergence: bool = False):
+    """The MXU-assembly RHS body: the plain version of the CUDA kernels' RHS.
 
     Packed roll-by-1 gradients, the 3-matmul NN chain, divergence as one
     matmul with the bidiagonal ``Dr``, Coriolis as two ``Nz``-lane rolls,
@@ -245,12 +247,23 @@ def _make_mxu_rhs(consts: tuple, Nz: int, activation: str, fold_divergence: bool
     Dr, Krow, w1, w2)`` on the last axis; with ``fold_divergence=True``,
     ``rhs(x, A1, b1, A2, b2, A3f, b3f, C2a, C2b, Krow, w1, w2)`` where the
     caller precomposed ``A3f = A3 @ Dr``, ``b3f = b3 @ Dr``.
+
+    ``matmul_dtype=None`` takes each NN product in the state's dtype (the
+    f64 training path needs this). ``torch.bfloat16`` rounds both inputs of
+    each NN product to bf16 (to nearest even) and multiplies in f32, as
+    JAX's ``preferred_element_type=float32``; ``bf16 @ bf16`` in torch would
+    round the result to bf16 as well. The divergence product stays f32.
     """
     c = _rhs_coefficients(consts, Nz)
     epsdz, au, av, aT = c["epsdz"], c["au"], c["av"], c["aT"]
     n_a, n_b, t_a, t_b = c["n_a"], c["n_b"], c["t_a"], c["t_b"]
     cu, cv, cT = c["cu"], c["cv"], c["cT"]
     act = _resolve_activation(activation)
+
+    def mm(x, A):
+        if matmul_dtype is None:
+            return x @ A
+        return x.to(matmul_dtype).float() @ A.to(matmul_dtype).float()
 
     def face_terms(x):
         d = torch.roll(x, -1, dims=-1) - x  # packed raw differences; seam lanes junk
@@ -269,18 +282,18 @@ def _make_mxu_rhs(consts: tuple, Nz: int, activation: str, fold_divergence: bool
 
     def rhs(x, A1, b1, A2, b2, A3, b3, Dr, Krow, w1, w2):
         nu, du, dv, dT = face_terms(x)
-        a1 = act(x @ A1 + b1)
-        a2 = act(a1 @ A2 + b2)
-        y = a2 @ A3 + b3  # (..., 3 Nz), seam lanes structurally zero
+        a1 = act(mm(x, A1) + b1)
+        a2 = act(mm(a1, A2) + b2)
+        y = mm(a2, A3) + b3  # (..., 3 Nz), seam lanes structurally zero
         mpp = torch.cat([cu * (nu * du), cv * (nu * dv), cT * (nu * dT)], dim=-1)
         flux = y - mpp
         return flux @ Dr + rotation(x, w1, w2) + Krow
 
     def rhs_folded(x, A1, b1, A2, b2, A3f, b3f, C2a, C2b, Krow, w1, w2):
         nu, du, dv, dT = face_terms(x)
-        a1 = act(x @ A1 + b1)
-        a2 = act(a1 @ A2 + b2)
-        ydiv = a2 @ A3f + b3f
+        a1 = act(mm(x, A1) + b1)
+        a2 = act(mm(a1, A2) + b2)
+        ydiv = mm(a2, A3f) + b3f
         nud = torch.cat([nu * du, nu * dv, nu * dT], dim=-1)
         mppdiv = C2a * torch.roll(nud, 1, dims=-1) - C2b * nud
         return ydiv - mppdiv + rotation(x, w1, w2) + Krow
@@ -288,9 +301,10 @@ def _make_mxu_rhs(consts: tuple, Nz: int, activation: str, fold_divergence: bool
     return rhs_folded if fold_divergence else rhs
 
 
-def _multistep_plain(x0, operands, consts: tuple, Nz: int, activation: str, dt: float, n_steps: int):
-    """The CUDA kernel's plain version: ``n_steps`` of RK4 over :func:`_make_mxu_rhs`."""
-    rhs = _make_mxu_rhs(consts, Nz, activation)
+def _multistep_plain(x0, operands, consts: tuple, Nz: int, activation: str, dt: float, n_steps: int,
+                     matmul_dtype=None):
+    """The CUDA kernels' plain version: ``n_steps`` of RK4 over :func:`_make_mxu_rhs`."""
+    rhs = _make_mxu_rhs(consts, Nz, activation, matmul_dtype)
     x = x0
     for _ in range(n_steps):
         k1 = rhs(x, *operands)
@@ -301,32 +315,56 @@ def _multistep_plain(x0, operands, consts: tuple, Nz: int, activation: str, dt: 
     return x
 
 
+MATMUL_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
 class FusedRunner:
     """``run(x0) -> x_final`` with the weights packed and resident on one device.
 
-    For a CUDA ``x0`` it launches ``csrc/fused_rk4.cu``; for a CPU ``x0`` it
-    runs :func:`_multistep_plain`. ``x0`` must lie on the runner's device.
+    For a CUDA ``x0`` it launches ``csrc/fused_rk4.cu``, or
+    ``csrc/fused_rk4_bf16.cu`` when ``matmul_dtype="bfloat16"``; for a CPU
+    ``x0`` it runs :func:`_multistep_plain` with the same matmul dtype.
+    ``x0`` must lie on the runner's device. With bf16 matmuls the three NN
+    weight matrices are rounded to bf16 once, here, as the JAX runner casts
+    them; biases and the assembly constants stay f32.
     """
 
     def __init__(self, consts: tuple, mats: tuple, Nz: int, h1: int, h2: int, activation: str,
-                 dt: float, n_steps: int, n_columns: int, device: torch.device):
+                 dt: float, n_steps: int, n_columns: int, device: torch.device, matmul_dtype: str = "float32"):
         _resolve_activation(activation)
         self.consts, self.Nz, self.activation = consts, Nz, activation
         self.dt, self.n_steps, self.n_columns = float(dt), int(n_steps), int(n_columns)
         self.device = device
+        self.matmul_dtype = MATMUL_DTYPES[matmul_dtype]
+        wdt = self.matmul_dtype or torch.float32
         # (A1, b1, A2, b2, A3, b3, Dr, Krow, w1, w2), block-aligned last layer.
-        self.operands = tuple(torch.as_tensor(a, dtype=torch.float32, device=device) for a in mats)
+        self.operands = tuple(
+            torch.as_tensor(a, dtype=torch.float32, device=device).to(wdt if i in (0, 2, 4) else torch.float32)
+            for i, a in enumerate(mats)
+        )
         self.kernel_weights = None
+        self.kernel_frags = None
         self.kernel_params = None
         if device.type == "cuda":
             A1, b1, A2, b2, A3, b3, _Dr, Krow, w1, w2 = mats
-            self.kernel_weights = torch.as_tensor(
-                _cuda.pack_weights(A1, b1, A2, b2, A3, b3, Krow, w1, w2, Nz, h1, h2), device=device
-            )
+            if self.matmul_dtype is None:
+                self.kernel_weights = torch.as_tensor(
+                    _cuda.pack_weights(A1, b1, A2, b2, A3, b3, Krow, w1, w2, Nz, h1, h2), device=device
+                )
+            else:
+                A1b, _, A2b, _, A3b = (a.cpu() for a in self.operands[:5])
+                vecs, frags = _cuda.pack_weights_bf16(A1b, b1, A2b, b2, A3b, b3, Krow, w1, w2, Nz, h1, h2)
+                self.kernel_weights = torch.as_tensor(vecs, device=device)
+                self.kernel_frags = torch.as_tensor(frags.view(np.int16), device=device).view(torch.bfloat16)
             self.kernel_params = _cuda.make_params(
                 n_columns=self.n_columns, n_steps=self.n_steps, Nz=Nz, h1=h1, h2=h2,
                 activation=activation, dt=self.dt, coefficients=_rhs_coefficients(consts, Nz),
             )
+
+    def plain(self, x0):
+        """The kernel's plain version, :func:`_multistep_plain`, on this runner's operands."""
+        return _multistep_plain(x0, self.operands, self.consts, self.Nz, self.activation, self.dt, self.n_steps,
+                                self.matmul_dtype)
 
     def __call__(self, x0):
         if not isinstance(x0, torch.Tensor):
@@ -337,17 +375,17 @@ class FusedRunner:
         if tuple(x0.shape) != (self.n_columns, 3 * self.Nz):
             raise ValueError(f"runner expects x0 of shape ({self.n_columns}, {3 * self.Nz}), got {tuple(x0.shape)}")
         if x0.device.type == "cuda":
-            return _cuda.FUSED_RK4(x0.contiguous(), self.kernel_weights, self.kernel_params)
+            if self.matmul_dtype is None:
+                return _cuda.FUSED_RK4(x0.contiguous(), self.kernel_weights, self.kernel_params)
+            return _cuda.FUSED_RK4_BF16(x0.contiguous(), self.kernel_weights, self.kernel_frags, self.kernel_params)
         if x0.device.type == "cpu":
-            return _multistep_plain(x0, self.operands, self.consts, self.Nz, self.activation, self.dt, self.n_steps)
+            return self.plain(x0)
         raise ValueError(f"no fused RK4 path for device {x0.device}")
 
 
 def _check_matmul_dtype(matmul_dtype: str):
-    if matmul_dtype == "bfloat16":
-        raise NotImplementedError("bf16 NN matmuls in the fused kernel are not ported yet (ROADMAP.md, queue 2)")
-    if matmul_dtype != "float32":
-        raise ValueError(f"matmul_dtype must be 'float32' (or 'bfloat16', not ported yet), got {matmul_dtype!r}")
+    if matmul_dtype not in MATMUL_DTYPES:
+        raise ValueError(f"matmul_dtype must be 'float32' or 'bfloat16', got {matmul_dtype!r}")
 
 
 def make_fused_runner_mxu(model, nns, bcs, dt: float, n_steps: int, n_columns: int, column_block: int = 2048,
@@ -355,8 +393,10 @@ def make_fused_runner_mxu(model, nns, bcs, dt: float, n_steps: int, n_columns: i
     """Runner for the MXU-assembly variant (block-aligned last layer).
 
     Same restrictions as the TPU kernel: non-diurnal, ``use_mpp`` +
-    ``zero_weights``, no smoothing. ``column_block`` and ``loop_unroll`` do
-    not change the result.
+    ``zero_weights``, no smoothing. ``matmul_dtype="bfloat16"`` feeds the
+    three NN products bf16 inputs with f32 accumulation (the divergence
+    stays f32). ``column_block`` and ``loop_unroll`` do not change the
+    result.
     """
     del column_block, loop_unroll
     _assert_fused_config(model)
@@ -366,7 +406,7 @@ def make_fused_runner_mxu(model, nns, bcs, dt: float, n_steps: int, n_columns: i
     (A1, b1, A2, b2, A3, b3), (h1, h2, _) = _pack_block_weights(nns, Nz, pad_to_block=True)
     Dr, Krow, w1, w2 = _assembly_constants(consts, Nz)
     return FusedRunner(consts, (A1, b1, A2, b2, A3, b3, Dr, Krow, w1, w2), Nz, h1, h2, nns.uw.activation,
-                       dt, n_steps, n_columns, resolve_device(device))
+                       dt, n_steps, n_columns, resolve_device(device), matmul_dtype)
 
 
 def fused_wind_mixing_multistep_mxu(model, nns, bcs, x0, dt, n_steps, column_block: int = 2048,

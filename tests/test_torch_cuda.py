@@ -51,7 +51,7 @@ def test_kernel_matches_plain(card, make, n_columns):
     got = run(x0)
     torch.cuda.synchronize()
     assert _cuda.FUSED_RK4.launches == before + 1
-    want = tfr._multistep_plain(x0, run.operands, run.consts, 32, run.activation, DT, 8)
+    want = run.plain(x0)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
 
 
@@ -68,7 +68,7 @@ def test_kernel_relu(card):
     model, nns, bcs, x0 = _setup(card, 64)
     nns = twm.FluxNNs(*[dataclasses.replace(m, activation="relu") for m in nns])
     run = tfr.make_fused_runner_mxu(model, nns, bcs, DT, 8, 64, device=card)
-    want = tfr._multistep_plain(x0, run.operands, run.consts, 32, "relu", DT, 8)
+    want = run.plain(x0)
     torch.testing.assert_close(run(x0), want, rtol=RTOL, atol=ATOL)
 
 
@@ -99,6 +99,84 @@ def test_bench_nde_forward_counts_launches(card):
     stats = benchmarks.bench_nde_forward(128, n_steps=16, repeats=2, device=card)
     assert _cuda.FUSED_RK4.launches - before == stats["calls"] == 3
     assert stats["ms_min"] > 0 and stats["column_timesteps_per_sec"] > 0
+
+
+# --- csrc/fused_rk4_bf16.cu against its plain version (bf16 NN products) -----
+# Tolerance: the f32 kernel's. Both sides round the same inputs to bf16 to
+# nearest even, so every product is exact; only the f32 sums run in other
+# orders (the MMA's own accumulation included), and now and then an activation
+# rounds to the other bf16 neighbour, one bf16 ulp in one input.
+
+
+def _bf16_runner(dev, n_columns, n_steps=8, nns_change=None):
+    model, nns, bcs, x0 = _setup(dev, n_columns)
+    if nns_change:
+        nns = twm.FluxNNs(*[dataclasses.replace(m, **nns_change) for m in nns])
+    run = tfr.make_fused_runner_mxu(model, nns, bcs, DT, n_steps, n_columns, matmul_dtype="bfloat16", device=dev)
+    return run, x0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_columns", [8, 61, 1024])
+def test_bf16_kernel_matches_plain(card, n_columns):
+    run, x0 = _bf16_runner(card, n_columns)
+    before = _cuda.FUSED_RK4_BF16.launches
+    got = run(x0)
+    torch.cuda.synchronize()
+    assert _cuda.FUSED_RK4_BF16.launches == before + 1
+    torch.testing.assert_close(got, run.plain(x0), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_bf16_every_launch_shape(card):
+    run, x0 = _bf16_runner(card, 61)
+    want = run.plain(x0)
+    shapes = _cuda.FUSED_RK4_BF16.shapes()
+    assert len(shapes) >= 2 and all(c % 8 == 0 for c, _ in shapes)
+    for i in range(len(shapes)):
+        got = _cuda.FUSED_RK4_BF16(x0, run.kernel_weights, run.kernel_frags, run.kernel_params, shape=i)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_relu_and_zero_steps(card):
+    run, x0 = _bf16_runner(card, 64, nns_change=dict(activation="relu"))
+    torch.testing.assert_close(run(x0), run.plain(x0), rtol=RTOL, atol=ATOL)
+    run0, x0 = _bf16_runner(card, 16, n_steps=0)
+    assert torch.equal(run0(x0), x0)
+
+
+@pytest.mark.cuda
+def test_bf16_runner_refuses_cpu_x0_and_bad_input(card):
+    run, x0 = _bf16_runner(card, 16)
+    before = _cuda.FUSED_RK4_BF16.launches
+    with pytest.raises(ValueError, match="runner lives on"):
+        run(x0.cpu())
+    k = _cuda.FUSED_RK4_BF16
+    with pytest.raises(ValueError):
+        k(x0.cpu(), run.kernel_weights, run.kernel_frags, run.kernel_params)
+    with pytest.raises(ValueError):
+        k(x0, run.kernel_weights, run.kernel_frags.float(), run.kernel_params)
+    with pytest.raises(ValueError):
+        k(x0, run.kernel_weights, run.kernel_frags[:-8], run.kernel_params)
+    with pytest.raises(ValueError):
+        k(x0.t().contiguous().t(), run.kernel_weights, run.kernel_frags, run.kernel_params)
+    with pytest.raises(ValueError):
+        k(x0, run.kernel_weights, run.kernel_frags, run.kernel_params, shape=len(k.shapes()))
+    assert k.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [True, "fold"])
+def test_fast_full_rhs_matches_default_on_card(card, fast):
+    # The JAX suite's tolerance for the fast rk4 path against the default one (TestFastRK4).
+    model, nns, bcs, x0 = _setup(card, 64)
+    with torch.no_grad():
+        got = twm.solve_wind_mixing_nde(model, nns, bcs, x0, 0.0, 1e-4, 3, n_substeps=4, fast_assembly=fast)
+        want = twm.solve_wind_mixing_nde(model, nns, bcs, x0, 0.0, 1e-4, 3, n_substeps=4, fast_assembly=False)
+    assert got.device == x0.device
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
 
 
 # --- csrc/thomas.cu against its plain version, _thomas_scan -----------------

@@ -21,6 +21,7 @@ import torch
 
 import __graft_entry__ as graft
 from climateparameterizations_jl_tpu.closures.mlp import wind_mixing_mlp
+from climateparameterizations_jl_tpu.models import timestepper as jts
 from climateparameterizations_jl_tpu.models import wind_mixing as jwm
 from climateparameterizations_jl_tpu.ops import fused_rhs as jfr
 from climateparameterizations_jl_tpu.train.checkpoint import load_checkpoint as j_load_checkpoint
@@ -162,15 +163,101 @@ def test_rejects_other_activation():
 
 
 def test_bf16_not_ported_and_bad_input_rejected():
+    # The name dates from before the bf16 variant was ported: bf16 now runs
+    # (the plain version on the CPU); other matmul dtypes and bad shapes are
+    # still refused.
     (_, _, _, _), (tm, tn, tb, tx) = _setup(n_columns=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfr.make_fused_runner_mxu(tm, tn, tb, DT, 1, 4, matmul_dtype="bfloat16", device="cpu")
+    run16 = tfr.make_fused_runner_mxu(tm, tn, tb, DT, 1, 4, matmul_dtype="bfloat16", device="cpu")
+    assert run16.matmul_dtype == torch.bfloat16 and run16.operands[0].dtype == torch.bfloat16
+    assert run16(tx).dtype == torch.float32
     with pytest.raises(ValueError):
         tfr.make_fused_runner_mxu(tm, tn, tb, DT, 1, 4, matmul_dtype="float16", device="cpu")
     run = tfr.make_fused_runner_mxu(tm, tn, tb, DT, 1, 4, device="cpu")
     with pytest.raises(ValueError):
         run(tx[:3])
     assert run(tx.numpy()).shape == (4, 96)
+
+
+# bf16 NN products. The port's plain version and JAX's Pallas kernel (interpret
+# mode) round the same f32 inputs to bf16 to nearest even, so the products are
+# exact on both sides and only the f32 sums run in other orders (now and then
+# an activation lands on the other side of a bf16 rounding midpoint, one bf16
+# ulp in one input): they are held to the f32 tolerance above, far inside the
+# bf16 one. Against the f32 trajectory both are held to the JAX test's own
+# bf16 tolerance (tests/test_fused_rhs.py::test_bf16_matmuls_close).
+BF16_RTOL, BF16_ATOL = 3e-2, 3e-3
+
+
+def _xla_rk4(jm, jn, jb, jx, n_steps):
+    def run(x):
+        rhs = lambda x, t: jwm.wind_mixing_rhs(jm, jn, jb, x, t)  # noqa: E731
+
+        def body(x, i):
+            return jts.rk4_step(rhs, x, i * DT, jnp.float32(DT)), None
+
+        return jax.lax.scan(body, x, jnp.arange(n_steps, dtype=jnp.float32))[0]
+
+    return jax.jit(run)(jx)
+
+
+@pytest.mark.parametrize("trained", [False, True])
+def test_bf16_plain_matches_pallas_bf16(trained):
+    (jm, jn, jb, jx), (tm, tn, tb, tx) = _setup(n_columns=16, trained=trained)
+    want = jfr.fused_wind_mixing_multistep_mxu(jm, jn, jb, jx, DT, 4, matmul_dtype="bfloat16", interpret=True)
+    got = tfr.fused_wind_mixing_multistep_mxu(tm, tn, tb, tx, DT, 4, matmul_dtype="bfloat16", device="cpu")
+    _close(got, want)
+    reference = _xla_rk4(jm, jn, jb, jx, 4)
+    _close(got, reference, rtol=BF16_RTOL, atol=BF16_ATOL)
+    _close(want, reference, rtol=BF16_RTOL, atol=BF16_ATOL)
+    if trained:  # the trained fluxes are large enough for bf16 to show against f32
+        f32 = tfr.fused_wind_mixing_multistep_mxu(tm, tn, tb, tx, DT, 4, device="cpu")
+        assert float((got - f32).abs().max()) > 1e-6
+
+
+def test_mxu_rhs_follows_f64_state():
+    (jm, jn, jb, _), (tm, tn, tb, _) = _setup(trained=True)
+    consts = tfr._scalar_constants(tm, tb)
+    (A1, b1, A2, b2, A3, b3), _ = tfr._pack_block_weights(tn, 32, np.float64, pad_to_block=True)
+    ops = (A1, b1, A2, b2, A3, b3, *tfr._assembly_constants(consts, 32, np.float64))
+    x = np.random.default_rng(5).normal(size=(3, 96)) * 0.1
+    got = tfr._make_mxu_rhs(consts, 32, "mish", matmul_dtype=None)(torch.tensor(x), *map(torch.tensor, ops))
+    assert got.dtype == torch.float64
+    want = jfr._make_mxu_rhs(consts, 32, "mish", None)(jnp.asarray(x), *map(jnp.asarray, ops))
+    assert want.dtype == jnp.float64
+    # The same f64 operations in both packages: f64 roundoff of tendencies ~1e4.
+    _close(got, want, rtol=1e-12, atol=1e-9)
+
+
+def test_bf16_fragment_layout():
+    """``mma_a_fragments`` against the PTX ISA's A-fragment layout for m16n8k16 .bf16: lane ``l``
+    (``g = l // 4``, ``t = l % 4``) holds element ``i`` of its 8 at row ``g + 8 ((i // 2) % 2)``,
+    column ``2 t + i % 2 + 8 (i // 4)`` of the tile."""
+    W = torch.tensor(np.random.default_rng(3).normal(size=(50, 20)), dtype=torch.float32)
+    frags = _cuda.mma_a_fragments(W)
+    assert frags.shape == (2, 4, 32, 8) and frags.dtype == np.uint16
+    A = np.zeros((32, 64), np.uint16)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for i in range(8):
+            A[g + 8 * ((i // 2) % 2) + 16 * np.arange(2)[:, None],
+              2 * t + i % 2 + 8 * (i // 4) + 16 * np.arange(4)[None, :]] = frags[:, :, lane, i]
+    np.testing.assert_array_equal(A[:20, :50], W.T.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16))
+    assert not A[20:].any() and not A[:, 50:].any()
+
+
+def test_bf16_kernel_buffers():
+    (_, _, _, _), (tm, tn, tb, _) = _setup(n_columns=4, trained=True)
+    run = tfr.make_fused_runner_mxu(tm, tn, tb, DT, 1, 4, matmul_dtype="bfloat16", device="cpu")
+    A1, b1, A2, b2, A3, b3, _Dr, Krow, w1, w2 = run.operands
+    vecs, frags = _cuda.pack_weights_bf16(A1, b1, A2, b2, A3, b3, Krow, w1, w2, 32, 50, 20)
+    assert vecs.dtype == np.float32 and vecs.size == 150 + 60 + 93 + 3 * 96
+    # A1: 10 m-tiles (150 neurons) x 6 k-tiles; A2 blocks 2 x 4; A3 blocks 2 x 2; 256 bf16 per tile.
+    assert frags.dtype == np.uint16 and frags.size == 256 * (10 * 6 + 3 * 2 * 4 + 3 * 2 * 2)
+    # The weights are rounded to bf16 once, by the runner, to nearest even.
+    np.testing.assert_array_equal(A1[:, :50].float().numpy(), tn.uw.weights[0].T.to(torch.bfloat16).float().numpy())
+    tail = frags[256 * (60 + 24):].reshape(3, 2, 2, 32, 8)  # A3's blocks: (block, mt, kt, lane, 8)
+    np.testing.assert_array_equal(tail[1, 0, 0, 0, 0:2].view(np.int16),
+                                  tn.vw.weights[2][0, 0:2].to(torch.bfloat16).view(torch.int16).numpy())
 
 
 def test_kernel_weight_buffer_layout():
@@ -195,3 +282,13 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         _cuda.FUSED_RK4(tx, torch.zeros(10), params)
     assert _cuda.FUSED_RK4.launches == 0
 
+
+
+def test_bf16_kernel_wrapper_refuses_cpu_tensors():
+    (_, _, _, _), (tm, tn, tb, tx) = _setup(n_columns=4)
+    run = tfr.make_fused_runner_mxu(tm, tn, tb, DT, 1, 4, matmul_dtype="bfloat16", device="cpu")
+    params = _cuda.make_params(n_columns=4, n_steps=1, Nz=32, h1=50, h2=20, activation="mish", dt=DT,
+                               coefficients=tfr._rhs_coefficients(run.consts, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        _cuda.FUSED_RK4_BF16(tx, torch.zeros(10), torch.zeros(8, dtype=torch.bfloat16), params)
+    assert _cuda.FUSED_RK4_BF16.launches == 0

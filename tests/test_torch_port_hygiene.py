@@ -95,7 +95,8 @@ def test_constructors_raise_without_card(no_card, make):
     lambda: benchmarks.bench_nde_forward(8, n_steps=1, repeats=1, device="cpu"),
     lambda: benchmarks.bench_train_step({}, device="cpu"),
     lambda: benchmarks.bench_tridiagonal(8, 4, device="cpu"),
-], ids=["bench_nde_forward", "bench_train_step", "bench_tridiagonal"])
+    lambda: benchmarks.bench_nde_train_step(2, n_window=2, method="rk4", device="cpu"),
+], ids=["bench_nde_forward", "bench_train_step", "bench_tridiagonal", "bench_nde_train_step"])
 def test_bench_refuses_cpu(bench):
     with pytest.raises(RuntimeError, match="card"):
         bench()
@@ -110,3 +111,5 @@ def test_training_entry_points_raise_without_card(no_card):
         _load_suite(["wind_-5e-4_new"], 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         benchmarks.bench_tridiagonal(8, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        benchmarks.nde_train_step_setup(2, n_window=2)

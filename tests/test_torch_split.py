@@ -123,7 +123,7 @@ def test_split_gradients_match_jax(fast_assembly, implicit_solve_grad):
 def test_resolve_fast_assembly():
     _, (model, nns, _, _) = _setup()
     assert twm.resolve_fast_assembly(model, nns, "split", "auto") == "fold"
-    assert twm.resolve_fast_assembly(model, nns, "rk4", "auto") is False
+    assert twm.resolve_fast_assembly(model, nns, "rk4", "auto") == "fold"
     assert twm.resolve_fast_assembly(dataclasses.replace(model, smooth_NN=True), nns, "split", "auto") is False
     assert twm.resolve_fast_assembly(model, twm.FluxNNs(None, None, None), "split", "auto") is False
     assert twm.resolve_fast_assembly(model, nns, "split", True) is True

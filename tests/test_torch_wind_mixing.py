@@ -149,10 +149,13 @@ def test_solve_wind_mixing_nde(method):
 
 
 def test_solve_rejects_fast_assembly():
-    _, (tm, tn, tb, tx) = _setup(n_columns=2)
+    # The name dates from before the rk4 fast assembly was ported: it now
+    # runs, and matches JAX's (tolerance as test_solve_wind_mixing_nde).
+    (jm, jn, jb, jx), (tm, tn, tb, tx) = _setup(n_columns=2)
     for value in (True, "fold"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            twm.solve_wind_mixing_nde(tm, tn, tb, tx, 0.0, 1e-5, 1, fast_assembly=value)
+        j = jwm.solve_wind_mixing_nde(jm, jn, jb, jx, 0.0, 4e-5, 2, n_substeps=4, fast_assembly=value)
+        t = twm.solve_wind_mixing_nde(tm, tn, tb, tx, 0.0, 4e-5, 2, n_substeps=4, fast_assembly=value)
+        _close(t, j, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("stepper", ["euler_step", "heun_step", "rk4_step"])
