@@ -66,11 +66,19 @@ BENCH_STEPS, BENCH_REPEATS = 1024, 5
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# Thomas kernel vs its plain version (_thomas_scan), f32: the same recurrence,
-# with the kernel's multiply-adds contracted to FMAs, on diagonally dominant
-# systems (condition number below 10), so a few f32 ulps of the solution.
+# Thomas kernel vs its plain version (_thomas_scan), f32: the same sweep with
+# the same roundings (no FMA contraction, IEEE quotients), so on normal data
+# the two agree bit for bit; the limits are kept as they were for the
+# earlier FMA-contracted kernel, a few f32 ulps of the solution on diagonally
+# dominant systems (condition number below 10). The number of entries that
+# differ at all is printed.
 THOMAS_RTOL, THOMAS_ATOL = 1e-5, 1e-6
-THOMAS_SHAPES = ((3, 18, 32), (16384, 32), (3, 18, 128), (1000, 33), (100, 1), (40, 256))
+THOMAS_SHAPES = ((3, 18, 32), (16384, 32), (3, 18, 128), (1000, 33), (100, 1), (40, 256), (54, 31), (200, 64))
+# The kernels' device times before their redesign (NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md section 6, rows 1 and 5), cited by the logs of phases 10
+# and 17 beside this run's times; they are not measured here.
+THOMAS_EARLIER_MS = {"16384x32": 0.01280, "54x32": 0.01206}
+CHOLESKY_EARLIER_MS = {"jittered_se_gram": 2.2876, "dense_spd": 1.203}
 # One flagship step, kernel-backed vs "scan"-backed from the same parameters:
 # per-solve f32 differences of a few ulps, carried through 1,152 substeps and
 # the backward pass, and amplified where the mPP tanh switch is steep.
@@ -328,7 +336,10 @@ def gp_phases(dev):
 
     chol_errors = {}
     with phase("12 cholesky vs cholesky_plain and torch.linalg.cholesky (n = 256 and 1,024)"):
-        log(f"cholesky: {chol_k.load().cholesky_tile()} x {chol_k.load().cholesky_tile()} tiles")
+        clib = chol_k.load()
+        log(f"cholesky: {clib.cholesky_tile()} x {clib.cholesky_tile()} tiles, {clib.cholesky_panel_rows_per_block()} "
+            f"panel rows per factor-and-panel CTA, windows of {clib.cholesky_window()} pivots; "
+            f"{chol_k.launches_per_call(GP_N)} launches per factorization at n = {GP_N} (2 ceil(n / 64))")
         x_gp = benchmarks.gp_inputs(GP_N, GP_D, device=dev)[0]
         def jittered_se(gamma):
             K = ops_gram.gram_cuda(x_gp, x_gp, gamma, 1.0)
@@ -347,8 +358,9 @@ def gp_phases(dev):
         chol_launches = chol_k.launches
         expected_chol = sum(chol_k.launches_per_call(K.shape[0]) for _, K, _ in cases)
         log(f"cholesky: {len(cases)} factorizations, {chol_launches} kernel launches counted; expected "
-            f"{expected_chol} = sum of 3 ceil(n / 32) - 1 over n = {[K.shape[0] for _, K, _ in cases]}")
-        if chol_launches != expected_chol:
+            f"{expected_chol} = sum of 2 ceil(n / 64) over n = {[K.shape[0] for _, K, _ in cases]}")
+        if chol_launches != expected_chol or any(chol_k.launches_per_call(K.shape[0]) != 2 * -(-K.shape[0] // 64)
+                                                 for _, K, _ in cases):
             raise RuntimeError(f"cholesky counted {chol_launches} launches, expected {expected_chol}")
         for (label, K, block), L in zip(cases, factors):
             upper = float(torch.triu(L, 1).abs().max())
@@ -546,19 +558,26 @@ def gp_phases(dev):
         log(f"cholesky n = {GP_N}, device us per call, torch.profiler (wall us back to back): "
             + ", ".join(f"{k} {cb[k + '_ms'] * 1e3:.2f} ({cb[k + '_wall_ms'] * 1e3:.2f})" for k in ("cuda", "plain", "library"))
             + f"; kernel vs plain {cb['max_abs_err_vs_plain']:.3e}, vs library {cb['max_abs_err_vs_library']:.3e}")
-        # The same factorization of a matrix without subnormal entries (the SE
-        # Gram's off-diagonal exp(-d^2 / 2) ~ exp(-96) are subnormal in f32).
+        # Kernel against torch.linalg.cholesky by CUDA events, in turns (kernel,
+        # library, library, kernel; median of 10 calls each) on the path's
+        # jittered SE Gram (gamma = 1: its off-diagonal exp(-d^2 / 2) ~ exp(-96)
+        # are subnormal in f32), on the same Gram at gamma = sqrt(D), and on a
+        # dense SPD matrix without subnormal entries.
         A = device_args(GP_N, GP_N, 90, dev)
-        K_dense = A @ A.T + GP_N * torch.eye(GP_N, device=dev)
-        dense_ms = {name: cuda_ms(fn, repeats=10)[0] for name, fn in (
-            ("cuda", lambda: ops_chol.cholesky_cuda(K_dense, 128)), ("library", lambda: torch.linalg.cholesky(K_dense)),
-            ("cuda_se", lambda: ops_chol.cholesky_cuda(cb["matrix"], 128)),
-            ("cuda_se_wide", lambda: ops_chol.cholesky_cuda(cases[-1][1], 128)),
-            ("library_se_wide", lambda: torch.linalg.cholesky(cases[-1][1])))}
-        log(f"cholesky n = {GP_N}, median ms per call by CUDA events (back to back): A A^T + n I: kernel "
-            f"{dense_ms['cuda']:.3f}, library {dense_ms['library']:.3f}; jittered SE Gram: kernel {dense_ms['cuda_se']:.3f}; "
-            f"at gamma = sqrt(D): kernel {dense_ms['cuda_se_wide']:.3f}, library {dense_ms['library_se_wide']:.3f}; "
-            f"subnormal entries in the SE Gram: {int(((cb['matrix'] != 0) & (cb['matrix'].abs() < 1.1754944e-38)).sum())}")
+        chol_matrices = {"jittered_se_gram": cb["matrix"], "jittered_se_gram_gamma_sqrt_d": cases[-1][1],
+                         "dense_spd": A @ A.T + GP_N * torch.eye(GP_N, device=dev)}
+        chol_turns = {}
+        for key, K in chol_matrices.items():
+            kernel_fn, library_fn = (lambda K=K: ops_chol.cholesky_cuda(K, 128)), (lambda K=K: torch.linalg.cholesky(K))
+            turns = [cuda_ms(fn, repeats=10)[0] for fn in (kernel_fn, library_fn, library_fn, kernel_fn)]
+            kernel_ms, library_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            chol_turns[key] = {"kernel_ms": [turns[0], turns[3]], "library_ms": [turns[1], turns[2]],
+                               "kernel_over_library": kernel_ms / library_ms}
+            log(f"cholesky n = {GP_N}, {key}: median ms per call by CUDA events, in turns kernel {turns[0]:.4f}, "
+                f"library {turns[1]:.4f}, library {turns[2]:.4f}, kernel {turns[3]:.4f}; kernel / library = "
+                f"{kernel_ms / library_ms:.3f}"
+                + (f"; earlier kernel {CHOLESKY_EARLIER_MS[key]:.4f} ms" if key in CHOLESKY_EARLIER_MS else ""))
+        log(f"subnormal entries in the SE Gram: {int(((cb['matrix'] != 0) & (cb['matrix'].abs() < 1.1754944e-38)).sum())}")
         c_ops, c_bytes = cb["flops"] / PEAK_F32_FLOPS * 1e3, cb["bytes"] / PEAK_BYTES_PER_S * 1e3
         c_bound, c_bound_by = (c_ops, "operations") if c_ops >= c_bytes else (c_bytes, "bytes")
         log(f"cholesky bound: {cb['flops']:.4e} flop / 67 TFLOP/s = {c_ops * 1e3:.3f} us; {cb['bytes']} B / 3.35 TB/s = "
@@ -609,7 +628,8 @@ def gp_phases(dev):
         "library_ms": cb["library_ms"],
         "wall_ms": cb["cuda_wall_ms"],
         "library_wall_ms": cb["library_wall_ms"],
-        "dense_matrix_event_ms": dense_ms,
+        "event_ms_in_turns": chol_turns,
+        "share_of_bound": c_bound / cb["cuda_ms"],
         "shape": {"n": GP_N, "block": 128, "launches_per_call": chol_k.launches_per_call(GP_N)},
         "ptxas": ptxas_summary(chol_k.ptxas_report),
         "build_s": chol_k.build_seconds,
@@ -922,8 +942,12 @@ def main() -> int:
     thomas_errors = {}
     with phase("6 thomas: tiny launch (1 system, N = 4)"):
         tlib = thomas.load()
-        log(f"thomas: {tlib.thomas_systems_per_block()} systems per CTA, N <= {tlib.thomas_max_n()}, "
-            f"{tlib.thomas_smem_bytes(32)} B shared memory per CTA at N = 32, {tlib.thomas_smem_bytes(256)} at N = 256")
+        log(f"thomas: one thread per system, {tlib.thomas_systems_per_block()} systems per CTA of "
+            f"{tlib.thomas_threads_per_block() // 32} warps (all stage the rows by cp.async, one solves), N <= "
+            f"{tlib.thomas_max_n()}; 16-byte copies and a float4 sweep where N % 4 == 0 and the rows are "
+            f"16-byte aligned, else 4-byte copies; {tlib.thomas_smem_bytes(32)} B of shared memory per CTA at "
+            f"N = 32 ({tlib.thomas_smem_bytes(256)} at N = 256); the operations of _thomas_scan in its rounding, "
+            f"one reciprocal per level shared by its two IEEE quotients")
         args = diag_dominant_systems((1, 4), seed=0)
         got = thomas(*args)
         torch.cuda.synchronize()
@@ -938,6 +962,7 @@ def main() -> int:
             name_ = "x".join(map(str, shape))
             thomas_errors[name_] = compare(f"thomas {name_} vs _thomas_scan", got, want,
                                            rtol=THOMAS_RTOL, atol=THOMAS_ATOL)
+            log(f"  entries that differ from _thomas_scan at all: {int((got != want).sum())} of {got.numel()}")
         # The IFT gradient through the kernel against the IFT gradient through scan.
         args = diag_dominant_systems((3, 18, 32), seed=30)
         weight = torch.randn(3, 18, 32, generator=torch.Generator().manual_seed(31)).cuda()
@@ -987,10 +1012,17 @@ def main() -> int:
         log(f"one step, kernel vs scan: loss {float(loss_k):.8e} vs {float(loss_s):.8e} (rel {loss_rel:.3e}, "
             f"limit {STEP_LOSS_RTOL}); gradient ({grad_k.numel()} entries) |g_k - g_s| / |g_s| = {grad_rel:.3e} "
             f"(limit {STEP_GRAD_RTOL}); max abs {float((grad_k - grad_s).abs().max()):.3e} of "
-            f"max |g| {float(grad_s.abs().max()):.3e}. Reason: per-solve f32 roundoff (FMA in the kernel) "
+            f"max |g| {float(grad_s.abs().max()):.3e}. Reason: per-solve f32 differences between kernel and scan "
             f"through 1,152 substeps and the backward pass, amplified by the mPP tanh switch")
         if not ok:
             raise RuntimeError("kernel-backed and scan-backed steps disagree")
+        # Information, not a check: how far the plain "pcr" backend (parallel
+        # cyclic reduction, another rounding of the same solves) moves the step.
+        loss_p, grad_p = benchmarks.train_step_loss_and_grad(setup, tridiag_backend="pcr")
+        pcr_loss_rel = abs(float(loss_p) - float(loss_s)) / abs(float(loss_s))
+        pcr_grad_rel = float((grad_p - grad_s).norm() / grad_s.norm())
+        log(f"one step, plain pcr vs scan (information): loss rel {pcr_loss_rel:.3e}, gradient "
+            f"|g_p - g_s| / |g_s| = {pcr_grad_rel:.3e}")
 
         prof = benchmarks.profile_train_step(setup, n_saves=2, device=dev)
         log(f"profiled step over {prof['substeps']} substeps (torch.profiler): wall {prof['wall_ms']:.1f} ms, "
@@ -1014,10 +1046,12 @@ def main() -> int:
         t_ops = 8 * 16384 * 32 / PEAK_F32_FLOPS * 1e3
         t_bound, t_bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
         log(f"bound at 16384 x 32: {big['bytes']} B / 3.35 TB/s = {t_bytes * 1e3:.2f} us; {8 * 16384 * 32} flop / "
-            f"67 TFLOP/s = {t_ops * 1e3:.3f} us; share of bound reached = {t_bound / big['cuda_ms']:.3f}")
+            f"67 TFLOP/s = {t_ops * 1e3:.3f} us; share of bound reached = {t_bound / big['cuda_ms']:.3f} "
+            f"(earlier kernel {THOMAS_EARLIER_MS['16384x32'] * 1e3:.2f} us: {t_bound / THOMAS_EARLIER_MS['16384x32']:.3f})")
         small_bound = tbench[54]["bytes"] / PEAK_BYTES_PER_S * 1e3
-        log(f"bound at 54 x 32: {tbench[54]['bytes']} B / 3.35 TB/s = {small_bound * 1e3:.3f} us; share = "
-            f"{small_bound / tbench[54]['cuda_ms']:.4f} (launch-bound)")
+        log(f"bound at 54 x 32: {tbench[54]['bytes']} B / 3.35 TB/s = {small_bound * 1e3:.3f} us; share of bound "
+            f"reached = {small_bound / tbench[54]['cuda_ms']:.4f} (latency-bound; earlier kernel "
+            f"{THOMAS_EARLIER_MS['54x32'] * 1e3:.2f} us: {small_bound / THOMAS_EARLIER_MS['54x32']:.4f})")
         thomas_errors["bench_16384x32"] = big["max_abs_err_vs_scan"]
 
     thomas_record = {
@@ -1035,10 +1069,13 @@ def main() -> int:
         "library_ms": big["library_ms"],
         "shape": {"systems": 16384, "N": 32},
         "wall_ms": big["cuda_wall_ms"],
+        "share_of_bound": t_bound / big["cuda_ms"],
         "training_shape": {"systems": 54, "N": 32, "ms": tbench[54]["cuda_ms"], "wall_ms": tbench[54]["cuda_wall_ms"],
                            "plain_ms": tbench[54]["scan_ms"], "library_ms": tbench[54]["library_ms"],
                            "bound_ms": small_bound, "bound_by": "bytes"},
         "train_step_ms": {"kernel": train["ms"], "scan": scan["ms"]},
+        "train_step_vs_scan": {"kernel": {"loss_rel": loss_rel, "grad_rel": grad_rel},
+                               "pcr_plain": {"loss_rel": pcr_loss_rel, "grad_rel": pcr_grad_rel}},
         "train_step_profile": {k: prof[k] for k in ("substeps", "wall_ms", "device_busy_ms", "device_idle_share",
                                                     "device_ops_per_substep")},
         "train_setup_s": setup_s,

@@ -3,8 +3,8 @@
 Each source is compiled on first use by one ``nvcc`` call into a shared
 library with a plain C interface, and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). The library lands in ``_build/`` beside
-``csrc/``, named by a hash of the source and the flags, so an edited source
-rebuilds and a finished build is reused. Nothing is compiled or imported
+``csrc/``, named by a hash of the source, the shared headers and the flags,
+so an edited source or header rebuilds and a finished build is reused. Nothing is compiled or imported
 from CUDA when this module is imported: the CPU tests import it too.
 
 The wrapper checks device, type, shape and contiguity, allocates the output
@@ -53,12 +53,14 @@ def find_nvcc() -> str:
 def build_library(source: Path) -> tuple[Path, str]:
     """Compile ``source`` into ``BUILD_DIR`` unless an identical build exists.
 
+    The build key hashes the source, the headers of ``csrc/`` and the flags.
     Returns ``(library path, ptxas report)``. The report (``-Xptxas -v``:
     registers, shared memory, spills per kernel) is kept beside the library.
     The library is written under a temporary name and renamed into place, so
     a build cut short leaves nothing that a later call would load.
     """
-    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(SOURCE_DIR.glob("*.cuh")))
+    key = hashlib.sha256(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"{source.stem}-{key}.so"
     report = lib.with_suffix(".ptxas.txt")
     if lib.exists():
@@ -341,7 +343,7 @@ class ThomasKernel(_Kernel):
         lib.thomas_launch.restype = ctypes.c_int
         lib.thomas_error_string.argtypes = [ctypes.c_int]
         lib.thomas_error_string.restype = ctypes.c_char_p
-        for name in ("thomas_max_n", "thomas_systems_per_block"):
+        for name in ("thomas_max_n", "thomas_systems_per_block", "thomas_threads_per_block"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
         lib.thomas_smem_bytes.argtypes = [ctypes.c_int]
@@ -426,19 +428,21 @@ class CholeskyKernel(_Kernel):
     """``csrc/cholesky.cu``: blocked Cholesky factor of a contiguous f32 ``(n, n)`` SPD matrix.
 
     One call launches ``cholesky_launch_count(n)`` kernels on the current
-    stream; ``launches`` counts every one of them.
+    stream, with a ``cholesky_tile()``-square scratch tile allocated here;
+    ``launches`` counts every one of them.
     """
 
     source = SOURCE_DIR / "cholesky.cu"
 
     def _bind(self, lib) -> None:
-        lib.cholesky_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        lib.cholesky_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                         ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
         lib.cholesky_launch.restype = ctypes.c_int
         lib.cholesky_error_string.argtypes = [ctypes.c_int]
         lib.cholesky_error_string.restype = ctypes.c_char_p
-        lib.cholesky_tile.argtypes = []
-        lib.cholesky_tile.restype = ctypes.c_int
+        for name in ("cholesky_tile", "cholesky_panel_rows_per_block", "cholesky_window"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
         lib.cholesky_launch_count.argtypes = [ctypes.c_int]
         lib.cholesky_launch_count.restype = ctypes.c_int
 
@@ -457,9 +461,11 @@ class CholeskyKernel(_Kernel):
             raise ValueError("cholesky takes a contiguous tensor")
         lib = self.load()
         out = torch.empty_like(K)
+        tile = lib.cholesky_tile()
+        scratch = torch.empty((tile, tile), dtype=torch.float32, device=K.device)  # the next diagonal tile
         launched = ctypes.c_int(0)
         stream = torch.cuda.current_stream(K.device).cuda_stream
-        rc = lib.cholesky_launch(ctypes.c_void_p(K.data_ptr()), ctypes.c_void_p(out.data_ptr()), K.shape[0],
+        rc = lib.cholesky_launch(*(ctypes.c_void_p(a.data_ptr()) for a in (K, out, scratch)), K.shape[0],
                                  _device_index(K), ctypes.c_void_p(stream), ctypes.byref(launched))
         self.launches += launched.value
         self._check(rc, "cholesky")

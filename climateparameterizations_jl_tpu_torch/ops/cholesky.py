@@ -3,8 +3,11 @@
 Port of ``climateparameterizations_jl_tpu/ops/cholesky.py``. The TPU kernel
 ``cholesky_pallas`` keeps the whole matrix in VMEM and runs the blocked
 right-looking algorithm in one launch; the CUDA kernel runs the same
-algorithm over 32 x 32 tiles in ``3 ceil(n / 32) - 1`` launches (one SM's
-shared memory cannot hold the matrix). Forward-only and f32, like the TPU
+algorithm over 64 x 64 tiles in ``2 ceil(n / 64)`` launches (one SM's
+shared memory cannot hold the matrix): a copy of the lower triangle, then
+per block column one launch that factors the diagonal tile and solves the
+panel below it (one reciprocal per pivot, no division on the chain) and one
+trailing update. Forward-only and f32, like the TPU
 kernel; the GP fits factorize with ``torch.linalg.cholesky_ex``
 (``closures/gp.py``), as the JAX package uses ``jax.scipy.linalg.cholesky``.
 
@@ -79,7 +82,7 @@ def cholesky_cuda(K, block: int = 128):
     ``n`` a multiple of ``block``, else ``ValueError``. The result has an
     exactly zero upper triangle; a matrix that is not positive definite
     gives NaNs. CUDA tensors launch the kernel (``block`` only sets the
-    contract there: the kernel's tiles are 32 x 32); CPU tensors run
+    contract there: the kernel's tiles are 64 x 64); CPU tensors run
     :func:`cholesky_plain` with ``block``.
     """
     n = K.shape[-1]

@@ -9,8 +9,10 @@ implicit diffusion step of the split stepper is one batched solve of
 - ``pcr``: parallel cyclic reduction (:func:`_thomas_pcr`), ``ceil(log2 N)``
   rounds of elementwise ops on shifted copies; differentiable, any device.
 - ``cuda``: the hand-written kernel ``csrc/thomas.cu`` (the counterpart of
-  the TPU kernel ``_thomas_pallas``), forward only. It takes CUDA tensors
-  and raises for any other; its plain version is :func:`_thomas_scan`.
+  the TPU kernel ``_thomas_pallas``), forward only: one thread per system
+  runs the sweep of :func:`_thomas_scan` with its roundings, so on normal
+  data it returns the same numbers. It takes CUDA tensors and raises for
+  any other; its plain version is :func:`_thomas_scan`.
 
 All functions take diagonals of shape ``(..., N)`` (``dl[..., 0]`` and
 ``du[..., N-1]`` ignored) and a right-hand side ``(..., N)``.

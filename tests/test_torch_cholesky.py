@@ -57,6 +57,29 @@ def test_rejects_bad_inputs():
         tchol.cholesky_cuda(torch.zeros(128, 256), block=128)
 
 
+def _jittered_se_gram(n, D, gamma, seed=0):
+    """The GP path's matrix: the squared-exponential Gram of standard-normal features, f32, plus the GP fits'
+    jitter ``max(K) sqrt(eps_f32)`` on the diagonal. At gamma = 1 the off-diagonal entries exp(-d^2 / 2),
+    d^2 ~ 2 D, are subnormal in f32."""
+    x = np.random.default_rng(seed).normal(size=(n, D))
+    d2 = ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    K = np.exp(-d2 / (2.0 * gamma**2)).astype(np.float32)
+    return K + K.max() * np.sqrt(np.finfo(np.float32).eps) * np.eye(n, dtype=np.float32)
+
+
+@pytest.mark.parametrize("gamma", [1.0, float(np.sqrt(96))])
+def test_jittered_se_gram_matches_jax_pallas_and_lapack(gamma):
+    K = _jittered_se_gram(256, 96, gamma)
+    subnormal = (K != 0) & (np.abs(K) < np.finfo(np.float32).tiny)
+    assert subnormal.any() == (gamma == 1.0)
+    want = np.asarray(cholesky_pallas(jnp.asarray(K), block=128, interpret=True))
+    got = tchol.cholesky_cuda(torch.tensor(K), block=128)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jsl.cholesky(K, lower=True)), rtol=TOL, atol=TOL)
+    assert float(np.abs(np.triu(got.numpy(), 1)).max()) == 0.0
+
+
 def test_not_positive_definite_gives_nan_not_an_error():
     K = -torch.eye(16)
     before = _cuda.CHOLESKY.launches

@@ -180,8 +180,11 @@ def test_fast_full_rhs_matches_default_on_card(card, fast):
 
 
 # --- csrc/thomas.cu against its plain version, _thomas_scan -----------------
-# Tolerance: the same recurrence in f32, the kernel's multiply-adds contracted
-# to FMAs, on diagonally dominant systems: a few f32 ulps of the solution.
+# Tolerance: the kernel runs the plain version's sweep with its roundings (no
+# FMA contraction, IEEE quotients from one reciprocal per level), so on these
+# normal, diagonally dominant systems it agrees bit for bit; the limits are
+# the ones the earlier FMA-contracted kernel was held to, a few f32 ulps of
+# the solution.
 THOMAS_RTOL, THOMAS_ATOL = 1e-5, 1e-6
 
 
@@ -195,8 +198,11 @@ def _systems(dev, shape, seed, dtype=torch.float32):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1000, 33), (100, 1), (3, 18, 128), (3, 18, 32), (40, 256), (31, 2)])
+@pytest.mark.parametrize("shape", [(1000, 33), (100, 1), (3, 18, 128), (3, 18, 32), (40, 256), (31, 2), (54, 31),
+                                   (54, 32), (200, 64), (16384, 32)])
 def test_thomas_matches_scan(card, shape):
+    # Also bit for bit: the kernel runs _thomas_scan's operations with its
+    # roundings, so a kernel-backed training step matches a scan-backed one.
     from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
 
     args = _systems(card, shape, seed=sum(shape))
@@ -204,7 +210,29 @@ def test_thomas_matches_scan(card, shape):
     got = tri._thomas_cuda(*args)
     torch.cuda.synchronize()
     assert _cuda.THOMAS.launches == before + 1
-    torch.testing.assert_close(got, tri._thomas_scan(*args), rtol=THOMAS_RTOL, atol=THOMAS_ATOL)
+    want = tri._thomas_scan(*args)
+    torch.testing.assert_close(got, want, rtol=THOMAS_RTOL, atol=THOMAS_ATOL)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [32, 256])
+def test_thomas_unaligned_rows_match_scan(card, n):
+    # Rows that start 4 bytes past a 16-byte boundary take the kernel's
+    # 4-byte layout even where N % 4 == 0 (aligned ones take the 16-byte one).
+    from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
+
+    args = _systems(card, (54, n), seed=n + 3)
+    shifted = []
+    for a in args:
+        flat = torch.empty(a.numel() + 1, dtype=a.dtype, device=card)
+        flat[1:] = a.reshape(-1)
+        shifted.append(flat[1:].view(a.shape))
+    assert all(s.data_ptr() % 16 == 4 and s.is_contiguous() for s in shifted)
+    got = _cuda.THOMAS(*shifted)
+    want = tri._thomas_scan(*args)
+    torch.testing.assert_close(got, want, rtol=THOMAS_RTOL, atol=THOMAS_ATOL)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -335,7 +363,8 @@ def test_gram_refusals(card):
 # --- csrc/cholesky.cu against cholesky_plain and torch.linalg.cholesky ------
 # Tolerance: the JAX test's 5e-4 (tests/test_tridiagonal.py::TestPallasCholesky).
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,block", [(256, 128), (256, 256), (1024, 128), (1000, 8), (33, 1)])
+@pytest.mark.parametrize("n,block", [(256, 128), (256, 256), (1024, 128), (1000, 8), (33, 1), (64, 32), (96, 32),
+                                     (192, 32)])
 def test_cholesky_matches_plain_and_library(card, n, block):
     from climateparameterizations_jl_tpu_torch.ops import cholesky
 
@@ -344,10 +373,28 @@ def test_cholesky_matches_plain_and_library(card, n, block):
     before = _cuda.CHOLESKY.launches
     L = cholesky.cholesky_cuda(K, block)
     torch.cuda.synchronize()
-    assert _cuda.CHOLESKY.launches - before == _cuda.CHOLESKY.launches_per_call(n) == 3 * -(-n // 32) - 1
+    # The copy, then per 64-wide block column a factor-and-panel launch and (but the last) a trailing update.
+    assert _cuda.CHOLESKY.launches - before == _cuda.CHOLESKY.launches_per_call(n) == 2 * -(-n // 64)
     assert float(torch.triu(L, 1).abs().max()) == 0.0
     torch.testing.assert_close(L, cholesky.cholesky_plain(K, block), rtol=5e-4, atol=5e-4)
     torch.testing.assert_close(L, torch.linalg.cholesky(K), rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.cuda
+def test_cholesky_jittered_se_gram_with_subnormal_entries(card):
+    # The GP path's matrix at the benchmark's gamma = 1: off-diagonal entries
+    # exp(-d^2 / 2) with d^2 ~ 2 D are subnormal in f32.
+    from climateparameterizations_jl_tpu_torch.closures.gp import default_jitter
+    from climateparameterizations_jl_tpu_torch.ops import cholesky, gram
+
+    x = benchmarks.gp_inputs(1024, 96, device=card)[0]
+    K = gram.gram_cuda(x, x, 1.0, 1.0)
+    K = K + K.max() * default_jitter(K.dtype) * torch.eye(1024, device=card)
+    assert bool(((K != 0) & (K.abs() < torch.finfo(torch.float32).tiny)).any())
+    L = cholesky.cholesky_cuda(K, 128)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(L).all()) and float(torch.triu(L, 1).abs().max()) == 0.0
+    torch.testing.assert_close(L, cholesky.cholesky_plain(K, 128), rtol=5e-4, atol=5e-4)
 
 
 @pytest.mark.cuda

@@ -108,6 +108,38 @@ class TestThomas:
             ttri.tridiagonal_solve(*t, backend="cuda", implicit_grad=False)
 
 
+# The card's limits for csrc/thomas.cu against _thomas_scan (tests/test_torch_cuda.py).
+THOMAS_RTOL, THOMAS_ATOL = 1e-5, 1e-6
+# One card-test shape per N (tests/test_torch_cuda.py), from N = 1 to the
+# kernel's limit of 256.
+CARD_SHAPES = {1: (100, 1), 2: (31, 2), 31: (54, 31), 32: (3, 18, 32), 33: (1000, 33), 128: (3, 18, 128),
+               256: (40, 256)}
+
+
+def card_systems(shape, seed):
+    """The card tests' f32 systems (``tests/test_torch_cuda.py::_systems``), on the CPU."""
+    rng = np.random.default_rng(seed)
+    arrays = (rng.uniform(-0.5, 0.5, shape), rng.uniform(2.0, 3.0, shape), rng.uniform(-0.5, 0.5, shape),
+              rng.normal(size=shape))
+    return tuple(torch.tensor(a, dtype=torch.float32) for a in arrays)
+
+
+@pytest.mark.parametrize("n", sorted(CARD_SHAPES))
+def test_pcr_within_the_card_tolerance_of_scan(n):
+    # The plain "pcr" backend (parallel cyclic reduction, the log-depth
+    # alternative to the sequential sweep; no kernel runs it), in f32 on the
+    # card tests' own systems: its rounding stays inside the limits that
+    # csrc/thomas.cu is held to against _thomas_scan. That is not enough for
+    # a kernel: on the flagship training step the plain pcr backend's
+    # gradient is about 1e-2 from the scan-backed step's (chip_smoke.py
+    # phase 9 prints it), past the step's limit of 1e-3, so csrc/thomas.cu
+    # keeps the sweep.
+    shape = CARD_SHAPES[n]
+    args = card_systems(shape, seed=sum(shape))
+    torch.testing.assert_close(ttri._thomas_pcr(*args), ttri._thomas_scan(*args), rtol=THOMAS_RTOL,
+                               atol=THOMAS_ATOL)
+
+
 def _loss_jax(backend, implicit):
     def loss(dl, d, du, b):
         x = jtri.tridiagonal_solve(dl, d, du, b, backend=backend, implicit_grad=implicit)
