@@ -209,14 +209,14 @@ def ptxas_summary(report: str) -> list:
 
 
 def demangled(symbol: str) -> str:
-    """The last name of an Itanium-mangled symbol, with its integer template arguments: ``gram_kernel<3>``."""
+    """The last name of an Itanium-mangled symbol with the integers of its template arguments, nested
+    ones included: ``gram_kernel<3>``, ``fused_rk4_kernel<4,9,2,32,50,20>``."""
     rest = re.sub(r"^_ZN?", "", symbol)
     name = symbol
     while (m := re.match(r"(\d+)", rest)):
         n = int(m.group(1))
         name, rest = rest[len(m.group(1)):len(m.group(1)) + n], rest[len(m.group(1)) + n:]
-    t = re.match(r"I((?:Li\d+E)+)E", rest)
-    args = re.findall(r"Li(\d+)E", t.group(1)) if t else []
+    args = re.findall(r"Li(\d+)E", rest.split("Ev", 1)[0]) if rest.startswith("I") else []
     return name + (f"<{','.join(args)}>" if args else "")
 
 
@@ -638,9 +638,11 @@ def gp_phases(dev):
 
 
 def nonmatmul_flops_per_column_step(Nz: int, h1: int, h2: int) -> int:
-    """The f32 work of ``csrc/fused_rk4_bf16.cu`` outside its three NN products, per column and RK4 step.
+    """The f32 work of the fused RK4 function outside its three NN products, per column and RK4 step.
 
-    Counted from the source per RHS evaluation (an FMA is 2; expf, log1pf,
+    Counted from the function as the plain version writes it, whatever a
+    kernel's own arithmetic (a cheaper mish does not lower it), per RHS
+    evaluation (an FMA is 2; expf, log1pf,
     tanhf and a division 1 each, so this is a lower bound): the face
     viscosity (3 differences, 3 eps adds, Ri 7, the tanh argument 2, tanh,
     nu 2) on each interior face, the bias adds, mish (max, abs, expf,
@@ -735,8 +737,8 @@ def bf16_phases(dev, flagship, f32_ms: float) -> dict:
         sass = subprocess.run([str(cuobjdump), "-sass", str(kernel.library_path)], capture_output=True, text=True,
                               timeout=120, check=True).stdout
         hmma = [line.split(";")[0].split("*/")[-1].strip() for line in sass.splitlines() if "HMMA" in line]
-        log(f"cuobjdump -sass {kernel.library_path.name}: {len(hmma)} HMMA instructions (over {len(shapes)} "
-            f"instantiations), e.g. {hmma[:1]}")
+        log(f"cuobjdump -sass {kernel.library_path.name}: {len(hmma)} HMMA instructions (over {len(shapes)} launch "
+            f"shapes, each for the flagship and the generic widths), e.g. {hmma[:1]}")
         if not hmma:
             raise RuntimeError("no HMMA instruction in the bf16 kernel's SASS: its products are not on the tensor cores")
         h1, h2 = nns.uw.weights[0].shape[0], nns.uw.weights[1].shape[0]
@@ -853,8 +855,20 @@ def main() -> int:
                 if line.strip():
                     log(f"  {line.strip()}")
         lib = kernel.load()
-        log(f"launch: {lib.fused_rk4_columns_per_block()} columns and {lib.fused_rk4_threads_per_block()} threads "
-            f"per CTA, {lib.fused_rk4_smem_bytes(NZ, 50, 20)} B dynamic shared memory per CTA (flagship widths)")
+        log(f"fused_rk4 launch: {lib.fused_rk4_columns_per_block()} columns and {lib.fused_rk4_threads_per_block()} "
+            f"threads per CTA, {lib.fused_rk4_smem_bytes(NZ, 50, 20)} B dynamic shared memory per CTA (flagship "
+            f"widths); the flagship widths have their own instantiation: {bool(lib.fused_rk4_specialized(NZ, 50, 20))}")
+        blib = _cuda.FUSED_RK4_BF16.load()
+        bshapes = _cuda.FUSED_RK4_BF16.shapes()
+        log("fused_rk4_bf16 launch shapes (columns, warps per CTA), dynamic shared memory per CTA at the flagship "
+            "widths: " + ", ".join(f"{c} x {w}: {blib.fused_rk4_bf16_smem_bytes(NZ, 50, 20, i)} B"
+                                   for i, (c, w) in enumerate(bshapes)))
+        for k in (_cuda.FUSED_RK4, _cuda.FUSED_RK4_BF16):
+            for r in ptxas_summary(k.ptxas_report):
+                log(f"{k.source.name} {r['function']}: {r['registers']} registers, {r['spill_store_bytes']} B of "
+                    f"spill stores, {r['smem_bytes']} B static shared memory")
+                if r["spill_store_bytes"]:
+                    raise RuntimeError(f"{r['function']} spills registers")
 
     flagship = load_flux_nns(str(FLAGSHIP_RUN), device=dev)
 
@@ -913,12 +927,15 @@ def main() -> int:
 
         h1 = nns.uw.weights[0].shape[0]
         h2 = nns.uw.weights[1].shape[0]
-        F, ni = 3 * NZ, NZ - 1
-        flops = FULL_COLUMNS * BENCH_STEPS * 4 * 2 * (F * 3 * h1 + 3 * h1 * h2 + 3 * h2 * ni)
+        F, ni, col_steps = 3 * NZ, NZ - 1, FULL_COLUMNS * BENCH_STEPS
+        # The products and the work outside them run on the same CUDA cores in f32.
+        mm_flops = col_steps * 4 * 2 * (F * 3 * h1 + 3 * h1 * h2 + 3 * h2 * ni)
+        ew_flops = col_steps * nonmatmul_flops_per_column_step(NZ, h1, h2)
         n_bytes = 4 * (2 * FULL_COLUMNS * F + run.kernel_weights.numel())
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
+        t_ops, t_bytes = (mm_flops + ew_flops) / PEAK_F32_FLOPS * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
         bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-        log(f"bound: {flops:.4e} matmul FLOP / 67 TFLOP/s = {t_ops:.3f} ms; {n_bytes} B / 3.35 TB/s = {t_bytes:.4f} ms; "
+        log(f"bound: ({mm_flops:.4e} matmul + {ew_flops:.4e} other) f32 FLOP / 67 TFLOP/s = {t_ops:.3f} ms "
+            f"(matmul alone {mm_flops / PEAK_F32_FLOPS * 1e3:.3f} ms); {n_bytes} B / 3.35 TB/s = {t_bytes:.4f} ms; "
             f"share of bound reached = {bound_ms / stats['ms_median']:.3f}")
 
     record = {
@@ -935,6 +952,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "matmul_bound_ms": mm_flops / PEAK_F32_FLOPS * 1e3,
         "shape": {"columns": FULL_COLUMNS, "steps": BENCH_STEPS, "Nz": NZ},
         "build_s": kernel.build_seconds,
     }

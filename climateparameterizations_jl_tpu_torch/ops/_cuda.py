@@ -50,24 +50,26 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build_library(source: Path) -> tuple[Path, str]:
+def build_library(source: Path, extra_flags: tuple = ()) -> tuple[Path, str]:
     """Compile ``source`` into ``BUILD_DIR`` unless an identical build exists.
 
-    The build key hashes the source, the headers of ``csrc/`` and the flags.
+    The build key hashes the source, the headers of ``csrc/`` and the flags
+    (``extra_flags``, such as ``fused_rk4_phases.py``'s ``-D``, included).
     Returns ``(library path, ptxas report)``. The report (``-Xptxas -v``:
     registers, shared memory, spills per kernel) is kept beside the library.
     The library is written under a temporary name and renamed into place, so
     a build cut short leaves nothing that a later call would load.
     """
     headers = b"".join(h.read_bytes() for h in sorted(SOURCE_DIR.glob("*.cuh")))
-    key = hashlib.sha256(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = (*NVCC_FLAGS, *extra_flags)
+    key = hashlib.sha256(source.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"{source.stem}-{key}.so"
     report = lib.with_suffix(".ptxas.txt")
     if lib.exists():
         return lib, report.read_text() if report.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [find_nvcc(), *flags, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -95,20 +97,32 @@ class _Params(ctypes.Structure):
 ACTIVATION_CODES = {"mish": 0, "relu": 1}
 
 
-def pack_weights(A1, b1, A2, b2, A3, b3, Krow, w1, w2, Nz: int, h1: int, h2: int) -> np.ndarray:
-    """The kernel's weight buffer from the MXU-layout operands (numpy).
+def layer1_pitch(h1: int) -> int:
+    """Each flux MLP's column pitch in the f32 kernel's ``A1``: ``h1`` rounded up to a multiple of 4."""
+    return -(-h1 // 4) * 4
 
-    ``A1 (3Nz, 3h1)`` stays dense; the block-diagonal ``A2 (3h1, 3h2)`` and
-    ``A3 (3h2, 3Nz)`` (block-aligned: block ``b`` in lanes ``[b Nz, b Nz +
-    Nz - 1)``) are stored as their three diagonal blocks, ``b3`` likewise.
-    The order is the one ``make_layout`` in the source reads.
+
+def pack_weights(A1, b1, A2, b2, A3, b3, Krow, w1, w2, Nz: int, h1: int, h2: int) -> np.ndarray:
+    """The f32 kernel's weight buffer from the MXU-layout operands (numpy).
+
+    ``A1 (3Nz, 3h1)`` is stored k-major with each MLP's ``h1`` neurons in a
+    block of :func:`layer1_pitch` columns (zeros after them), so that four
+    neurons of one MLP are one 16-byte load; the block-diagonal ``A2 (3h1,
+    3h2)`` and ``A3 (3h2, 3Nz)`` (block-aligned: block ``b`` in lanes ``[b Nz,
+    b Nz + Nz - 1)``) are stored as their three diagonal blocks, ``b3``
+    likewise. The order is the one ``make_layout`` in ``csrc/fused_rk4.cu``
+    reads.
     """
-    ni = Nz - 1
+    ni, pitch = Nz - 1, layer1_pitch(h1)
+    A1 = np.asarray(A1, np.float32)
+    W1 = np.zeros((3 * Nz, 3 * pitch), np.float32)
+    for b in range(3):
+        W1[:, b * pitch:b * pitch + h1] = A1[:, b * h1:(b + 1) * h1]
     A2b = np.stack([A2[b * h1:(b + 1) * h1, b * h2:(b + 1) * h2] for b in range(3)])
     A3b = np.stack([A3[b * h2:(b + 1) * h2, b * Nz:b * Nz + ni] for b in range(3)])
     b3 = np.asarray(b3).reshape(-1)
     b3b = np.stack([b3[b * Nz:b * Nz + ni] for b in range(3)])
-    parts = (A1, b1, A2b, b2, A3b, b3b, Krow, w1, w2)
+    parts = (W1, b1, A2b, b2, A3b, b3b, Krow, w1, w2)
     return np.concatenate([np.asarray(a, np.float32).reshape(-1) for a in parts])
 
 
@@ -186,6 +200,7 @@ class _Kernel:
     source: Path
 
     def __init__(self):
+        self.extra_flags = ()  # extra nvcc flags, set before the first load
         self.launches = 0
         self.build_seconds = None
         self.ptxas_report = ""
@@ -200,7 +215,7 @@ class _Kernel:
         """Build (if needed) and load the library; returns the ``ctypes`` handle."""
         if self._lib is None:
             t0 = time.perf_counter()
-            path, self.ptxas_report = build_library(self.source)
+            path, self.ptxas_report = build_library(self.source, self.extra_flags)
             self.library_path = path
             lib = ctypes.CDLL(str(path))
             self._bind(lib)
@@ -230,7 +245,7 @@ class FusedRK4Kernel(_Kernel):
         lib.fused_rk4_launch.restype = ctypes.c_int
         lib.fused_rk4_error_string.argtypes = [ctypes.c_int]
         lib.fused_rk4_error_string.restype = ctypes.c_char_p
-        for name in ("fused_rk4_smem_bytes", "fused_rk4_weight_count"):
+        for name in ("fused_rk4_weight_count", "fused_rk4_specialized", "fused_rk4_smem_bytes"):
             getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
             getattr(lib, name).restype = ctypes.c_int
         for name in ("fused_rk4_columns_per_block", "fused_rk4_threads_per_block"):
@@ -481,9 +496,9 @@ CHOLESKY = CholeskyKernel()
 KERNELS = {"fused_rk4": FUSED_RK4, "fused_rk4_bf16": FUSED_RK4_BF16, "thomas": THOMAS, "gram": GRAM, "cholesky": CHOLESKY}
 
 
-def _timed_build(source: Path) -> float:
+def _timed_build(kernel: _Kernel) -> float:
     t0 = time.perf_counter()
-    build_library(source)
+    build_library(kernel.source, kernel.extra_flags)
     return time.perf_counter() - t0
 
 
@@ -493,7 +508,7 @@ def load_all() -> None:
     Each kernel's ``build_seconds`` is then its own ``nvcc`` time plus its load.
     """
     with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
-        seconds = [f.result() for f in [pool.submit(_timed_build, k.source) for k in KERNELS.values()]]
+        seconds = [f.result() for f in [pool.submit(_timed_build, k) for k in KERNELS.values()]]
     for k, s in zip(KERNELS.values(), seconds):
         if k._lib is None:
             k.load()

@@ -342,24 +342,31 @@ class FusedRunner:
             torch.as_tensor(a, dtype=torch.float32, device=device).to(wdt if i in (0, 2, 4) else torch.float32)
             for i, a in enumerate(mats)
         )
+        self.h1, self.h2 = h1, h2
         self.kernel_weights = None
         self.kernel_frags = None
         self.kernel_params = None
         if device.type == "cuda":
-            A1, b1, A2, b2, A3, b3, _Dr, Krow, w1, w2 = mats
-            if self.matmul_dtype is None:
-                self.kernel_weights = torch.as_tensor(
-                    _cuda.pack_weights(A1, b1, A2, b2, A3, b3, Krow, w1, w2, Nz, h1, h2), device=device
-                )
-            else:
-                A1b, _, A2b, _, A3b = (a.cpu() for a in self.operands[:5])
-                vecs, frags = _cuda.pack_weights_bf16(A1b, b1, A2b, b2, A3b, b3, Krow, w1, w2, Nz, h1, h2)
-                self.kernel_weights = torch.as_tensor(vecs, device=device)
+            weights, frags = self.kernel_buffers()
+            self.kernel_weights = torch.as_tensor(weights, device=device)
+            if frags is not None:
                 self.kernel_frags = torch.as_tensor(frags.view(np.int16), device=device).view(torch.bfloat16)
-            self.kernel_params = _cuda.make_params(
-                n_columns=self.n_columns, n_steps=self.n_steps, Nz=Nz, h1=h1, h2=h2,
-                activation=activation, dt=self.dt, coefficients=_rhs_coefficients(consts, Nz),
-            )
+            self.kernel_params = self.make_kernel_params()
+
+    def kernel_buffers(self):
+        """The kernel's packed weights as numpy: ``(f32 weights, None)`` for the f32 kernel,
+        ``(f32 rows, bf16 fragment bits as uint16)`` for the bf16 one."""
+        A1, b1, A2, b2, A3, b3, _Dr, Krow, w1, w2 = (a.cpu().float().numpy() for a in self.operands)
+        if self.matmul_dtype is None:
+            return _cuda.pack_weights(A1, b1, A2, b2, A3, b3, Krow, w1, w2, self.Nz, self.h1, self.h2), None
+        # The operands hold the bf16-rounded weights, so the fragments take them as they are.
+        return _cuda.pack_weights_bf16(A1, b1, A2, b2, A3, b3, Krow, w1, w2, self.Nz, self.h1, self.h2)
+
+    def make_kernel_params(self) -> "_cuda._Params":
+        return _cuda.make_params(
+            n_columns=self.n_columns, n_steps=self.n_steps, Nz=self.Nz, h1=self.h1, h2=self.h2,
+            activation=self.activation, dt=self.dt, coefficients=_rhs_coefficients(self.consts, self.Nz),
+        )
 
     def plain(self, x0):
         """The kernel's plain version, :func:`_multistep_plain`, on this runner's operands."""

@@ -13,12 +13,15 @@ summation orders, amplified by the stiff tendency scaling.
 """
 
 import dataclasses
+import math
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from climateparameterizations_jl_tpu_torch import benchmarks
+from climateparameterizations_jl_tpu_torch.closures.mlp import MLP, wind_mixing_mlp
 from climateparameterizations_jl_tpu_torch.models import wind_mixing as twm
 from climateparameterizations_jl_tpu_torch.ops import _cuda
 from climateparameterizations_jl_tpu_torch.ops import fused_rhs as tfr
@@ -39,6 +42,31 @@ def card():
 def _setup(dev, n_columns, trained=True, seed=0):
     nns = load_flux_nns(str(FLAGSHIP), device=dev) if trained else None
     return benchmarks.make_setup(32, n_columns, seed=seed, nns=nns, device=dev)
+
+
+def wide_range_nns(Nz: int, hidden, seed: int, device) -> twm.FluxNNs:
+    """Random mish flux MLPs whose hidden pre-activations span about +-30 on ``make_setup``'s states.
+
+    They hold a kernel's activation against its plain version over the whole
+    range where mish is neither 0 nor x: layer 1 maps the ``0.1 N(0, 1)``
+    states to pre-activations of standard deviation about 15, layer 2 keeps
+    them there (mish of those has an rms near 10.6), and layer 3 returns
+    fluxes of order one. Weights and biases are normal, from a numpy generator
+    seeded with ``seed``. ``tests/test_torch_fused_rk4_host.py`` uses them too.
+    """
+    rng = np.random.default_rng(seed)
+    sizes = (3 * Nz, *hidden, Nz - 1)
+    in_rms, out_std, bias_std = (0.1, 10.6, 10.6), (15.0, 15.0, 1.0), (5.0, 5.0, 0.1)
+
+    def one():
+        ws, bs = [], []
+        for fan_in, fan_out, r, o, b in zip(sizes[:-1], sizes[1:], in_rms, out_std, bias_std):
+            ws.append(torch.tensor(rng.normal(size=(fan_out, fan_in)) * (o / (r * math.sqrt(fan_in))),
+                                   dtype=torch.float32, device=device))
+            bs.append(torch.tensor(rng.normal(size=fan_out) * b, dtype=torch.float32, device=device))
+        return MLP(weights=tuple(ws), biases=tuple(bs), activation="mish")
+
+    return twm.FluxNNs(one(), one(), one())
 
 
 @pytest.mark.cuda
@@ -99,6 +127,33 @@ def test_bench_nde_forward_counts_launches(card):
     stats = benchmarks.bench_nde_forward(128, n_steps=16, repeats=2, device=card)
     assert _cuda.FUSED_RK4.launches - before == stats["calls"] == 3
     assert stats["ms_min"] > 0 and stats["column_timesteps_per_sec"] > 0
+
+
+def _other_setup(dev, case, n_columns=61):
+    """``(model, nns, bcs, x0)`` off the trained flagship: the generic instantiation (Nz = 16,
+    h1 = 24, h2 = 12, Glorot-uniform MLPs) or MLPs whose pre-activations span about +-30."""
+    if case == "generic":
+        gen = torch.Generator().manual_seed(2)
+        nns = twm.FluxNNs(*(wind_mixing_mlp(gen, 16, hidden=(24, 12), device=dev) for _ in range(3)))
+        return benchmarks.make_setup(16, n_columns, seed=4, nns=nns, device=dev)
+    Nz, hidden = (16, (24, 12)) if case == "generic_wide" else (32, (50, 20))
+    nns = wide_range_nns(Nz, hidden, seed=7, device=dev)
+    return benchmarks.make_setup(Nz, n_columns, seed=4, nns=nns, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["generic", "generic_wide", "flagship_wide"])
+@pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16"])
+def test_kernel_generic_widths_and_wide_preactivations(card, case, matmul_dtype):
+    model, nns, bcs, x0 = _other_setup(card, case)
+    run = tfr.make_fused_runner_mxu(model, nns, bcs, DT, 8, x0.shape[0], matmul_dtype=matmul_dtype, device=card)
+    got = run(x0)
+    torch.cuda.synchronize()
+    want = run.plain(x0)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert float((want - x0).abs().max()) > 1e-4
+    lib = _cuda.FUSED_RK4.load()
+    assert lib.fused_rk4_specialized(model.Nz, run.h1, run.h2) == (0 if case.startswith("generic") else 1)
 
 
 # --- csrc/fused_rk4_bf16.cu against its plain version (bf16 NN products) -----

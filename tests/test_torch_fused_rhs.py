@@ -265,8 +265,13 @@ def test_kernel_weight_buffer_layout():
     (A1, b1, A2, b2, A3, b3), (h1, h2, ni) = tfr._pack_block_weights(tn, 32, pad_to_block=True)
     Dr, Krow, w1, w2 = tfr._assembly_constants(tfr._scalar_constants(tm, tb), 32)
     buf = _cuda.pack_weights(A1, b1, A2, b2, A3, b3, Krow, w1, w2, 32, h1, h2)
-    assert buf.dtype == np.float32 and buf.size == 96 * 150 + 150 + 3 * 50 * 20 + 60 + 3 * 20 * 31 + 93 + 3 * 96
-    o = 96 * 150 + 150
+    # A1 k-major, each MLP's 50 neurons in a block of 52 columns (zeros after them).
+    assert _cuda.layer1_pitch(h1) == 52
+    assert buf.dtype == np.float32 and buf.size == 96 * 156 + 150 + 3 * 50 * 20 + 60 + 3 * 20 * 31 + 93 + 3 * 96
+    W1 = buf[:96 * 156].reshape(96, 3, 52)
+    np.testing.assert_array_equal(W1[:, 1, :50], tn.vw.weights[0].numpy().T)
+    assert not W1[:, :, 50:].any()
+    o = 96 * 156 + 150
     np.testing.assert_array_equal(buf[o:o + 1000].reshape(50, 20), tn.uw.weights[1].numpy().T)
     o += 3 * 50 * 20 + 60
     np.testing.assert_array_equal(buf[o + 620:o + 1240].reshape(20, 31), tn.vw.weights[2].numpy().T)
