@@ -1,20 +1,31 @@
 #!/usr/bin/env python3
-"""Time the fused RK4 forward solve of two trees in turns, on one card.
+"""Time a kernel of two trees in turns, on one card.
 
-    python3 bench_turns.py --parent DIR [--pairs 8] [--out FILE]
+    python3 bench_turns.py --parent DIR [--mode forward|gram] [--pairs 8] [--out FILE]
 
 ``DIR`` holds another tree's ``climateparameterizations_jl_tpu_torch``
 package (for example the parent commit, from ``git archive <commit>
 climateparameterizations_jl_tpu_torch | tar -x -C DIR``); the other side is
 the tree this script lies in. Each side runs in a worker process of its own
-that imports its tree's package, builds its kernels and then, on each
-request, runs ``benchmarks.bench_nde_forward`` (1,024 columns x 1,024 RK4
-steps, Nz = 32, the trained ``runs/wm_flagship_fold`` MLPs; one warm-up, 5
-timed calls, CUDA events) with f32 and then with bf16 NN products. The
-workers run one at a time; the side that runs first alternates from pair
-to pair. It prints the card's name and power limit, one JSON line per
-pair and a summary (the median of each side's medians, and the pairs the
-change won); ``--out FILE`` also writes them all to ``FILE`` as JSON.
+that imports its tree's package, builds its kernels and then answers
+requests, one case at a time:
+
+- ``forward`` (the default): ``benchmarks.bench_nde_forward`` (1,024
+  columns x 1,024 RK4 steps, Nz = 32, the trained ``runs/wm_flagship_fold``
+  MLPs; one warm-up, 5 timed calls, CUDA events) with f32 and then with bf16
+  NN products; compared by the median ms.
+- ``gram``: ``ops/gram.py::gram_cuda`` at 1,024 x 1,024 x 96 (standard
+  normal rows from a ``torch.Generator`` seeded 0, gamma = sigma = alpha = 1
+  as f32 tensors on the card), squared exponential and then matern12: the
+  device time of the kernel ``gram_kernel`` alone, by its name in a
+  ``torch.profiler`` trace of ``GRAM_CALLS`` calls (mean us per recorded
+  launch), the other device ops of a call, and the wall us per call back to
+  back (CUDA events); compared by the kernel's us.
+
+The workers run one at a time; the side that runs first alternates from pair
+to pair. It prints the card's name and power limit, one JSON line per pair
+and case, and a summary (the median of each side's numbers, and the pairs
+the change won); ``--out FILE`` also writes them all to ``FILE`` as JSON.
 """
 
 from __future__ import annotations
@@ -28,11 +39,13 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-DTYPES = ("float32", "bfloat16")
+CASES = {"forward": ("float32", "bfloat16"), "gram": ("squared_exponential", "matern12")}
+METRIC = {"forward": "ms_median", "gram": "kernel_us"}
+GRAM_SHAPE = (1024, 1024, 96)
+GRAM_CALLS = 200
 
 
-def worker(tree: str) -> None:
-    sys.path.insert(0, str(Path(tree).resolve()))
+def forward_worker(tree: str):
     from climateparameterizations_jl_tpu_torch import benchmarks
     from climateparameterizations_jl_tpu_torch.ops import _cuda
     from climateparameterizations_jl_tpu_torch.train.checkpoint import load_flux_nns
@@ -44,22 +57,78 @@ def worker(tree: str) -> None:
     for k in (_cuda.FUSED_RK4, _cuda.FUSED_RK4_BF16):
         k.load()
         print(f"[{tree}] {k.source.name}:\n{k.ptxas_report}", file=sys.stderr, flush=True)
+
+    def run(dtype: str) -> dict:
+        r = benchmarks.bench_nde_forward(1024, 32, 1024, 5, nns=nns, device=dev, matmul_dtype=dtype)
+        return {"ms_median": r["ms_median"], "ms": r["ms"]}
+
+    return run
+
+
+def gram_worker(tree: str):
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.ops import gram
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda", 0)
+    M, N, D = GRAM_SHAPE
+    gen = torch.Generator().manual_seed(0)
+    A = torch.randn(M, D, generator=gen).to(dev)
+    B = torch.randn(N, D, generator=gen).to(dev)
+    hyp = [torch.tensor(1.0, device=dev) for _ in range(3)]
+    _cuda.GRAM.load()
+    print(f"[{tree}] gram.cu:\n{_cuda.GRAM.ptxas_report}", file=sys.stderr, flush=True)
+
+    def run(family: str) -> dict:
+        call = lambda: gram.gram_cuda(A, B, *hyp, family=family)  # noqa: E731
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(GRAM_CALLS):
+            call()
+        end.record()
+        end.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(GRAM_CALLS):
+                call()
+            torch.cuda.synchronize(dev)
+        on_dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        mine = [e for e in on_dev if "gram_kernel" in e.key]
+        recorded = sum(e.count for e in mine)  # the trace misses a launch now and then
+        if recorded == 0:
+            raise RuntimeError(f"no gram_kernel launch in the profile: {[(e.key, e.count) for e in on_dev]}")
+        others = [e for e in on_dev if "gram_kernel" not in e.key]
+        return {"kernel_us": sum(e.self_device_time_total for e in mine) / recorded,
+                "other_device_us": sum(e.self_device_time_total for e in others) / GRAM_CALLS,
+                "other_ops": sum(e.count for e in others) / GRAM_CALLS,
+                "wall_us": start.elapsed_time(end) * 1e3 / GRAM_CALLS}
+
+    return run
+
+
+def worker(tree: str, mode: str) -> None:
+    sys.path.insert(0, str(Path(tree).resolve()))
+    run = {"forward": forward_worker, "gram": gram_worker}[mode](tree)
     print(json.dumps({"ready": True}), flush=True)
     for line in sys.stdin:
-        dtype = line.strip()
-        r = benchmarks.bench_nde_forward(1024, 32, 1024, 5, nns=nns, device=dev, matmul_dtype=dtype)
-        print(json.dumps({"ms_median": r["ms_median"], "ms": r["ms"]}), flush=True)
+        print(json.dumps(run(line.strip())), flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="directory holding the other tree's package")
+    ap.add_argument("--mode", choices=sorted(CASES), default="forward")
     ap.add_argument("--pairs", type=int, default=8)
     ap.add_argument("--out", help="also write the runs and the summary to this JSON file")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker(args.worker)
+        worker(args.worker, args.mode)
         return 0
     import torch
 
@@ -70,9 +139,10 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     sides = {"parent": args.parent, "change": str(HERE)}
+    metric = METRIC[args.mode]
     procs = {}
     for name, tree in sides.items():
-        cmd = [sys.executable, str(Path(__file__).resolve()), "--worker", tree]
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--worker", tree, "--mode", args.mode]
         procs[name] = subprocess.Popen(cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
     try:
         for name, p in procs.items():
@@ -82,12 +152,12 @@ def main() -> int:
         names = list(sides)
         for i in range(args.pairs):
             order = names if i % 2 == 0 else names[::-1]
-            for dtype in DTYPES:
-                row = {"pair": i, "dtype": dtype, "order": order}
+            for case in CASES[args.mode]:
+                row = {"pair": i, "case": case, "order": order}
                 for name in order:
-                    procs[name].stdin.write(dtype + "\n")
+                    procs[name].stdin.write(case + "\n")
                     procs[name].stdin.flush()
-                    row[name] = json.loads(procs[name].stdout.readline())["ms_median"]
+                    row[name] = json.loads(procs[name].stdout.readline())
                 runs.append(row)
                 print(json.dumps(row), flush=True)
     finally:
@@ -95,13 +165,14 @@ def main() -> int:
             p.stdin.close()
             p.wait(timeout=120)
     summary = {}
-    for dtype in DTYPES:
-        rows = [r for r in runs if r["dtype"] == dtype]
-        summary[dtype] = {name: statistics.median(r[name] for r in rows) for name in sides}
-        summary[dtype]["change_won_vs_parent"] = sum(r["change"] < r["parent"] for r in rows)
-        summary[dtype]["pairs"] = len(rows)
+    for case in CASES[args.mode]:
+        rows = [r for r in runs if r["case"] == case]
+        summary[case] = {f"{name} {key}": statistics.median(r[name][key] for r in rows)
+                         for name in sides for key in rows[0][name] if not isinstance(rows[0][name][key], list)}
+        summary[case]["change_won_vs_parent"] = sum(r["change"][metric] < r["parent"][metric] for r in rows)
+        summary[case]["pairs"] = len(rows)
     if args.out:
-        out = {"device": smi, "sides": sides, "runs": runs,
+        out = {"device": smi, "mode": args.mode, "metric": metric, "sides": sides, "runs": runs,
                "summary": summary, "when": time.strftime("%Y-%m-%d %H:%M:%S")}
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))

@@ -307,8 +307,14 @@ def gp_phases(dev):
     gram_errors, gram_coincident = {}, {}
     with phase("11 gram: tiny launch, then every family x metric vs gram_plain"):
         glib = gram_k.load()
-        log(f"gram: {glib.gram_tile()} x {glib.gram_tile()} output tile and {glib.gram_threads_per_block()} threads "
-            f"per CTA")
+        gram_grid = gram_k.grid(GP_N, GP_N, dev)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        gram_ptxas = ptxas_summary(gram_k.ptxas_report)
+        log(f"gram: {glib.gram_tile_rows()} x {glib.gram_tile_cols()} output tiles, {glib.gram_threads_per_block()} "
+            f"threads and {glib.gram_smem_bytes()} B of dynamic shared memory per CTA; at {GP_N} x {GP_N} a grid of "
+            f"{gram_grid} CTAs on {sms} SMs; ptxas: {gram_ptxas}")
+        if any(r["spill_store_bytes"] for r in gram_ptxas):
+            raise RuntimeError("gram.cu spills registers")
         A, B = device_args(3, 2, 40, dev), device_args(2, 2, 41, dev)
         got = ops_gram.gram_cuda(A, B, 1.0, 1.0)
         torch.cuda.synchronize()
@@ -333,6 +339,12 @@ def gp_phases(dev):
                         gram_errors[key], gram_coincident[key], _ = compare_gram(
                             f"gram {key}{' (training Gram, B is A)' if B is A else ''}; median |K| "
                             f"{float(want.abs().median()):.3e}", got, want, At, Bt, family, hyp)
+                        if B is A:
+                            # The kernel sums the product and the norms in one order: d2 = 0, K_ii = sigma.
+                            exact = int((got.diagonal() == hyp[1]).sum())
+                            log(f"  diagonal entries equal to sigma exactly: {exact} of {M}")
+                            if exact != M:
+                                raise RuntimeError(f"gram {key}: the training Gram's diagonal is not exact")
 
     chol_errors = {}
     with phase("12 cholesky vs cholesky_plain and torch.linalg.cholesky (n = 256 and 1,024)"):
@@ -548,12 +560,14 @@ def gp_phases(dev):
         for fam, r in gbench.items():
             log(f"gram {GP_N}x{GP_N}x{GP_D} {fam}, device us per call, torch.profiler (wall us back to back): "
                 + ", ".join(f"{k} {r[k + '_ms'] * 1e3:.2f} ({r[k + '_wall_ms'] * 1e3:.2f})" for k in ("cuda", "plain", "cdist"))
-                + f"; kernel vs plain max abs off the coincident pairs {r['max_abs_err_vs_plain']:.3e}")
+                + f"; cuda is gram_kernel alone, beside it {r['cuda_other_ops']:g} other device ops per call "
+                f"({r['cuda_other_ms'] * 1e3:.2f} us); kernel vs plain max abs off the coincident pairs "
+                f"{r['max_abs_err_vs_plain']:.3e}")
         g = gbench["squared_exponential"]
         g_ops, g_bytes = g["flops"] / PEAK_F32_FLOPS * 1e3, g["bytes"] / PEAK_BYTES_PER_S * 1e3
         g_bound, g_bound_by = (g_ops, "operations") if g_ops >= g_bytes else (g_bytes, "bytes")
         log(f"gram bound: {g['flops']:.4e} flop / 67 TFLOP/s = {g_ops * 1e3:.3f} us; {g['bytes']} B / 3.35 TB/s = "
-            f"{g_bytes * 1e3:.3f} us; share of bound reached = {g_bound / g['cuda_ms']:.3f}")
+            f"{g_bytes * 1e3:.3f} us; share of bound reached by the kernel's own time = {g_bound / g['cuda_ms']:.3f}")
         cb = benchmarks.bench_cholesky(GP_N, 128, repeats=3, device=dev)
         log(f"cholesky n = {GP_N}, device us per call, torch.profiler (wall us back to back): "
             + ", ".join(f"{k} {cb[k + '_ms'] * 1e3:.2f} ({cb[k + '_wall_ms'] * 1e3:.2f})" for k in ("cuda", "plain", "library"))
@@ -601,15 +615,19 @@ def gp_phases(dev):
         "library_ms": None,
         "cdist_ms": g["cdist_ms"],
         "wall_ms": g["cuda_wall_ms"],
+        "other_device_ops_per_call": g["cuda_other_ops"],
+        "share_of_bound": g_bound / g["cuda_ms"],
+        "grid": gram_grid,
         "matern12_ms": gbench["matern12"]["cuda_ms"],
         "shape": {"M": GP_N, "N": GP_N, "D": GP_D, "family": "squared_exponential"},
         "bench_gp_ms": {"cuda": gp["ms"], "plain": plain_gp["ms"]},
         "ml2_step_ms": {"cuda": ml2["ms"], "plain": plain_ml2["ms"]},
         "gp_closure_de_s": {"cuda": de_s, "plain": de_plain_s},
         "gp_closure_de_profile": {"stages": 2 * DE_SUBSTEPS * 4, "wall_ms": de_prof_wall, "device_busy_ms": de_busy,
-                                  "device_idle_share": 1.0 - de_busy / de_prof_wall, "device_ops": de_ops},
+                                  "device_idle_share": 1.0 - de_busy / de_prof_wall, "device_ops": de_ops,
+                                  "device_ops_per_stage": de_ops / (2 * DE_SUBSTEPS * 4)},
         "train_gp_cli_s": cli_s,
-        "ptxas": ptxas_summary(gram_k.ptxas_report),
+        "ptxas": gram_ptxas,
         "build_s": gram_k.build_seconds,
     }
     chol_record = {

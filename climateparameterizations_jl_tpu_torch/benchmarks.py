@@ -320,12 +320,16 @@ def _on_device(prof) -> list:
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
-def _per_call_ms(fn, repeats: int, device) -> dict:
+def _per_call_ms(fn, repeats: int, device, kernel: str | None = None) -> dict:
     """ms per call of ``fn``: ``wall`` back to back (host work included) and ``device``.
 
     ``wall``: CUDA events around ``repeats`` calls. ``device``: the summed
     execution time of the kernels the calls ran, from ``torch.profiler``,
-    over ``repeats`` (gaps between kernels excluded).
+    over ``repeats`` (gaps between kernels excluded). With ``kernel`` (a
+    part of a kernel's name) also ``kernel``, the mean device time of a
+    launch of the kernels so named (over the launches the trace recorded:
+    it misses one now and then), and ``other`` and ``other_ops``, the time
+    and the count of the calls' other device ops per call.
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -341,7 +345,18 @@ def _per_call_ms(fn, repeats: int, device) -> dict:
         for _ in range(repeats):
             fn()
         torch.cuda.synchronize(device)
-    return {"wall": start.elapsed_time(end) / repeats, "device": _device_ms(_on_device(prof)) / repeats}
+    on_dev = _on_device(prof)
+    out = {"wall": start.elapsed_time(end) / repeats, "device": _device_ms(on_dev) / repeats}
+    if kernel is not None:
+        mine = [e for e in on_dev if kernel in e.key]
+        others = [e for e in on_dev if kernel not in e.key]
+        recorded = sum(e.count for e in mine)
+        if recorded == 0:
+            raise RuntimeError(f"no launch of {kernel!r} in the profile: {[(e.key, e.count) for e in on_dev]}")
+        out["kernel"] = _device_ms(mine) / recorded
+        out["other"] = _device_ms(others) / repeats
+        out["other_ops"] = sum(e.count for e in others) / repeats
+    return out
 
 
 def bench_tridiagonal(n_systems: int = 16384, N: int = 32, repeats: int = 50, seed: int = 0, device=None) -> dict:
@@ -556,8 +571,12 @@ def bench_gram(M: int = 1024, N: int = 1024, D: int = 96, family: str = "squared
     version ``gram_plain``. No single PyTorch call computes a kernel matrix,
     so there is no library yardstick; ``cdist`` (``torch.cdist``, the
     distance part alone) is timed beside it for scale. Times as in
-    :func:`bench_tridiagonal`. Also returns the kernel's largest deviation
-    from ``gram_plain`` off the coincident pairs.
+    :func:`bench_tridiagonal`, except ``cuda_ms``: the device time of the
+    kernel ``gram_kernel`` alone, by its name in the profile; whatever else
+    a ``gram_cuda`` call runs on the card is ``cuda_other_ms`` and
+    ``cuda_other_ops`` per call (none with f32 hyperparameter tensors on the
+    card, as here). Also returns the kernel's largest deviation from
+    ``gram_plain`` off the coincident pairs.
     """
     device = _require_card(device, "bench_gram")
     from climateparameterizations_jl_tpu_torch.ops import gram as ops_gram
@@ -574,8 +593,10 @@ def bench_gram(M: int = 1024, N: int = 1024, D: int = 96, family: str = "squared
     out = {"M": M, "N": N, "D": D, "family": family, "repeats": repeats}
     results = {name: fn() for name, fn in calls.items()}
     for name, fn in calls.items():
-        t = _per_call_ms(fn, repeats, device)
-        out[f"{name}_ms"], out[f"{name}_wall_ms"] = t["device"], t["wall"]
+        t = _per_call_ms(fn, repeats, device, kernel="gram_kernel" if name == "cuda" else None)
+        out[f"{name}_ms"], out[f"{name}_wall_ms"] = t.get("kernel", t["device"]), t["wall"]
+        if name == "cuda":
+            out["cuda_other_ms"], out["cuda_other_ops"] = t["other"], t["other_ops"]
     d2, aa, bb = ops_gram._sq_distances(A, B)
     off = ~(d2 <= 1e-7 * (aa + bb))
     out["max_abs_err_vs_plain"] = float((results["cuda"] - results["plain"]).abs()[off].max())

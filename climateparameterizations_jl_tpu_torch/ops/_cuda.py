@@ -401,26 +401,43 @@ class GramKernel(_Kernel):
     source = SOURCE_DIR / "gram.cu"
 
     def _bind(self, lib) -> None:
-        lib.gram_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.gram_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.gram_launch.restype = ctypes.c_int
         lib.gram_error_string.argtypes = [ctypes.c_int]
         lib.gram_error_string.restype = ctypes.c_char_p
-        for name in ("gram_tile", "gram_threads_per_block"):
+        for name in ("gram_tile_rows", "gram_tile_cols", "gram_threads_per_block", "gram_smem_bytes"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
+        lib.gram_grid.argtypes = [ctypes.c_int] * 3
+        lib.gram_grid.restype = ctypes.c_int
 
-    def __call__(self, A: torch.Tensor, B: torch.Tensor, params: torch.Tensor, family: str) -> torch.Tensor:
-        """Launch on ``A (M, D)``, ``B (N, D)`` and ``params = (gamma, sigma, alpha)``; returns ``K (M, N)``."""
-        args = (A, B, params)
+    def grid(self, M: int, N: int, device: torch.device) -> int:
+        """CTAs of a launch at ``M x N`` on ``device``: the tiles, at most one wave of the card."""
+        lib = self.load()
+        index = torch.device(device).index
+        n = lib.gram_grid(M, N, torch.cuda.current_device() if index is None else index)
+        if n < 0:
+            self._check(-n, "gram")
+        return n
+
+    def __call__(self, A: torch.Tensor, B: torch.Tensor, gamma: torch.Tensor, sigma: torch.Tensor,
+                 alpha: torch.Tensor, family: str) -> torch.Tensor:
+        """Launch on ``A (M, D)``, ``B (N, D)`` and one-element ``gamma``, ``sigma``, ``alpha``; returns ``K (M, N)``.
+
+        The hyperparameters are read on the card by the kernel: no copy, no stack, no sync.
+        """
+        args = (A, B, gamma, sigma, alpha)
         if A.device.type != "cuda" or any(a.device != A.device for a in args):
-            raise ValueError(f"gram needs A, B and params on one CUDA device, got {[str(a.device) for a in args]}")
+            raise ValueError(f"gram needs A, B and the hyperparameters on one CUDA device, got "
+                             f"{[str(a.device) for a in args]}")
         if any(a.dtype != torch.float32 for a in args):
             raise ValueError(f"gram takes float32, got {[a.dtype for a in args]}")
         if A.dim() != 2 or B.dim() != 2 or A.shape[1] != B.shape[1]:
             raise ValueError(f"gram expects A (M, D) and B (N, D), got {tuple(A.shape)} and {tuple(B.shape)}")
-        if params.shape != (3,):
-            raise ValueError(f"gram expects params (gamma, sigma, alpha) of shape (3,), got {tuple(params.shape)}")
-        if not all(a.is_contiguous() for a in args):
+        if any(h.numel() != 1 for h in args[2:]):
+            raise ValueError(f"gram expects one value each of gamma, sigma and alpha, got shapes "
+                             f"{[tuple(h.shape) for h in args[2:]]}")
+        if not (A.is_contiguous() and B.is_contiguous()):
             raise ValueError("gram takes contiguous tensors")
         if family not in GRAM_FAMILIES:
             raise ValueError(f"unknown kernel family {family!r}")

@@ -80,7 +80,7 @@ def gram_cuda(A, B, gamma, sigma, alpha=1.0, *, family: str = "squared_exponenti
     ``A (M, D)``, ``B (N, D)`` are cast to f32 (use the plain backend for
     f64). ``D`` must be at most 4096, the TPU kernel's limit. ``bm``/``bn``
     are the TPU kernel's tile sizes and are ignored: the CUDA kernel has its
-    own 64 x 64 tiles. CUDA tensors launch the kernel (or raise); CPU
+    own 128 x 64 tiles. CUDA tensors launch the kernel (or raise); CPU
     tensors run :func:`gram_plain` on the same f32 inputs. ``B`` and tensor
     hyperparameters on another device than ``A`` raise ``ValueError``.
     """
@@ -93,11 +93,13 @@ def gram_cuda(A, B, gamma, sigma, alpha=1.0, *, family: str = "squared_exponenti
         raise ValueError(f"feature mismatch: {tuple(A.shape)} vs {tuple(B.shape)}")
     if A.shape[1] > MAX_FEATURES:
         raise ValueError(f"gram_cuda supports D <= {MAX_FEATURES} features, got {A.shape[1]}; use the plain backend")
+    # Views and no-op casts for f32 tensors on A's device: the kernel reads
+    # each hyperparameter where it lies, so no device op runs besides it.
     params = [_on_device(v, A.device, name).to(torch.float32).reshape(())
               for v, name in ((gamma, "gamma"), (sigma, "sigma"), (alpha, "alpha"))]
     if A.device.type == "cpu":
         return gram_plain(A, B, *params, family=family)
-    return _cuda.GRAM(A.contiguous(), B.contiguous(), torch.stack(params), family)
+    return _cuda.GRAM(A.contiguous(), B.contiguous(), *params, family)
 
 
 def _family_partials(family, d2, gamma, sigma, alpha):

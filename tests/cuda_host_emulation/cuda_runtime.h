@@ -1,9 +1,10 @@
 // Host stand-in for the CUDA runtime header, for building the kernels of
 // climateparameterizations_jl_tpu_torch/csrc/ with g++ and running them on the
-// CPU (tests/test_torch_fused_rk4_host.py). Each CUDA thread of a block is a
-// std::thread; __syncthreads, named barriers (bar.sync), __shfl_xor_sync and
-// mma.sync m16n8k16 are emulated with std::barrier, so a block runs its real
-// schedule with real concurrency. The build defines CSRC_HOST_EMULATION, which
+// CPU (tests/test_torch_fused_rk4_host.py, tests/test_torch_gram_host.py).
+// Each CUDA thread of a block is a std::thread; __syncthreads, named barriers
+// (bar.sync), __shfl_xor_sync and mma.sync m16n8k16 are emulated with
+// std::barrier, so a block runs its real schedule with real concurrency;
+// cp.async copies synchronously. The build defines CSRC_HOST_EMULATION, which
 // makes the sources skip their inline PTX and their launch functions.
 #pragma once
 
@@ -44,6 +45,7 @@ struct HostDim3 {
   unsigned x = 0, y = 0, z = 0;
 };
 inline thread_local HostDim3 threadIdx, blockIdx;
+inline HostDim3 gridDim;  // set before a grid's blocks run
 
 // One block's synchronisation objects; host_emulation_run_block sets them up.
 struct HostBlockSync {
@@ -81,6 +83,18 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
 // rcp.approx.ftz + one Newton step gives 1/x rounded for a normal x and NaN otherwise.
 inline float rcp_rn(float x) { return std::isnormal(x) ? 1.0f / x : NAN; }
 inline float sqrt_rn(float x) { return std::isnormal(x) && x > 0.0f ? std::sqrt(x) : NAN; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float exp2_approx(float x) { return std::exp2(x); }
+inline float sqrt_approx(float x) { return std::sqrt(x); }
+
+// cp.async as synchronous copies: a copy has landed when it returns, so the
+// waits have nothing to wait for.
+inline void copy_async(float* dst, const float* src) { *dst = *src; }
+inline void copy_async16(float* dst, const float* src) { std::memcpy(dst, src, 16); }
+inline void copy_async_commit() {}
+template <int N>
+inline void copy_async_wait_group() {}
+inline void copy_async_wait() {}
 
 inline void host_emulation_run_block(int threads, int block, void (*body)(void*), void* arg) {
   host_sync.block = std::make_unique<std::barrier<>>(threads);

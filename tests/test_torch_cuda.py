@@ -353,7 +353,7 @@ def _normal(dev, shape, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("family", GRAM_FAMILIES)
-@pytest.mark.parametrize("shape", [(37, 23, 12), (300, 257, 130), (1, 65, 1), (1024, 1024, 96)])
+@pytest.mark.parametrize("shape", [(37, 23, 12), (300, 257, 130), (1, 65, 1), (1024, 1024, 96), (1024, 1024, 95)])
 def test_gram_matches_plain(card, family, shape):
     from climateparameterizations_jl_tpu_torch.ops import gram
 
@@ -364,6 +364,24 @@ def test_gram_matches_plain(card, family, shape):
     torch.cuda.synchronize()
     assert _cuda.GRAM.launches == before + 1 and got.shape == (M, N)
     torch.testing.assert_close(got, gram.gram_plain(A, B, 1.7, 0.8, 1.3, family=family), rtol=GRAM_RTOL,
+                               atol=GRAM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", GRAM_FAMILIES)
+@pytest.mark.parametrize("n,D", [(1024, 96), (300, 95)])
+def test_gram_training_diagonal_is_exact(card, family, n, D):
+    # B is A: the kernel sums the product and the row norms in one order, so d2 = 0
+    # and K_ii = sigma exactly; off the diagonal the tolerance above, at gamma =
+    # sqrt(D) (off-diagonal entries near exp(-1)). D = 95 takes the 4-byte copies.
+    from climateparameterizations_jl_tpu_torch.ops import gram
+
+    X = _normal(card, (n, D), n + D)
+    hyp = (math.sqrt(D), 0.8, 1.3)
+    got = gram.gram_cuda(X, X, *hyp, family=family)
+    assert torch.equal(got.diagonal(), torch.full((n,), 0.8, device=card))
+    off = ~torch.eye(n, dtype=torch.bool, device=card)
+    torch.testing.assert_close(got[off], gram.gram_plain(X, X, *hyp, family=family)[off], rtol=GRAM_RTOL,
                                atol=GRAM_ATOL)
 
 
@@ -389,15 +407,17 @@ def test_gram_refusals(card):
     from climateparameterizations_jl_tpu_torch.ops import gram
 
     A = _normal(card, (8, 4), 4)
-    params = torch.ones(3, device=card)
+    hyp = [torch.ones((), device=card)] * 3
     with pytest.raises(ValueError, match="float32"):
-        _cuda.GRAM(A.double(), A.double(), params.double(), "matern12")
+        _cuda.GRAM(A.double(), A.double(), *(h.double() for h in hyp), "matern12")
     with pytest.raises(ValueError, match="contiguous"):
-        _cuda.GRAM(A.t(), A.t(), params, "matern12")
+        _cuda.GRAM(A.t(), A.t(), *hyp, "matern12")
     with pytest.raises(ValueError, match="CUDA device"):
-        _cuda.GRAM(A.cpu(), A.cpu(), params.cpu(), "matern12")
+        _cuda.GRAM(A.cpu(), A.cpu(), *(h.cpu() for h in hyp), "matern12")
     with pytest.raises(ValueError, match="unknown kernel family"):
-        _cuda.GRAM(A, A, params, "cosine")
+        _cuda.GRAM(A, A, *hyp, "cosine")
+    with pytest.raises(ValueError, match="one value each"):
+        _cuda.GRAM(A, A, torch.ones(3, device=card), *hyp[1:], "matern12")
     with pytest.raises(ValueError, match="feature mismatch"):
         gram.gram_cuda(A, A[:, :3], 1.0, 1.0)
     assert gram.gram_cuda(A.double(), A.double(), 1.0, 1.0).dtype == torch.float32
