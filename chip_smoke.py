@@ -21,7 +21,15 @@ mish), Nz = 32:
   3-5 through ``csrc/fused_rk4_bf16.cu``, whose products run on the tensor
   cores (checked in its SASS), and the rk4 fast-assembly training step
   (phase 21: ``bench_nde_train_step(method="rk4")``, "fold" against the
-  default path).
+  default path);
+- the ``train-nde`` command (phase 22), run in-process through
+  ``cli.main.main``: the 18 flagship sims at full width, the three-stage
+  curriculum ``200:20,577:12,1153:9`` with multiple shooting (K = 16) over
+  the calibrated mPP base of ``runs/wm_les_shoot16``, a resume, the losses
+  of the first two stages (plain, then shooting) with the Thomas kernel
+  against the plain scan (and every system the kernel solved there against
+  ``_thomas_scan``), and
+  ``extract``; every implicit solve through ``csrc/thomas.cu``.
 
 It builds the five kernels from ``csrc/`` (one ``nvcc`` each, side by
 side), holds each against its plain PyTorch version, times it, and checks
@@ -53,6 +61,7 @@ from pathlib import Path
 T0 = time.perf_counter()
 REPO = Path(__file__).resolve().parent
 FLAGSHIP_RUN = REPO / "runs" / "wm_flagship_fold"
+SHOOT16_RUN = REPO / "runs" / "wm_les_shoot16"  # trained by the JAX package over calibrated mPP, K = 16
 
 # Kernel vs plain tolerance: the JAX package's own tolerance for its fused
 # kernel against the XLA path (tests/test_fused_rhs.py). Both sides are f32
@@ -153,6 +162,24 @@ PEAK_BF16_FLOPS = 989e12
 # (tests/test_fused_rhs.py::TestFastRK4::test_gradients_match).
 FAST_LOSS_RTOL, FAST_GRAD_RTOL, FAST_GRAD_ATOL = 1e-5, 1e-4, 1e-6
 FAST_TIMED_STEPS = 2
+
+# Phase 22: train-nde at full width. The curriculum of the JAX package's
+# calibrated-base shooting run (runs/wm_les_shoot16, studies/
+# flagship_training.py:87 without its repeated last stage), one iteration per
+# stage, at the last stage's learning rate (the closure is trained already).
+# Run C repeats the first two stages (the plain 200:20, 18 rows of 180
+# substeps, and the first shooting stage 577:12, K = 16, 288 rows of 36
+# substeps: the Thomas kernel at (3, 18, 32) and (3, 288, 32)) on a
+# 577-frame suite for two iterations each, once with the kernel and once
+# with the plain scan. Every loss is held to phase 9's STEP_LOSS_RTOL, for
+# phase 9's reason: per-solve f32 differences of a few ulps through the
+# substeps, and after the first loss through the backward passes (checkpoint
+# recompute and transposed IFT solves) and adam steps, amplified where the
+# mPP tanh switch is steep.
+NDE_CURRICULUM, NDE_SHOOTING, NDE_LR = "200:20,577:12,1153:9", 16, "2e-4"
+NDE_N_SAVE = 1152  # 1,153 frames (8 days of 600 s saves)
+NDE_C_STAGES, NDE_C_N_SAVE, NDE_C_ITERS = "200:20,577:12", 576, 2  # run C: the first two stages on 577 frames
+NDE_FRACTIONS = ["--auto-balance", "--fraction-T", "0.8", "--fraction-dTdz", "0.8", "--fraction-profile", "0.5"]
 
 
 def log(msg: str) -> None:
@@ -829,6 +856,215 @@ def bf16_phases(dev, flagship, f32_ms: float) -> dict:
     }
 
 
+def curriculum_thomas_launches(spec: str, n_frames: int, shooting: int, maxiters: int) -> tuple[int, list]:
+    """Thomas launches of a train-nde run, from its curriculum alone.
+
+    Per stage ``w:s`` the save ladder is ``arange(0, min(w, n_frames), s)``;
+    a stage whose interval count K divides runs K windows of ``intervals / K``
+    saves; each save interval takes ``s`` substeps. The loss-scaling
+    pre-solve launches once per substep, each iteration three times (forward,
+    checkpoint recompute, transposed IFT solve). Returns the total and
+    ``(rows per sim, substeps per solve)`` per stage.
+    """
+    total, stages = 0, []
+    for item in spec.split(","):
+        w, _, s = item.partition(":")
+        stride = int(s or 1)
+        points = len(range(0, min(int(w), n_frames), stride))
+        k = shooting if shooting and points > shooting and (points - 1) % shooting == 0 else 1
+        substeps = (points - 1) // k * stride
+        total += substeps + 3 * substeps * maxiters
+        stages.append((k, substeps))
+    return total, stages
+
+
+def train_nde_phase(dev, setup, k0_step: dict, smi: str) -> dict:
+    """Phase 22: the train-nde command on the card (runs A, B, C, extract) and the K = 16 step."""
+    import numpy as np
+    import torch
+
+    from climateparameterizations_jl_tpu_torch import benchmarks
+    from climateparameterizations_jl_tpu_torch.cli import main as cli
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
+    from climateparameterizations_jl_tpu_torch.train import checkpoint as ck
+    from climateparameterizations_jl_tpu_torch.train import nde
+
+    with open(SHOOT16_RUN / "meta.json") as f:
+        calibrated = json.load(f)["mpp"]
+    record = {}
+    with phase(f"22 train-nde CLI on the card at full width: {len(benchmarks.TRAIN_FILES)} sims, curriculum "
+               f"{NDE_CURRICULUM}, --shooting {NDE_SHOOTING}, calibrated mPP of {SHOOT16_RUN.name}"), \
+            tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        mpp_json = tmp / "mpp_parameters.json"
+        mpp_json.write_text(json.dumps(calibrated))
+        timings = []
+        originals = (cli._load_suite, nde._train_loop, nde.determine_loss_scalings, tri._thomas_cuda)
+        solved = []  # (dl, d, du, b, x) of every kernel solve in run C, forward and transposed
+
+        def recording(*args):
+            x = originals[3](*args)
+            solved.append(tuple(a.detach().clone() for a in (*args, x)))
+            return x
+
+        def timed(kind, fn):
+            def wrapper(*args, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                entry = {"kind": kind, "s": time.perf_counter() - t}
+                if kind == "presolve":
+                    batch, config = args[2], args[3]
+                    entry.update(rows=batch.x0.shape[0], substeps=(batch.t.shape[0] - 1) * config.n_substeps)
+                if kind == "train_loop":
+                    entry["iterations"] = args[3]
+                timings.append(entry)
+                return out
+            return wrapper
+
+        def run(label, argv, n_frames, spec, maxiters=1):
+            """One train-nde run with the launch counts set to 0 just before it and read just after."""
+            timings.clear()
+            expected, stages = curriculum_thomas_launches(spec, n_frames, NDE_SHOOTING if "--shooting" in argv else 0,
+                                                          maxiters)
+            _cuda.reset_launch_counts()
+            rc = cli.main(argv)
+            launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+            if rc != 0:
+                raise RuntimeError(f"train-nde run {label} exited {rc}")
+            gen = [e["s"] for e in timings if e["kind"] == "suite"]
+            pre = [e for e in timings if e["kind"] == "presolve"]
+            loops = [e for e in timings if e["kind"] == "train_loop"]
+            log(f"run {label}: suite generation {gen[0]:.2f}s; per stage (rows, substeps per solve, pre-solve ms, "
+                f"wall ms per iteration): " + "; ".join(
+                    f"{p['rows']} x {p['substeps']}, {p['s'] * 1e3:.1f}, {lp['s'] * 1e3 / lp['iterations']:.1f}"
+                    for p, lp in zip(pre, loops)))
+            log(f"run {label}: launch counts {launches}; expected thomas launches {expected} from the curriculum "
+                f"(K and substeps per stage {stages})")
+            rows = [(p["rows"], p["substeps"]) for p in pre]
+            want_rows = [(len(benchmarks.TRAIN_FILES) * k, sub) for k, sub in stages]
+            if rows != want_rows:
+                raise RuntimeError(f"run {label}: stage batches {rows}, expected {want_rows}")
+            return launches, expected, {"suite_s": gen[0], "stages": [
+                {"rows": p["rows"], "substeps": p["substeps"], "presolve_ms": p["s"] * 1e3,
+                 "ms_per_iteration": lp["s"] * 1e3 / lp["iterations"]} for p, lp in zip(pre, loops)]}
+
+        def history(out):
+            with open(out / "history.jsonl") as f:
+                return [json.loads(line) for line in f]
+
+        def count(out):
+            with np.load(out / "train_state" / "state.npz") as data:
+                return int(data["['opt_state']/[0]/.count"])
+
+        sims = ",".join(benchmarks.TRAIN_FILES)
+        full = ["train-nde", "--sims", sims, "--nz", str(NZ), "--n-save", str(NDE_N_SAVE), "--dt-save", "600",
+                "--n-substeps", "1", "--method", "split", "--lr", NDE_LR, "--maxiters", "1", *NDE_FRACTIONS]
+        cli._load_suite = timed("suite", cli._load_suite)
+        nde._train_loop = timed("train_loop", nde._train_loop)
+        nde.determine_loss_scalings = timed("presolve", nde.determine_loss_scalings)
+        try:
+            out_a = tmp / "a"
+            launches, expected, record["run_a"] = run(
+                "A", [*full, "--curriculum", NDE_CURRICULUM, "--shooting", str(NDE_SHOOTING),
+                      "--init-from", str(SHOOT16_RUN), "--mpp-params", str(mpp_json), "--output", str(out_a)],
+                NDE_N_SAVE + 1, NDE_CURRICULUM)
+            hist_a = history(out_a)
+            meta_a = json.loads((out_a / "meta.json").read_text())
+            nns, _ = cli._load_nns(str(out_a), dev)
+            finite = all(bool(torch.isfinite(p).all()) for p in nde.nn_parameters(nns))
+            log(f"run A: losses {[h['loss'] for h in hist_a]}; meta mpp {meta_a['mpp']}; adam count "
+                f"{count(out_a)}; reloaded MLPs finite {finite}")
+            if launches["thomas"] != expected or expected == 0:
+                raise RuntimeError(f"run A: thomas counted {launches['thomas']} launches, expected {expected}")
+            if len(hist_a) != 3 or not all(math.isfinite(h["loss"]) for h in hist_a):
+                raise RuntimeError(f"run A: history.jsonl holds {hist_a}")
+            if meta_a["mpp"] != calibrated:
+                raise RuntimeError(f"run A: meta.json mpp {meta_a['mpp']} is not {calibrated}")
+            if not finite or count(out_a) != 3:
+                raise RuntimeError("run A: the saved MLPs are not finite or adam's count is not 3")
+            record["run_a"].update(launches=launches["thomas"], expected=expected, losses=[h["loss"] for h in hist_a])
+
+            out_b = tmp / "b"
+            launches, expected, record["run_b"] = run(
+                "B", [*full, "--curriculum", "1153:9", "--shooting", str(NDE_SHOOTING), "--init-from", str(out_a),
+                      "--resume-from", str(out_a), "--mpp-params", str(mpp_json), "--output", str(out_b)],
+                NDE_N_SAVE + 1, "1153:9")
+            hist_b = history(out_b)
+            meta_b = json.loads((out_b / "meta.json").read_text())
+            log(f"run B (resumed from A): loss {hist_b[0]['loss']}, adam count {count(out_b)}, meta mpp equals the "
+                f"json: {meta_b['mpp'] == calibrated}")
+            if (count(out_b) != 4 or len(hist_b) != 1 or not math.isfinite(hist_b[0]["loss"])
+                    or meta_b["mpp"] != calibrated or launches["thomas"] != expected):
+                raise RuntimeError(f"run B: count {count(out_b)}, history {hist_b}, launches {launches['thomas']} "
+                                   f"(expected {expected})")
+            record["run_b"].update(launches=launches["thomas"], expected=expected, loss=hist_b[0]["loss"])
+
+            losses_c = {}
+            stage_c = ["train-nde", "--sims", sims, "--nz", str(NZ), "--n-save", str(NDE_C_N_SAVE), "--dt-save",
+                       "600", "--n-substeps", "1", "--method", "split", "--lr", NDE_LR, "--maxiters",
+                       str(NDE_C_ITERS), *NDE_FRACTIONS, "--curriculum", NDE_C_STAGES, "--shooting", str(NDE_SHOOTING),
+                       "--init-from", str(SHOOT16_RUN), "--mpp-params", str(mpp_json)]
+            for backend in ("cuda", "scan"):
+                out_c = tmp / f"c_{backend}"
+                tri._thomas_cuda = recording if backend == "cuda" else originals[3]
+                launches, expected, record[f"run_c_{backend}"] = run(
+                    f"C ({backend}, {NDE_C_N_SAVE + 1}-frame suite)",
+                    [*stage_c, "--tridiag-backend", backend, "--output", str(out_c)], NDE_C_N_SAVE + 1, NDE_C_STAGES,
+                    maxiters=NDE_C_ITERS)
+                tri._thomas_cuda = originals[3]
+                if backend == "cuda":
+                    kernel_launches = launches["thomas"]
+                losses_c[backend] = [h["loss"] for h in history(out_c)]
+                want = expected if backend == "cuda" else 0
+                if launches["thomas"] != want:
+                    raise RuntimeError(f"run C ({backend}): thomas counted {launches['thomas']}, expected {want}")
+            rels = [abs(got - want) / abs(want) for got, want in zip(losses_c["cuda"], losses_c["scan"])]
+            log(f"run C: losses with the kernel {losses_c['cuda']!r}, with scan {losses_c['scan']!r}, rel "
+                f"{[f'{r:.3e}' for r in rels]} (limit {STEP_LOSS_RTOL}; reason: per-solve f32 differences through "
+                f"the substeps, and after the first loss through the backward passes and adam steps, amplified "
+                f"by the mPP tanh switch)")
+            n_losses = len(NDE_C_STAGES.split(",")) * NDE_C_ITERS
+            if len(rels) != n_losses or not all(r <= STEP_LOSS_RTOL for r in rels):
+                raise RuntimeError("run C: kernel-backed and scan-backed losses disagree")
+            record["run_c_loss_rel"] = rels
+            # Every system the kernel solved in run C (the loss-scaling pre-solve, the forward and checkpoint
+            # recompute solves and the transposed IFT solves), against _thomas_scan on the same inputs.
+            shapes = sorted({tuple(c[3].shape) for c in solved})
+            n = solved[0][3].shape[-1]
+            dl, d, du, b, x = (torch.cat([c[i].reshape(-1, n) for c in solved]) for i in range(5))
+            log(f"run C: {len(solved)} kernel solves recorded (thomas counted {kernel_launches}), shapes {shapes}")
+            if len(solved) != kernel_launches:
+                raise RuntimeError("run C: the recorded solves are not the kernel's launches")
+            want = tri._thomas_scan(dl, d, du, b)
+            record["run_c_kernel_vs_plain"] = {"solves": len(solved), "shapes": shapes, "max_abs_err": compare(
+                f"thomas on run C's {len(solved)} solves vs _thomas_scan", x, want, rtol=THOMAS_RTOL,
+                atol=THOMAS_ATOL)}
+            log(f"  entries that differ from _thomas_scan at all: {int((x != want).sum())} of {x.numel()}")
+            solved.clear()
+        finally:
+            cli._load_suite, nde._train_loop, nde.determine_loss_scalings, tri._thomas_cuda = originals
+
+        if cli.main(["extract", str(out_a), str(tmp / "extracted")]) != 0:
+            raise RuntimeError("extract exited non-zero")
+        losses = ck.load_extracted_losses(str(tmp / "extracted"))
+        log(f"extract: losses.npz {{{', '.join(f'{k}: {v.shape}' for k, v in sorted(losses.items()))}}}")
+        if not losses or any(v.shape != (3,) for v in losses.values()):
+            raise RuntimeError("losses.npz does not hold 3 entries per channel")
+
+        k16 = benchmarks.bench_train_step(setup, n_timed=TRAIN_TIMED_STEPS, device=dev, shooting=NDE_SHOOTING)
+        log(f"flagship step with --shooting {NDE_SHOOTING} ({k16['sims']} rows x {k16['substeps']} substeps): ms "
+            f"per step median {k16['ms_median']:.1f} all={[round(t, 1) for t in k16['ms']]}; K = 0 step (phase 9, "
+            f"{k0_step['sims']} rows x {k0_step['substeps']} substeps) median {k0_step['ms_median']:.1f} "
+            f"(information only)")
+        log(f"card: {smi}")
+        record["shooting_step_ms"] = k16["ms"]
+        record["k0_step_ms"] = k0_step["ms"]
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -845,9 +1081,10 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port package is not beside this script ({e})", file=sys.stderr)
         return 2
-    if not (FLAGSHIP_RUN / "state.npz").exists():
-        print(f"chip_smoke: {FLAGSHIP_RUN / 'state.npz'} is missing", file=sys.stderr)
-        return 2
+    for run_dir in (FLAGSHIP_RUN, SHOOT16_RUN):
+        if not (run_dir / "state.npz").exists():
+            print(f"chip_smoke: {run_dir / 'state.npz'} is missing", file=sys.stderr)
+            return 2
 
     dev = torch.device("cuda", 0)
     kernel = _cuda.FUSED_RK4
@@ -1119,6 +1356,7 @@ def main() -> int:
     }
     gram_record, chol_record = gp_phases(dev)
     bf16_record = bf16_phases(dev, flagship, stats["ms_median"])
+    thomas_record["train_nde"] = train_nde_phase(dev, setup, train, smi)
     record["ptxas"] = ptxas_summary(kernel.ptxas_report)
     thomas_record["ptxas"] = ptxas_summary(thomas.ptxas_report)
     print(smi, flush=True)

@@ -5,8 +5,9 @@
   the fused runner, i.e. the CUDA kernel ``csrc/fused_rk4.cu`` (or, with bf16
   NN products, ``csrc/fused_rk4_bf16.cu``).
 - :func:`bench_train_step` (``studies/flagship_training.py:566 step_bench``):
-  one flagship NDE training step, 18 simulations x 1,152 split substeps,
-  every implicit solve through the CUDA kernel ``csrc/thomas.cu``.
+  one flagship NDE training step, 18 simulations x 1,152 split substeps
+  (or, with ``shooting=K``, 18 K windows of 1,152 / K substeps), every
+  implicit solve through the CUDA kernel ``csrc/thomas.cu``.
 - :func:`bench_nde_train_step` (``benchmarks.py:274``): one gradient step
   of 8 simulations x a 32-save window, split or rk4 (with or without the
   matmul assembly).
@@ -177,8 +178,23 @@ def flagship_train_setup(nns=None, names=TRAIN_FILES, Nz: int = 32, n_frames: in
                             tridiag_backend="auto", fast_assembly="auto")
     tsteps = np.arange(0, min(window, n_frames), stride)
     batch = training_tensors(ds, model.scalings, tsteps, tau=model.tau)
-    return dict(ds=ds, model=model, nns=nns, config=config, batch=batch,
+    return dict(ds=ds, model=model, nns=nns, config=config, batch=batch, tsteps=tsteps,
                 substeps=(len(tsteps) - 1) * stride)
+
+
+def shooting_train_setup(setup: dict, shooting: int) -> dict:
+    """``setup`` with its batch split into ``shooting`` windows (``multiple_shooting_tensors``).
+
+    The flagship step of ``step_bench(shooting=K)``
+    (``studies/flagship_training.py:566``): every (sim, window) pair on the
+    batch axis, ``1 / K`` of the substeps per solve.
+    """
+    from climateparameterizations_jl_tpu_torch.data.containers import multiple_shooting_tensors
+
+    model, tsteps = setup["model"], setup["tsteps"]
+    batch = multiple_shooting_tensors(setup["ds"], model.scalings, tsteps, shooting, tau=model.tau)
+    substeps = (len(tsteps) - 1) // shooting * setup["config"].n_substeps
+    return dict(setup, batch=batch, substeps=substeps)
 
 
 def _clone_nns(nns) -> FluxNNs:
@@ -203,17 +219,20 @@ def train_step_loss_and_grad(setup: dict, **config_overrides):
     return total.detach(), torch.cat([g.reshape(-1) for g in grads])
 
 
-def bench_train_step(setup: dict | None = None, n_timed: int = 5, device=None, **config_overrides) -> dict:
+def bench_train_step(setup: dict | None = None, n_timed: int = 5, device=None, shooting: int = 0,
+                     **config_overrides) -> dict:
     """Time the flagship training step on the card: loss, IFT backward and adam.
 
     One warm-up step, then ``n_timed`` steps, each between two CUDA events
     (host work of the step included, as it delays the next launch). The
     loss scalings come from one pre-solve first (no autograd). Starts from a
     copy of ``setup["nns"]``. ``config_overrides`` replace config fields
-    (e.g. ``tridiag_backend="scan"``). Returns ms per step (min/median/max),
-    the losses and the work done: ``presolve_substeps`` solves without
-    autograd (none when the config has no training fractions), and ``steps``
-    steps of ``substeps`` substeps each.
+    (e.g. ``tridiag_backend="scan"``); ``shooting=K`` times the step on the
+    setup's K-window multiple-shooting batch (:func:`shooting_train_setup`).
+    Returns ms per step (min/median/max), the losses and the work done:
+    ``presolve_substeps`` solves without autograd (none when the config has
+    no training fractions), and ``steps`` steps of ``substeps`` substeps
+    each over ``sims`` batch rows.
     """
     device = _require_card(device, "bench_train_step")
     from climateparameterizations_jl_tpu_torch.train.nde import (
@@ -225,6 +244,8 @@ def bench_train_step(setup: dict | None = None, n_timed: int = 5, device=None, *
 
     if setup is None:
         setup = flagship_train_setup(device=device)
+    if shooting:
+        setup = shooting_train_setup(setup, shooting)
     config = dataclasses.replace(setup["config"], **config_overrides)
     model, batch = setup["model"], setup["batch"]
     nns = _clone_nns(setup["nns"])
@@ -251,7 +272,7 @@ def bench_train_step(setup: dict | None = None, n_timed: int = 5, device=None, *
         **stats,
         "fast_assembly": resolve_fast_assembly(model, setup["nns"], config.method, config.fast_assembly),
         "tridiag_backend": resolve_tridiag_backend(config.tridiag_backend, setup["substeps"], device),
-        "sims": sims, "substeps": setup["substeps"], "Nz": model.Nz,
+        "sims": sims, "shooting": shooting, "substeps": setup["substeps"], "Nz": model.Nz,
         "column_timesteps_per_sec": sims * setup["substeps"] / (stats["ms_median"] * 1e-3),
         "losses": losses, "steps": 1 + n_timed,
         "presolve_substeps": setup["substeps"] if config.training_fractions is not None else 0,

@@ -2,7 +2,7 @@
 
 The port imports nothing of the JAX package, so this module works by names:
 it takes an object of the JAX package (or any object with the same fields)
-whose class name is one of the port's (``MLP``, ``FluxNNs``,
+whose class name is one of the port's (``MLP``, ``ConvMLP``, ``FluxNNs``,
 ``PackedFluxNNs``, ``ZeroMeanUnitVarianceScaling``, ``WindMixingScalings``,
 ``MPPParameters``, ``BoundaryConditions``, ``WindMixingModel``, and the GP
 classes ``GPKernel``, ``SpectralMixtureKernel``, ``GPModel``, ``FluxGPs``),
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from climateparameterizations_jl_tpu_torch.closures.gp import GPKernel, GPModel, SpectralMixtureKernel
-from climateparameterizations_jl_tpu_torch.closures.mlp import MLP
+from climateparameterizations_jl_tpu_torch.closures.mlp import MLP, ConvMLP
 from climateparameterizations_jl_tpu_torch.core.scalings import ZeroMeanUnitVarianceScaling
 from climateparameterizations_jl_tpu_torch.device import resolve_device
 from climateparameterizations_jl_tpu_torch.models.gp_closure import FluxGPs
@@ -40,7 +40,7 @@ from climateparameterizations_jl_tpu_torch.physics.mpp import MPPParameters
 _GP_CLASSES = (GPKernel, SpectralMixtureKernel, GPModel, FluxGPs)
 _CLASSES = {
     cls.__name__: cls
-    for cls in (MLP, FluxNNs, PackedFluxNNs, ZeroMeanUnitVarianceScaling, WindMixingScalings,
+    for cls in (MLP, ConvMLP, FluxNNs, PackedFluxNNs, ZeroMeanUnitVarianceScaling, WindMixingScalings,
                 MPPParameters, BoundaryConditions, WindMixingModel, *_GP_CLASSES)
 }
 _GRAM_BACKENDS = {"xla": "plain", "pallas": "cuda"}

@@ -1,19 +1,26 @@
 """Command-line interface, partial port of ``climateparameterizations_jl_tpu/cli/main.py``.
 
-The subcommand ported so far is ``train-gp`` (:func:`cmd_train_gp`):
+The subcommands ported so far are ``catalog``, ``train-nde`` (wind-mixing
+NDE training: curriculum, multiple shooting, checkpoints, resume,
+calibrated mPP base), ``extract`` and ``train-gp``:
 
+    python -m climateparameterizations_jl_tpu_torch.cli train-nde --sims strong_wind \
+        --curriculum 6,13:2 --shooting 3 --output runs/nde
+    python -m climateparameterizations_jl_tpu_torch.cli extract runs/nde runs/nde_extracted
     python -m climateparameterizations_jl_tpu_torch.cli train-gp --sims strong_wind \
         --test-sims strong_wind_weak_cooling --fluxes wT --output runs/gp
 
-It runs on the card unless ``--device cpu`` is given (the JAX package's
-``--platform`` flag). The helpers of the training path
-(:func:`_suite_diurnal_flags`, :func:`_load_suite`, :func:`_wind_model`)
-live here too; the other subcommands are later work (``ROADMAP.md``).
+They run on the card unless ``--device cpu`` is given (the JAX package's
+``--platform`` flag). ``--config FILE`` (JSON, or YAML where PyYAML is
+installed) supplies flag values; flags typed on the command line win. Run
+directories use the JAX package's format and load in either package. The
+other subcommands are later work (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -22,6 +29,35 @@ import numpy as np
 import torch
 
 from climateparameterizations_jl_tpu_torch.device import resolve_device
+
+
+def _load_config(path: str | None) -> dict:
+    """A ``--config`` file as a dict: JSON, or YAML for a ``.yaml``/``.yml`` path (PyYAML imported only then)."""
+    if not path:
+        return {}
+    with open(path) as f:
+        if path.endswith((".yaml", ".yml")):
+            import yaml
+
+            return yaml.safe_load(f) or {}
+        return json.load(f)
+
+
+def _apply_config(args: argparse.Namespace, config: dict, parser_defaults: dict, explicit: set | None = None):
+    """Config values override defaults; flags typed on the command line override the config.
+
+    ``explicit`` names the dests typed on the command line: comparing values
+    with the parser defaults alone cannot tell ``--nz 32`` (typed, equal to
+    the default) from an omitted flag.
+    """
+    explicit = explicit or set()
+    for key, value in config.items():
+        attr = key.replace("-", "_")
+        if attr in explicit:
+            continue
+        if hasattr(args, attr) and getattr(args, attr) == parser_defaults.get(attr):
+            setattr(args, attr, value)
+    return args
 
 
 def _sims(arg: str) -> list[str]:
@@ -88,7 +124,8 @@ def _wind_model(ds, Nz: int, **overrides):
     """The wind-mixing model of a (stacked) suite, on the suite's device.
 
     Scalings are fitted on the suite; ``tau`` is its time span; the mPP
-    parameters are the defaults. ``overrides`` replace any field.
+    parameters are the defaults. ``overrides`` replace any field: a model
+    for a checkpoint takes ``**_restore_mpp(meta)``, its training-time base.
     """
     from climateparameterizations_jl_tpu_torch.data.containers import fit_wind_mixing_scalings
     from climateparameterizations_jl_tpu_torch.models.wind_mixing import WindMixingModel
@@ -107,11 +144,269 @@ def _wind_model(ds, Nz: int, **overrides):
     return WindMixingModel(**kw)
 
 
+def _base_closure_overrides(name: str) -> dict:
+    """``WindMixingModel`` flags for a ``--base-closure`` name (also read back from checkpoint meta).
+
+    Parity: the reference's base closures: mPP (``train_NDE.jl``),
+    convective adjustment (``train_NDE_2DaySuite_SWNH_convective_adjustment.jl``)
+    and bare NNs (``NDE_training.jl`` with both toggles off).
+    """
+    table = {
+        "mpp": dict(use_mpp=True, use_conv_adj=False),
+        "conv-adj": dict(use_mpp=False, use_conv_adj=True),
+        "none": dict(use_mpp=False, use_conv_adj=False),
+    }
+    try:
+        return table[name]
+    except KeyError:
+        raise SystemExit(f"unknown base closure {name!r} (expected one of {sorted(table)})") from None
+
+
+_MPP_FIELDS = ("nu_0", "nu_minus", "Ri_c", "delta_Ri", "Pr")
+
+
+def _mpp_meta(model) -> dict:
+    """The model's mPP parameters as floats, for checkpoint meta.
+
+    Always recorded: NNs trained over calibrated mPP parameters form a
+    different closure than the same NNs over the defaults (the JAX
+    package's calibrated-base checkpoint scored 500x worse when evaluated
+    over the default base).
+    """
+    return {k: float(getattr(model.mpp, k)) for k in _MPP_FIELDS}
+
+
+def _restore_mpp(meta: dict, override_path: str | None = None, device=None) -> dict:
+    """``_wind_model`` overrides restoring the training-time mPP parameters (f32, on ``device``).
+
+    ``override_path`` (an ``optimise-mpp`` ``mpp_parameters.json``) wins
+    over ``meta["mpp"]``; with neither, returns ``{}`` (the defaults).
+    """
+    from climateparameterizations_jl_tpu_torch.physics.mpp import MPPParameters
+
+    params = None
+    if override_path:
+        with open(override_path) as f:
+            params = json.load(f)
+    elif meta.get("mpp"):
+        params = meta["mpp"]
+    if params is None:
+        return {}
+    device = resolve_device(device)
+    return {"mpp": MPPParameters(**{k: torch.tensor(params[k], dtype=torch.float32, device=device)
+                                    for k in _MPP_FIELDS})}
+
+
+def _save_nns(output: str, nns, meta: dict):
+    """Save flux MLPs with their ``arch`` (sizes and activation per member) in ``meta.json``."""
+    from climateparameterizations_jl_tpu_torch.train.checkpoint import save_checkpoint
+
+    arch = {}
+    for name in ("uw", "vw", "wT"):
+        nn = getattr(nns, name, None)
+        if nn is not None:
+            arch[name] = {"sizes": list(nn.sizes), "activation": nn.activation}
+    save_checkpoint(output, nns, {**meta, "arch": arch})
+
+
+def _load_nns(directory: str, device=None):
+    """``(nns, meta)`` of a run directory written by either package's ``_save_nns``."""
+    from climateparameterizations_jl_tpu_torch.train.checkpoint import load_run
+
+    return load_run(directory, device)
+
+
+def _resolve_train_state(directory: str | None) -> str | None:
+    """``--resume-from`` accepts a run directory (holding ``train_state/``) or the train-state directory."""
+    if directory is None:
+        return None
+    nested = os.path.join(directory, "train_state")
+    return nested if os.path.isdir(nested) else directory
+
+
+def _parse_curriculum(spec, n_frames: int, n_substeps: int, maxiters: int, lr: float, default_window: int):
+    """Parse ``"w[:s],w[:s],..."`` into :class:`CurriculumStage` objects.
+
+    Windows clamp to the available frames, and each stage's ``n_substeps``
+    scales by its stride so the inner step stays ``dt_save / n_substeps``
+    (the reference's ``1:9:1153`` tranges are strided save ranges,
+    ``train_NDE_args.jl:197``).
+    """
+    from climateparameterizations_jl_tpu_torch.train.nde import CurriculumStage
+
+    def parse_stage(x: str):
+        w, _, s = x.partition(":")
+        return int(w), int(s) if s else 1
+
+    windows = [parse_stage(x) for x in spec.split(",")] if spec else [(default_window, 1)]
+    if any(w > n_frames for w, _ in windows):
+        print(f"warning: clamping training windows {windows} to {n_frames} available frames")
+        windows = [(min(w, n_frames), s) for w, s in windows]
+    return [
+        CurriculumStage(tsteps=np.arange(0, w, s), maxiters=maxiters, learning_rate=lr, n_substeps=n_substeps * s)
+        for w, s in windows
+    ]
+
+
+def _history_writer(output: str, print_every: int = 10):
+    """A train-loop callback appending ``{"iter", "loss", <channels>}`` to ``output/history.jsonl``.
+
+    Every ``print_every`` iterations it prints the channels' shares of the
+    loss (the reference's training callback, ``NDE_training.jl:343-369``).
+    """
+    from climateparameterizations_jl_tpu_torch.train.checkpoint import history_path
+
+    hist = history_path(output)
+
+    def callback(i, total, channels=None, *_rest):
+        rec = {"iter": int(i), "loss": float(total)}
+        if channels is not None:
+            rec.update(channels.as_floats())
+        hist.append(rec)
+        if print_every and i % print_every == 0 and channels is not None:
+            parts = {k: v for k, v in rec.items() if k not in ("iter", "loss")}
+            s = sum(parts.values())
+            if s > 0:
+                pct = " ".join(f"{k} {100.0 * v / s:.1f}%" for k, v in parts.items())
+                print(f"  iter {i}: loss {total:.4e} | {pct}", flush=True)
+
+    return callback
+
+
+@contextlib.contextmanager
+def _profiler_trace(directory: str, device: torch.device):
+    """``torch.profiler`` over the block, written to ``directory/trace.json`` (Chrome trace format)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    os.makedirs(directory, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(directory, "trace.json"))
+
+
 def _select_sims(ds, keep):
     """The members ``keep`` (an index array or an int) of a suite stacked on its leading axis."""
     return dataclasses.replace(ds, **{
         f.name: getattr(ds, f.name)[keep] for f in dataclasses.fields(ds) if getattr(ds, f.name) is not None
     })
+
+
+def cmd_catalog(args) -> int:
+    from climateparameterizations_jl_tpu_torch.data.registry import FREE_CONVECTION_IDS, WIND_MIXING_CATALOG
+
+    print("# wind_mixing catalog (%d simulations)" % len(WIND_MIXING_CATALOG))
+    for name in WIND_MIXING_CATALOG:
+        print(name)
+    print("# free_convection ids:", ", ".join(str(i) for i in FREE_CONVECTION_IDS))
+    return 0
+
+
+def cmd_extract(args) -> int:
+    from climateparameterizations_jl_tpu_torch.train.checkpoint import extract_checkpoint
+
+    extract_checkpoint(args.run_dir, args.out_dir)
+    print(f"extracted {args.run_dir} -> {args.out_dir}")
+    return 0
+
+
+def cmd_train_nde(args) -> int:
+    """Wind-mixing NDE training: curriculum stages, optional multiple shooting, checkpoints.
+
+    The JAX package's ``train-nde``. ``--shooting K`` trains each stage
+    whose save-interval count K divides on a multiple-shooting batch (every
+    (sim, window) pair on the batch axis). ``--mpp-params`` trains over a
+    calibrated mPP base; without it the base is the default one, also after
+    ``--init-from`` a checkpoint trained over another base (as in the JAX
+    command: pass that checkpoint's ``meta["mpp"]`` as ``--mpp-params`` to
+    keep it). The output directory holds the MLPs (``state.npz``, ``meta.json`` with the
+    ``mpp`` used), ``history.jsonl`` and ``train_state/`` (params and
+    optimizer state after every stage, for ``--resume-from``).
+    """
+    if args.fast_assembly in ("off", False):
+        args.fast_assembly = False
+    elif args.fast_assembly in ("on", True):
+        args.fast_assembly = True
+    # Fail fast on an explicit --fast-assembly misconfiguration, before any data loads.
+    if args.fast_assembly and args.fast_assembly != "auto":
+        if args.smooth_nn:
+            raise SystemExit("train-nde: --fast-assembly does not apply the NN smoothing filter; drop --smooth-nn")
+        if args.method not in ("split", "rk4"):
+            raise SystemExit(f"train-nde: --fast-assembly supports --method split or rk4 (got {args.method!r})")
+        if args.method == "rk4" and args.smooth_ri:
+            raise SystemExit("train-nde: --fast-assembly with --method rk4 does not apply the Ri smoothing filter; "
+                             "drop --smooth-ri")
+    if args.ensemble:
+        raise SystemExit('train-nde: --ensemble is not ported yet (ROADMAP.md, queue 1, "Ensembles and flux '
+                         'regression")')
+
+    from climateparameterizations_jl_tpu_torch.closures.mlp import wind_mixing_mlp
+    from climateparameterizations_jl_tpu_torch.data.containers import multiple_shooting_tensors, training_tensors
+    from climateparameterizations_jl_tpu_torch.models.wind_mixing import FluxNNs
+    from climateparameterizations_jl_tpu_torch.train.nde import NDETrainConfig, train_wind_mixing_nde
+
+    device = resolve_device(args.device)
+    names = _sims(args.sims)
+    ds = _load_suite(names, args.nz, args.data_dir, args.n_save, args.dt_save, device=device)
+    # Mixed suites are fine: the amplitude is per sim (constant-flux members
+    # carry 0 and keep their frozen BC).
+    diurnal = any(_suite_diurnal_flags(names))
+    if args.init_from:
+        nns, _ = _load_nns(args.init_from, device)
+    else:
+        gen = torch.Generator().manual_seed(args.seed)
+        nns = FluxNNs(*(wind_mixing_mlp(gen, args.nz, scale=args.init_scale, device=device) for _ in range(3)))
+    model = _wind_model(
+        ds, args.nz, diurnal=diurnal, smooth_NN=args.smooth_nn, smooth_Ri=args.smooth_ri,
+        **_base_closure_overrides(args.base_closure),
+        **_restore_mpp({}, args.mpp_params, device),
+    )
+    config = NDETrainConfig(
+        learning_rate=args.lr, maxiters=args.maxiters, n_substeps=args.n_substeps,
+        method=args.method, gradient_scaling=args.gradient_scaling,
+        optimizer=args.optimizer, tridiag_backend=args.tridiag_backend,
+        fast_assembly=args.fast_assembly,
+        training_fractions=(
+            {"T": args.fraction_T, "dTdz": args.fraction_dTdz, "profile": args.fraction_profile}
+            if args.auto_balance
+            else None
+        ),
+    )
+    stages = _parse_curriculum(args.curriculum, ds.t.shape[-1], args.n_substeps, args.maxiters, args.lr,
+                               default_window=args.n_train_steps)
+    if len(stages) == 1:
+        # One stage runs with stages=None below, which bypasses the per-stage
+        # override: carry its stride-scaled n_substeps in the config.
+        config = dataclasses.replace(config, n_substeps=stages[0].n_substeps)
+
+    def batch_fn(tsteps):
+        # --shooting K: a multiple-shooting batch where K divides the stage's
+        # save intervals; short stages keep the plain batch.
+        t_arr = np.asarray(tsteps)
+        K = args.shooting
+        if K and len(t_arr) > K and (len(t_arr) - 1) % K == 0:
+            return multiple_shooting_tensors(ds, model.scalings, t_arr, K, tau=model.tau, diurnal=diurnal)
+        return training_tensors(ds, model.scalings, tsteps, tau=model.tau, diurnal=diurnal)
+
+    batch = batch_fn(stages[0].tsteps)
+    with _profiler_trace(args.trace, device) if args.trace else contextlib.nullcontext():
+        nns, history = train_wind_mixing_nde(
+            model, nns, batch, config,
+            stages=stages if len(stages) > 1 else None,
+            full_batch_fn=batch_fn if len(stages) > 1 else None,
+            callback=_history_writer(args.output),
+            checkpoint_dir=os.path.join(args.output, "train_state"),
+            resume_from=_resolve_train_state(args.resume_from),
+        )
+    _save_nns(args.output, nns, {
+        "command": "train-nde", "sims": args.sims, "nz": args.nz,
+        "smooth_NN": bool(args.smooth_nn), "smooth_Ri": bool(args.smooth_ri),
+        "diurnal": bool(diurnal), "base_closure": args.base_closure,
+        "ensemble": 0, "mpp": _mpp_meta(model),
+    })
+    first, last = sum(history[0].values()), sum(history[-1].values())
+    print(f"train-nde: loss {first:.4e} -> {last:.4e}; saved to {args.output}")
+    return 0
 
 
 def cmd_train_gp(args) -> int:
@@ -238,18 +533,67 @@ def cmd_train_gp(args) -> int:
 
 
 def _add_common(p):
+    p.add_argument("--config", default=None, help="JSON/YAML config file (flags typed on the command line win)")
     p.add_argument("--sims", default="strong_wind", help="comma-separated catalog names")
     p.add_argument("--data-dir", default=None, help="root of local LESbrary .jld2 files (not ported: must be unset)")
     p.add_argument("--nz", type=int, default=32)
     p.add_argument("--n-save", type=int, default=96, help="LES frames to generate")
     p.add_argument("--dt-save", type=float, default=600.0)
     p.add_argument("--output", default="runs/latest")
+    p.add_argument("--seed", type=int, default=0)
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="climateparameterizations_jl_tpu_torch", description=__doc__)
     parser.add_argument("--device", default=None, help="torch device (default: cuda; pass cpu to run on the CPU)")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    sub.add_parser("catalog", help="list dataset catalog names").set_defaults(fn=cmd_catalog)
+
+    p = sub.add_parser("train-nde", help="wind-mixing triple-NN NDE training")
+    _add_common(p)
+    p.add_argument("--mpp-params", default=None, metavar="JSON",
+                   help="optimise-mpp mpp_parameters.json: build the base closure from these calibrated "
+                        "parameters (checkpoints record and restore them)")
+    p.add_argument("--init-from", default=None, help="checkpoint dir to warm-start the NNs (and its mPP base)")
+    p.add_argument("--init-scale", type=float, default=1e-5)
+    p.add_argument("--lr", type=float, default=2e-2)
+    p.add_argument("--maxiters", type=int, default=50)
+    p.add_argument("--n-substeps", type=int, default=4)
+    p.add_argument("--method", default="split", choices=["split", "rk4", "heun", "euler"])
+    p.add_argument("--n-train-steps", type=int, default=32)
+    p.add_argument("--curriculum", default=None,
+                   help="comma-separated window[:stride] stages, e.g. 200:20,577:12,1153:9")
+    p.add_argument("--shooting", type=int, default=0, metavar="K",
+                   help="multiple-shooting training: stages whose save-interval count K divides train on K "
+                        "truth-anchored windows batched with the sims. 0 = sequential (default)")
+    p.add_argument("--gradient-scaling", type=float, default=5e-3)
+    p.add_argument("--smooth-nn", action="store_true", help="tri-band running-mean filter on the NN flux outputs")
+    p.add_argument("--smooth-ri", action="store_true", help="the same filter on the Ri profile before the mPP nu")
+    p.add_argument("--base-closure", default="mpp", choices=["mpp", "conv-adj", "none"],
+                   help="physics base under the NN fluxes: mPP (default), convective adjustment, or bare NNs")
+    p.add_argument("--auto-balance", action="store_true")
+    p.add_argument("--fraction-T", type=float, default=0.8)
+    p.add_argument("--fraction-dTdz", type=float, default=0.8)
+    p.add_argument("--fraction-profile", type=float, default=0.5)
+    p.add_argument("--resume-from", default=None, help="run dir (or its train_state/) with params + optimizer state")
+    p.add_argument("--trace", default=None, help="write a torch.profiler Chrome trace to DIR/trace.json")
+    p.add_argument("--optimizer", default="adam", choices=["adam", "sgd", "lbfgs"])
+    p.add_argument("--ensemble", type=int, default=0, metavar="K",
+                   help="a K-member deep ensemble: not ported yet (0 = single closure, the default)")
+    p.add_argument("--tridiag-backend", default="auto", choices=["auto", "scan", "pcr", "cuda"],
+                   help="split stepper's implicit solve; auto is the CUDA kernel on the card, scan on the CPU "
+                        "(train.nde.resolve_tridiag_backend)")
+    p.add_argument("--fast-assembly", nargs="?", const="on", default="auto", choices=["on", "off", "auto", "fold"],
+                   help="matmul-assembled RHS/tendencies for split or rk4; 'fold' also precomposes the divergence "
+                        "matrix into the last NN layer; 'auto' (default) picks 'fold' where supported; bare "
+                        "--fast-assembly means 'on'")
+    p.set_defaults(fn=cmd_train_nde)
+
+    p = sub.add_parser("extract", help="compact a run dir into an extracted checkpoint")
+    p.add_argument("run_dir")
+    p.add_argument("out_dir")
+    p.set_defaults(fn=cmd_extract)
 
     p = sub.add_parser("train-gp", help="GP kernel grid search + fit + test MSE")
     _add_common(p)
@@ -272,6 +616,35 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _explicit_dests(argv) -> set:
+    """The dests typed in ``argv``: a re-parse by a parser whose defaults are all suppressed.
+
+    Matching option strings would miss argparse's prefix abbreviations
+    (``--maxit`` for ``--maxiters``).
+    """
+    probe = build_parser()
+    parsers = [probe] + [sub for a in probe._subparsers._group_actions for sub in a.choices.values()]  # noqa: SLF001
+    for p in parsers:
+        for a in p._actions:  # noqa: SLF001
+            a.default = argparse.SUPPRESS
+        p._defaults.clear()  # noqa: SLF001 - the set_defaults(fn=...) entries
+    return set(vars(probe.parse_known_args(argv)[0]))
+
+
+def _parse_args(argv) -> argparse.Namespace:
+    """Parse ``argv``, then fill flags not typed on the command line from ``--config``."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    config = _load_config(getattr(args, "config", None))
+    if config:
+        sub = parser._subparsers._group_actions[0].choices[args.command]  # noqa: SLF001
+        defaults = {a.dest: a.default for a in (*parser._actions, *sub._actions)}  # noqa: SLF001
+        _apply_config(args, config, defaults, _explicit_dests(argv))
+    return args
+
+
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    import sys
+
+    args = _parse_args(list(sys.argv[1:] if argv is None else argv))
     return args.fn(args)

@@ -156,8 +156,9 @@ class TrainingBatch:
 
     ``x0 (S, 3 Nz)`` scaled initial states; ``targets (S, Nt_sel, 3 Nz)``;
     ``bcs`` with ``(S,)`` fields; ``t (Nt_sel,)`` non-dimensional save times;
-    ``tau`` the time scale; ``t0`` optional per-row start times (multiple
-    shooting, not ported yet).
+    ``tau`` the time scale; ``t0`` optional ``(S,)`` per-row start times
+    overriding ``t[0]`` (multiple-shooting batches put every (sim, window)
+    pair on the batch axis, so rows start at different absolute times).
     """
 
     x0: torch.Tensor
@@ -214,6 +215,88 @@ def training_tensors(ds: ColumnTimeSeries, scalings: WindMixingScalings, tsteps,
         bcs=bcs,
         t=t_row.index_select(0, idx) / tau,
         tau=tau,
+    )
+
+
+def multiple_shooting_tensors(ds: ColumnTimeSeries, scalings: WindMixingScalings, tsteps, n_windows: int,
+                              tau=None, diurnal: bool | None = None) -> TrainingBatch:
+    """Window-parallel (multiple-shooting) training tensors.
+
+    Splits the save ladder ``tsteps`` into ``n_windows`` segments and puts
+    every ``(sim, window)`` pair on the batch axis, sims-major (row
+    ``s * n_windows + k``). Each window starts from the truth state at its
+    first frame, and adjacent windows share their boundary frame. BC faces
+    are frozen at each window's start; ``t0`` holds each row's start time
+    ``t_row[start_k] / tau``, so a diurnal top BC keeps its phase in every
+    window. ``tsteps`` must be uniformly strided, and its interval count
+    divisible by ``n_windows``.
+    """
+    if diurnal is None:
+        diurnal = _any_nonzero(ds.diurnal_amplitude)
+    t_arr = np.asarray(tsteps)
+    n_frames = ds.t.shape[-1]
+    if int(t_arr.max()) >= n_frames or int(t_arr.min()) < 0:
+        raise ValueError(
+            f"tsteps range [{int(t_arr.min())}, {int(t_arr.max())}] out of range for {n_frames} saved frames"
+        )
+    strides = np.diff(t_arr)
+    if strides.size == 0 or not np.all(strides == strides[0]):
+        raise ValueError(f"multiple shooting needs a uniformly strided tstep ladder (got strides {strides[:4]}...)")
+    n_intervals = len(t_arr) - 1
+    if n_windows < 1 or n_intervals % n_windows:
+        raise ValueError(
+            f"n_windows={n_windows} must divide the {n_intervals} save intervals of the tstep ladder"
+        )
+    n_int = n_intervals // n_windows  # save intervals per window
+    K, W = n_windows, n_int + 1
+    # (K, W) frame indices; window k covers [k n_int, (k + 1) n_int] inclusive.
+    idx = t_arr[np.arange(K)[:, None] * n_int + np.arange(W)[None, :]]
+    device = ds.T.device
+
+    x = scaled_state_array(ds, scalings)
+    if x.dim() == 2:  # a single sim: add the suite axis
+        x = x[None]
+        ds = dataclasses.replace(ds, **{
+            f.name: torch.as_tensor(getattr(ds, f.name))[None]
+            for f in dataclasses.fields(ds) if getattr(ds, f.name) is not None
+        })
+    S = x.shape[0]
+    uw_s, vw_s, wT_s = scaled_flux_arrays(ds, scalings)
+
+    t_row = ds.t.reshape(-1, ds.t.shape[-1])[0]
+    if tau is None:
+        tau = torch.abs(t_row[-1] - t_row[0])
+
+    starts = torch.as_tensor(idx[:, 0], dtype=torch.long, device=device)
+
+    def merge(a):  # (S, K, ...) -> (S K, ...), sims-major
+        return a.reshape((S * K,) + tuple(a.shape[2:]))
+
+    def at_starts(flux_faces, face):
+        return merge(flux_faces[..., face].index_select(-1, starts))
+
+    if diurnal:
+        amp = ds.diurnal_amplitude if ds.diurnal_amplitude is not None else ds.theta_top
+        amp = torch.broadcast_to(torch.as_tensor(amp, dtype=x.dtype, device=device), (S,))
+        amp = merge(torch.broadcast_to(amp[:, None], (S, K)))
+    else:
+        amp = torch.zeros((S * K,), dtype=x.dtype, device=device)
+    bcs = BoundaryConditions(
+        uw_bot=at_starts(uw_s, 0), uw_top=at_starts(uw_s, -1),
+        vw_bot=at_starts(vw_s, 0), vw_top=at_starts(vw_s, -1),
+        wT_bot=at_starts(wT_s, 0), wT_top=at_starts(wT_s, -1),
+        diurnal_amplitude=amp,
+    )
+    frames = torch.as_tensor(idx.ravel(), dtype=torch.long, device=device)
+    targets = merge(x.index_select(-2, frames).reshape(S, K, W, x.shape[-1]))
+    t0 = t_row.index_select(0, starts) / tau
+    return TrainingBatch(
+        x0=targets[:, 0, :],
+        targets=targets,
+        bcs=bcs,
+        t=t_row.index_select(0, torch.as_tensor(idx[0], dtype=torch.long, device=device)) / tau,
+        tau=tau,
+        t0=merge(torch.broadcast_to(t0[None, :], (S, K))),
     )
 
 

@@ -8,7 +8,7 @@ suite: :func:`simulation_parameters` parses them, and
 :func:`load_simulation` generates the synthetic stand-in of a name
 (``data/synthetic.py``). The LESbrary files and the 3-D LES generator are
 not ported: ``data_dir`` and ``source="les3d"`` raise ``NotImplementedError``
-(``ROADMAP.md``, queue 1 item 11).
+(``ROADMAP.md``, queue 1, "The rest of the data path" and "3-D LES").
 """
 
 from __future__ import annotations
@@ -150,18 +150,24 @@ def _build_catalog() -> tuple:
 
 
 WIND_MIXING_CATALOG = _build_catalog()
+# The free-convection LESbrary runs (free_convection/src/data.jl:3-12); their
+# readers are not ported.
+FREE_CONVECTION_IDS = tuple(range(1, 10))
 
 
 def require_synthetic(data_dir=None, source: str = "auto") -> None:
     """Raise for the sources that are not ported: LESbrary files and the 3-D LES."""
     if source == "les3d":
-        raise NotImplementedError("source='les3d' (the 3-D LES generator) is not ported yet (ROADMAP.md, queue 1)")
+        raise NotImplementedError(
+            'source="les3d" (the 3-D LES generator) is not ported yet (ROADMAP.md, queue 1, "3-D LES")'
+        )
     if source != "auto":
         raise ValueError(f"unknown source {source!r}")
     if data_dir is not None:
         raise NotImplementedError(
             "reading LESbrary .jld2 files (data_dir) is not ported yet: the files are not in the "
-            "repository (ROADMAP.md, queue 1 item 11); leave data_dir=None for the synthetic stand-ins"
+            'repository (ROADMAP.md, queue 1, "The rest of the data path"); leave data_dir=None for the '
+            "synthetic stand-ins"
         )
 
 

@@ -1,19 +1,22 @@
-"""NDE training: gradients through the split solve, and the train loop.
+"""NDE training: gradients through the wind-mixing solve, curriculum, checkpoints.
 
-Partial port of ``climateparameterizations_jl_tpu/train/nde.py``: the
-config, the solver dispatch, the six-channel loss, the loss-scaling
-pre-solve, the optimizers (``torch.optim.Adam`` / ``SGD``, whose updates
-equal ``optax.adam`` / ``optax.sgd`` for the same hyperparameters) and the
-train loop. The curriculum loop (``train_wind_mixing_nde``,
-``CurriculumStage``), checkpoint saving and multiple shooting are later
-work (``ROADMAP.md``). The JAX package jits one XLA program per step; here
-the step runs eagerly, so on the card it is bound by kernel launches.
+Port of ``climateparameterizations_jl_tpu/train/nde.py`` for the wind-mixing
+NDE: the config, the solver dispatch (per-row start times of
+multiple-shooting batches included), the six-channel loss, the
+loss-scaling pre-solve, the optimizers (``torch.optim.Adam`` / ``SGD``,
+whose updates equal ``optax.adam`` / ``optax.sgd`` for the same
+hyperparameters), the train loop, the curriculum
+(:class:`CurriculumStage`, :func:`train_wind_mixing_nde`) and resuming
+from a saved train state. The JAX package jits one XLA program per step;
+here the step runs eagerly, so on the card it is bound by kernel launches.
+The free-convection trainer is not ported (``ROADMAP.md``, "Free
+convection").
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -25,6 +28,13 @@ from climateparameterizations_jl_tpu_torch.models.wind_mixing import (
     resolve_fast_assembly,
     solve_wind_mixing_nde,
     solve_wind_mixing_split,
+)
+from climateparameterizations_jl_tpu_torch.train.checkpoint import (
+    load_checkpoint,
+    load_optax_state,
+    optax_state,
+    optax_state_skeleton,
+    save_checkpoint,
 )
 from climateparameterizations_jl_tpu_torch.train.loss import (
     LossChannels,
@@ -57,6 +67,21 @@ class NDETrainConfig:
     implicit_solve_grad: bool = True  # IFT gradients through the implicit solves
 
 
+@dataclasses.dataclass(frozen=True)
+class CurriculumStage:
+    """One curriculum window: which tsteps to fit and for how many iterations.
+
+    ``n_substeps`` (optional) overrides the config's substeps per save
+    interval for this stage: a strided stage (the reference's ``1:9:1153``)
+    scales it by the stride, or the inner physical step grows stride-fold.
+    """
+
+    tsteps: Sequence[int]
+    maxiters: int
+    learning_rate: float = 1e-3
+    n_substeps: int | None = None
+
+
 def nn_parameters(nns) -> list:
     """The tensors of a :class:`FluxNNs` (or one ``MLP``), in field order."""
     if nns is None:
@@ -79,7 +104,7 @@ def _make_optimizer(config: NDETrainConfig, params, lr=None) -> torch.optim.Opti
     if config.optimizer == "sgd":
         return torch.optim.SGD(leaves, lr=lr)
     if config.optimizer == "lbfgs":
-        raise NotImplementedError("the lbfgs optimizer is not ported yet (ROADMAP.md, queue 1 item 14)")
+        raise NotImplementedError('the lbfgs optimizer is not ported yet (ROADMAP.md, queue 1, "Calibration")')
     raise ValueError(f"unknown optimizer {config.optimizer!r}")
 
 
@@ -141,9 +166,11 @@ def _solve(model: WindMixingModel, nns, batch: TrainingBatch, config: NDETrainCo
     t = batch.t
     n_save = t.shape[0] - 1
     dt_save = float((t[-1] - t[0]) / n_save)
-    if batch.t0 is not None:
-        raise NotImplementedError("per-row start times (multiple shooting) are not ported yet (ROADMAP.md)")
-    traj = solve_with_config(model, nns, batch.bcs, batch.x0, float(t[0]), dt_save, n_save, config)
+    # Multiple-shooting batches carry per-row start times (t0 is (S K,)); they
+    # broadcast through the steppers' t0 + i dt_save, so the diurnal top BC
+    # keeps each window's phase.
+    t0 = batch.t0 if batch.t0 is not None else float(t[0])
+    traj = solve_with_config(model, nns, batch.bcs, batch.x0, t0, dt_save, n_save, config)
     return torch.movedim(traj, 0, -2)
 
 
@@ -174,21 +201,92 @@ def determine_loss_scalings(model: WindMixingModel, nns, batch: TrainingBatch, c
         return calculate_loss_scalings(channels, config.training_fractions, config.train_gradient)
 
 
-def _train_loop(loss_fn, params, optimizer: torch.optim.Optimizer, maxiters: int, callback=None):
+def _train_loop(loss_fn, params, optimizer: torch.optim.Optimizer, maxiters: int, callback=None, opt_state=None,
+                project=None):
     """``maxiters`` optimizer steps on ``params`` (updated in place).
 
-    Returns ``(params, history, optimizer)``; ``history`` holds each
-    iteration's channels as floats, fetched from the device once at the end
-    unless a ``callback(i, total, channels, params)`` asks for them per step.
+    ``opt_state`` (optax layout, :func:`~..train.checkpoint.optax_state`)
+    is loaded into ``optimizer`` first: the moments and step count carry
+    over from an earlier stage or a saved run. ``project(params)``
+    (optional) re-applies a parameter constraint in place, without
+    autograd, after every optimizer update. Returns ``(params, history,
+    opt_state)``; ``history`` holds each iteration's channels as floats,
+    fetched from the device once at the end unless a ``callback(i, total,
+    channels, params)`` asks for them per step.
     """
+    if opt_state is not None:
+        load_optax_state(optimizer, params, opt_state)
     pending = []
     for i in range(maxiters):
         optimizer.zero_grad(set_to_none=True)
         total, channels = loss_fn(params)
         total.backward()
         optimizer.step()
+        if project is not None:
+            with torch.no_grad():
+                project(params)
         channels = LossChannels(**{f.name: getattr(channels, f.name).detach() for f in dataclasses.fields(channels)})
         if callback is not None:
-            callback(i, float(total), channels, params)
+            callback(i, float(total.detach()), channels, params)
         pending.append(channels)
-    return params, [ch.as_floats() for ch in pending], optimizer
+    return params, [ch.as_floats() for ch in pending], optax_state(optimizer, params)
+
+
+def resume_train_state(checkpoint_dir: str, nns, optimizer: str = "adam"):
+    """``(params, opt_state)`` saved by a run's ``checkpoint_dir`` (either package's).
+
+    Parity: the reference restores ADAM's state from a previous run's
+    extracted file (``wind_mixing/train_NDE_args.jl:140-146``). The JAX
+    package builds the optimizer-state skeleton from an optax optimizer's
+    ``init``; here ``optimizer`` names it (``"adam"`` or ``"sgd"``). Leaves
+    take the dtype and device of ``nns``.
+    """
+    skeleton = {"params": nns, "opt_state": optax_state_skeleton(optimizer, nns)}
+    state, _ = load_checkpoint(checkpoint_dir, skeleton)
+    return state["params"], state["opt_state"]
+
+
+def train_wind_mixing_nde(model: WindMixingModel, nns, batch: TrainingBatch, config: NDETrainConfig,
+                          stages: Sequence[CurriculumStage] | None = None, full_batch_fn: Callable | None = None,
+                          callback=None, checkpoint_dir: str | None = None, resume_from: str | None = None):
+    """Train the three flux MLPs through the NDE solve; returns ``(nns, history)``.
+
+    With ``stages``, ``full_batch_fn(tsteps)`` builds each stage's batch
+    (curriculum training); each stage has its own optimizer at its own
+    learning rate, and the optimizer state carries across stages, as the
+    JAX package carries optax's (adam's step count keeps counting, so its
+    bias correction does not restart). ``checkpoint_dir`` saves params and
+    optimizer state after every stage; ``resume_from`` restores both
+    first. ``history`` is a list of per-iteration channel dicts.
+    """
+    opt_state = None
+    if resume_from is not None:
+        nns, opt_state = resume_train_state(resume_from, nns, config.optimizer)
+
+    def _save(nns, opt_state, stage_idx):
+        if checkpoint_dir is not None:
+            save_checkpoint(checkpoint_dir, {"params": nns, "opt_state": opt_state},
+                            {"stage": stage_idx, "optimizer": config.optimizer,
+                             "learning_rate": config.learning_rate})
+
+    _require_uniform(batch.t, "train_wind_mixing_nde")
+    if stages is None:
+        loss_scalings = determine_loss_scalings(model, nns, batch, config)
+        loss_fn = make_wind_mixing_loss_fn(model, batch, loss_scalings, config)
+        nns, history, opt_state = _train_loop(loss_fn, nns, _make_optimizer(config, nns), config.maxiters,
+                                              callback, opt_state)
+        _save(nns, opt_state, 0)
+        return nns, history
+
+    history = []
+    for i, stage in enumerate(stages):
+        stage_batch = full_batch_fn(stage.tsteps)
+        _require_uniform(stage_batch.t, f"curriculum stage {i}")
+        stage_config = dataclasses.replace(config, n_substeps=stage.n_substeps) if stage.n_substeps else config
+        loss_scalings = determine_loss_scalings(model, nns, stage_batch, stage_config)
+        loss_fn = make_wind_mixing_loss_fn(model, stage_batch, loss_scalings, stage_config)
+        optimizer = _make_optimizer(stage_config, nns, stage.learning_rate)
+        nns, h, opt_state = _train_loop(loss_fn, nns, optimizer, stage.maxiters, callback, opt_state)
+        history.extend(h)
+        _save(nns, opt_state, i)
+    return nns, history

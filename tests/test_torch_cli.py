@@ -1,0 +1,257 @@
+"""The port's CLI on the CPU: ``catalog``, ``train-nde``, ``extract`` and ``--config``.
+
+The counterparts of ``tests/test_cli.py`` at its ``TINY`` sizes, with
+``--device cpu``. Run directories are read across the packages: the port's
+output loads through the JAX package's ``_load_nns`` with the metadata the
+JAX command writes for the same flags, and the trained checkpoint
+``runs/wm_les_shoot16`` (calibrated mPP base) loads in both with equal MLPs
+and equal mPP parameters. The two commands draw their initial weights from
+different generators, so their losses are not compared here
+(``tests/test_torch_nde_training.py`` holds training itself to JAX).
+"""
+
+import importlib
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from climateparameterizations_jl_tpu.physics.mpp import MPPParameters as JMPP
+from climateparameterizations_jl_tpu_torch.cli import main as tcli
+from climateparameterizations_jl_tpu_torch.train import checkpoint as tck
+from climateparameterizations_jl_tpu_torch.train import nde as tnde
+
+jcli = importlib.import_module("climateparameterizations_jl_tpu.cli.main")
+REPO = Path(__file__).resolve().parents[1]
+SHOOT16 = str(REPO / "runs" / "wm_les_shoot16")
+TINY = ["--nz", "16", "--n-save", "12", "--dt-save", "600"]
+CHANNELS = ("u", "v", "T", "dudz", "dvdz", "dTdz")
+
+
+def _main(argv):
+    return tcli.main(["--device", "cpu", *argv])
+
+
+def _history(out):
+    return [json.loads(line) for line in open(os.path.join(out, "history.jsonl"))]
+
+
+def _count(out):
+    with np.load(os.path.join(out, "train_state", "state.npz")) as data:
+        return int(data["['opt_state']/[0]/.count"])
+
+
+def _meta(out):
+    with open(os.path.join(out, "meta.json")) as f:
+        return json.load(f)
+
+
+def test_catalog_matches_jax(capsys):
+    assert _main(["catalog"]) == 0
+    port = capsys.readouterr().out
+    assert jcli.main(["catalog"]) == 0
+    assert port == capsys.readouterr().out
+    assert "strong_wind" in port and "wind_-5e-4_cooling_3e-8_new" in port
+
+
+def test_module_invocation_runs_main():
+    r = subprocess.run([sys.executable, "-m", "climateparameterizations_jl_tpu_torch.cli", "--device", "cpu",
+                        "catalog"], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "# wind_mixing catalog" in r.stdout
+
+
+def test_train_nde_strided_curriculum(tmp_path, capsys):
+    # A "window:stride" stage scales n_substeps by the stride (inner step dt_save / n_substeps).
+    out = str(tmp_path / "nde_strided")
+    assert _main(["train-nde", "--sims", "strong_wind", *TINY, "--maxiters", "2", "--curriculum", "6,12:3",
+                  "--n-substeps", "2", "--output", out]) == 0
+    assert "train-nde: loss" in capsys.readouterr().out
+    hist = _history(out)
+    assert [h["iter"] for h in hist] == [0, 1, 0, 1]
+    assert all(math.isfinite(h["loss"]) and h["loss"] == pytest.approx(sum(h[c] for c in CHANNELS)) for h in hist)
+    assert _count(out) == 4
+    with open(os.path.join(out, "train_state", "meta.json")) as f:
+        assert json.load(f) == {"stage": 1, "optimizer": "adam", "learning_rate": 0.02}
+
+
+def test_train_nde_shooting_loads_in_jax(tmp_path, capsys, monkeypatch):
+    """The slice's command: the 13:2 stage (6 intervals) trains on 3 shooting
+    windows. Its directory loads through the JAX package's _load_nns, and its
+    meta.json equals the JAX command's for the same flags."""
+    from climateparameterizations_jl_tpu_torch.data import containers as tc
+
+    flags = ["train-nde", "--sims", "strong_wind", *TINY, "--curriculum", "6,13:2", "--shooting", "3",
+             "--n-substeps", "2", "--maxiters", "2"]
+    out, jout = str(tmp_path / "port"), str(tmp_path / "jax")
+    calls, original = [], tc.multiple_shooting_tensors
+
+    def counting(ds, scalings, tsteps, n_windows, **kw):
+        calls.append((list(tsteps), n_windows))
+        return original(ds, scalings, tsteps, n_windows, **kw)
+
+    monkeypatch.setattr(tc, "multiple_shooting_tensors", counting)
+    assert _main([*flags, "--output", out]) == 0
+    assert calls == [(list(range(0, 13, 2)), 3)]
+    assert jcli.main([*flags, "--output", jout]) == 0
+    capsys.readouterr()
+    assert _meta(out) == _meta(jout)
+    assert len(_history(out)) == len(_history(jout)) == 4
+    jnns, jmeta = jcli._load_nns(out)
+    tnns, tmeta = tcli._load_nns(out, "cpu")
+    assert jmeta == tmeta
+    for p, q in zip(tnde.nn_parameters(tnns), jax.tree.leaves(jnns)):
+        np.testing.assert_array_equal(p.numpy(), np.asarray(q))
+    # And the JAX command's directory through the port.
+    tnns, _ = tcli._load_nns(jout, "cpu")
+    assert [tuple(p.shape) for p in tnde.nn_parameters(tnns)] == [np.shape(q) for q in jax.tree.leaves(jnns)]
+
+
+def test_mpp_params_checkpoint_roundtrip(tmp_path, capsys):
+    calibrated = {"nu_0": 2.5e-4, "nu_minus": 0.05, "Ri_c": 0.3, "delta_Ri": 0.8, "Pr": 1.2}
+    mpp_file = tmp_path / "mpp_parameters.json"
+    mpp_file.write_text(json.dumps(calibrated))
+    out = str(tmp_path / "nde_mpp")
+    assert _main(["train-nde", "--sims", "strong_wind", *TINY, "--maxiters", "1", "--mpp-params", str(mpp_file),
+                  "--output", out]) == 0
+    meta = _meta(out)
+    for k, v in calibrated.items():
+        assert meta["mpp"][k] == float(np.float32(v))
+    restored = tcli._restore_mpp(meta, device="cpu")["mpp"]
+    jrestored = jcli._restore_mpp(meta)["mpp"]
+    for k, v in calibrated.items():
+        assert float(getattr(restored, k)) == float(getattr(jrestored, k)) == float(np.float32(v))
+    # A model rebuilt for the checkpoint takes its base; a meta without one keeps the defaults.
+    ds = tcli._load_suite(["strong_wind"], 16, n_save=12, device="cpu")
+    assert float(tcli._wind_model(ds, 16, **tcli._restore_mpp(meta, device="cpu")).mpp.Ri_c) == float(np.float32(0.3))
+    assert float(tcli._wind_model(ds, 16, **tcli._restore_mpp({}, device="cpu")).mpp.Ri_c) == 0.25
+    # Warm-starting from it trains over the default base unless --mpp-params names one, as the JAX
+    # command does (its train-nde restores no base from --init-from).
+    warm = ["train-nde", "--sims", "strong_wind", *TINY, "--maxiters", "1", "--init-from", out]
+    assert _main([*warm, "--output", str(tmp_path / "bare")]) == 0
+    assert _meta(str(tmp_path / "bare"))["mpp"] == jcli._mpp_meta(SimpleNamespace(mpp=JMPP.default()))
+    assert _main([*warm, "--mpp-params", str(mpp_file), "--output", str(tmp_path / "kept")]) == 0
+    assert _meta(str(tmp_path / "kept"))["mpp"] == meta["mpp"]
+    capsys.readouterr()
+
+
+def test_shoot16_checkpoint_restores_in_both_packages():
+    """runs/wm_les_shoot16 was trained over calibrated mPP parameters: both
+    packages load equal MLPs and restore the five fields from its meta."""
+    jnns, jmeta = jcli._load_nns(SHOOT16)
+    tnns, tmeta = tcli._load_nns(SHOOT16, "cpu")
+    assert tmeta == jmeta and tmeta["mpp"]["Ri_c"] == pytest.approx(2.5, rel=1e-5)
+    for p, q in zip(tnde.nn_parameters(tnns), jax.tree.leaves(jnns)):
+        assert p.dtype == torch.float32
+        np.testing.assert_array_equal(p.numpy(), np.asarray(q))
+    tm, jm = tcli._restore_mpp(tmeta, device="cpu")["mpp"], jcli._restore_mpp(jmeta)["mpp"]
+    for k in tcli._MPP_FIELDS:
+        want = np.float32(tmeta["mpp"][k])
+        assert getattr(tm, k).dtype == torch.float32
+        assert getattr(tm, k).item() == float(np.asarray(getattr(jm, k))) == float(want)
+    assert tcli._MPP_FIELDS == jcli._MPP_FIELDS
+
+
+def test_run_loader_reads_both_formats_and_refuses_ensembles(tmp_path):
+    """One loader (``train/checkpoint.py::load_run``) serves the CLI and
+    ``load_flux_nns``: a member missing from ``meta["arch"]`` loads as None
+    (as JAX's ``_load_nns``), a directory without ``arch`` holds flagship
+    MLPs, and a stacked ensemble is refused by its ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="Ensembles and flux regression"):
+        tcli._load_nns(str(REPO / "runs" / "wm_flagship_ens4"), "cpu")
+    nns, meta = tck.load_run(SHOOT16, "cpu")
+    assert meta == _meta(SHOOT16)
+    tck.save_checkpoint(str(tmp_path / "bare"), nns, {"command": "x"})
+    bare, bare_meta = tck.load_run(str(tmp_path / "bare"), "cpu")
+    assert bare_meta == {"command": "x"}
+    for p, q in zip(tnde.nn_parameters(bare), tnde.nn_parameters(tck.load_flux_nns(SHOOT16, "cpu"))):
+        assert torch.equal(p, q)
+    tcli._save_nns(str(tmp_path / "two"), nns._replace(vw=None), {"command": "x"})
+    two, _ = tcli._load_nns(str(tmp_path / "two"), "cpu")
+    jtwo, _ = jcli._load_nns(str(tmp_path / "two"))
+    assert two.vw is None and jtwo.vw is None
+    assert torch.equal(two.wT.weights[0], nns.wT.weights[0])
+
+
+def test_extract_matches_jax(tmp_path, capsys):
+    out = str(tmp_path / "run")
+    assert _main(["train-nde", "--sims", "strong_wind", *TINY, "--maxiters", "1", "--curriculum", "4,6,8",
+                  "--output", out]) == 0
+    assert _main(["extract", out, str(tmp_path / "t")]) == 0
+    assert jcli.main(["extract", out, str(tmp_path / "j")]) == 0
+    losses = tck.load_extracted_losses(str(tmp_path / "t"))
+    assert sorted(losses) == sorted(["iter", "loss", *CHANNELS])
+    assert all(v.shape == (3,) and np.isfinite(v).all() for v in losses.values())
+    jlosses = jax.tree.map(np.asarray, dict(np.load(tmp_path / "j" / "losses.npz")))
+    for k, v in jlosses.items():
+        np.testing.assert_array_equal(losses[k], v)
+    assert _meta(str(tmp_path / "t")) == _meta(str(tmp_path / "j"))
+    assert _meta(str(tmp_path / "t"))["n_iterations"] == 3
+    with np.load(tmp_path / "t" / "train_state.npz") as data:
+        assert int(data["['opt_state']/[0]/.count"]) == 3
+    capsys.readouterr()
+
+
+@pytest.mark.parametrize("suffix", [".json", ".yaml"])
+def test_config_precedence(tmp_path, suffix):
+    """Config values replace defaults; typed flags win, also when equal to the default or abbreviated."""
+    cfg = tmp_path / f"c{suffix}"
+    values = {"nz": 64, "maxiters": 7, "n_substeps": 3, "lr": 0.5, "device": "cpu"}
+    if suffix == ".json":
+        cfg.write_text(json.dumps(values))
+    else:
+        import yaml
+
+        cfg.write_text(yaml.safe_dump(values))
+    args = tcli._parse_args(["train-nde", "--config", str(cfg), "--nz", "32", "--maxit", "50", "--lr=0.1"])
+    assert (args.nz, args.maxiters, args.lr) == (32, 50, 0.1)  # typed
+    assert (args.n_substeps, args.device) == (3, "cpu")  # from the config
+    args = tcli._parse_args(["--device", "meta", "train-nde", "--config", str(cfg)])
+    assert (args.nz, args.maxiters, args.device) == (64, 7, "meta")
+
+
+def test_config_file_drives_a_run(tmp_path, capsys):
+    cfg = tmp_path / "run.json"
+    cfg.write_text(json.dumps({"maxiters": 1, "curriculum": "5", "sims": "strong_wind", "nz": 16, "n_save": 12,
+                               "device": "cpu"}))
+    out = str(tmp_path / "cfg")
+    assert tcli.main(["train-nde", "--config", str(cfg), "--output", out]) == 0
+    assert len(_history(out)) == 1 and _meta(out)["nz"] == 16
+    capsys.readouterr()
+
+
+def test_resume_from_and_trace(tmp_path, capsys):
+    first, second = str(tmp_path / "a"), str(tmp_path / "b")
+    common = ["train-nde", "--sims", "strong_wind", *TINY, "--curriculum", "7", "--n-substeps", "2",
+              "--maxiters", "2"]
+    assert _main([*common, "--output", first, "--trace", str(tmp_path / "trace")]) == 0
+    with open(tmp_path / "trace" / "trace.json") as f:
+        assert json.load(f)["traceEvents"]
+    assert _main([*common, "--output", second, "--resume-from", first]) == 0
+    assert _count(first) == 2 and _count(second) == 4
+    # The resumed run starts from the first run's final weights.
+    nns, _ = tcli._load_nns(first, "cpu")
+    params, opt_state = tnde.resume_train_state(os.path.join(first, "train_state"), nns)
+    for p, q in zip(tnde.nn_parameters(params), tnde.nn_parameters(nns)):
+        assert torch.equal(p, q)
+    assert all(math.isfinite(h["loss"]) for h in _history(second))
+    capsys.readouterr()
+
+
+def test_unported_options_name_their_roadmap_items(tmp_path):
+    with pytest.raises(SystemExit, match="Ensembles and flux regression"):
+        _main(["train-nde", "--sims", "strong_wind", *TINY, "--ensemble", "2", "--output", str(tmp_path / "e")])
+    with pytest.raises(NotImplementedError, match="lbfgs.*Calibration"):
+        _main(["train-nde", "--sims", "strong_wind", *TINY, "--optimizer", "lbfgs", "--maxiters", "1",
+               "--curriculum", "3", "--output", str(tmp_path / "l")])
+    with pytest.raises(SystemExit):
+        _main(["train-nde", "--sims", "strong_wind", *TINY, "--fast-assembly", "--smooth-nn",
+               "--output", str(tmp_path / "f")])
