@@ -29,7 +29,13 @@ mish), Nz = 32:
   of the first two stages (plain, then shooting) with the Thomas kernel
   against the plain scan (and every system the kernel solved there against
   ``_thomas_scan``), and
-  ``extract``; every implicit solve through ``csrc/thomas.cu``.
+  ``extract``; every implicit solve through ``csrc/thomas.cu``;
+- free convection (phases 23-24): ``bench_fc_forward``, 1,024 physics-only
+  columns x 1,152 split substeps with one Thomas launch per substep, its
+  trajectory equal to the scan-backed one; and the ``train-fc-nde``
+  command in-process at full width (nine ids x 1,153 frames, Nz = 32, flux
+  pre-training, a curriculum whose last stage spans the window), its first
+  stage again on the plain scan with equal losses.
 
 It builds the five kernels from ``csrc/`` (one ``nvcc`` each, side by
 side), holds each against its plain PyTorch version, times it, and checks
@@ -180,6 +186,19 @@ NDE_CURRICULUM, NDE_SHOOTING, NDE_LR = "200:20,577:12,1153:9", 16, "2e-4"
 NDE_N_SAVE = 1152  # 1,153 frames (8 days of 600 s saves)
 NDE_C_STAGES, NDE_C_N_SAVE, NDE_C_ITERS = "200:20,577:12", 576, 2  # run C: the first two stages on 577 frames
 NDE_FRACTIONS = ["--auto-balance", "--fraction-T", "0.8", "--fraction-dTdz", "0.8", "--fraction-profile", "0.5"]
+
+# Phase 23: bench_fc_forward at the JAX benchmark's size (benchmarks.py:444 there): 1,024 physics-only
+# columns x 1,152 split substeps, one Thomas launch per substep. The kernel runs the scan's sweep in its
+# roundings (phase 7 counts the differing entries), so the kernel-backed trajectory must equal the
+# scan-backed one exactly.
+FC_COLUMNS, FC_STEPS, FC_REPEATS = 1024, 1152, 5
+# Phase 24: train-fc-nde at full width: all nine ids, Nz = 32, 1,153 frames (8 days of 600 s saves), split
+# solver with 4 substeps per save, flux pre-training, and a curriculum whose last stage spans the window
+# (576, 2,304 and 4,608 substeps per solve), 2 iterations per stage. Then the first stage again with
+# --tridiag-backend scan: both losses must equal the kernel-backed run's, for the reason above.
+FC_IDS, FC_N_SAVE, FC_CURRICULUM, FC_ITERS = "1,2,3,4,5,6,7,8,9", 1152, "145:8,577:8,1153:16", 2
+FC_ARGS = ["--nz", str(NZ), "--n-save", str(FC_N_SAVE), "--dt-save", "600", "--method", "split", "--n-substeps", "4",
+           "--pretrain-epochs", "20", "--lr", "1e-3", "--maxiters", str(FC_ITERS)]
 
 
 def log(msg: str) -> None:
@@ -1065,6 +1084,170 @@ def train_nde_phase(dev, setup, k0_step: dict, smi: str) -> dict:
     return record
 
 
+def fc_forward_phase(dev, smi: str) -> dict:
+    """Phase 23: bench_fc_forward at full width, the kernel-backed run against the scan-backed one."""
+    import torch
+
+    from climateparameterizations_jl_tpu_torch import benchmarks
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+
+    with phase(f"23 bench_fc_forward ({FC_COLUMNS} columns x {FC_STEPS} split substeps, Nz = {NZ}): the free-"
+               f"convection forward run on the Thomas kernel"):
+        _cuda.reset_launch_counts()
+        stats = benchmarks.bench_fc_forward(FC_COLUMNS, NZ, FC_STEPS, FC_REPEATS, device=dev)
+        launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+        expected = FC_STEPS * stats["calls"]
+        log(f"backend {stats['tridiag_backend']}: ms per run min={stats['ms_min']:.2f} median={stats['ms_median']:.2f} "
+            f"max={stats['ms_max']:.2f} all={[round(t, 2) for t in stats['ms']]}; column-timesteps/s (median) = "
+            f"{stats['column_timesteps_per_sec']:.4e}")
+        log(f"launch counts: {launches}; expected thomas launches {expected} = {FC_STEPS} per run x {stats['calls']} "
+            f"runs (warm-up included)")
+        if stats["tridiag_backend"] != "cuda":
+            raise RuntimeError(f"tridiag_backend='auto' resolved to {stats['tridiag_backend']!r} on the card")
+        if launches["thomas"] != expected or any(v for k, v in launches.items() if k != "thomas"):
+            raise RuntimeError(f"bench_fc_forward counted {launches}, expected {expected} thomas launches only")
+
+        # These launches come after the counts were read.
+        model, T0 = benchmarks.fc_forward_setup(FC_COLUMNS, NZ, FC_STEPS, dev)
+        got = benchmarks.fc_forward(model, T0, FC_STEPS, "cuda")
+        scan_ms, want = cuda_ms(lambda: benchmarks.fc_forward(model, T0, FC_STEPS, "scan"))
+        T_end = model.T_scaling.unscale(got[-1])
+        cooled = float(model.T_scaling.unscale(T0)[0, -1] - T_end[0, -1])
+        log(f"kernel vs scan trajectory: torch.equal {torch.equal(got, want)}, entries that differ "
+            f"{int((got != want).sum())} of {got.numel()}, max abs {float((got - want).abs().max()):.3e}; the scan-backed "
+            f"run took {scan_ms:.1f} ms (information); surface cell cooled by {cooled:.4f} K, columns identical "
+            f"{bool((T_end == T_end[:1]).all())}")
+        if not (torch.equal(got, want) and bool(torch.isfinite(got).all()) and cooled > 0.0
+                and bool((T_end == T_end[:1]).all())):
+            raise RuntimeError("the kernel-backed free-convection run is not the scan-backed one, or not physical")
+
+        prof = benchmarks.profile_fc_forward(FC_COLUMNS, NZ, FC_STEPS, device=dev)
+        log(f"profiled run (torch.profiler): wall {prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.2f} ms, "
+            f"idle share {prof['device_idle_share']:.3f}, {prof['device_ops']} device ops "
+            f"({prof['device_ops_per_substep']:.1f} per substep)")
+        for key, n, ms in prof["top"]:
+            log(f"  {key}: {n} x, {ms:.3f} ms")
+
+        shapes = {}
+        for n_sys in (FC_COLUMNS, len(FC_IDS.split(","))):
+            r = benchmarks.bench_tridiagonal(n_sys, NZ, device=dev)
+            bound = r["bytes"] / PEAK_BYTES_PER_S * 1e3
+            shapes[f"{n_sys}x{NZ}"] = {"ms": r["cuda_ms"], "wall_ms": r["cuda_wall_ms"], "plain_ms": r["scan_ms"],
+                                       "library_ms": r["library_ms"], "bound_ms": bound, "bound_by": "bytes",
+                                       "max_abs_err_vs_scan": r["max_abs_err_vs_scan"]}
+            log(f"thomas at {n_sys} x {NZ}: device {r['cuda_ms'] * 1e3:.2f} us (back to back {r['cuda_wall_ms'] * 1e3:.2f}); "
+                f"scan {r['scan_ms'] * 1e3:.1f} us; torch.linalg.solve {r['library_ms'] * 1e3:.1f} us; byte bound "
+                f"{r['bytes']} B / 3.35 TB/s = {bound * 1e3:.4f} us; max abs vs scan {r['max_abs_err_vs_scan']:.3e}")
+        log(f"card: {smi}")
+    return {"ms": stats["ms"], "ms_median": stats["ms_median"],
+            "column_timesteps_per_sec": stats["column_timesteps_per_sec"], "launches": launches["thomas"],
+            "launches_per_run": FC_STEPS, "runs": stats["calls"], "scan_run_ms": scan_ms,
+            "profile": {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share", "device_ops",
+                                             "device_ops_per_substep")},
+            "thomas_shapes": shapes}
+
+
+def fc_curriculum_thomas_launches(spec: str, n_frames: int, n_substeps: int, maxiters: int) -> tuple[int, list]:
+    """Thomas launches of a train-fc-nde run from its curriculum: per stage ``w:s``, ``(points - 1) s n_substeps``
+    substeps per solve, three launches each per iteration (forward, checkpoint recompute, transposed IFT solve);
+    the free-convection trainer has no pre-solve. Returns the total and the substeps per stage."""
+    stages = []
+    for item in spec.split(","):
+        w, _, s = item.partition(":")
+        stride = int(s or 1)
+        stages.append((len(range(0, min(int(w), n_frames), stride)) - 1) * stride * n_substeps)
+    return sum(3 * sub * maxiters for sub in stages), stages
+
+
+def train_fc_nde_phase(dev, smi: str) -> dict:
+    """Phase 24: the train-fc-nde command on the card at full width, then its first stage on the plain scan."""
+    import torch
+
+    from climateparameterizations_jl_tpu_torch.cli import main as cli
+    from climateparameterizations_jl_tpu_torch.data import free_convection as fcd
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.train import nde
+
+    record = {}
+    n_ids = len(FC_IDS.split(","))
+    with phase(f"24 train-fc-nde CLI on the card at full width: {n_ids} ids, Nz = {NZ}, {FC_N_SAVE + 1} frames, "
+               f"curriculum {FC_CURRICULUM}, {FC_ITERS} iterations per stage"), tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        originals = (fcd.load_free_convection_suite, nde._train_loop)
+        suites, timings = {}, []
+
+        def cached_suite(*args, **kw):
+            # Both runs train on one suite: generated once on the CPU, then reused.
+            key = repr((args, sorted(kw.items())))
+            if key not in suites:
+                t = time.perf_counter()
+                suites[key] = originals[0](*args, **kw)
+                timings.append({"kind": "suite", "s": time.perf_counter() - t})
+            return suites[key]
+
+        def timed_loop(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = originals[1](*args, **kw)
+            torch.cuda.synchronize()
+            timings.append({"kind": "train_loop", "s": time.perf_counter() - t, "iterations": args[3]})
+            return out
+
+        def run(label, argv, spec):
+            timings_before = len(timings)
+            expected, stages = fc_curriculum_thomas_launches(spec, FC_N_SAVE + 1, 4, FC_ITERS)
+            _cuda.reset_launch_counts()
+            rc = cli.main(argv)
+            launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+            if rc != 0:
+                raise RuntimeError(f"train-fc-nde run {label} exited {rc}")
+            loops = [e for e in timings[timings_before:] if e["kind"] == "train_loop"]
+            per_iter = [e["s"] * 1e3 / e["iterations"] for e in loops]
+            log(f"run {label}: wall ms per iteration per stage {[round(v, 1) for v in per_iter]} at substeps per "
+                f"solve {stages}; launch counts {launches}; expected thomas launches {expected} from the curriculum")
+            if len(loops) != len(stages):
+                raise RuntimeError(f"run {label}: {len(loops)} stages trained, expected {len(stages)}")
+            return launches, expected, stages, per_iter
+
+        def losses(out):
+            with open(out / "history.jsonl") as f:
+                return [json.loads(line)["loss"] for line in f]
+
+        fcd.load_free_convection_suite, nde._train_loop = cached_suite, timed_loop
+        try:
+            out_a = tmp / "a"
+            launches, expected, stages, per_iter = run(
+                "A (kernel)", ["train-fc-nde", "--sim-ids", FC_IDS, *FC_ARGS, "--curriculum", FC_CURRICULUM,
+                               "--output", str(out_a)], FC_CURRICULUM)
+            hist_a = losses(out_a)
+            nn, meta = cli._load_fc_nn(str(out_a), dev)
+            finite = all(bool(torch.isfinite(p).all()) for p in nde.nn_parameters(nn))
+            log(f"run A: suite generation {timings[0]['s']:.2f}s; losses {hist_a}; meta arch {meta['arch']}, "
+                f"scalings {meta['scalings']}; reloaded closure finite {finite}")
+            if launches["thomas"] != expected or any(v for k, v in launches.items() if k != "thomas"):
+                raise RuntimeError(f"run A: counted {launches}, expected {expected} thomas launches only")
+            if len(hist_a) != len(stages) * FC_ITERS or not all(math.isfinite(v) for v in hist_a) or not finite:
+                raise RuntimeError(f"run A: history {hist_a}, closure finite {finite}")
+            record["run_a"] = {"launches": launches["thomas"], "expected": expected, "substeps": stages,
+                               "ms_per_iteration": per_iter, "losses": hist_a, "suite_s": timings[0]["s"]}
+
+            first = FC_CURRICULUM.split(",")[0]
+            out_c = tmp / "c"
+            launches, _, _, per_iter_c = run(
+                "C (scan, first stage)", ["train-fc-nde", "--sim-ids", FC_IDS, *FC_ARGS, "--curriculum", first,
+                                          "--tridiag-backend", "scan", "--output", str(out_c)], first)
+            hist_c = losses(out_c)
+            log(f"run C: losses with scan {hist_c!r}, run A's first stage with the kernel {hist_a[:FC_ITERS]!r}; "
+                f"per iteration {per_iter_c[0]:.1f} ms (scan) against {per_iter[0]:.1f} ms (kernel)")
+            if launches["thomas"] != 0 or hist_c != hist_a[:FC_ITERS]:
+                raise RuntimeError(f"run C: thomas counted {launches['thomas']} (expected 0), or its losses differ")
+            record["run_c_scan"] = {"losses": hist_c, "ms_per_iteration": per_iter_c}
+        finally:
+            fcd.load_free_convection_suite, nde._train_loop = originals
+        log(f"card: {smi}")
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -1357,6 +1540,8 @@ def main() -> int:
     gram_record, chol_record = gp_phases(dev)
     bf16_record = bf16_phases(dev, flagship, stats["ms_median"])
     thomas_record["train_nde"] = train_nde_phase(dev, setup, train, smi)
+    thomas_record["fc_forward"] = fc_forward_phase(dev, smi)
+    thomas_record["train_fc_nde"] = train_fc_nde_phase(dev, smi)
     record["ptxas"] = ptxas_summary(kernel.ptxas_report)
     thomas_record["ptxas"] = ptxas_summary(thomas.ptxas_report)
     print(smi, flush=True)

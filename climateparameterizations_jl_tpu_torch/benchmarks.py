@@ -21,6 +21,10 @@
 - :func:`bench_gram` and :func:`bench_cholesky`: the Gram kernel and the
   Cholesky kernel ``csrc/cholesky.cu`` alone, beside their plain versions
   and yardsticks.
+- :func:`bench_fc_forward` (``benchmarks.py:444``, ``BASELINE.md:27``): the
+  free-convection convective-adjustment column forward run, 1,024 columns
+  x 1,152 split substeps, one implicit solve per substep through the CUDA
+  kernel ``csrc/thomas.cu``.
 
 Each is timed with CUDA events after a warm-up, and runs on the card only:
 with no card it raises.
@@ -148,6 +152,64 @@ def _require_card(device, what: str) -> torch.device:
     if device.type != "cuda":
         raise RuntimeError(f"{what} times the CUDA kernels; it needs a card")
     return device
+
+
+def fc_forward_setup(n_columns: int = 1024, Nz: int = 32, n_steps: int = 1152, device=None):
+    """``(model, T0)`` of the JAX package's ``bench_fc_forward``: the physics-only free-convection column.
+
+    H = 256 m, tau = n_steps x 600 s, a top heat flux of 3e-5 K m/s
+    (scaled by sigma_wT = 1e-4), T scaled by (19, 1), and every column the
+    linearly stratified profile ``19 + 0.01 (z + H)``.
+    """
+    from climateparameterizations_jl_tpu_torch.models.free_convection import FreeConvectionModel
+
+    device = resolve_device(device)
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=device)  # noqa: E731
+    H = 256.0
+    Ts = ZeroMeanUnitVarianceScaling(f(19.0), f(1.0))
+    ws = ZeroMeanUnitVarianceScaling(f(0.0), f(1e-4))
+    model = FreeConvectionModel(
+        H=f(H), tau=f(n_steps * 600.0), T_scaling=Ts, wT_scaling=ws, bottom_flux=ws.scale(f(0.0)),
+        top_flux=ws.scale(f(3e-5)), kappa=f(10.0), Nz=Nz, base_closure="convective_adjustment",
+    )
+    zc = (torch.arange(Nz, dtype=torch.float32, device=device) + 0.5) * (H / Nz) - H
+    T0 = Ts.scale(torch.broadcast_to(19.0 + 0.01 * (zc + H), (n_columns, Nz)))
+    return model, T0
+
+
+def fc_forward(model, T0, n_steps: int, tridiag_backend: str):
+    """One forward run of ``bench_fc_forward``: a single save interval of ``n_steps`` split substeps, no autograd."""
+    from climateparameterizations_jl_tpu_torch.models.free_convection import solve_free_convection_split
+
+    with torch.no_grad():
+        return solve_free_convection_split(model, None, T0, 0.0, 1.0, 1, n_substeps=n_steps,
+                                           tridiag_backend=tridiag_backend)
+
+
+def bench_fc_forward(n_columns: int = 1024, Nz: int = 32, n_steps: int = 1152, repeats: int = 5,
+                     tridiag_backend: str = "auto", device=None) -> dict:
+    """Time the free-convection column forward run; returns ms (min/median/max) and column-timesteps/s.
+
+    The JAX package's ``bench_fc_forward`` (``free_convection/convective_adjustment.jl``'s
+    operator-split path at the 8-day, 600 s-step scale): ``n_columns``
+    columns, ``n_steps`` substeps, each one explicit step of the surface
+    flux divergence and one backward-Euler convective adjustment. ``"auto"``
+    resolves to the Thomas kernel on the card: ``n_steps`` launches per run.
+    CUDA events around each run after one warm-up; ``calls`` counts the runs.
+    """
+    from climateparameterizations_jl_tpu_torch.train.nde import resolve_tridiag_backend
+
+    device = _require_card(device, "bench_fc_forward")
+    model, T0 = fc_forward_setup(n_columns, Nz, n_steps, device)
+    backend = resolve_tridiag_backend(tridiag_backend, n_steps, device)
+    times, out = _timed(lambda: fc_forward(model, T0, n_steps, backend), repeats, device)
+    if out.shape != (2, n_columns, Nz) or not bool(torch.isfinite(out).all()):
+        raise RuntimeError(f"free-convection forward run gave shape {tuple(out.shape)} or non-finite values")
+    stats = _stats(times, device)
+    return {
+        **stats, "n_columns": n_columns, "n_steps": n_steps, "repeats": repeats, "tridiag_backend": backend,
+        "column_timesteps_per_sec": n_columns * n_steps / (stats["ms_median"] * 1e-3), "calls": repeats + 1,
+    }
 
 
 def flagship_train_setup(nns=None, names=TRAIN_FILES, Nz: int = 32, n_frames: int = N_FRAMES, seed: int = 0,
@@ -423,16 +485,9 @@ def profile_train_step(setup: dict, n_saves: int = 2, device=None, **config_over
     """Where one training step's time goes: ``torch.profiler`` over a short window.
 
     One step (loss, backward, adam) over the first ``n_saves`` save intervals
-    of the setup's batch, after one unprofiled warm-up step. Returns the
-    wall time, the device time of every CUDA kernel, memcpy and memset the
-    profiler saw, the device's idle share of the wall time, the device ops
-    per substep and the eight largest by device time. Profiling adds host
-    time, so the idle share is that of the profiled step. ``device_ops == 0``
-    means the profiler saw no device activity (then nothing is measured).
+    of the setup's batch (:func:`_profiled`).
     """
     device = _require_card(device, "profile_train_step")
-    from torch.profiler import ProfilerActivity, profile
-
     from climateparameterizations_jl_tpu_torch.train.nde import (
         _make_optimizer,
         determine_loss_scalings,
@@ -453,23 +508,48 @@ def profile_train_step(setup: dict, n_saves: int = 2, device=None, **config_over
         total.backward()
         optimizer.step()
 
-    step()
+    return _profiled(step, n_saves * config.n_substeps, device)
+
+
+def _profiled(fn, substeps: int, device) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` after an unprofiled warm-up call.
+
+    Returns the wall time, the device time of every CUDA kernel, memcpy and
+    memset the profiler saw, the device's idle share of the wall time, the
+    device ops in all and per substep, and the eight largest by device time.
+    Profiling adds host time, so the idle share is that of the profiled call.
+    ``device_ops == 0`` means the profiler saw no device activity (then
+    nothing is measured).
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step()
+        fn()
         torch.cuda.synchronize(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     on_device = _on_device(prof)
     busy_ms = _device_ms(on_device)
     ops = sum(e.count for e in on_device)
-    substeps = n_saves * config.n_substeps
     top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]
     return {
         "substeps": substeps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms, "device_ops": ops, "device_ops_per_substep": ops / substeps,
         "top": [(e.key[:60], e.count, e.self_device_time_total * 1e-3) for e in top],
     }
+
+
+def profile_fc_forward(n_columns: int = 1024, Nz: int = 32, n_steps: int = 1152, tridiag_backend: str = "auto",
+                       device=None) -> dict:
+    """Where one ``bench_fc_forward`` run's time goes: :func:`_profiled` over one run."""
+    from climateparameterizations_jl_tpu_torch.train.nde import resolve_tridiag_backend
+
+    device = _require_card(device, "profile_fc_forward")
+    model, T0 = fc_forward_setup(n_columns, Nz, n_steps, device)
+    backend = resolve_tridiag_backend(tridiag_backend, n_steps, device)
+    return _profiled(lambda: fc_forward(model, T0, n_steps, backend), n_steps, device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,20 +1,27 @@
 """Command-line interface, partial port of ``climateparameterizations_jl_tpu/cli/main.py``.
 
-The subcommands ported so far are ``catalog``, ``train-nde`` (wind-mixing
-NDE training: curriculum, multiple shooting, checkpoints, resume,
-calibrated mPP base), ``extract`` and ``train-gp``:
+The subcommands ported so far are ``catalog``, ``train-nn`` (direct flux
+regression), ``train-nde`` (wind-mixing NDE training: curriculum, multiple
+shooting, checkpoints, resume, calibrated mPP base), ``extract``,
+``train-gp`` and ``train-fc-nde`` (free-convection NDE training: flux
+pre-training, spatial causality, curriculum):
 
     python -m climateparameterizations_jl_tpu_torch.cli train-nde --sims strong_wind \
         --curriculum 6,13:2 --shooting 3 --output runs/nde
     python -m climateparameterizations_jl_tpu_torch.cli extract runs/nde runs/nde_extracted
     python -m climateparameterizations_jl_tpu_torch.cli train-gp --sims strong_wind \
         --test-sims strong_wind_weak_cooling --fluxes wT --output runs/gp
+    python -m climateparameterizations_jl_tpu_torch.cli train-nn --sims strong_wind --output runs/nn
+    python -m climateparameterizations_jl_tpu_torch.cli train-fc-nde --sim-ids 1,2,3 \
+        --pretrain-epochs 50 --curriculum 9,25:2 --output runs/fc
 
 They run on the card unless ``--device cpu`` is given (the JAX package's
 ``--platform`` flag). ``--config FILE`` (JSON, or YAML where PyYAML is
 installed) supplies flag values; flags typed on the command line win. Run
-directories use the JAX package's format and load in either package. The
-other subcommands are later work (``ROADMAP.md``).
+directories use the JAX package's format and load in either package.
+``--data-dir`` reads LESbrary ``.jld2`` files where they exist (h5py needed)
+and falls back to the synthetic stand-ins. The other subcommands are later
+work (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -79,12 +86,14 @@ def _suite_diurnal_flags(names) -> list:
 def _load_suite(names, Nz: int, data_dir=None, n_save=288, dt_save=600.0, Nz_les=128, device=None):
     """The coarse suite of catalog ``names``, stacked on a leading axis, on ``device``.
 
-    The synthetic stand-ins are generated on the CPU (``data/synthetic.py``)
-    and moved to ``device`` (``cuda`` unless the caller asks for the CPU) at
-    the end. Members that share the generator's column (``f``, ``H``,
-    ``alpha``, ``g``, grid and diurnal flag) run as one batched split solve
-    instead of one solve each. Diurnal members keep their time-varying top
-    ``wT`` face; the others have their surface fluxes pinned.
+    A name whose LESbrary file exists under ``data_dir`` is read from it
+    (``data/registry.py::load_simulation``); the others get their synthetic
+    stand-ins, generated on the CPU (``data/synthetic.py``), where members
+    that share the generator's column (``f``, ``H``, ``alpha``, ``g``, grid
+    and diurnal flag) run as one batched split solve instead of one solve
+    each. The suite moves to ``device`` (``cuda`` unless the caller asks for
+    the CPU) at the end. Diurnal members keep their time-varying top ``wT``
+    face; the others have their surface fluxes pinned.
     """
     from climateparameterizations_jl_tpu_torch.data.containers import (
         coarsen_dataset,
@@ -92,19 +101,22 @@ def _load_suite(names, Nz: int, data_dir=None, n_save=288, dt_save=600.0, Nz_les
         stack_datasets,
     )
     from climateparameterizations_jl_tpu_torch.data.registry import (
-        require_synthetic,
+        lesbrary_file,
+        load_simulation,
         signed_momentum_flux,
         simulation_parameters,
     )
     from climateparameterizations_jl_tpu_torch.data.synthetic import _synthetic_wind_mixing_les_batch
 
     device = resolve_device(device)
-    require_synthetic(data_dir)
     specs = [simulation_parameters(n) for n in names]
-    groups: dict = {}
-    for i, spec in enumerate(specs):
-        groups.setdefault((spec.f, spec.diurnal), []).append(i)
     raw = [None] * len(names)
+    groups: dict = {}
+    for i, (name, spec) in enumerate(zip(names, specs)):
+        if lesbrary_file(name, data_dir) is not None:
+            raw[i] = load_simulation(name, data_dir=data_dir, Nz_les=Nz_les, n_save=n_save, dt_save=dt_save)
+        else:
+            groups.setdefault((spec.f, spec.diurnal), []).append(i)
     for (f, diurnal), members in groups.items():
         generated = _synthetic_wind_mixing_les_batch(
             [signed_momentum_flux(specs[i]) for i in members], [specs[i].Qb for i in members],
@@ -116,6 +128,21 @@ def _load_suite(names, Nz: int, data_dir=None, n_save=288, dt_save=600.0, Nz_les
     for ds, spec in zip(raw, specs):
         ds = coarsen_dataset(ds, Nz)
         datasets.append(ds if spec.diurnal else enforce_surface_fluxes(ds))
+    suite = stack_datasets(datasets) if len(datasets) > 1 else datasets[0]
+    return suite.to(device)
+
+
+def _load_fc_suite(ids, Nz: int, data_dir=None, n_save=96, dt_save=600.0, source="auto", device=None):
+    """The coarse free-convection suite of ``ids``, stacked on a leading axis (one id: unstacked), on ``device``.
+
+    Files under ``data_dir`` where they exist, else the synthetic stand-ins
+    in one batched solve on the CPU (``data/free_convection.py``).
+    """
+    from climateparameterizations_jl_tpu_torch.data.containers import stack_datasets
+    from climateparameterizations_jl_tpu_torch.data.free_convection import load_free_convection_suite
+
+    device = resolve_device(device)
+    datasets = load_free_convection_suite(ids, data_dir, Nz, n_save=n_save, dt_save=dt_save, source=source)
     suite = stack_datasets(datasets) if len(datasets) > 1 else datasets[0]
     return suite.to(device)
 
@@ -216,6 +243,13 @@ def _load_nns(directory: str, device=None):
     return load_run(directory, device)
 
 
+def _load_fc_nn(directory: str, device=None):
+    """``(nn, meta)`` of a ``train-fc-nde`` run directory written by either package (``MLP`` or ``ConvMLP``)."""
+    from climateparameterizations_jl_tpu_torch.train.checkpoint import load_fc_run
+
+    return load_fc_run(directory, device)
+
+
 def _resolve_train_state(directory: str | None) -> str | None:
     """``--resume-from`` accepts a run directory (holding ``train_state/``) or the train-state directory."""
     if directory is None:
@@ -307,6 +341,37 @@ def cmd_extract(args) -> int:
 
     extract_checkpoint(args.run_dir, args.out_dir)
     print(f"extracted {args.run_dir} -> {args.out_dir}")
+    return 0
+
+
+def cmd_train_nn(args) -> int:
+    """Direct flux regression: one MLP per flux of ``--fluxes`` on the suite's (state, flux) pairs.
+
+    The JAX package's ``train-nn``: ``3 Nz -> hidden -> Nz - 1`` MLPs, drawn
+    one after another from one ``torch.Generator`` seeded with ``--seed``,
+    trained full batch by adam; saved with ``meta["arch"]`` per flux.
+    """
+    from climateparameterizations_jl_tpu_torch.closures import mlp
+    from climateparameterizations_jl_tpu_torch.data.containers import direct_regression_pairs, fit_wind_mixing_scalings
+    from climateparameterizations_jl_tpu_torch.models.wind_mixing import FluxNNs
+    from climateparameterizations_jl_tpu_torch.train.nn import train_flux_nn
+
+    device = resolve_device(args.device)
+    ds = _load_suite(_sims(args.sims), args.nz, args.data_dir, args.n_save, args.dt_save, device=device)
+    scalings = fit_wind_mixing_scalings(ds)
+    gen = torch.Generator().manual_seed(args.seed)
+    trained = {}
+    for flux in _sims(args.fluxes):
+        x, y = direct_regression_pairs(ds, scalings, flux)
+        nn = mlp.mlp_init(gen, [3 * args.nz, args.hidden, args.nz - 1], args.activation, device=device)
+        nn, history = train_flux_nn(nn, x, y, learning_rate=args.lr, epochs=args.epochs,
+                                    gradient_scaling=args.gradient_scaling, dz_hat=1.0 / args.nz,
+                                    causality=args.spatial_causality)
+        trained[flux] = nn
+        print(f"train-nn[{flux}]: loss {history[0]:.4e} -> {history[-1]:.4e}")
+    nns = FluxNNs(uw=trained.get("uw"), vw=trained.get("vw"), wT=trained.get("wT"))
+    _save_nns(args.output, nns, {"command": "train-nn", "sims": args.sims, "nz": args.nz})
+    print(f"saved checkpoint to {args.output}")
     return 0
 
 
@@ -532,13 +597,124 @@ def cmd_train_gp(args) -> int:
     return 0
 
 
-def _add_common(p):
+def cmd_train_fc_nde(args) -> int:
+    """Free-convection NDE training: optional flux pre-training, spatial causality, a curriculum.
+
+    The JAX package's ``train-fc-nde``. The suite of ``--sim-ids`` (files
+    under ``--data-dir`` where they exist, else the synthetic stand-ins)
+    gets one T and one wT scaling and per-simulation boundary fluxes; the
+    closure (``--conv w > 1``: a ``ConvMLP``) is drawn from a
+    ``torch.Generator`` seeded with ``--seed``, optionally pre-trained on
+    (T, wT) pairs, then trained through the NDE solve stage by stage (a
+    fresh adam per stage; the last of several stages at ``--lr`` times
+    ``--burn-in-lr-decay``). ``--spatial-causality hard`` masks the weights
+    and re-masks after every update; ``soft`` acts in pre-training only.
+    The split solver's implicit solves run on ``--tridiag-backend`` (auto:
+    the Thomas kernel on the card). Writes ``state.npz``, ``meta.json``
+    (scalings, ``base_closure``, ``arch`` with ``conv_width``) and
+    ``history.jsonl``, in the JAX command's format.
+    """
+    if args.ensemble:
+        raise NotImplementedError('train-fc-nde --ensemble is not ported yet (ROADMAP.md, queue 1, "Ensembles and '
+                                  'flux regression")')
+
+    from climateparameterizations_jl_tpu_torch.closures import mlp
+    from climateparameterizations_jl_tpu_torch.core.scalings import ZeroMeanUnitVarianceScaling
+    from climateparameterizations_jl_tpu_torch.data.free_convection import (
+        FREE_CONVECTION_IDS,
+        build_free_convection_model,
+        free_convection_regression_pairs,
+    )
+    from climateparameterizations_jl_tpu_torch.train.checkpoint import save_checkpoint
+    from climateparameterizations_jl_tpu_torch.train.nde import NDETrainConfig, train_free_convection_nde
+    from climateparameterizations_jl_tpu_torch.train.nn import train_flux_nn
+
+    device = resolve_device(args.device)
+    ids = [int(s) for s in _sims(args.sim_ids)]
+    # Held-out ids are the complement by convention, so only out-of-range ids are worth a warning.
+    bad = sorted(set(ids) - set(FREE_CONVECTION_IDS))
+    if bad:
+        print(f"warning: unknown simulation ids {bad} (valid: {sorted(FREE_CONVECTION_IDS)})")
+    ds = _load_fc_suite(ids, args.nz, args.data_dir, args.n_save, args.dt_save, args.source, device)
+    T_scaling = ZeroMeanUnitVarianceScaling.fit(ds.T.reshape(-1))
+    wT_scaling = ZeroMeanUnitVarianceScaling.fit(ds.wT.reshape(-1))
+    t_row = ds.t.reshape(-1, ds.t.shape[-1])[0]
+    tau = torch.abs(t_row[-1] - t_row[0])
+    # Per-sim BC fluxes on the suite axis: each member trains against its own surface forcing.
+    model = build_free_convection_model(ds, T_scaling, wT_scaling, base_closure=args.base_closure)
+
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.conv > 1:
+        nn = mlp.free_convection_conv_mlp(gen, args.nz, conv_width=args.conv, device=device)
+    else:
+        nn = mlp.free_convection_mlp(gen, args.nz, device=device)
+    if args.pretrain_epochs > 0:
+        # Flux pre-training: T -> wT regression (train_free_convection_nde.jl:210-216).
+        x, y = free_convection_regression_pairs(ds, T_scaling, wT_scaling)
+        nn, pre_hist = train_flux_nn(nn, x, y, learning_rate=args.lr, epochs=args.pretrain_epochs,
+                                     causality=args.spatial_causality)
+        print(f"train-fc-nde[pretrain]: loss {pre_hist[0]:.4e} -> {pre_hist[-1]:.4e}")
+
+    project = None
+    if args.spatial_causality == "hard":
+        # Masked now and after every optimizer update, which repopulates masked entries otherwise.
+        with torch.no_grad():
+            nn = mlp.apply_spatial_causality_mask(nn)
+        project = mlp.apply_spatial_causality_mask_
+    elif args.spatial_causality == "soft" and args.pretrain_epochs == 0:
+        print("warning: --spatial-causality soft only acts during flux pretraining; set --pretrain-epochs > 0 or "
+              "it is a no-op")
+
+    n_frames = int(ds.t.shape[-1])
+    stages = _parse_curriculum(args.curriculum, n_frames, args.n_substeps, args.maxiters, args.lr,
+                               default_window=min(args.n_train_steps, n_frames))
+
+    def stage_tensors(tsteps):
+        idx = torch.as_tensor(np.asarray(tsteps), dtype=torch.long, device=device)
+        T_sel = ds.T.index_select(-2, idx)
+        T0, targets = T_scaling.scale(T_sel[..., 0, :]), T_scaling.scale(T_sel)
+        if T0.dim() == 1:
+            T0, targets = T0[None], targets[None]
+        return T0, targets, t_row.index_select(0, idx) / tau
+
+    history = []
+    for stage_i, stage in enumerate(stages):
+        lr = args.lr * (args.burn_in_lr_decay if stage_i == len(stages) - 1 and len(stages) > 1 else 1.0)
+        config = NDETrainConfig(learning_rate=lr, maxiters=args.maxiters, n_substeps=stage.n_substeps,
+                                method=args.method, tridiag_backend=args.tridiag_backend)
+        T0, targets, t = stage_tensors(stage.tsteps)
+        nn, h = train_free_convection_nde(model, nn, T0, targets, t, config, callback=_history_writer(args.output),
+                                          project=project)
+        history.extend(h)
+    meta = {
+        "command": "train-fc-nde", "sim_ids": ids, "conv": args.conv, "ensemble": 0,
+        # What evaluation needs to rebuild the training-time model: the
+        # closure only makes sense under its scalings and base closure.
+        "base_closure": args.base_closure,
+        "scalings": {
+            "T": {"mu": float(T_scaling.mu), "sigma": float(T_scaling.sigma)},
+            "wT": {"mu": float(wT_scaling.mu), "sigma": float(wT_scaling.sigma)},
+        },
+    }
+    if isinstance(nn, mlp.ConvMLP):
+        meta["arch"] = {"sizes": list(nn.mlp.sizes), "activation": nn.mlp.activation, "conv_width": nn.width}
+    else:
+        meta["arch"] = {"sizes": list(nn.sizes), "activation": nn.activation}
+    save_checkpoint(args.output, nn, meta)
+    first, last = sum(history[0].values()), sum(history[-1].values())
+    print(f"train-fc-nde: loss {first:.4e} -> {last:.4e}; saved to {args.output}")
+    return 0
+
+
+def _add_common(p, with_sims: bool = True):
     p.add_argument("--config", default=None, help="JSON/YAML config file (flags typed on the command line win)")
-    p.add_argument("--sims", default="strong_wind", help="comma-separated catalog names")
-    p.add_argument("--data-dir", default=None, help="root of local LESbrary .jld2 files (not ported: must be unset)")
-    p.add_argument("--nz", type=int, default=32)
-    p.add_argument("--n-save", type=int, default=96, help="LES frames to generate")
-    p.add_argument("--dt-save", type=float, default=600.0)
+    if with_sims:
+        p.add_argument("--sims", default="strong_wind", help="comma-separated catalog names")
+        p.add_argument("--data-dir", default=None,
+                       help="root of local LESbrary .jld2 files (h5py needed; synthetic stand-ins otherwise)")
+        p.add_argument("--nz", type=int, default=32)
+        p.add_argument("--n-save", type=int, default=96, help="LES frames to generate or load")
+        p.add_argument("--dt-save", type=float, default=600.0)
     p.add_argument("--output", default="runs/latest")
     p.add_argument("--seed", type=int, default=0)
 
@@ -549,6 +725,17 @@ def build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="command", required=True)
 
     sub.add_parser("catalog", help="list dataset catalog names").set_defaults(fn=cmd_catalog)
+
+    p = sub.add_parser("train-nn", help="direct flux regression")
+    _add_common(p)
+    p.add_argument("--fluxes", default="uw,vw,wT")
+    p.add_argument("--hidden", type=int, default=400)
+    p.add_argument("--activation", default="relu")
+    p.add_argument("--epochs", type=int, default=200)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--gradient-scaling", type=float, default=0.0)
+    p.add_argument("--spatial-causality", default="none", choices=["none", "soft", "hard"])
+    p.set_defaults(fn=cmd_train_nn)
 
     p = sub.add_parser("train-nde", help="wind-mixing triple-NN NDE training")
     _add_common(p)
@@ -613,6 +800,33 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-integrate-steps", type=int, default=32)
     p.add_argument("--n-substeps", type=int, default=4)
     p.set_defaults(fn=cmd_train_gp)
+
+    p = sub.add_parser("train-fc-nde", help="free-convection NDE training")
+    _add_common(p, with_sims=False)
+    p.add_argument("--sim-ids", default="1", help="comma-separated LESbrary free-convection ids (1..9)")
+    p.add_argument("--data-dir", default=None,
+                   help="root of free_convection_<id>/instantaneous_statistics_with_halos.jld2 files (h5py needed)")
+    p.add_argument("--source", default="auto", choices=["auto", "synthetic", "les3d"],
+                   help="les3d (the 3-D LES generator) is not ported and raises")
+    p.add_argument("--nz", type=int, default=32)
+    p.add_argument("--n-save", type=int, default=96)
+    p.add_argument("--dt-save", type=float, default=600.0)
+    p.add_argument("--base-closure", default="convective_adjustment", choices=["convective_adjustment", "none"])
+    p.add_argument("--conv", type=int, default=0, help="conv front-end width (> 1 enables the conv variant)")
+    p.add_argument("--spatial-causality", default="none", choices=["none", "soft", "hard"])
+    p.add_argument("--pretrain-epochs", type=int, default=0, help="flux-regression pre-training epochs")
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--maxiters", type=int, default=50)
+    p.add_argument("--n-substeps", type=int, default=4)
+    p.add_argument("--method", default="split", choices=["split", "rk4", "heun", "euler"])
+    p.add_argument("--n-train-steps", type=int, default=32)
+    p.add_argument("--curriculum", default=None, help="comma-separated window[:stride] stages, e.g. 8,16,32")
+    p.add_argument("--burn-in-lr-decay", type=float, default=0.1, help="LR factor for the final curriculum stage")
+    p.add_argument("--ensemble", type=int, default=0, metavar="K",
+                   help="a K-member deep ensemble: not ported yet (0 = single closure, the default)")
+    p.add_argument("--tridiag-backend", default="auto", choices=["auto", "scan", "pcr", "cuda"],
+                   help="split solver's implicit solve; auto is the CUDA kernel on the card, scan on the CPU")
+    p.set_defaults(fn=cmd_train_fc_nde)
     return parser
 
 

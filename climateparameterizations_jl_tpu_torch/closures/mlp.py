@@ -215,6 +215,17 @@ def apply_spatial_causality_mask(nn):
     return dataclasses.replace(nn, mlp=new_dense) if isinstance(nn, ConvMLP) else new_dense
 
 
+def apply_spatial_causality_mask_(nn):
+    """:func:`apply_spatial_causality_mask` in place, without autograd; returns ``nn``.
+
+    The projection a trainer applies to its parameters after each update.
+    """
+    with torch.no_grad():
+        for W in _first_dense(nn).weights:
+            W.masked_fill_(spatial_causality_mask(W.shape, W.device), 0.0)
+    return nn
+
+
 def apply_closure(nn, x):
     """Apply either closure flavor (:class:`MLP` or :class:`ConvMLP`) over the last axis."""
     return conv_mlp_apply(nn, x) if isinstance(nn, ConvMLP) else mlp_apply(nn, x)

@@ -1,19 +1,22 @@
-"""The wind-mixing simulation catalog and the loader of its synthetic stand-ins.
+"""The wind-mixing simulation catalog, the free-convection ids, and the loader of a catalog name.
 
 Port of ``climateparameterizations_jl_tpu/data/registry.py`` (reference
 ``wind_mixing/src/data_containers.jl:1-128``). The catalog names encode the
 surface momentum flux ``Qu``, buoyancy flux ``Qb``, Coriolis ``f`` and the
 suite: :func:`simulation_parameters` parses them, and
 :func:`lesbrary_relative_path` rebuilds the reference's ``.jld2`` paths.
-:func:`load_simulation` generates the synthetic stand-in of a name
-(``data/synthetic.py``). The LESbrary files and the 3-D LES generator are
-not ported: ``data_dir`` and ``source="les3d"`` raise ``NotImplementedError``
-(``ROADMAP.md``, queue 1, "The rest of the data path" and "3-D LES").
+:func:`load_simulation` reads ``<data_dir>/<lesbrary_relative_path(name)>``
+where that file exists (``data/lesbrary.py``, which needs h5py) and
+otherwise generates the name's synthetic stand-in (``data/synthetic.py``).
+The 3-D LES generator is not ported: ``source="les3d"`` raises
+``NotImplementedError`` (``ROADMAP.md``, queue 1, "3-D LES"). The JAX
+package's downloader (``fetch_free_convection``) is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import re
 
 # The "2DaySuite" of 6 named 48-hour simulations (data_containers.jl:2-7):
@@ -150,25 +153,26 @@ def _build_catalog() -> tuple:
 
 
 WIND_MIXING_CATALOG = _build_catalog()
-# The free-convection LESbrary runs (free_convection/src/data.jl:3-12); their
-# readers are not ported.
+# The free-convection LESbrary runs (free_convection/src/data.jl:3-12).
 FREE_CONVECTION_IDS = tuple(range(1, 10))
 
 
-def require_synthetic(data_dir=None, source: str = "auto") -> None:
-    """Raise for the sources that are not ported: LESbrary files and the 3-D LES."""
+def require_ported_source(source: str = "auto", allowed=("auto",)) -> None:
+    """Raise ``NotImplementedError`` for the 3-D LES source and ``ValueError`` for one not in ``allowed``."""
     if source == "les3d":
         raise NotImplementedError(
             'source="les3d" (the 3-D LES generator) is not ported yet (ROADMAP.md, queue 1, "3-D LES")'
         )
-    if source != "auto":
+    if source not in allowed:
         raise ValueError(f"unknown source {source!r}")
-    if data_dir is not None:
-        raise NotImplementedError(
-            "reading LESbrary .jld2 files (data_dir) is not ported yet: the files are not in the "
-            'repository (ROADMAP.md, queue 1, "The rest of the data path"); leave data_dir=None for the '
-            "synthetic stand-ins"
-        )
+
+
+def lesbrary_file(name: str, data_dir: str | None) -> str | None:
+    """``<data_dir>/<lesbrary_relative_path(name)>`` where that file exists, else ``None``."""
+    if data_dir is None:
+        return None
+    path = os.path.join(data_dir, lesbrary_relative_path(name))
+    return path if os.path.exists(path) else None
 
 
 def signed_momentum_flux(spec: SimulationSpec) -> float:
@@ -178,16 +182,29 @@ def signed_momentum_flux(spec: SimulationSpec) -> float:
 
 def load_simulation(name: str, data_dir: str | None = None, Nz_les: int = 128, n_save: int = 288,
                     dt_save: float = 600.0, source: str = "auto", **synthetic_kwargs):
-    """One catalog simulation as a :class:`~..data.containers.ColumnTimeSeries`.
+    """One catalog simulation as a :class:`~..data.containers.ColumnTimeSeries` of CPU tensors.
 
-    The synthetic column stand-in of the name's forcing, generated on the
-    CPU (``data/synthetic.py``). ``data_dir`` and ``source="les3d"`` raise
-    ``NotImplementedError`` until the LESbrary readers are ported.
+    The reference's ``.jld2`` file from ``data_dir`` when it exists (HDF5
+    reader), else the synthetic column stand-in of the name's forcing,
+    generated on the CPU (``data/synthetic.py``). A file does not record the
+    diurnal flag (the reference encodes it in the name): it is stamped from
+    the catalog, ``diurnal_amplitude = theta_top`` for diurnal names and 0
+    otherwise. ``source="les3d"`` raises ``NotImplementedError``.
     """
-    require_synthetic(data_dir, source)
+    require_ported_source(source)
+    spec = simulation_parameters(name)
+    path = lesbrary_file(name, data_dir)
+    if path is not None:
+        import torch
+
+        from climateparameterizations_jl_tpu_torch.data.lesbrary import read_les_profiles
+
+        ds = read_les_profiles(path)
+        amp = ds.theta_top if spec.diurnal else torch.zeros_like(ds.theta_top)
+        return dataclasses.replace(ds, diurnal_amplitude=amp)
+
     from climateparameterizations_jl_tpu_torch.data.synthetic import synthetic_wind_mixing_les
 
-    spec = simulation_parameters(name)
     return synthetic_wind_mixing_les(
         Qu=signed_momentum_flux(spec), Qb=spec.Qb, f=spec.f, diurnal=spec.diurnal,
         Nz=Nz_les, n_save=n_save, dt_save=dt_save, **synthetic_kwargs,

@@ -39,16 +39,18 @@ def _thomas_scan(dl, d, du, b, unroll: int = 1):
     """
     del unroll
     n = b.shape[-1]
-    cp_prev = torch.zeros_like(b[..., 0])
-    dp_prev = torch.zeros_like(b[..., 0])
+    # One unbind per diagonal instead of an indexing op per level and diagonal.
+    dls, ds, dus, bs = (a.unbind(-1) for a in (dl, d, du, b))
+    cp_prev = torch.zeros_like(bs[0])
+    dp_prev = torch.zeros_like(bs[0])
     cps, dps = [], []
     for i in range(n):
-        denom = d[..., i] - dl[..., i] * cp_prev
-        cp_prev = du[..., i] / denom
-        dp_prev = (b[..., i] - dl[..., i] * dp_prev) / denom
+        denom = ds[i] - dls[i] * cp_prev
+        cp_prev = dus[i] / denom
+        dp_prev = (bs[i] - dls[i] * dp_prev) / denom
         cps.append(cp_prev)
         dps.append(dp_prev)
-    x_next = torch.zeros_like(b[..., 0])
+    x_next = torch.zeros_like(bs[0])
     xs = [None] * n
     for i in range(n - 1, -1, -1):
         x_next = dps[i] - cps[i] * x_next

@@ -24,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from climateparameterizations_jl_tpu_torch.closures.mlp import MLP
+from climateparameterizations_jl_tpu_torch.closures.mlp import MLP, ConvMLP
 from climateparameterizations_jl_tpu_torch.device import resolve_device
 from climateparameterizations_jl_tpu_torch.models.wind_mixing import FluxNNs
 
@@ -141,6 +141,24 @@ def load_run(directory: str, device=None, dtype=torch.float32) -> tuple[FluxNNs,
     arch = meta.get("arch", dict.fromkeys(FluxNNs._fields, flagship))
     skeleton = FluxNNs(*(mlp_skeleton(arch[name], device, dtype) if name in arch else None
                          for name in FluxNNs._fields))
+    return load_checkpoint(directory, skeleton)
+
+
+def load_fc_run(directory: str, device=None, dtype=torch.float32):
+    """``(nn, meta)`` of a free-convection run directory (``train-fc-nde``) written by either package.
+
+    ``meta["arch"]`` holds the dense layers' sizes and activation, and
+    ``conv_width`` for a :class:`ConvMLP`. Stacked ensembles are not ported.
+    """
+    meta = _read_meta(directory)
+    if meta.get("ensemble"):
+        raise NotImplementedError(f"{directory} holds a {meta['ensemble']}-member ensemble; ensembles are not "
+                                  'ported yet (ROADMAP.md, queue 1, "Ensembles and flux regression")')
+    arch, device = meta["arch"], resolve_device(device)
+    skeleton = mlp_skeleton(arch, device, dtype)
+    if "conv_width" in arch:
+        zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)  # noqa: E731
+        skeleton = ConvMLP(kernel=zeros(arch["conv_width"]), conv_bias=zeros(), mlp=skeleton)
     return load_checkpoint(directory, skeleton)
 
 

@@ -7,10 +7,10 @@ loss-scaling pre-solve, the optimizers (``torch.optim.Adam`` / ``SGD``,
 whose updates equal ``optax.adam`` / ``optax.sgd`` for the same
 hyperparameters), the train loop, the curriculum
 (:class:`CurriculumStage`, :func:`train_wind_mixing_nde`) and resuming
-from a saved train state. The JAX package jits one XLA program per step;
-here the step runs eagerly, so on the card it is bound by kernel launches.
-The free-convection trainer is not ported (``ROADMAP.md``, "Free
-convection").
+from a saved train state, and the free-convection trainer
+(:func:`train_free_convection_nde`). The JAX package jits one XLA program
+per step; here the step runs eagerly, so on the card it is bound by kernel
+launches.
 """
 
 from __future__ import annotations
@@ -21,7 +21,9 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from climateparameterizations_jl_tpu_torch.closures.mlp import _leaves
 from climateparameterizations_jl_tpu_torch.data.containers import TrainingBatch
+from climateparameterizations_jl_tpu_torch.models.free_convection import FreeConvectionModel, solve_free_convection_nde
 from climateparameterizations_jl_tpu_torch.models.wind_mixing import (
     WindMixingModel,
     pack_flux_nns,
@@ -83,12 +85,12 @@ class CurriculumStage:
 
 
 def nn_parameters(nns) -> list:
-    """The tensors of a :class:`FluxNNs` (or one ``MLP``), in field order."""
+    """The tensors of a :class:`FluxNNs`, one ``MLP`` or one ``ConvMLP``, in field order."""
     if nns is None:
         return []
     if isinstance(nns, tuple) and hasattr(nns, "_fields"):
         return [p for m in nns for p in nn_parameters(m)]
-    return [*nns.weights, *nns.biases]
+    return _leaves(nns)
 
 
 def _make_optimizer(config: NDETrainConfig, params, lr=None) -> torch.optim.Optimizer:
@@ -290,3 +292,35 @@ def train_wind_mixing_nde(model: WindMixingModel, nns, batch: TrainingBatch, con
         history.extend(h)
         _save(nns, opt_state, i)
     return nns, history
+
+
+def train_free_convection_nde(model: FreeConvectionModel, nn, T0, targets, t, config: NDETrainConfig, callback=None,
+                              project=None):
+    """Train the heat-flux closure through the free-convection NDE solve; returns ``(nn, history)``.
+
+    ``T0``: ``(S, Nz)`` scaled initial profiles; ``targets``: ``(S, Nt,
+    Nz)`` scaled truth; ``t``: ``(Nt,)`` non-dimensional save times, uniformly
+    spaced. The loss is the plain MSE over all sims and frames (reference
+    ``free_convection/src/training.jl:55-62``), reported as the ``T``
+    channel of :class:`LossChannels`. ``project(nn)`` (optional) re-applies
+    a constraint in place after every update (the hard causality mask:
+    ``closures/mlp.py::apply_spatial_causality_mask_``). The split solver's
+    implicit solves run on ``resolve_tridiag_backend(config.tridiag_backend,
+    ...)``: the Thomas kernel for card tensors, ``"scan"`` on the CPU. A
+    fresh optimizer serves the call, as in the JAX package.
+    """
+    t = torch.as_tensor(t)
+    _require_uniform(t, "train_free_convection_nde")
+    n_save = t.shape[0] - 1
+    dt_save = (t[-1] - t[0]) / n_save
+    backend = resolve_tridiag_backend(config.tridiag_backend, n_save * config.n_substeps, T0.device)
+
+    def loss_fn(nn):
+        traj = solve_free_convection_nde(model, nn, T0, t[0], dt_save, n_save, config.n_substeps, config.method,
+                                         tridiag_backend=backend)
+        total = torch.mean((torch.movedim(traj, 0, -2) - targets) ** 2)
+        zero = torch.zeros_like(total)
+        return total, LossChannels(u=zero, v=zero, T=total, dudz=zero, dvdz=zero, dTdz=zero)
+
+    nn, history, _ = _train_loop(loss_fn, nn, _make_optimizer(config, nn), config.maxiters, callback, project=project)
+    return nn, history

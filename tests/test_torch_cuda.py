@@ -336,6 +336,37 @@ def test_thomas_broadcast_noncontiguous_input(card):
     torch.testing.assert_close(got, want, rtol=THOMAS_RTOL, atol=THOMAS_ATOL)
 
 
+@pytest.mark.cuda
+def test_fc_split_solve_on_kernel_equals_scan(card):
+    # The free-convection split solver, forward and IFT gradient, kernel-backed against scan-backed:
+    # the kernel runs the scan's sweep in its roundings.
+    from climateparameterizations_jl_tpu_torch.closures.mlp import _leaves, free_convection_mlp
+    from climateparameterizations_jl_tpu_torch.models.free_convection import solve_free_convection_nde
+
+    model, T0 = benchmarks.fc_forward_setup(9, 32, 64, card)
+    T0 = T0 + 0.05 * torch.randn(T0.shape, generator=torch.Generator().manual_seed(3)).to(card)
+    out = {}
+    for backend in ("cuda", "scan"):
+        nn = free_convection_mlp(torch.Generator().manual_seed(0), 32, device=card)
+        leaves = [p.requires_grad_(True) for p in _leaves(nn)]
+        _cuda.reset_launch_counts()
+        traj = solve_free_convection_nde(model, nn, T0, 0.0, 1.0 / 8, 8, n_substeps=8, method="split",
+                                         tridiag_backend=backend)
+        torch.mean(traj ** 2).backward()
+        out[backend] = (traj.detach(), [p.grad for p in leaves], _cuda.THOMAS.launches)
+    assert torch.equal(out["cuda"][0], out["scan"][0])
+    for gk, gs in zip(out["cuda"][1], out["scan"][1]):
+        assert torch.equal(gk, gs)
+    assert out["cuda"][2] == 3 * 64 and out["scan"][2] == 0  # forward, checkpoint recompute, transposed solve
+
+
+@pytest.mark.cuda
+def test_bench_fc_forward_counts_launches(card):
+    _cuda.reset_launch_counts()
+    stats = benchmarks.bench_fc_forward(64, 32, 24, repeats=2, device=card)
+    assert stats["tridiag_backend"] == "cuda" and _cuda.THOMAS.launches == 24 * stats["calls"]
+
+
 # --- csrc/gram.cu against its plain version, gram_plain ---------------------
 # Tolerance: the JAX test's (tests/test_gp.py::TestPallasGram), two f32
 # Gram-trick evaluations summed in other orders; the inputs have no

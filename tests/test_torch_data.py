@@ -75,12 +75,15 @@ def test_catalog_matches_jax():
 
 
 def test_unported_sources_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tr.load_simulation("wind_-5e-4_new", data_dir="/nonexistent")
+    # The 3-D LES is not ported; a data_dir without the name's file falls back
+    # to the synthetic stand-in, as in the JAX package (files: test_torch_lesbrary.py).
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tr.load_simulation("wind_-5e-4_new", source="les3d")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcli._load_suite(["wind_-5e-4_new"], 8, data_dir="/nonexistent", device="cpu")
+    small = dict(Nz_les=16, n_save=2)
+    assert torch.equal(tr.load_simulation("wind_-5e-4_new", data_dir="/nonexistent", **small).T,
+                       tr.load_simulation("wind_-5e-4_new", **small).T)
+    assert torch.equal(tcli._load_suite(["wind_-5e-4_new"], 8, data_dir="/nonexistent", device="cpu", **small).T,
+                       tcli._load_suite(["wind_-5e-4_new"], 8, device="cpu", **small).T)
 
 
 def test_three_layer_profile():

@@ -1,0 +1,203 @@
+"""Port parity: the ``train-fc-nde`` and ``train-nn`` commands against the JAX package's.
+
+The counterparts of ``tests/test_cli.py::test_train_fc_nde`` and
+``test_train_nn_checkpoint`` at their ``TINY`` sizes, with ``--device cpu``.
+Each command runs in both packages on the same tiny suite from the same
+initial weights: the port's suite loader and initializers are replaced, for
+the run, by the JAX package's (data through numpy, closures through
+``bridge.from_reference``; ``train-nn`` replays the JAX command's key
+splits). The loss histories (flux pre-training, every NDE iteration, each
+flux regression) and the saved weights are compared, and each package loads
+the other's run directory.
+
+Both commands work in float32. Tolerances: flux regression ``REG_RTOL``
+(the same f32 products summed in other orders), NDE losses and weights
+after the curriculum ``NDE_RTOL`` (the two packages round ``dt / dz^2``
+and the closure's sums differently, a few ulps per substep carried through
+the split solves, their IFT gradients and adam).
+"""
+
+import dataclasses
+import importlib
+import json
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from climateparameterizations_jl_tpu.closures import mlp as jmlp
+from climateparameterizations_jl_tpu.data import free_convection as jfcd
+from climateparameterizations_jl_tpu.train import nn as jnn
+from climateparameterizations_jl_tpu_torch.bridge import from_reference
+from climateparameterizations_jl_tpu_torch.cli import main as tcli
+from climateparameterizations_jl_tpu_torch.closures import mlp as tmlp
+from climateparameterizations_jl_tpu_torch.data import containers as tc
+from climateparameterizations_jl_tpu_torch.data import free_convection as tfcd
+from climateparameterizations_jl_tpu_torch.train import nn as tnn
+
+jcli = importlib.import_module("climateparameterizations_jl_tpu.cli.main")
+TINY = ["--nz", "16", "--n-save", "12", "--dt-save", "600"]
+FC = ["train-fc-nde", "--sim-ids", "1,4,8", *TINY, "--pretrain-epochs", "3", "--conv", "2", "--spatial-causality",
+      "hard", "--curriculum", "6,13:2", "--maxiters", "2", "--n-substeps", "2", "--lr", "1e-3"]
+NN = ["train-nn", "--sims", "strong_wind", *TINY, "--epochs", "5", "--hidden", "32", "--fluxes", "uw,vw,wT"]
+REG_RTOL = 1e-5
+NDE_RTOL = 1e-4
+
+
+def _to_torch(ds_jax) -> tc.ColumnTimeSeries:
+    return tc.ColumnTimeSeries(**{
+        name: None if getattr(ds_jax, name) is None else torch.tensor(np.asarray(getattr(ds_jax, name)))
+        for name in (f.name for f in dataclasses.fields(tc.ColumnTimeSeries))
+    })
+
+
+def _history(out):
+    with open(os.path.join(out, "history.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _meta(out):
+    with open(os.path.join(out, "meta.json")) as f:
+        return json.load(f)
+
+
+def _recording(fn, record):
+    """``fn`` that appends the loss history it returns to ``record``."""
+    def wrapper(*args, **kw):
+        nn, history = fn(*args, **kw)
+        record.append(history)
+        return nn, history
+    return wrapper
+
+
+def _close(got, want, rtol):
+    """Each pair of ``got`` and ``want`` within ``rtol`` relative and ``rtol`` of the entry's scale."""
+    for g, w in zip(got, want, strict=True):
+        g = g.detach().numpy() if isinstance(g, torch.Tensor) else g
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=rtol * max(float(np.abs(w).max()), 1e-30))
+
+
+@pytest.fixture(scope="module")
+def fc_runs(tmp_path_factory):
+    """``train-fc-nde`` in both packages: ``(jax_out, port_out, jax pretrain history, port pretrain history)``."""
+    root = tmp_path_factory.mktemp("fc")
+    jout, tout = str(root / "jax"), str(root / "port")
+    pre = {"jax": [], "port": []}
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(jnn, "train_flux_nn", _recording(jnn.train_flux_nn, pre["jax"]))
+        assert jcli.main([*FC, "--output", jout]) == 0
+
+        def jax_suite(ids, data_dir=None, Nz=32, Nz_les=128, n_save=96, dt_save=600.0, source="auto"):
+            return [_to_torch(jfcd.load_free_convection_simulation(i, data_dir, Nz, Nz_les, n_save, dt_save, source))
+                    for i in ids]
+
+        def jax_conv(gen, Nz, conv_width=2, activation="relu", dtype=torch.float32, device=None):
+            return from_reference(jmlp.free_convection_conv_mlp(jax.random.PRNGKey(0), Nz, conv_width, activation),
+                                  device)
+
+        mp.setattr(tfcd, "load_free_convection_suite", jax_suite)
+        mp.setattr(tmlp, "free_convection_conv_mlp", jax_conv)
+        mp.setattr(tnn, "train_flux_nn", _recording(tnn.train_flux_nn, pre["port"]))
+        assert tcli.main(["--device", "cpu", *FC, "--output", tout]) == 0
+    finally:
+        mp.undo()
+    return jout, tout, pre["jax"], pre["port"]
+
+
+def test_train_fc_nde_matches_jax(fc_runs):
+    jout, tout, jpre, tpre = fc_runs
+    assert len(jpre) == len(tpre) == 1 and len(tpre[0]) == 3
+    _close(tpre[0], jpre[0], REG_RTOL)
+    jh, th = _history(jout), _history(tout)
+    assert [h["iter"] for h in th] == [h["iter"] for h in jh] == [0, 1, 0, 1]
+    for t, j in zip(th, jh):
+        assert set(t) == set(j)
+        _close([t[k] for k in sorted(t)], [j[k] for k in sorted(j)], NDE_RTOL)
+    jm, tm = _meta(jout), _meta(tout)
+    assert set(tm) == set(jm)
+    for key in ("command", "sim_ids", "conv", "ensemble", "base_closure", "arch"):
+        assert tm[key] == jm[key], key
+    assert tm["arch"]["conv_width"] == 2
+    for var in ("T", "wT"):
+        for stat in ("mu", "sigma"):
+            assert tm["scalings"][var][stat] == pytest.approx(jm["scalings"][var][stat], rel=1e-6)
+
+
+def test_fc_run_directories_load_in_both_packages(fc_runs):
+    jout, tout, _, _ = fc_runs
+    jnn_j, _ = jcli._load_fc_nn(jout)
+    jnn_t, _ = jcli._load_fc_nn(tout)
+    tnn_t, meta = tcli._load_fc_nn(tout, "cpu")
+    tnn_j, _ = tcli._load_fc_nn(jout, "cpu")
+    assert isinstance(tnn_t, tmlp.ConvMLP) and meta["arch"]["conv_width"] == 2
+    for a, b in zip(tmlp._leaves(tnn_j), jax.tree_util.tree_leaves(jnn_j)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))  # the port reads JAX's directory exactly
+    for a, b in zip(tmlp._leaves(tnn_t), jax.tree_util.tree_leaves(jnn_t)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))  # and JAX reads the port's
+    _close(tmlp._leaves(tnn_t), jax.tree_util.tree_leaves(jnn_j), NDE_RTOL)
+    # Hard causality: every weight matrix lower-triangular after the curriculum.
+    for W in tnn_t.mlp.weights:
+        assert not bool(W[tmlp.spatial_causality_mask(W.shape)].any())
+
+
+def test_train_fc_nde_defaults_and_refusals(tmp_path):
+    out = str(tmp_path / "fc")
+    assert tcli.main(["--device", "cpu", "train-fc-nde", *TINY, "--maxiters", "3", "--n-train-steps", "8",
+                      "--n-substeps", "4", "--output", out]) == 0
+    assert os.path.exists(os.path.join(out, "state.npz")) and len(_history(out)) == 3
+    nn, meta = jcli._load_fc_nn(out)
+    assert meta["arch"] == {"sizes": [16, 64, 64, 15], "activation": "relu"} and meta["sim_ids"] == [1]
+    with pytest.raises(NotImplementedError, match="Ensembles and flux regression"):
+        tcli.main(["--device", "cpu", "train-fc-nde", *TINY, "--ensemble", "2", "--output", out])
+    with pytest.raises(NotImplementedError, match="3-D LES"):
+        tcli.main(["--device", "cpu", "train-fc-nde", *TINY, "--source", "les3d", "--output", out])
+
+
+@pytest.fixture(scope="module")
+def nn_runs(tmp_path_factory):
+    """``train-nn`` in both packages: ``(jax_out, port_out, jax histories, port histories)``."""
+    root = tmp_path_factory.mktemp("nn")
+    jout, tout = str(root / "jax"), str(root / "port")
+    hist = {"jax": [], "port": []}
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(jnn, "train_flux_nn", _recording(jnn.train_flux_nn, hist["jax"]))
+        assert jcli.main([*NN, "--output", jout]) == 0
+        keys = [jax.random.PRNGKey(0)]
+
+        def jax_init(gen, sizes, activation="relu", dtype=torch.float32, scale=1.0, device=None):
+            keys[0], k = jax.random.split(keys[0])  # the JAX command's split per flux
+            return from_reference(jmlp.mlp_init(k, sizes, activation), device)
+
+        mp.setattr(tcli, "_load_suite", lambda names, Nz, data_dir=None, n_save=288, dt_save=600.0, device=None:
+                   _to_torch(jcli._load_suite(names, Nz, data_dir, n_save, dt_save)).to(device))
+        mp.setattr(tmlp, "mlp_init", jax_init)
+        mp.setattr(tnn, "train_flux_nn", _recording(tnn.train_flux_nn, hist["port"]))
+        assert tcli.main(["--device", "cpu", *NN, "--output", tout]) == 0
+    finally:
+        mp.undo()
+    return jout, tout, hist["jax"], hist["port"]
+
+
+def test_train_nn_matches_jax(nn_runs):
+    jout, tout, jh, th = nn_runs
+    assert len(jh) == len(th) == 3
+    for t, j in zip(th, jh):
+        assert len(t) == 5
+        _close(t, j, REG_RTOL)
+    jnns, jmeta = jcli._load_nns(tout)  # JAX reads the port's directory
+    tnns, tmeta = tcli._load_nns(jout, "cpu")  # and the port reads JAX's
+    assert set(tmeta["arch"]) == set(jmeta["arch"]) == {"uw", "vw", "wT"}
+    assert tmeta["arch"]["wT"] == {"sizes": [48, 32, 15], "activation": "relu"}
+    for name in ("uw", "vw", "wT"):
+        _close(jax.tree_util.tree_leaves(getattr(jnns, name)), tmlp._leaves(getattr(tnns, name)), REG_RTOL)
+
+
+def test_train_nn_checkpoint(nn_runs):
+    _, tout, _, _ = nn_runs
+    assert os.path.exists(os.path.join(tout, "state.npz"))
+    assert set(_meta(tout)["arch"]) == {"uw", "vw", "wT"} and _meta(tout)["command"] == "train-nn"

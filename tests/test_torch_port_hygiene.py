@@ -21,7 +21,18 @@ FORBIDDEN = {"jax", "jaxlib", "climateparameterizations_jl_tpu"}
 
 
 def _top_level_imports(path):
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+    return _imports(ast.parse(path.read_text(), str(path)))
+
+
+def _module_level_imports(path):
+    """Imports run when the module is imported: outside any function or class body."""
+    tree = ast.parse(path.read_text(), str(path))
+    return [name for node in tree.body if not isinstance(node, (ast.FunctionDef, ast.ClassDef))
+            for name in _imports(node)]
+
+
+def _imports(tree):
+    for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (alias.name.split(".")[0] for alias in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
@@ -32,7 +43,9 @@ def test_port_files_found():
     assert len(PORT_FILES) > 15
     names = {str(p.relative_to(REPO / "climateparameterizations_jl_tpu_torch")) for p in PORT_FILES[:-len(SCRIPTS)]}
     assert {"cli/__main__.py", "cli/main.py", "closures/gp.py", "models/gp_closure.py", "ops/gram.py",
-            "ops/cholesky.py"} <= names
+            "ops/cholesky.py", "core/convective_adjust.py", "physics/convective_adjustment.py",
+            "models/free_convection.py", "data/lesbrary.py", "data/netcdf.py", "data/flux_reconstruction.py",
+            "data/free_convection.py", "train/nn.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -40,6 +53,20 @@ def test_no_jax_imports(path):
     # Whole names: climateparameterizations_jl_tpu_torch begins with a forbidden one.
     bad = set(_top_level_imports(path)) & FORBIDDEN
     assert not bad, f"{path} imports {sorted(bad)}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_module_level_h5py_import(path):
+    # A GPU host may have no h5py: port modules import it inside the functions that read or write files.
+    assert "h5py" not in _module_level_imports(path), f"{path} imports h5py when it is imported"
+
+
+def test_h5py_scan_catches_module_level_import(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("def g():\n    import h5py\n")
+    assert _module_level_imports(f) == []
+    f.write_text("try:\n    import h5py\nexcept ImportError:\n    pass\n")
+    assert _module_level_imports(f) == ["h5py"]
 
 
 def test_scan_catches_forbidden_import(tmp_path):
@@ -97,14 +124,17 @@ def test_constructors_raise_without_card(no_card, make):
     lambda: benchmarks.bench_train_step({}, device="cpu"),
     lambda: benchmarks.bench_tridiagonal(8, 4, device="cpu"),
     lambda: benchmarks.bench_nde_train_step(2, n_window=2, method="rk4", device="cpu"),
-], ids=["bench_nde_forward", "bench_train_step", "bench_tridiagonal", "bench_nde_train_step"])
+    lambda: benchmarks.bench_fc_forward(8, 8, 2, repeats=1, device="cpu"),
+    lambda: benchmarks.profile_fc_forward(8, 8, 2, device="cpu"),
+], ids=["bench_nde_forward", "bench_train_step", "bench_tridiagonal", "bench_nde_train_step", "bench_fc_forward",
+        "profile_fc_forward"])
 def test_bench_refuses_cpu(bench):
     with pytest.raises(RuntimeError, match="card"):
         bench()
 
 
 def test_training_entry_points_raise_without_card(no_card):
-    from climateparameterizations_jl_tpu_torch.cli.main import _load_suite
+    from climateparameterizations_jl_tpu_torch.cli.main import _load_fc_suite, _load_suite
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         benchmarks.flagship_train_setup()
@@ -114,3 +144,7 @@ def test_training_entry_points_raise_without_card(no_card):
         benchmarks.bench_tridiagonal(8, 4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         benchmarks.nde_train_step_setup(2, n_window=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        benchmarks.fc_forward_setup(8, 8, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _load_fc_suite([1], 8, n_save=2)
