@@ -35,7 +35,16 @@ mish), Nz = 32:
   trajectory equal to the scan-backed one; and the ``train-fc-nde``
   command in-process at full width (nine ids x 1,153 frames, Nz = 32, flux
   pre-training, a curriculum whose last stage spans the window), its first
-  stage again on the plain scan with equal losses.
+  stage again on the plain scan with equal losses;
+- deep ensembles and calibration (phases 25-29): the flagship step of the
+  4-member ensemble ``runs/wm_flagship_ens4``, its members folded onto the
+  solve's batch axis (one Thomas launch per solve for all members) and one
+  solve per member, held to each other and to scan; ``train-nde --ensemble
+  4`` in-process (two stages, a resume, the first stage on scan); the
+  ensemble's uncertainty bands on the three held-out sims with a band
+  calibration; ``optimise-mpp`` by EKI (64 parameter sets on the solve's
+  batch axis), adam and lbfgs; ``train-fc-nde --ensemble 4`` at phase 24's
+  size and ``fc_ensemble_uq``.
 
 It builds the five kernels from ``csrc/`` (one ``nvcc`` each, side by
 side), holds each against its plain PyTorch version, times it, and checks
@@ -199,6 +208,27 @@ FC_COLUMNS, FC_STEPS, FC_REPEATS = 1024, 1152, 5
 FC_IDS, FC_N_SAVE, FC_CURRICULUM, FC_ITERS = "1,2,3,4,5,6,7,8,9", 1152, "145:8,577:8,1153:16", 2
 FC_ARGS = ["--nz", str(NZ), "--n-save", str(FC_N_SAVE), "--dt-save", "600", "--method", "split", "--n-substeps", "4",
            "--pretrain-epochs", "20", "--lr", "1e-3", "--maxiters", str(FC_ITERS)]
+
+# Phases 25-29: deep ensembles, their bands and mPP calibration, every implicit solve through the Thomas
+# kernel. The 4-member flagship ensemble trained by the JAX package on the 18 TRAIN_FILES (no mPP meta: the
+# default base). Folded against looped step: the JAX test's limits for the same comparison
+# (tests/test_deep_ensemble.py::TestMemberFold), the gradient relative to its 2-norm.
+ENS_RUN = REPO / "runs" / "wm_flagship_ens4"
+ENS_K, ENS_TIMED_STEPS = 4, 2
+ENS_LOSS_RTOL, ENS_GRAD_RTOL = 1e-5, 5e-4
+ENS_CURRICULUM = "200:20,1153:9"  # phase 26: two stages, one iteration each
+# Phase 27: the held-out sims of studies/flagship_training.py:58, every 9th of 1,153 frames, 9 split substeps per
+# save; a band calibration fit on the first, applied to the other two (evaluate_ensemble there).
+UQ_TEST_FILES = ("wind_-4.5e-4_cooling_2.5e-8", "wind_-2.5e-4_cooling_1.5e-8", "wind_-4.5e-4_heating_-2.5e-8")
+UQ_STRIDE = 9
+# Phase 28: optimise-mpp with the JAX command's defaults (32 saves x 4 substeps; EKI: 64 parameter sets, 8
+# iterations) on the 18 TRAIN_FILES; the gradient runs cut to 5 iterations.
+MPP_ITERS, MPP_N_SAVE, MPP_EKI_J, MPP_EKI_ITERS, MPP_SUBSTEPS = 5, 96, 64, 8, 4
+# Phase 29: train-fc-nde --ensemble 4 at phase 24's size, its first stage alone, then fc_ensemble_uq on id 1 over
+# the whole window (every 8th frame, 4 substeps per 600 s save).
+FC_ENS_STAGE, FC_UQ_STRIDE = "145:8", 8
+# Free-convection suites generated once and shared by phases 24 and 29.
+FC_SUITES: dict = {}
 
 
 def log(msg: str) -> None:
@@ -1174,7 +1204,7 @@ def train_fc_nde_phase(dev, smi: str) -> dict:
                f"curriculum {FC_CURRICULUM}, {FC_ITERS} iterations per stage"), tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         originals = (fcd.load_free_convection_suite, nde._train_loop)
-        suites, timings = {}, []
+        suites, timings = FC_SUITES, []
 
         def cached_suite(*args, **kw):
             # Both runs train on one suite: generated once on the CPU, then reused.
@@ -1248,6 +1278,454 @@ def train_fc_nde_phase(dev, smi: str) -> dict:
     return record
 
 
+def thomas_shapes(tri):
+    """A stand-in for ``tri._thomas_cuda`` that records each launch's right-hand-side shape, and its list."""
+    shapes, original = [], tri._thomas_cuda
+
+    def recording(*args):
+        shapes.append(tuple(args[3].shape))
+        return original(*args)
+
+    return recording, shapes
+
+
+def thomas_bench_record(benchmarks, dev, n_sys: int) -> dict:
+    """``bench_tridiagonal`` at ``n_sys`` x NZ, with its byte bound, logged and returned."""
+    r = benchmarks.bench_tridiagonal(n_sys, NZ, device=dev)
+    bound = r["bytes"] / PEAK_BYTES_PER_S * 1e3
+    log(f"thomas at {n_sys} x {NZ}: device {r['cuda_ms'] * 1e3:.2f} us (back to back {r['cuda_wall_ms'] * 1e3:.2f}); "
+        f"scan {r['scan_ms'] * 1e3:.1f} us; torch.linalg.solve {r['library_ms'] * 1e3:.1f} us; byte bound "
+        f"{r['bytes']} B / 3.35 TB/s = {bound * 1e3:.4f} us; max abs vs scan {r['max_abs_err_vs_scan']:.3e}")
+    return {"ms": r["cuda_ms"], "wall_ms": r["cuda_wall_ms"], "plain_ms": r["scan_ms"], "library_ms": r["library_ms"],
+            "bound_ms": bound, "bound_by": "bytes", "max_abs_err_vs_scan": r["max_abs_err_vs_scan"]}
+
+
+def ensemble_step_phase(dev, setup, k0_step: dict, smi: str) -> dict:
+    """Phase 25: the deep-ensemble flagship step, folded and looped, kernel against scan."""
+    import torch
+
+    from climateparameterizations_jl_tpu_torch import benchmarks
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
+    from climateparameterizations_jl_tpu_torch.train.checkpoint import load_run
+
+    ens, meta = load_run(str(ENS_RUN), dev)
+    record = {}
+    with phase(f"25 deep-ensemble training step: {ENS_RUN.name} (K = {ENS_K}) on the {len(benchmarks.TRAIN_FILES)}-sim "
+               f"flagship step, folded ({ENS_TIMED_STEPS} timed steps) and one solve per member"):
+        if meta.get("ensemble") != ENS_K or "mpp" in meta:
+            raise RuntimeError(f"{ENS_RUN.name}: meta {meta.get('ensemble')} members, mpp {meta.get('mpp')}")
+        recording, shapes = thomas_shapes(tri)
+        original = tri._thomas_cuda
+        tri._thomas_cuda = recording
+        try:
+            _cuda.reset_launch_counts()
+            folded = benchmarks.bench_train_step(setup, n_timed=ENS_TIMED_STEPS, device=dev, ensemble=ENS_K,
+                                                 member_fold=True, stacked_nns=ens)
+            launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+            fold_shapes = sorted(set(shapes))
+            shapes.clear()
+            _cuda.reset_launch_counts()
+            loop = benchmarks.ensemble_loss_and_grad(setup, ens, member_fold=False)
+            loop_launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+            loop_shapes = sorted(set(shapes))
+        finally:
+            tri._thomas_cuda = original
+        substeps = folded["substeps"]
+        expected = folded["presolve_substeps"] + 3 * substeps * folded["steps"]
+        solo_per_step = 3 * k0_step["substeps"]
+        log(f"folded: ms per step min={folded['ms_min']:.1f} median={folded['ms_median']:.1f} "
+            f"all={[round(t, 1) for t in folded['ms']]}; phase 9's solo step median {k0_step['ms_median']:.1f}; "
+            f"losses (member sums) {folded['losses']}")
+        log(f"folded launch counts {launches}; expected thomas {expected} = {folded['presolve_substeps']} (one folded "
+            f"pre-solve) + 3 x {substeps} x {folded['steps']} steps, i.e. {3 * substeps} per step as phase 9's "
+            f"{solo_per_step}; shapes {fold_shapes}")
+        want_fold = [(3, len(benchmarks.TRAIN_FILES), ENS_K, NZ)]
+        if (launches["thomas"] != expected or 3 * substeps != solo_per_step or folded["presolve_substeps"] != substeps
+                or fold_shapes != want_fold):
+            raise RuntimeError(f"folded step: thomas {launches['thomas']} (expected {expected}), shapes {fold_shapes}")
+        loop_expected = ENS_K * substeps + ENS_K * 3 * substeps
+        log(f"member loop: pre-solve {loop['presolve_ms']:.1f} ms, one loss + gradient {loop['step_ms']:.1f} ms "
+            f"(no adam); launch counts {loop_launches}; expected thomas {loop_expected} = {ENS_K} x ({substeps} "
+            f"pre-solve + 3 x {substeps}), {ENS_K} x phase 9's per step; shapes {loop_shapes}")
+        if loop_launches["thomas"] != loop_expected or loop_shapes != [(3, len(benchmarks.TRAIN_FILES), NZ)]:
+            raise RuntimeError(f"member loop: thomas {loop_launches['thomas']} (expected {loop_expected}), "
+                               f"shapes {loop_shapes}")
+
+        # These launches come after the counts were read. Every form on the member loop's loss scalings, as the
+        # JAX test compares them: the weights must not differ by the two pre-solves' roundings.
+        same = loop["scalings"]
+        fold_k = benchmarks.ensemble_loss_and_grad(setup, ens, member_fold=True, scalings=same)
+        fold_s = benchmarks.ensemble_loss_and_grad(setup, ens, member_fold=True, scalings=same, tridiag_backend="scan")
+
+        def rel(a, b):
+            return abs(float(a["loss"]) - float(b["loss"])) / abs(float(b["loss"])), float(
+                (a["grad"] - b["grad"]).norm() / b["grad"].norm())
+
+        fl_loss, fl_grad = rel(fold_k, loop)
+        ks_loss, ks_grad = rel(fold_k, fold_s)
+        log(f"folded vs member loop (kernel): loss {float(fold_k['loss']):.8e} vs {float(loop['loss']):.8e} (rel "
+            f"{fl_loss:.3e}, limit {ENS_LOSS_RTOL}); gradient ({fold_k['grad'].numel()} entries) rel 2-norm "
+            f"{fl_grad:.3e} (limit {ENS_GRAD_RTOL}; the JAX test's limits: the same sums in other orders)")
+        log(f"folded, kernel vs scan: loss rel {ks_loss:.3e} (limit {STEP_LOSS_RTOL}), gradient rel 2-norm "
+            f"{ks_grad:.3e} (limit {STEP_GRAD_RTOL}); phase 9's reason; loss and gradient {fold_s['step_ms']:.1f} ms on "
+            f"scan against {fold_k['step_ms']:.1f} ms on the kernel (the member loop {loop['step_ms']:.1f} ms)")
+        if not (bool(torch.isfinite(fold_k["grad"]).all()) and fl_loss <= ENS_LOSS_RTOL and fl_grad <= ENS_GRAD_RTOL
+                and ks_loss <= STEP_LOSS_RTOL and ks_grad <= STEP_GRAD_RTOL):
+            raise RuntimeError("the folded ensemble step disagrees with the member loop or with scan")
+        prof = benchmarks.profile_train_step(setup, n_saves=2, device=dev, ensemble=ENS_K, member_fold=True,
+                                             stacked_nns=ens)
+        log(f"profiled folded step over {prof['substeps']} substeps: wall {prof['wall_ms']:.1f} ms, device busy "
+            f"{prof['device_busy_ms']:.2f} ms, idle share {prof['device_idle_share']:.3f}, "
+            f"{prof['device_ops_per_substep']:.0f} device ops per substep")
+        for key, n, ms in prof["top"]:
+            log(f"  {key}: {n} x, {ms:.3f} ms")
+        record["thomas_72x32"] = thomas_bench_record(benchmarks, dev, 3 * len(benchmarks.TRAIN_FILES) * ENS_K)
+        log(f"card: {smi}")
+    record.update(
+        folded={"ms": folded["ms"], "ms_median": folded["ms_median"], "launches": launches["thomas"],
+                "expected": expected, "shapes": fold_shapes, "losses": folded["losses"]},
+        loop={"presolve_ms": loop["presolve_ms"], "step_ms": loop["step_ms"], "launches": loop_launches["thomas"],
+              "expected": loop_expected, "shapes": loop_shapes},
+        k0_step_ms_median=k0_step["ms_median"], folded_vs_loop={"loss_rel": fl_loss, "grad_rel": fl_grad},
+        kernel_vs_scan={"loss_rel": ks_loss, "grad_rel": ks_grad},
+        profile={k: prof[k] for k in ("substeps", "wall_ms", "device_busy_ms", "device_idle_share",
+                                      "device_ops_per_substep")})
+    return record
+
+
+def cached_suites(cli, seed: dict):
+    """A stand-in for ``cli._load_suite`` that generates each suite once (``seed``: suites already made)."""
+    original, cache = cli._load_suite, dict(seed)
+
+    def load(names, Nz, data_dir=None, n_save=288, dt_save=600.0, Nz_les=128, device=None):
+        key = (tuple(names), Nz, data_dir, n_save, dt_save, Nz_les)
+        if key not in cache:
+            cache[key] = original(names, Nz, data_dir, n_save, dt_save, Nz_les, device=device)
+        return cache[key]
+
+    return load
+
+
+def train_nde_ensemble_phase(dev, setup, smi: str) -> dict:
+    """Phase 26: ``train-nde --ensemble 4`` (members folded) on the card: runs A (two stages), B (resumed), C (scan)."""
+    import numpy as np
+    import torch
+
+    from climateparameterizations_jl_tpu_torch import benchmarks
+    from climateparameterizations_jl_tpu_torch.cli import main as cli
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.train import checkpoint as ck
+    from climateparameterizations_jl_tpu_torch.train import nde
+
+    record = {}
+    names = tuple(benchmarks.TRAIN_FILES)
+    with phase(f"26 train-nde --ensemble {ENS_K} (members folded) at full width: {len(names)} sims, curriculum "
+               f"{ENS_CURRICULUM}, from {ENS_RUN.name}"), tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        sims = ",".join(names)
+        base = ["train-nde", "--sims", sims, "--nz", str(NZ), "--n-save", str(NDE_N_SAVE), "--dt-save", "600",
+                "--n-substeps", "1", "--method", "split", "--lr", NDE_LR, "--maxiters", "1", *NDE_FRACTIONS,
+                "--ensemble", str(ENS_K)]
+        try:
+            cli.main([*base, "--optimizer", "lbfgs", "--output", str(tmp / "l")])
+        except SystemExit as e:
+            log(f"--ensemble {ENS_K} --optimizer lbfgs refused: {e}")
+        else:
+            raise RuntimeError("train-nde accepted --ensemble with --optimizer lbfgs")
+        original = cli._load_suite
+        # Phase 8's suite is the one these runs load (the same names, widths and frames).
+        cli._load_suite = cached_suites(cli, {(names, NZ, None, NDE_N_SAVE, 600.0, 128): setup["ds"]})
+
+        def run(label, argv, spec):
+            expected, _ = curriculum_thomas_launches(spec, NDE_N_SAVE + 1, 0, 1)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _cuda.reset_launch_counts()
+            rc = cli.main(argv)
+            launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            out = Path(argv[argv.index("--output") + 1])
+            hist = [json.loads(line) for line in open(out / "history.jsonl")]
+            with np.load(out / "train_state" / "state.npz") as data:
+                count = int(data["['opt_state']/[0]/.count"])
+            log(f"run {label}: {wall:.2f} s; losses {[h['loss'] for h in hist]}; adam count {count}; launch counts "
+                f"{launches}; expected thomas {expected} (the solo curriculum's count: one folded solve per substep)")
+            want = 0 if "--tridiag-backend" in argv else expected
+            if rc != 0 or launches["thomas"] != want:
+                raise RuntimeError(f"run {label}: exit {rc}, thomas {launches['thomas']} (expected {want})")
+            # history.jsonl holds the member MEAN: its loss is the sum of its (member-mean) channels.
+            channels = ("u", "v", "T", "dudz", "dvdz", "dTdz")
+            if not all(math.isfinite(h["loss"]) and abs(h["loss"] - sum(h[c] for c in channels)) <= 1e-6 * h["loss"]
+                       for h in hist):
+                raise RuntimeError(f"run {label}: history {hist}")
+            return hist, count, {"s": wall, "launches": launches["thomas"], "losses": [h["loss"] for h in hist]}
+
+        try:
+            out_a, out_b, out_c = tmp / "a", tmp / "b", tmp / "c"
+            hist_a, count_a, record["run_a"] = run(
+                "A", [*base, "--curriculum", ENS_CURRICULUM, "--init-from", str(ENS_RUN), "--output", str(out_a)],
+                ENS_CURRICULUM)
+            first = ENS_CURRICULUM.split(",")[0]
+            hist_b, count_b, record["run_b"] = run(
+                "B (resumed from A)", [*base, "--curriculum", first, "--init-from", str(out_a), "--resume-from",
+                                       str(out_a), "--output", str(out_b)], first)
+            hist_c, _, record["run_c_scan"] = run(
+                "C (scan, first stage)", [*base, "--curriculum", first, "--init-from", str(ENS_RUN),
+                                          "--tridiag-backend", "scan", "--output", str(out_c)], first)
+        finally:
+            cli._load_suite = original
+        rel = abs(hist_c[0]["loss"] - hist_a[0]["loss"]) / abs(hist_a[0]["loss"])
+        nns, meta = ck.load_run(str(out_a), dev)
+        finite = all(bool(torch.isfinite(p).all()) for p in nde.nn_parameters(nns))
+        log(f"run C's loss {hist_c[0]['loss']!r} against run A's first {hist_a[0]['loss']!r}: rel {rel:.3e} (limit "
+            f"{STEP_LOSS_RTOL}); load_run(A): {meta['ensemble']} members, uw layer 0 {tuple(nns.uw.weights[0].shape)}, "
+            f"finite {finite}; adam counts A {count_a}, B {count_b}")
+        if (len(hist_a) != 2 or count_a != 2 or count_b != 3 or rel > STEP_LOSS_RTOL or meta["ensemble"] != ENS_K
+                or tuple(nns.uw.weights[0].shape) != (ENS_K, 50, 3 * NZ) or not finite):
+            raise RuntimeError("train-nde --ensemble: the runs or the saved ensemble are not as expected")
+        record["scan_vs_kernel_loss_rel"] = rel
+        log(f"card: {smi}")
+    return record
+
+
+def ensemble_uq_phase(dev, setup, smi: str) -> dict:
+    """Phase 27: nde_ensemble_uq of the K = 4 ensemble on the three held-out sims, a band calibration."""
+    import numpy as np
+
+    from climateparameterizations_jl_tpu_torch.cli import main as cli
+    from climateparameterizations_jl_tpu_torch.eval.ensemble_uq import nde_ensemble_uq
+    from climateparameterizations_jl_tpu_torch.eval.uq_calibration import band_report, fit_band_calibration
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.train.checkpoint import load_run
+
+    ens, _ = load_run(str(ENS_RUN), dev)
+    model = setup["model"]  # fitted on the 18 training sims, the default mPP base: the ensemble's own
+    tsteps = np.arange(0, NDE_N_SAVE + 1, UQ_STRIDE)
+    record = {"sims": {}}
+    with phase(f"27 nde_ensemble_uq of {ENS_RUN.name} on the {len(UQ_TEST_FILES)} held-out sims, every "
+               f"{UQ_STRIDE}th of {NDE_N_SAVE + 1} frames, {UQ_STRIDE} split substeps per save"):
+        t = time.perf_counter()
+        suite = cli._load_suite(list(UQ_TEST_FILES), NZ, None, NDE_N_SAVE, 600.0, device=dev)
+        log(f"held-out suite generated in {time.perf_counter() - t:.2f} s")
+        calibration = None
+        for i, name in enumerate(UQ_TEST_FILES):
+            ds = cli._select_sims(suite, [i])  # a stacked suite of one
+            _cuda.reset_launch_counts()
+            t = time.perf_counter()
+            uq = nde_ensemble_uq(model, ens, ds, tsteps, solver="split", n_substeps=UQ_STRIDE)
+            wall = time.perf_counter() - t
+            launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+            expected = (len(tsteps) - 1) * UQ_STRIDE
+            truth = ds.T[0].index_select(0, ds.T.new_tensor(tsteps).long()).cpu().numpy()
+            mean, std = uq["ensemble_T_mean"], uq["ensemble_T_std"]
+            member = uq["losses_member_T"].mean(axis=0)
+            jensen = bool(np.all(uq["losses_ensemble_mean_T"] <= member * (1 + 1e-5) + 1e-10))
+            row = {"wall_s": wall, "launches": launches["thomas"], "expected": expected,
+                   "loss_member_mean_T": float(member.mean()),
+                   "loss_ensemble_mean_T": float(uq["losses_ensemble_mean_T"].mean()),
+                   "losses_members_T": [float(v) for v in uq["losses_member_T"].mean(axis=1)], "jensen": jensen,
+                   "before": band_report(truth, mean, std)}
+            if calibration is None:
+                calibration = fit_band_calibration(truth, mean, std)
+                row.update(role="validation", lam_nll=calibration.lam_nll, lam_coverage=calibration.lam_coverage)
+            else:
+                row.update(role="test", after=band_report(truth, mean, std, lam=calibration.lam))
+            log(f"{name} ({row['role']}): {wall:.2f} s, thomas {launches['thomas']} (expected {expected}, one folded "
+                f"solve of (3, {ENS_K}, {NZ}) per substep); scaled T loss of the ensemble mean "
+                f"{row['loss_ensemble_mean_T']:.4e} <= member mean {row['loss_member_mean_T']:.4e} at every frame: "
+                f"{jensen}; members {[f'{v:.3e}' for v in row['losses_members_T']]}; 2-sigma coverage "
+                f"{row['before']['coverage']:.3f}" + (f" -> {row['after']['coverage']:.3f} after inflation by "
+                                                       f"lambda = {calibration.lam:.3f}" if "after" in row else
+                                                       f" (fit here: lambda_coverage {calibration.lam_coverage:.3f}, "
+                                                       f"lambda_nll {calibration.lam_nll:.3f})"))
+            if launches["thomas"] != expected or not jensen or not np.isfinite(mean).all():
+                raise RuntimeError(f"{name}: thomas {launches['thomas']} (expected {expected}), Jensen {jensen}")
+            record["sims"][name] = row
+        record["lam"] = calibration.lam
+        log(f"card: {smi}")
+    return record
+
+
+def optimise_mpp_phase(dev, setup, smi: str) -> dict:
+    """Phase 28: optimise-mpp on the 18 TRAIN_FILES: EKI with the defaults, then adam and lbfgs."""
+    import torch
+
+    from climateparameterizations_jl_tpu_torch import benchmarks
+    from climateparameterizations_jl_tpu_torch.cli import main as cli
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
+    from climateparameterizations_jl_tpu_torch.train import mpp_calibration as mc
+
+    record = {}
+    n_sims = len(benchmarks.TRAIN_FILES)
+    substeps = 31 * MPP_SUBSTEPS  # --n-train-steps 32: 31 save intervals
+    with phase(f"28 optimise-mpp on the {n_sims} TRAIN_FILES: EKI (J = {MPP_EKI_J}, {MPP_EKI_ITERS} iterations), adam "
+               f"and lbfgs ({MPP_ITERS} iterations)"), tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        common = ["optimise-mpp", "--sims", ",".join(benchmarks.TRAIN_FILES), "--nz", str(NZ), "--n-save",
+                  str(MPP_N_SAVE), "--dt-save", "600"]
+        originals = (cli._load_suite, mc._solve, tri._thomas_cuda)
+        first = []
+
+        def recording(model, nns, batch, config):
+            out = originals[1](model, nns, batch, config)
+            if not first and batch.x0.dim() == 3:  # the first EKI forward: (S, J, 3 Nz)
+                first.append((model, batch, config, out.detach().clone()))
+            return out
+
+        shape_rec, shapes = thomas_shapes(tri)
+        cli._load_suite, mc._solve, tri._thomas_cuda = cached_suites(cli, {}), recording, shape_rec
+        try:
+            runs = {}
+            for label, extra in (("eki", ["--calibration-method", "eki"]),
+                                 ("adam", ["--maxiters", str(MPP_ITERS)]),
+                                 ("lbfgs", ["--optimizer", "lbfgs", "--maxiters", str(MPP_ITERS)])):
+                out = tmp / label
+                shapes.clear()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                _cuda.reset_launch_counts()
+                rc = cli.main([*common, *extra, "--output", str(out)])
+                launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                result = json.loads((out / "mpp_parameters.json").read_text())
+                iters = MPP_EKI_ITERS if label == "eki" else MPP_ITERS
+                runs[label] = {"s": wall, "s_per_iteration": wall / iters, "launches": launches["thomas"],
+                               "shapes": sorted(set(shapes)), "result": result}
+                log(f"{label}: exit {rc}, {wall:.2f} s ({wall / iters:.2f} s per iteration, the suite generation in the "
+                    f"first run), thomas {launches['thomas']} launches of shapes {sorted(set(shapes))}; {result}")
+                if rc != 0:
+                    raise RuntimeError(f"optimise-mpp {label} exited {rc}")
+        finally:
+            cli._load_suite, mc._solve, tri._thomas_cuda = originals
+        eki, adam, lbfgs = runs["eki"], runs["adam"], runs["lbfgs"]
+        eki_expected = (MPP_EKI_ITERS + 1) * substeps
+        adam_expected = 3 * substeps * MPP_ITERS  # fixed channel weights: no pre-solve
+        std = eki["result"]["posterior_std"]
+        ok_eki = (eki["result"]["misfit_final"] < eki["result"]["misfit_initial"]
+                  and all(math.isfinite(v) and v > 0 for v in std.values()) and eki["launches"] == eki_expected
+                  and eki["shapes"] == [(3, n_sims, MPP_EKI_J, NZ)])
+        log(f"EKI misfit {eki['result']['misfit_initial']:.4e} -> {eki['result']['misfit_final']:.4e}; posterior std "
+            f"{std}; thomas {eki['launches']} (expected {eki_expected} = {MPP_EKI_ITERS + 1} forward evaluations x "
+            f"{substeps} substeps, one launch over 3 x {n_sims} x {MPP_EKI_J} systems each)")
+        # The first EKI forward evaluation again with the plain scan: the kernel runs its sweep in its roundings.
+        model, batch, config, got = first[0]
+        with torch.no_grad():
+            want = originals[1](model, mc.NO_NNS, batch, dataclasses.replace(config, tridiag_backend="scan"))
+        record["eki_first_forward_max_abs_err"] = compare(
+            f"first EKI forward evaluation {tuple(got.shape)}, kernel vs scan", got, want, rtol=THOMAS_RTOL,
+            atol=THOMAS_ATOL)
+        log(f"  entries that differ at all: {int((got != want).sum())} of {got.numel()}")
+        losses = {k: (runs[k]["result"]["loss_initial"], runs[k]["result"]["loss_final"]) for k in ("adam", "lbfgs")}
+        log(f"gradient runs (loss_initial, loss_final): {losses}; adam thomas {adam['launches']} (expected "
+            f"{adam_expected}); lbfgs thomas {lbfgs['launches']} (3 per substep per evaluation: "
+            f"{lbfgs['launches'] / (3 * substeps):.0f} evaluations in {MPP_ITERS} iterations)")
+        ok_grad = (adam["launches"] == adam_expected and lbfgs["launches"] % (3 * substeps) == 0
+                   and lbfgs["launches"] >= adam_expected
+                   and all(math.isfinite(a) and math.isfinite(b) and b <= a for a, b in losses.values()))
+        if not (ok_eki and ok_grad):
+            raise RuntimeError("optimise-mpp: the EKI misfit did not fall, a launch count is off or a loss is not finite")
+        record.update(runs=runs, eki_expected=eki_expected, adam_expected=adam_expected,
+                      thomas_1152x32=thomas_bench_record(benchmarks, dev, 3 * n_sims * MPP_EKI_J))
+        log(f"card: {smi}")
+    return record
+
+
+def train_fc_nde_ensemble_phase(dev, smi: str) -> dict:
+    """Phase 29: train-fc-nde --ensemble 4 at phase 24's size (first stage), then fc_ensemble_uq on id 1."""
+    import numpy as np
+    import torch
+
+    from climateparameterizations_jl_tpu_torch.cli import main as cli
+    from climateparameterizations_jl_tpu_torch.data import free_convection as fcd
+    from climateparameterizations_jl_tpu_torch.eval.ensemble_uq import fc_ensemble_uq
+    from climateparameterizations_jl_tpu_torch.models.free_convection import solve_free_convection_nde
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.train import deep_ensemble as de
+
+    record = {}
+    n_ids = len(FC_IDS.split(","))
+    with phase(f"29 train-fc-nde --ensemble {ENS_K} at full width: {n_ids} ids, {FC_N_SAVE + 1} frames, curriculum "
+               f"{FC_ENS_STAGE}, {FC_ITERS} iterations; then fc_ensemble_uq on id 1"), \
+            tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        originals = (fcd.load_free_convection_suite, de.train_free_convection_deep_ensemble)
+        calls = []
+
+        def cached_suite(*args, **kw):
+            key = repr((args, sorted(kw.items())))
+            if key not in FC_SUITES:
+                FC_SUITES[key] = originals[0](*args, **kw)
+            return FC_SUITES[key]
+
+        def recording(model, stacked_nn, T0, targets, t, config, **kw):
+            calls.append((model, de.stack_members([de.member(stacked_nn, m) for m in range(ENS_K)]), T0, targets, t,
+                          config))
+            return originals[1](model, stacked_nn, T0, targets, t, config, **kw)
+
+        expected, stages = fc_curriculum_thomas_launches(FC_ENS_STAGE, FC_N_SAVE + 1, 4, FC_ITERS)
+        expected *= ENS_K
+        out = tmp / "fc_ens"
+        fcd.load_free_convection_suite, de.train_free_convection_deep_ensemble = cached_suite, recording
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _cuda.reset_launch_counts()
+            rc = cli.main(["train-fc-nde", "--sim-ids", FC_IDS, *FC_ARGS, "--curriculum", FC_ENS_STAGE, "--ensemble",
+                           str(ENS_K), "--output", str(out)])
+            launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            fcd.load_free_convection_suite, de.train_free_convection_deep_ensemble = originals
+        hist = [json.loads(line) for line in open(out / "history.jsonl")]
+        log(f"exit {rc} in {wall:.2f} s ({stages[0]} substeps per solve, one solve per member); losses "
+            f"{[h['loss'] for h in hist]}; launch counts {launches}; expected thomas {expected} = {ENS_K} members x "
+            f"3 x {stages[0]} x {FC_ITERS} iterations")
+        if rc != 0 or launches["thomas"] != expected or len(hist) != FC_ITERS:
+            raise RuntimeError(f"train-fc-nde --ensemble: exit {rc}, thomas {launches['thomas']} (expected {expected})")
+        # The history's loss is the member MEAN: each member's MSE at its first-iteration weights, one by one.
+        model, stacked, T0, targets, t_hat, config = calls[0]
+        n_save = t_hat.shape[0] - 1
+        with torch.no_grad():
+            mses = [float(torch.mean((torch.movedim(solve_free_convection_nde(
+                model, nn, T0, t_hat[0], (t_hat[-1] - t_hat[0]) / n_save, n_save, config.n_substeps, config.method,
+                tridiag_backend="cuda"), 0, -2) - targets) ** 2)) for nn in de.unstack_members(stacked)]
+        rel = abs(float(np.mean(mses)) - hist[0]["loss"]) / hist[0]["loss"]
+        log(f"members' first losses {mses}: mean {np.mean(mses)!r} against the history's {hist[0]['loss']!r} (rel "
+            f"{rel:.3e}, limit {STEP_LOSS_RTOL}); the sum would be {np.sum(mses):.6e}")
+        if rel > STEP_LOSS_RTOL:
+            raise RuntimeError("train-fc-nde --ensemble: the history does not hold the member mean")
+        stacked_out, meta = cli._load_fc_nn(str(out), dev)
+        # Id 1 on its own, with the training scalings and its own boundary fluxes.
+        suite = cli._load_fc_suite([1], NZ, None, FC_N_SAVE, 600.0, device=dev)
+        model_1 = fcd.build_free_convection_model(suite, model.T_scaling, model.wT_scaling, model.base_closure)
+        tsteps = np.arange(0, FC_N_SAVE + 1, FC_UQ_STRIDE)
+        _cuda.reset_launch_counts()
+        t = time.perf_counter()
+        uq = fc_ensemble_uq(model_1, stacked_out, suite, tsteps, n_substeps=4 * FC_UQ_STRIDE)
+        uq_wall = time.perf_counter() - t
+        uq_launches = _cuda.KERNELS["thomas"].launches
+        uq_expected = ENS_K * (len(tsteps) - 1) * 4 * FC_UQ_STRIDE
+        member = uq["losses_member_T"].mean(axis=0)
+        jensen = bool(np.all(uq["losses_ensemble_mean_T"] <= member * (1 + 1e-5) + 1e-10))
+        log(f"fc_ensemble_uq on id 1 ({len(tsteps)} frames): {uq_wall:.2f} s, thomas {uq_launches} (expected "
+            f"{uq_expected}); mean T loss of the ensemble mean {float(uq['losses_ensemble_mean_T'].mean()):.4e} <= "
+            f"member mean {float(member.mean()):.4e} at every frame: {jensen}; T std max "
+            f"{float(uq['ensemble_T_std'].max()):.4e} K")
+        if (uq_launches != uq_expected or not jensen or meta["ensemble"] != ENS_K
+                or not np.isfinite(uq["ensemble_T_mean"]).all()):
+            raise RuntimeError("fc_ensemble_uq: launches, Jensen, the saved ensemble or the bands are off")
+        record.update(s=wall, launches=launches["thomas"], expected=expected, losses=[h["loss"] for h in hist],
+                      member_mean_rel=rel, uq={"s": uq_wall, "launches": uq_launches, "expected": uq_expected,
+                                               "jensen": jensen})
+        log(f"card: {smi}")
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -1264,7 +1742,7 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port package is not beside this script ({e})", file=sys.stderr)
         return 2
-    for run_dir in (FLAGSHIP_RUN, SHOOT16_RUN):
+    for run_dir in (FLAGSHIP_RUN, SHOOT16_RUN, ENS_RUN):
         if not (run_dir / "state.npz").exists():
             print(f"chip_smoke: {run_dir / 'state.npz'} is missing", file=sys.stderr)
             return 2
@@ -1542,6 +2020,11 @@ def main() -> int:
     thomas_record["train_nde"] = train_nde_phase(dev, setup, train, smi)
     thomas_record["fc_forward"] = fc_forward_phase(dev, smi)
     thomas_record["train_fc_nde"] = train_fc_nde_phase(dev, smi)
+    thomas_record["ensemble_step"] = ensemble_step_phase(dev, setup, train, smi)
+    thomas_record["train_nde_ensemble"] = train_nde_ensemble_phase(dev, setup, smi)
+    thomas_record["ensemble_uq"] = ensemble_uq_phase(dev, setup, smi)
+    thomas_record["optimise_mpp"] = optimise_mpp_phase(dev, setup, smi)
+    thomas_record["train_fc_nde_ensemble"] = train_fc_nde_ensemble_phase(dev, smi)
     record["ptxas"] = ptxas_summary(kernel.ptxas_report)
     thomas_record["ptxas"] = ptxas_summary(thomas.ptxas_report)
     print(smi, flush=True)

@@ -6,8 +6,10 @@
   NN products, ``csrc/fused_rk4_bf16.cu``).
 - :func:`bench_train_step` (``studies/flagship_training.py:566 step_bench``):
   one flagship NDE training step, 18 simulations x 1,152 split substeps
-  (or, with ``shooting=K``, 18 K windows of 1,152 / K substeps), every
-  implicit solve through the CUDA kernel ``csrc/thomas.cu``.
+  (or, with ``shooting=K``, 18 K windows of 1,152 / K substeps; with
+  ``ensemble=M``, M stacked members, folded onto the batch axis or one
+  solve each), every implicit solve through the CUDA kernel
+  ``csrc/thomas.cu``.
 - :func:`bench_nde_train_step` (``benchmarks.py:274``): one gradient step
   of 8 simulations x a 32-save window, split or rk4 (with or without the
   matmul assembly).
@@ -281,8 +283,73 @@ def train_step_loss_and_grad(setup: dict, **config_overrides):
     return total.detach(), torch.cat([g.reshape(-1) for g in grads])
 
 
+def ensemble_members(setup: dict, ensemble: int, stacked_nns=None):
+    """``ensemble`` stacked flux-MLP triples: a copy of ``stacked_nns`` (e.g. a loaded ensemble run), else
+    drawn by ``init_ensemble`` from a ``torch.Generator`` seeded with 0 at the reference's 1e-5 scale."""
+    from climateparameterizations_jl_tpu_torch.train.deep_ensemble import (
+        ensemble_size,
+        init_ensemble,
+        stack_members,
+        unstack_members,
+    )
+
+    device = setup["batch"].x0.device
+    if stacked_nns is None:
+        Nz = setup["model"].Nz
+        return init_ensemble(torch.Generator().manual_seed(0), ensemble, lambda gen: FluxNNs(
+            *(wind_mixing_mlp(gen, Nz, scale=1e-5, device=device) for _ in range(3))))
+    if ensemble_size(stacked_nns) != ensemble:
+        raise ValueError(f"the given ensemble has {ensemble_size(stacked_nns)} members, not {ensemble}")
+    return stack_members([_clone_nns(m) for m in unstack_members(stacked_nns)])
+
+
+def ensemble_loss_and_grad(setup: dict, stacked_nns, member_fold: bool, scalings=None, **config_overrides) -> dict:
+    """One ensemble step's summed loss and flattened gradient (folded or one solve per member); no update.
+
+    ``scalings`` (stacked loss channels) skips the pre-solve, so two forms
+    can be compared on the same weights. Returns ``loss``, ``grad``,
+    ``scalings`` and the host-clock ms (between two synchronizes) of the
+    pre-solve (``presolve_ms``) and of the loss and gradient (``step_ms``).
+    """
+    from climateparameterizations_jl_tpu_torch.train.deep_ensemble import ensemble_size
+    from climateparameterizations_jl_tpu_torch.train.nde import nn_parameters
+
+    config = dataclasses.replace(setup["config"], **config_overrides)
+    device = setup["batch"].x0.device
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    nns, loss_fn, scalings = _ensemble_step_parts(setup, config, ensemble_size(stacked_nns), member_fold,
+                                                  stacked_nns, scalings=scalings)
+    torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    params = [p.requires_grad_(True) for p in nn_parameters(nns)]
+    total, _ = loss_fn(nns)
+    grads = torch.autograd.grad(total, params)
+    torch.cuda.synchronize(device)
+    return {"loss": total.detach(), "grad": torch.cat([g.reshape(-1) for g in grads]), "scalings": scalings,
+            "presolve_ms": (t1 - t0) * 1e3, "step_ms": (time.perf_counter() - t1) * 1e3}
+
+
+def _ensemble_step_parts(setup: dict, config, ensemble: int, member_fold: bool, stacked_nns=None, batch=None,
+                         scalings=None):
+    """``(stacked MLPs, loss_fn, scalings)`` of the ensemble step: members, per-member scalings (given, or one
+    pre-solve, folded or one per member) and the folded or member-loop loss."""
+    from climateparameterizations_jl_tpu_torch.train.deep_ensemble import (
+        ensemble_loss_scalings,
+        make_ensemble_loss_fn,
+        make_folded_ensemble_loss_fn,
+    )
+
+    model, batch = setup["model"], setup["batch"] if batch is None else batch
+    nns = ensemble_members(setup, ensemble, stacked_nns)
+    if scalings is None:
+        scalings = ensemble_loss_scalings(model, nns, batch, config, member_fold)
+    make_loss = make_folded_ensemble_loss_fn if member_fold else make_ensemble_loss_fn
+    return nns, make_loss(model, batch, scalings, config), scalings
+
+
 def bench_train_step(setup: dict | None = None, n_timed: int = 5, device=None, shooting: int = 0,
-                     **config_overrides) -> dict:
+                     ensemble: int = 0, member_fold: bool = False, stacked_nns=None, **config_overrides) -> dict:
     """Time the flagship training step on the card: loss, IFT backward and adam.
 
     One warm-up step, then ``n_timed`` steps, each between two CUDA events
@@ -291,6 +358,11 @@ def bench_train_step(setup: dict | None = None, n_timed: int = 5, device=None, s
     copy of ``setup["nns"]``. ``config_overrides`` replace config fields
     (e.g. ``tridiag_backend="scan"``); ``shooting=K`` times the step on the
     setup's K-window multiple-shooting batch (:func:`shooting_train_setup`).
+    ``ensemble=M`` times the deep-ensemble step of ``step_bench(ensemble=M)``
+    instead: M members (a copy of ``stacked_nns``, else drawn as
+    :func:`ensemble_members` draws them) with per-member loss scalings (one
+    pre-solve, folded or one per member), their summed loss, folded onto the
+    solve's batch axis (``member_fold=True``) or one solve per member.
     Returns ms per step (min/median/max), the losses and the work done:
     ``presolve_substeps`` solves without autograd (none when the config has
     no training fractions), and ``steps`` steps of ``substeps`` substeps
@@ -310,9 +382,12 @@ def bench_train_step(setup: dict | None = None, n_timed: int = 5, device=None, s
         setup = shooting_train_setup(setup, shooting)
     config = dataclasses.replace(setup["config"], **config_overrides)
     model, batch = setup["model"], setup["batch"]
-    nns = _clone_nns(setup["nns"])
-    scalings = determine_loss_scalings(model, nns, batch, config)
-    loss_fn = make_wind_mixing_loss_fn(model, batch, scalings, config)
+    if ensemble:
+        nns, loss_fn, _ = _ensemble_step_parts(setup, config, ensemble, member_fold, stacked_nns)
+    else:
+        nns = _clone_nns(setup["nns"])
+        scalings = determine_loss_scalings(model, nns, batch, config)
+        loss_fn = make_wind_mixing_loss_fn(model, batch, scalings, config)
     optimizer = _make_optimizer(config, nns)
 
     losses = []
@@ -334,10 +409,12 @@ def bench_train_step(setup: dict | None = None, n_timed: int = 5, device=None, s
         **stats,
         "fast_assembly": resolve_fast_assembly(model, setup["nns"], config.method, config.fast_assembly),
         "tridiag_backend": resolve_tridiag_backend(config.tridiag_backend, setup["substeps"], device),
-        "sims": sims, "shooting": shooting, "substeps": setup["substeps"], "Nz": model.Nz,
-        "column_timesteps_per_sec": sims * setup["substeps"] / (stats["ms_median"] * 1e-3),
+        "sims": sims, "shooting": shooting, "ensemble": ensemble, "member_fold": bool(ensemble and member_fold),
+        "substeps": setup["substeps"], "Nz": model.Nz,
+        "column_timesteps_per_sec": sims * max(ensemble, 1) * setup["substeps"] / (stats["ms_median"] * 1e-3),
         "losses": losses, "steps": 1 + n_timed,
-        "presolve_substeps": setup["substeps"] if config.training_fractions is not None else 0,
+        "presolve_substeps": (setup["substeps"] * (1 if member_fold or not ensemble else ensemble)
+                              if config.training_fractions is not None else 0),
     }
 
 
@@ -481,11 +558,13 @@ def bench_tridiagonal(n_systems: int = 16384, N: int = 32, repeats: int = 50, se
     return out
 
 
-def profile_train_step(setup: dict, n_saves: int = 2, device=None, **config_overrides) -> dict:
+def profile_train_step(setup: dict, n_saves: int = 2, device=None, ensemble: int = 0, member_fold: bool = False,
+                       stacked_nns=None, **config_overrides) -> dict:
     """Where one training step's time goes: ``torch.profiler`` over a short window.
 
     One step (loss, backward, adam) over the first ``n_saves`` save intervals
-    of the setup's batch (:func:`_profiled`).
+    of the setup's batch (:func:`_profiled`); ``ensemble``, ``member_fold``
+    and ``stacked_nns`` as in :func:`bench_train_step`.
     """
     device = _require_card(device, "profile_train_step")
     from climateparameterizations_jl_tpu_torch.train.nde import (
@@ -497,9 +576,12 @@ def profile_train_step(setup: dict, n_saves: int = 2, device=None, **config_over
     config = dataclasses.replace(setup["config"], **config_overrides)
     batch = setup["batch"]
     batch = dataclasses.replace(batch, targets=batch.targets[:, : n_saves + 1], t=batch.t[: n_saves + 1])
-    nns = _clone_nns(setup["nns"])
-    scalings = determine_loss_scalings(setup["model"], nns, batch, config)
-    loss_fn = make_wind_mixing_loss_fn(setup["model"], batch, scalings, config)
+    if ensemble:
+        nns, loss_fn, _ = _ensemble_step_parts(setup, config, ensemble, member_fold, stacked_nns, batch)
+    else:
+        nns = _clone_nns(setup["nns"])
+        scalings = determine_loss_scalings(setup["model"], nns, batch, config)
+        loss_fn = make_wind_mixing_loss_fn(setup["model"], batch, scalings, config)
     optimizer = _make_optimizer(config, nns)
 
     def step():

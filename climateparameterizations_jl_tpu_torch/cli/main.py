@@ -2,9 +2,10 @@
 
 The subcommands ported so far are ``catalog``, ``train-nn`` (direct flux
 regression), ``train-nde`` (wind-mixing NDE training: curriculum, multiple
-shooting, checkpoints, resume, calibrated mPP base), ``extract``,
-``train-gp`` and ``train-fc-nde`` (free-convection NDE training: flux
-pre-training, spatial causality, curriculum):
+shooting, checkpoints, resume, calibrated mPP base, deep ensembles),
+``extract``, ``train-gp``, ``train-fc-nde`` (free-convection NDE training:
+flux pre-training, spatial causality, curriculum, deep ensembles) and
+``optimise-mpp`` (mPP calibration by gradient or EKI):
 
     python -m climateparameterizations_jl_tpu_torch.cli train-nde --sims strong_wind \
         --curriculum 6,13:2 --shooting 3 --output runs/nde
@@ -14,6 +15,8 @@ pre-training, spatial causality, curriculum):
     python -m climateparameterizations_jl_tpu_torch.cli train-nn --sims strong_wind --output runs/nn
     python -m climateparameterizations_jl_tpu_torch.cli train-fc-nde --sim-ids 1,2,3 \
         --pretrain-epochs 50 --curriculum 9,25:2 --output runs/fc
+    python -m climateparameterizations_jl_tpu_torch.cli optimise-mpp --sims strong_wind \
+        --calibration-method eki --output runs/mpp
 
 They run on the card unless ``--device cpu`` is given (the JAX package's
 ``--platform`` flag). ``--config FILE`` (JSON, or YAML where PyYAML is
@@ -29,6 +32,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 
@@ -225,12 +229,21 @@ def _restore_mpp(meta: dict, override_path: str | None = None, device=None) -> d
 
 
 def _save_nns(output: str, nns, meta: dict):
-    """Save flux MLPs with their ``arch`` (sizes and activation per member) in ``meta.json``."""
+    """Save flux MLPs with their ``arch`` (sizes and activation per member) in ``meta.json``.
+
+    A stacked ensemble (``meta["ensemble"] = K``) is saved whole; its arch
+    is read from member 0.
+    """
     from climateparameterizations_jl_tpu_torch.train.checkpoint import save_checkpoint
 
+    arch_src = nns
+    if meta.get("ensemble"):
+        from climateparameterizations_jl_tpu_torch.train.deep_ensemble import member
+
+        arch_src = member(nns, 0)
     arch = {}
     for name in ("uw", "vw", "wT"):
-        nn = getattr(nns, name, None)
+        nn = getattr(arch_src, name, None)
         if nn is not None:
             arch[name] = {"sizes": list(nn.sizes), "activation": nn.activation}
     save_checkpoint(output, nns, {**meta, "arch": arch})
@@ -386,7 +399,11 @@ def cmd_train_nde(args) -> int:
     command: pass that checkpoint's ``meta["mpp"]`` as ``--mpp-params`` to
     keep it). The output directory holds the MLPs (``state.npz``, ``meta.json`` with the
     ``mpp`` used), ``history.jsonl`` and ``train_state/`` (params and
-    optimizer state after every stage, for ``--resume-from``).
+    optimizer state after every stage, for ``--resume-from``). ``--ensemble
+    K`` trains K stacked members (``train/deep_ensemble.py``; adam or sgd
+    only), all on the solve's batch axis where their MLPs pack into one
+    chain (else one solve per member); ``--init-from`` then needs a K-member
+    run.
     """
     if args.fast_assembly in ("off", False):
         args.fast_assembly = False
@@ -401,9 +418,9 @@ def cmd_train_nde(args) -> int:
         if args.method == "rk4" and args.smooth_ri:
             raise SystemExit("train-nde: --fast-assembly with --method rk4 does not apply the Ri smoothing filter; "
                              "drop --smooth-ri")
-    if args.ensemble:
-        raise SystemExit('train-nde: --ensemble is not ported yet (ROADMAP.md, queue 1, "Ensembles and flux '
-                         'regression")')
+    if args.ensemble and args.optimizer not in ("adam", "sgd"):
+        raise SystemExit(f"train-nde: --ensemble requires an elementwise optimizer (adam/sgd); {args.optimizer} "
+                         f"couples members through its shared linesearch")
 
     from climateparameterizations_jl_tpu_torch.closures.mlp import wind_mixing_mlp
     from climateparameterizations_jl_tpu_torch.data.containers import multiple_shooting_tensors, training_tensors
@@ -416,11 +433,22 @@ def cmd_train_nde(args) -> int:
     # Mixed suites are fine: the amplitude is per sim (constant-flux members
     # carry 0 and keep their frozen BC).
     diurnal = any(_suite_diurnal_flags(names))
+    ensemble = int(args.ensemble or 0)
+
+    def init_member(gen):
+        return FluxNNs(*(wind_mixing_mlp(gen, args.nz, scale=args.init_scale, device=device) for _ in range(3)))
+
     if args.init_from:
-        nns, _ = _load_nns(args.init_from, device)
+        nns, init_meta = _load_nns(args.init_from, device)
+        if int(init_meta.get("ensemble", 0) or 0) != ensemble:
+            raise SystemExit(f"train-nde: --init-from checkpoint ensemble size {init_meta.get('ensemble', 0) or 0} "
+                             f"does not match --ensemble {ensemble}")
+    elif ensemble:
+        from climateparameterizations_jl_tpu_torch.train.deep_ensemble import init_ensemble
+
+        nns = init_ensemble(torch.Generator().manual_seed(args.seed), ensemble, init_member)
     else:
-        gen = torch.Generator().manual_seed(args.seed)
-        nns = FluxNNs(*(wind_mixing_mlp(gen, args.nz, scale=args.init_scale, device=device) for _ in range(3)))
+        nns = init_member(torch.Generator().manual_seed(args.seed))
     model = _wind_model(
         ds, args.nz, diurnal=diurnal, smooth_NN=args.smooth_nn, smooth_Ri=args.smooth_ri,
         **_base_closure_overrides(args.base_closure),
@@ -454,8 +482,16 @@ def cmd_train_nde(args) -> int:
         return training_tensors(ds, model.scalings, tsteps, tau=model.tau, diurnal=diurnal)
 
     batch = batch_fn(stages[0].tsteps)
+    if ensemble:
+        from climateparameterizations_jl_tpu_torch.models.wind_mixing import pack_member_flux_nns
+        from climateparameterizations_jl_tpu_torch.train.deep_ensemble import train_wind_mixing_deep_ensemble
+
+        # Packable members ride the solve's batch axis: one Thomas launch per solve for all of them.
+        train = functools.partial(train_wind_mixing_deep_ensemble, member_fold=pack_member_flux_nns(nns) is not None)
+    else:
+        train = train_wind_mixing_nde
     with _profiler_trace(args.trace, device) if args.trace else contextlib.nullcontext():
-        nns, history = train_wind_mixing_nde(
+        nns, history = train(
             model, nns, batch, config,
             stages=stages if len(stages) > 1 else None,
             full_batch_fn=batch_fn if len(stages) > 1 else None,
@@ -467,7 +503,7 @@ def cmd_train_nde(args) -> int:
         "command": "train-nde", "sims": args.sims, "nz": args.nz,
         "smooth_NN": bool(args.smooth_nn), "smooth_Ri": bool(args.smooth_ri),
         "diurnal": bool(diurnal), "base_closure": args.base_closure,
-        "ensemble": 0, "mpp": _mpp_meta(model),
+        "ensemble": ensemble, "mpp": _mpp_meta(model),
     })
     first, last = sum(history[0].values()), sum(history[-1].values())
     print(f"train-nde: loss {first:.4e} -> {last:.4e}; saved to {args.output}")
@@ -609,15 +645,14 @@ def cmd_train_fc_nde(args) -> int:
     fresh adam per stage; the last of several stages at ``--lr`` times
     ``--burn-in-lr-decay``). ``--spatial-causality hard`` masks the weights
     and re-masks after every update; ``soft`` acts in pre-training only.
+    ``--ensemble K`` draws K closures one after another from the generator,
+    pre-trains each on its own and trains them stacked
+    (``train_free_convection_deep_ensemble``); the arch is read from member 0.
     The split solver's implicit solves run on ``--tridiag-backend`` (auto:
     the Thomas kernel on the card). Writes ``state.npz``, ``meta.json``
     (scalings, ``base_closure``, ``arch`` with ``conv_width``) and
     ``history.jsonl``, in the JAX command's format.
     """
-    if args.ensemble:
-        raise NotImplementedError('train-fc-nde --ensemble is not ported yet (ROADMAP.md, queue 1, "Ensembles and '
-                                  'flux regression")')
-
     from climateparameterizations_jl_tpu_torch.closures import mlp
     from climateparameterizations_jl_tpu_torch.core.scalings import ZeroMeanUnitVarianceScaling
     from climateparameterizations_jl_tpu_torch.data.free_convection import (
@@ -643,23 +678,30 @@ def cmd_train_fc_nde(args) -> int:
     # Per-sim BC fluxes on the suite axis: each member trains against its own surface forcing.
     model = build_free_convection_model(ds, T_scaling, wT_scaling, base_closure=args.base_closure)
 
+    ensemble = int(args.ensemble or 0)
     gen = torch.Generator().manual_seed(args.seed)
-    if args.conv > 1:
-        nn = mlp.free_convection_conv_mlp(gen, args.nz, conv_width=args.conv, device=device)
-    else:
-        nn = mlp.free_convection_mlp(gen, args.nz, device=device)
+
+    def init_fc():
+        if args.conv > 1:
+            return mlp.free_convection_conv_mlp(gen, args.nz, conv_width=args.conv, device=device)
+        return mlp.free_convection_mlp(gen, args.nz, device=device)
+
+    # Ensemble members are drawn one after another from the one generator.
+    members = [init_fc() for _ in range(max(ensemble, 1))]
     if args.pretrain_epochs > 0:
-        # Flux pre-training: T -> wT regression (train_free_convection_nde.jl:210-216).
+        # Flux pre-training: T -> wT regression (train_free_convection_nde.jl:210-216), each member on its own.
         x, y = free_convection_regression_pairs(ds, T_scaling, wT_scaling)
-        nn, pre_hist = train_flux_nn(nn, x, y, learning_rate=args.lr, epochs=args.pretrain_epochs,
-                                     causality=args.spatial_causality)
-        print(f"train-fc-nde[pretrain]: loss {pre_hist[0]:.4e} -> {pre_hist[-1]:.4e}")
+        for mi in range(len(members)):
+            members[mi], pre_hist = train_flux_nn(members[mi], x, y, learning_rate=args.lr,
+                                                  epochs=args.pretrain_epochs, causality=args.spatial_causality)
+            tag = f"[pretrain m{mi}]" if ensemble else "[pretrain]"
+            print(f"train-fc-nde{tag}: loss {pre_hist[0]:.4e} -> {pre_hist[-1]:.4e}")
 
     project = None
     if args.spatial_causality == "hard":
         # Masked now and after every optimizer update, which repopulates masked entries otherwise.
         with torch.no_grad():
-            nn = mlp.apply_spatial_causality_mask(nn)
+            members = [mlp.apply_spatial_causality_mask(m) for m in members]
         project = mlp.apply_spatial_causality_mask_
     elif args.spatial_causality == "soft" and args.pretrain_epochs == 0:
         print("warning: --spatial-causality soft only acts during flux pretraining; set --pretrain-epochs > 0 or "
@@ -677,17 +719,26 @@ def cmd_train_fc_nde(args) -> int:
             T0, targets = T0[None], targets[None]
         return T0, targets, t_row.index_select(0, idx) / tau
 
+    if ensemble:
+        from climateparameterizations_jl_tpu_torch.train.deep_ensemble import (
+            member,
+            stack_members,
+            train_free_convection_deep_ensemble,
+        )
+
+        nn, fc_train = stack_members(members), train_free_convection_deep_ensemble
+    else:
+        nn, fc_train = members[0], train_free_convection_nde
     history = []
     for stage_i, stage in enumerate(stages):
         lr = args.lr * (args.burn_in_lr_decay if stage_i == len(stages) - 1 and len(stages) > 1 else 1.0)
         config = NDETrainConfig(learning_rate=lr, maxiters=args.maxiters, n_substeps=stage.n_substeps,
                                 method=args.method, tridiag_backend=args.tridiag_backend)
         T0, targets, t = stage_tensors(stage.tsteps)
-        nn, h = train_free_convection_nde(model, nn, T0, targets, t, config, callback=_history_writer(args.output),
-                                          project=project)
+        nn, h = fc_train(model, nn, T0, targets, t, config, callback=_history_writer(args.output), project=project)
         history.extend(h)
     meta = {
-        "command": "train-fc-nde", "sim_ids": ids, "conv": args.conv, "ensemble": 0,
+        "command": "train-fc-nde", "sim_ids": ids, "conv": args.conv, "ensemble": ensemble,
         # What evaluation needs to rebuild the training-time model: the
         # closure only makes sense under its scalings and base closure.
         "base_closure": args.base_closure,
@@ -696,13 +747,59 @@ def cmd_train_fc_nde(args) -> int:
             "wT": {"mu": float(wT_scaling.mu), "sigma": float(wT_scaling.sigma)},
         },
     }
-    if isinstance(nn, mlp.ConvMLP):
-        meta["arch"] = {"sizes": list(nn.mlp.sizes), "activation": nn.mlp.activation, "conv_width": nn.width}
+    arch_src = member(nn, 0) if ensemble else nn
+    if isinstance(arch_src, mlp.ConvMLP):
+        meta["arch"] = {"sizes": list(arch_src.mlp.sizes), "activation": arch_src.mlp.activation,
+                        "conv_width": arch_src.width}
     else:
-        meta["arch"] = {"sizes": list(nn.sizes), "activation": nn.activation}
+        meta["arch"] = {"sizes": list(arch_src.sizes), "activation": arch_src.activation}
     save_checkpoint(args.output, nn, meta)
     first, last = sum(history[0].values()), sum(history[-1].values())
     print(f"train-fc-nde: loss {first:.4e} -> {last:.4e}; saved to {args.output}")
+    return 0
+
+
+def cmd_optimise_mpp(args) -> int:
+    """mPP parameter calibration on the suite's first ``--n-train-steps`` frames; writes ``mpp_parameters.json``.
+
+    The JAX package's ``optimise-mpp``: ``--calibration-method gradient``
+    (projected ``--optimizer`` adam, sgd or lbfgs through the solve; the
+    json holds the five parameters of the best evaluated iterate,
+    ``loss_initial`` and ``loss_final``) or ``eki`` (``--n-ensemble``
+    parameter sets on the solve's batch axis for ``--n-eki-iters``
+    iterations, the EKI noise seeded with ``--seed``; the json holds the
+    ensemble-mean parameters, ``posterior_std`` and the first and last
+    misfits). Diurnal members set the model's diurnal flag: without it the
+    cycling surface flux freezes at its frame-0 value.
+    """
+    from climateparameterizations_jl_tpu_torch.data.containers import training_tensors
+    from climateparameterizations_jl_tpu_torch.train.mpp_calibration import calibrate_mpp_eki, optimise_mpp_parameters
+    from climateparameterizations_jl_tpu_torch.train.nde import NDETrainConfig
+
+    device = resolve_device(args.device)
+    names = _sims(args.sims)
+    ds = _load_suite(names, args.nz, args.data_dir, args.n_save, args.dt_save, device=device)
+    model = _wind_model(ds, args.nz, diurnal=any(_suite_diurnal_flags(names)))
+    batch = training_tensors(ds, model.scalings, np.arange(0, args.n_train_steps), tau=model.tau)
+    config = NDETrainConfig(learning_rate=args.lr, maxiters=args.maxiters, n_substeps=args.n_substeps,
+                            method=args.method, optimizer=args.optimizer)
+    if args.calibration_method == "eki":
+        params, eki = calibrate_mpp_eki(model, batch, config, generator=torch.Generator().manual_seed(args.seed),
+                                        n_ensemble=args.n_ensemble, n_iterations=args.n_eki_iters,
+                                        inflation=args.eki_inflation)
+        result = {name: float(getattr(params, name)) for name in eki.names}
+        result["posterior_std"] = {name: float(s) for name, s in zip(eki.names, eki.theta_std.tolist())}
+        result["misfit_initial"] = eki.misfit_history[0]
+        result["misfit_final"] = eki.misfit_history[-1]
+    else:
+        params, history = optimise_mpp_parameters(model, batch, config)
+        result = {name: float(getattr(params, name)) for name in ("nu_0", "nu_minus", "Ri_c", "delta_Ri", "Pr")}
+        # loss_final: the best evaluated loss, the one the returned (best) iterate achieved.
+        result.update(loss_initial=float(history[0][0]), loss_final=float(min(h[0] for h in history)))
+    os.makedirs(args.output, exist_ok=True)
+    with open(os.path.join(args.output, "mpp_parameters.json"), "w") as f:
+        json.dump(result, f, indent=2)
+    print(json.dumps(result))
     return 0
 
 
@@ -767,7 +864,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace", default=None, help="write a torch.profiler Chrome trace to DIR/trace.json")
     p.add_argument("--optimizer", default="adam", choices=["adam", "sgd", "lbfgs"])
     p.add_argument("--ensemble", type=int, default=0, metavar="K",
-                   help="a K-member deep ensemble: not ported yet (0 = single closure, the default)")
+                   help="train a K-member deep ensemble (independently drawn members stacked on a leading axis, "
+                        "trained as K solo runs by one optimizer). 0 = single closure (default)")
     p.add_argument("--tridiag-backend", default="auto", choices=["auto", "scan", "pcr", "cuda"],
                    help="split stepper's implicit solve; auto is the CUDA kernel on the card, scan on the CPU "
                         "(train.nde.resolve_tridiag_backend)")
@@ -823,10 +921,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--curriculum", default=None, help="comma-separated window[:stride] stages, e.g. 8,16,32")
     p.add_argument("--burn-in-lr-decay", type=float, default=0.1, help="LR factor for the final curriculum stage")
     p.add_argument("--ensemble", type=int, default=0, metavar="K",
-                   help="a K-member deep ensemble: not ported yet (0 = single closure, the default)")
+                   help="train a K-member deep ensemble (stacked members, each pre-trained on its own, then "
+                        "trained as K solo runs by one optimizer). 0 = single closure")
     p.add_argument("--tridiag-backend", default="auto", choices=["auto", "scan", "pcr", "cuda"],
                    help="split solver's implicit solve; auto is the CUDA kernel on the card, scan on the CPU")
     p.set_defaults(fn=cmd_train_fc_nde)
+
+    p = sub.add_parser("optimise-mpp", help="mPP diffusivity parameter calibration")
+    _add_common(p)
+    p.add_argument("--optimizer", default="adam", choices=["adam", "sgd", "lbfgs"],
+                   help="reference uses BFGS/LBFGS (optimise_modified_pacanowski_philander_args.jl:66-72)")
+    p.add_argument("--lr", type=float, default=1e-2)
+    p.add_argument("--maxiters", type=int, default=100)
+    p.add_argument("--n-substeps", type=int, default=4)
+    p.add_argument("--method", default="split", choices=["split", "rk4", "heun", "euler"])
+    p.add_argument("--n-train-steps", type=int, default=32)
+    p.add_argument("--calibration-method", default="gradient", choices=["gradient", "eki"])
+    p.add_argument("--n-ensemble", type=int, default=64)
+    p.add_argument("--n-eki-iters", type=int, default=8)
+    p.add_argument("--eki-inflation", type=float, default=1.0,
+                   help="multiplicative covariance inflation per EKI iteration (1.0 = off, the library default; "
+                        "the tempered updates already prevent collapse)")
+    p.set_defaults(fn=cmd_optimise_mpp)
     return parser
 
 

@@ -101,6 +101,58 @@ def pack_flux_nns(nns) -> PackedFluxNNs | None:
 
 
 @dataclasses.dataclass(frozen=True)
+class MemberPackedFluxNNs(PackedFluxNNs):
+    """``M`` ensemble members' flux chains fused into ONE block-diagonal chain.
+
+    The state carries the members as its last batch axis ``(..., M, 3 Nz)``;
+    every physics op and the tridiagonal solve are batch-shape-agnostic, and
+    per-simulation BCs broadcast left-aligned, so a member axis after the
+    simulation axis needs nothing else. Layer ``l``'s matrix is the
+    block-diagonal of the members' packed matrices (layer 0 too: member
+    trajectories differ after the first step). Off-diagonal blocks are
+    structural zeros, so each member's output equals its own chain's up to
+    the order of the matmul sums; the split solver then makes one Thomas
+    launch per solve for all members. Build with :func:`pack_member_flux_nns`.
+    Integrates wherever a :class:`PackedFluxNNs` does, except in the rk4
+    fused assembly, whose body has the 3-flux layout built in.
+    """
+
+    n_members: int = 1
+
+    def __call__(self, x):
+        """``(..., M, F) -> (..., M, out)`` through the member-concatenated chain."""
+        M = self.n_members
+        batch = tuple(x.shape[:-2])
+        y = PackedFluxNNs.__call__(self, x.reshape(batch + (M * x.shape[-1],)))
+        return y.reshape(batch + (M, y.shape[-1] // M))
+
+
+def pack_member_flux_nns(stacked_nns) -> MemberPackedFluxNNs | None:
+    """Fuse a STACKED ensemble (a leading member axis on every MLP tensor) into one chain.
+
+    ``None`` when the members are not packable. Differentiable (indexing and
+    block placement), so gradients reach the stacked tensors.
+    """
+    mlps = [m for m in stacked_nns if m is not None]
+    if not mlps:
+        return None
+    M = int(mlps[0].weights[0].shape[0])
+    packs = []
+    for m in range(M):
+        member = FluxNNs(*(None if nn is None else dataclasses.replace(
+            nn, weights=tuple(w[m] for w in nn.weights), biases=tuple(b[m] for b in nn.biases))
+            for nn in stacked_nns))
+        p = pack_flux_nns(member)
+        if p is None:
+            return None
+        packs.append(p)
+    depth = len(packs[0].matrices)
+    matrices = tuple(torch.block_diag(*[p.matrices[layer] for p in packs]) for layer in range(depth))
+    biases = tuple(torch.cat([p.biases[layer] for p in packs]) for layer in range(depth))
+    return MemberPackedFluxNNs(matrices=matrices, biases=biases, activation=packs[0].activation, n_members=M)
+
+
+@dataclasses.dataclass(frozen=True)
 class WindMixingScalings:
     u: ZeroMeanUnitVarianceScaling
     v: ZeroMeanUnitVarianceScaling
@@ -338,6 +390,9 @@ def solve_wind_mixing_nde(model: WindMixingModel, nns, bcs: BoundaryConditions, 
         packed = nns if isinstance(nns, PackedFluxNNs) else pack_flux_nns(nns)
         if packed is None:
             raise ValueError("fast_assembly needs three packable (same-depth, same-activation) MLP closures")
+        if isinstance(packed, MemberPackedFluxNNs):
+            raise ValueError("the rk4 fused assembly hard-codes the 3-flux layout; "
+                             "member-folded ensembles use the default path (or method='split')")
         rhs = _fast_full_rhs(model, packed, bcs, fold_divergence=fast_assembly == "fold")
     else:
         def rhs(x, t):
@@ -374,9 +429,9 @@ def resolve_fast_assembly(model: WindMixingModel, nns, method: str, value):
     RHS body's constraints: a 3-layer mish or relu chain, the mPP base
     closure and no Ri smoothing. Anything else resolves to ``False`` (the
     per-variable stencil path, which handles every configuration), as does
-    ``euler``/``heun``. The member-folded ensemble chain is not ported, so
-    every packed chain here has the 3-flux layout. Non-``"auto"`` values
-    pass through (explicit requests keep their errors).
+    ``euler``/``heun`` and, for ``rk4``, a member-folded ensemble chain (the
+    fused body has the 3-flux layout built in). Non-``"auto"`` values pass
+    through (explicit requests keep their errors).
     """
     if value != "auto":
         return value
@@ -384,6 +439,8 @@ def resolve_fast_assembly(model: WindMixingModel, nns, method: str, value):
     if packed is None or model.smooth_NN:
         return False
     if method == "rk4":
+        if isinstance(packed, MemberPackedFluxNNs):
+            return False
         if len(packed.matrices) != 3 or packed.activation not in ("mish", "relu"):
             return False
         if model.smooth_Ri or not model.use_mpp:
@@ -447,12 +504,14 @@ def _fast_explicit_tendencies(model: WindMixingModel, packed, Dr, bcs: BoundaryC
 def _pad_packed_chain(packed: PackedFluxNNs, Nz: int):
     """Padded-last-layer view of a :class:`PackedFluxNNs`: the final matmul
     writes straight into the block-aligned ``(..., 3 Nz)`` layout (seam lanes
-    structurally zero). Differentiable (pad/reshape). Single-member chains
-    only: the member-folded ensemble chain is not ported yet."""
+    structurally zero). Differentiable (pad/reshape). For a
+    :class:`MemberPackedFluxNNs` the padding applies per member block
+    (``3 M`` flux blocks instead of 3)."""
     n_out = Nz - 1
+    M = getattr(packed, "n_members", 1)
     A3, b3 = packed.matrices[-1], packed.biases[-1]
-    A3p = torch.nn.functional.pad(A3.reshape(A3.shape[0], 3, n_out), (0, 1)).reshape(A3.shape[0], 3 * Nz)
-    b3p = torch.nn.functional.pad(b3.reshape(3, n_out), (0, 1)).reshape(3 * Nz)
+    A3p = torch.nn.functional.pad(A3.reshape(A3.shape[0], 3 * M, n_out), (0, 1)).reshape(A3.shape[0], 3 * M * Nz)
+    b3p = torch.nn.functional.pad(b3.reshape(3 * M, n_out), (0, 1)).reshape(3 * M * Nz)
     return (*packed.matrices[:-1], A3p), (*packed.biases[:-1], b3p)
 
 
@@ -558,9 +617,17 @@ def solve_wind_mixing_split(model: WindMixingModel, nns, bcs: BoundaryConditions
         Dr = (Ru * unit(1.0, 0.0, 0.0) + Rv * unit(0.0, 1.0, 0.0) + RT * unit(0.0, 0.0, 1.0)).to(x0.dtype)
         if fast_assembly == "fold":
             mats, biases = _pad_packed_chain(packed, Nz)
-            folded = dataclasses.replace(
-                packed, matrices=(*mats[:-1], mats[-1] @ Dr), biases=(*biases[:-1], biases[-1] @ Dr)
-            )
+            M = getattr(packed, "n_members", 1)
+            A3, b3 = mats[-1], biases[-1]
+            if M == 1:
+                A3f, b3f = A3 @ Dr, b3 @ Dr
+            else:
+                # Per-member divergence: Dr acts on each (3 Nz) member block of the
+                # padded last layer (block-diag(I_M x Dr) without building it).
+                A3f = (A3.reshape(A3.shape[0], M, 3 * Nz) @ Dr).reshape(A3.shape[0], M * 3 * Nz)
+                b3f = (b3.reshape(M, 3 * Nz) @ Dr).reshape(-1)
+            # dataclasses.replace keeps the (possibly member-folded) class.
+            folded = dataclasses.replace(packed, matrices=(*mats[:-1], A3f), biases=(*biases[:-1], b3f))
             # The BC row is constant unless the top heat flux follows the diurnal cycle.
             K_const = None if model.diurnal else _split_bc_row(model, bcs, tuple(x0.shape[:-1]))
 

@@ -124,6 +124,11 @@ def mlp_skeleton(spec: dict, device=None, dtype=torch.float32) -> MLP:
     return MLP(weights=weights, biases=biases, activation=spec["activation"])
 
 
+def stacked_skeleton(skeleton, n_members: int):
+    """``skeleton`` with a leading member axis of ``n_members`` on every tensor (zeros), to restore into."""
+    return _map_leaves(skeleton, lambda _key, leaf: leaf.new_zeros((n_members, *leaf.shape)))
+
+
 def load_run(directory: str, device=None, dtype=torch.float32) -> tuple[FluxNNs, dict]:
     """``(nns, meta)`` of a wind-mixing run directory written by either package.
 
@@ -131,16 +136,16 @@ def load_run(directory: str, device=None, dtype=torch.float32) -> tuple[FluxNNs,
     member missing there loads as ``None`` (the JAX package's ``_load_nns``),
     and a directory without ``arch`` holds three flagship MLPs
     (``96 -> 50 -> 20 -> 31``, mish). ``meta["mpp"]``, where present, is the
-    mPP base the MLPs were trained over. Stacked ensembles are not ported.
+    mPP base the MLPs were trained over. ``meta["ensemble"] = K`` marks a
+    deep ensemble: every tensor carries a leading member axis of ``K``.
     """
     meta = _read_meta(directory)
-    if meta.get("ensemble"):
-        raise NotImplementedError(f"{directory} holds a {meta['ensemble']}-member ensemble; ensembles are not "
-                                  'ported yet (ROADMAP.md, queue 1, "Ensembles and flux regression")')
     flagship = {"sizes": [96, 50, 20, 31], "activation": "mish"}
     arch = meta.get("arch", dict.fromkeys(FluxNNs._fields, flagship))
     skeleton = FluxNNs(*(mlp_skeleton(arch[name], device, dtype) if name in arch else None
                          for name in FluxNNs._fields))
+    if meta.get("ensemble"):
+        skeleton = stacked_skeleton(skeleton, int(meta["ensemble"]))
     return load_checkpoint(directory, skeleton)
 
 
@@ -148,17 +153,17 @@ def load_fc_run(directory: str, device=None, dtype=torch.float32):
     """``(nn, meta)`` of a free-convection run directory (``train-fc-nde``) written by either package.
 
     ``meta["arch"]`` holds the dense layers' sizes and activation, and
-    ``conv_width`` for a :class:`ConvMLP`. Stacked ensembles are not ported.
+    ``conv_width`` for a :class:`ConvMLP`; ``meta["ensemble"] = K`` stacks
+    ``K`` members on a leading axis.
     """
     meta = _read_meta(directory)
-    if meta.get("ensemble"):
-        raise NotImplementedError(f"{directory} holds a {meta['ensemble']}-member ensemble; ensembles are not "
-                                  'ported yet (ROADMAP.md, queue 1, "Ensembles and flux regression")')
     arch, device = meta["arch"], resolve_device(device)
     skeleton = mlp_skeleton(arch, device, dtype)
     if "conv_width" in arch:
         zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)  # noqa: E731
         skeleton = ConvMLP(kernel=zeros(arch["conv_width"]), conv_bias=zeros(), mlp=skeleton)
+    if meta.get("ensemble"):
+        skeleton = stacked_skeleton(skeleton, int(meta["ensemble"]))
     return load_checkpoint(directory, skeleton)
 
 
@@ -182,7 +187,8 @@ def optax_state(optimizer: torch.optim.Optimizer, params):
     of ``optax.adam`` (``count`` = ``step``, ``mu`` = ``exp_avg``, ``nu`` =
     ``exp_avg_sq``; zeros before the first step). ``torch.optim.SGD``
     without momentum keeps no state, as ``optax.sgd`` keeps no leaves: ``()``.
-    The moment tensors are the optimizer's own, not copies.
+    The moment tensors are the optimizer's own, not copies. Stacked
+    (ensemble) parameters map the same way, their moments stacked alike.
     """
     if isinstance(optimizer, torch.optim.SGD):
         return ()

@@ -5,7 +5,9 @@ NDE: the config, the solver dispatch (per-row start times of
 multiple-shooting batches included), the six-channel loss, the
 loss-scaling pre-solve, the optimizers (``torch.optim.Adam`` / ``SGD``,
 whose updates equal ``optax.adam`` / ``optax.sgd`` for the same
-hyperparameters), the train loop, the curriculum
+hyperparameters, and ``torch.optim.LBFGS`` with a strong-Wolfe line search
+where the JAX package runs ``optax.lbfgs`` with its zoom line search: two
+algorithms that reach the same minimum by other iterates), the train loop, the curriculum
 (:class:`CurriculumStage`, :func:`train_wind_mixing_nde`) and resuming
 from a saved train state, and the free-convection trainer
 (:func:`train_free_convection_nde`). The JAX package jits one XLA program
@@ -93,21 +95,61 @@ def nn_parameters(nns) -> list:
     return _leaves(nns)
 
 
+# optax.lbfgs keeps the last 10 curvature pairs. torch's LBFGS gives its line
+# search max_eval minus one evaluations, and max_eval defaults to 5/4 of
+# max_iter: with one iteration per step() that is none, so the first trial
+# step is always taken. 1 + 25 restores the search's own default of 25.
+LBFGS_MEMORY, LBFGS_MAX_EVAL = 10, 26
+
+
 def _make_optimizer(config: NDETrainConfig, params, lr=None) -> torch.optim.Optimizer:
     """The configured optimizer over the tensors of ``params`` (made trainable here).
 
-    ``adam`` uses optax's defaults (``b1=0.9, b2=0.999, eps=1e-8``), for
-    which ``torch.optim.Adam``'s update is optax's.
+    ``params`` is a closure tree or one tensor. ``adam`` uses optax's
+    defaults (``b1=0.9, b2=0.999, eps=1e-8``), for which
+    ``torch.optim.Adam``'s update is optax's. ``lbfgs`` ignores the learning
+    rate, as ``optax.lbfgs()`` does: its strong-Wolfe line search sets the
+    step, one outer iteration per ``step(closure)`` (:func:`optimizer_step`),
+    with optax's memory of 10 pairs.
     """
     lr = config.learning_rate if lr is None else lr
-    leaves = [p.requires_grad_(True) for p in nn_parameters(params)]
+    leaves = [params] if isinstance(params, torch.Tensor) else nn_parameters(params)
+    leaves = [p.requires_grad_(True) for p in leaves]
     if config.optimizer == "adam":
         return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     if config.optimizer == "sgd":
         return torch.optim.SGD(leaves, lr=lr)
     if config.optimizer == "lbfgs":
-        raise NotImplementedError('the lbfgs optimizer is not ported yet (ROADMAP.md, queue 1, "Calibration")')
+        return torch.optim.LBFGS(leaves, lr=1.0, max_iter=1, max_eval=LBFGS_MAX_EVAL, history_size=LBFGS_MEMORY,
+                                 line_search_fn="strong_wolfe")
     raise ValueError(f"unknown optimizer {config.optimizer!r}")
+
+
+def optimizer_step(optimizer: torch.optim.Optimizer, loss_fn, params):
+    """One update of ``params``; returns ``(total, aux)`` of ``loss_fn(params)`` before it.
+
+    Adam and SGD take one gradient; L-BFGS re-evaluates ``loss_fn`` in its
+    line search through a closure, and the first evaluation (at the
+    pre-update parameters) is the one returned.
+    """
+    if isinstance(optimizer, torch.optim.LBFGS):
+        first = []
+
+        def closure():
+            optimizer.zero_grad(set_to_none=True)
+            total, aux = loss_fn(params)
+            total.backward()
+            if not first:
+                first.append((total.detach(), aux))
+            return total
+
+        optimizer.step(closure)
+        return first[0]
+    optimizer.zero_grad(set_to_none=True)
+    total, aux = loss_fn(params)
+    total.backward()
+    optimizer.step()
+    return total.detach(), aux
 
 
 def _require_uniform(t, where: str):
@@ -209,7 +251,8 @@ def _train_loop(loss_fn, params, optimizer: torch.optim.Optimizer, maxiters: int
 
     ``opt_state`` (optax layout, :func:`~..train.checkpoint.optax_state`)
     is loaded into ``optimizer`` first: the moments and step count carry
-    over from an earlier stage or a saved run. ``project(params)``
+    over from an earlier stage or a saved run. L-BFGS has no optax layout
+    here: it starts with no curvature pairs and returns ``opt_state=None``. ``project(params)``
     (optional) re-applies a parameter constraint in place, without
     autograd, after every optimizer update. Returns ``(params, history,
     opt_state)``; ``history`` holds each iteration's channels as floats,
@@ -220,18 +263,16 @@ def _train_loop(loss_fn, params, optimizer: torch.optim.Optimizer, maxiters: int
         load_optax_state(optimizer, params, opt_state)
     pending = []
     for i in range(maxiters):
-        optimizer.zero_grad(set_to_none=True)
-        total, channels = loss_fn(params)
-        total.backward()
-        optimizer.step()
+        total, channels = optimizer_step(optimizer, loss_fn, params)
         if project is not None:
             with torch.no_grad():
                 project(params)
         channels = LossChannels(**{f.name: getattr(channels, f.name).detach() for f in dataclasses.fields(channels)})
         if callback is not None:
-            callback(i, float(total.detach()), channels, params)
+            callback(i, float(total), channels, params)
         pending.append(channels)
-    return params, [ch.as_floats() for ch in pending], optax_state(optimizer, params)
+    state = None if isinstance(optimizer, torch.optim.LBFGS) else optax_state(optimizer, params)
+    return params, [ch.as_floats() for ch in pending], state
 
 
 def resume_train_state(checkpoint_dir: str, nns, optimizer: str = "adam"):
@@ -241,8 +282,13 @@ def resume_train_state(checkpoint_dir: str, nns, optimizer: str = "adam"):
     extracted file (``wind_mixing/train_NDE_args.jl:140-146``). The JAX
     package builds the optimizer-state skeleton from an optax optimizer's
     ``init``; here ``optimizer`` names it (``"adam"`` or ``"sgd"``). Leaves
-    take the dtype and device of ``nns``.
+    take the dtype and device of ``nns``. L-BFGS has no optax layout here:
+    its run restores the params alone and starts with no curvature pairs
+    (``opt_state=None``), as each curriculum stage does.
     """
+    if optimizer == "lbfgs":
+        state, _ = load_checkpoint(checkpoint_dir, {"params": nns})
+        return state["params"], None
     skeleton = {"params": nns, "opt_state": optax_state_skeleton(optimizer, nns)}
     state, _ = load_checkpoint(checkpoint_dir, skeleton)
     return state["params"], state["opt_state"]

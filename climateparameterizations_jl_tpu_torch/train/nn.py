@@ -7,8 +7,8 @@ adam with optax's defaults (``torch.optim.Adam(betas=(0.9, 0.999),
 eps=1e-8)``); optional spatial causality, soft (a penalty) or hard (the
 acausal weights re-zeroed after every update). The JAX package scans the
 full-batch epochs in one dispatch; here they run as a loop, with the same
-iterates. The stacked trainer ``train_flux_nn_ensemble`` is not ported
-(``ROADMAP.md``, queue 1, "Ensembles and flux regression").
+iterates. :func:`train_flux_nn_ensemble` trains a stack of same-shape
+closures (deep-ensemble members, or members x fluxes) under one adam.
 """
 
 from __future__ import annotations
@@ -100,3 +100,47 @@ def train_flux_nn(nn, x, y, learning_rate: float = 1e-3, epochs: int = 200, batc
             callback(epoch, float(loss), nn)
     history = torch.stack(history).tolist() if batch_size is None and history else [float(v) for v in history]
     return _rebuild(nn, [p.detach() for p in _leaves(nn)]), history
+
+
+def train_flux_nn_ensemble(stacked_nn, x, ys, learning_rate: float = 1e-3, epochs: int = 200,
+                           gradient_scaling: float = 0.0, dz_hat: float | None = None, causality: str = "none",
+                           causality_weight: float = 1.0):
+    """Train a STACK of same-shape closures (a leading member axis on every tensor) on shared inputs.
+
+    ``ys`` carries the targets with a matching leading axis; ``x`` is shared.
+    Every epoch is one full-batch step of one adam over the stacked tensors
+    on the SUM of the member losses: adam is elementwise, so each member
+    trains exactly as its solo :func:`train_flux_nn` run. ``causality`` as
+    there (``"hard"`` masks each member first and after every update).
+    ``stacked_nn`` is not modified. Returns ``(stacked_nn, history)`` with
+    history ``(K, epochs)`` floats.
+    """
+    from climateparameterizations_jl_tpu_torch.train.deep_ensemble import ensemble_size, unstack_members
+
+    if causality not in CAUSALITY_MODES:
+        raise ValueError(f"unknown causality mode {causality!r} (expected 'none', 'soft' or 'hard')")
+    soft_w = causality_weight if causality == "soft" else 0.0
+    hard = causality == "hard"
+    ys = torch.as_tensor(ys)
+    n = ensemble_size(stacked_nn)
+    stacked_nn = _rebuild(stacked_nn, [p.detach().clone().requires_grad_(True) for p in _leaves(stacked_nn)])
+
+    def mask_all():
+        for nn in unstack_members(stacked_nn):
+            apply_spatial_causality_mask_(nn)
+
+    if hard:
+        mask_all()
+    optimizer = torch.optim.Adam(_leaves(stacked_nn), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    history = []
+    for _ in range(epochs):
+        optimizer.zero_grad(set_to_none=True)
+        losses = torch.stack([flux_nn_loss(nn, x, ys[k], gradient_scaling, dz_hat, soft_w)
+                              for k, nn in enumerate(unstack_members(stacked_nn))])
+        torch.sum(losses).backward()
+        optimizer.step()
+        if hard:
+            mask_all()
+        history.append(losses.detach())
+    history = torch.stack(history, dim=1).tolist() if history else [[] for _ in range(n)]
+    return _rebuild(stacked_nn, [p.detach() for p in _leaves(stacked_nn)]), history

@@ -1,4 +1,4 @@
-"""The port's CLI on the CPU: ``catalog``, ``train-nde``, ``extract`` and ``--config``.
+"""The port's CLI on the CPU: ``catalog``, ``train-nde`` (deep ensembles too), ``extract`` and ``--config``.
 
 The counterparts of ``tests/test_cli.py`` at its ``TINY`` sizes, with
 ``--device cpu``. Run directories are read across the packages: the port's
@@ -164,9 +164,14 @@ def test_run_loader_reads_both_formats_and_refuses_ensembles(tmp_path):
     """One loader (``train/checkpoint.py::load_run``) serves the CLI and
     ``load_flux_nns``: a member missing from ``meta["arch"]`` loads as None
     (as JAX's ``_load_nns``), a directory without ``arch`` holds flagship
-    MLPs, and a stacked ensemble is refused by its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="Ensembles and flux regression"):
-        tcli._load_nns(str(REPO / "runs" / "wm_flagship_ens4"), "cpu")
+    MLPs, and a stacked ensemble (``meta["ensemble"] = 4``) loads with its
+    leading member axis, equal to JAX's ``_load_nns``."""
+    ens, ens_meta = tcli._load_nns(str(REPO / "runs" / "wm_flagship_ens4"), "cpu")
+    jens, jens_meta = jcli._load_nns(str(REPO / "runs" / "wm_flagship_ens4"))
+    assert ens_meta == jens_meta and ens_meta["ensemble"] == 4
+    assert ens.uw.weights[0].shape == (4, 50, 96)
+    for p, q in zip(tnde.nn_parameters(ens), jax.tree.leaves(jens)):
+        np.testing.assert_array_equal(p.numpy(), np.asarray(q))
     nns, meta = tck.load_run(SHOOT16, "cpu")
     assert meta == _meta(SHOOT16)
     tck.save_checkpoint(str(tmp_path / "bare"), nns, {"command": "x"})
@@ -247,11 +252,48 @@ def test_resume_from_and_trace(tmp_path, capsys):
 
 
 def test_unported_options_name_their_roadmap_items(tmp_path):
-    with pytest.raises(SystemExit, match="Ensembles and flux regression"):
-        _main(["train-nde", "--sims", "strong_wind", *TINY, "--ensemble", "2", "--output", str(tmp_path / "e")])
-    with pytest.raises(NotImplementedError, match="lbfgs.*Calibration"):
-        _main(["train-nde", "--sims", "strong_wind", *TINY, "--optimizer", "lbfgs", "--maxiters", "1",
-               "--curriculum", "3", "--output", str(tmp_path / "l")])
+    """``--ensemble`` and ``--optimizer lbfgs`` run now; together they are refused, as in the JAX command
+    (lbfgs's shared line search couples the members). An lbfgs run resumes from its params."""
+    with pytest.raises(SystemExit, match="elementwise optimizer"):
+        _main(["train-nde", "--sims", "strong_wind", *TINY, "--ensemble", "2", "--optimizer", "lbfgs",
+               "--output", str(tmp_path / "e")])
+    out = str(tmp_path / "l")
+    assert _main(["train-nde", "--sims", "strong_wind", *TINY, "--optimizer", "lbfgs", "--maxiters", "2",
+                  "--curriculum", "3", "--output", out]) == 0
+    assert len(_history(out)) == 2 and all(math.isfinite(h["loss"]) for h in _history(out))
+    with np.load(os.path.join(out, "train_state", "state.npz")) as data:
+        assert all(k.startswith("['params']") for k in data.files)  # L-BFGS has no optax layout here
+    # Resuming restores the params alone: strong Wolfe's sufficient decrease puts the first loss below the last one.
+    back = str(tmp_path / "r")
+    assert _main(["train-nde", "--sims", "strong_wind", *TINY, "--optimizer", "lbfgs", "--maxiters", "1",
+                  "--curriculum", "3", "--resume-from", out, "--output", back]) == 0
+    assert _history(back)[0]["loss"] < _history(out)[-1]["loss"]
     with pytest.raises(SystemExit):
         _main(["train-nde", "--sims", "strong_wind", *TINY, "--fast-assembly", "--smooth-nn",
                "--output", str(tmp_path / "f")])
+
+
+def test_train_nde_ensemble_command(tmp_path, capsys):
+    """``train-nde --ensemble 2`` writes the JAX command's meta and leaves; each package reads the other's run."""
+    argv = ["train-nde", "--sims", "strong_wind", *TINY, "--curriculum", "4,7", "--n-substeps", "2",
+            "--maxiters", "2", "--ensemble", "2"]
+    tout, jout = str(tmp_path / "t"), str(tmp_path / "j")
+    assert tcli.main(["--device", "cpu", *argv, "--output", tout]) == 0
+    assert jcli.main([*argv, "--output", jout]) == 0
+    capsys.readouterr()
+    assert _meta(tout) == _meta(jout) and _meta(tout)["ensemble"] == 2
+    with np.load(os.path.join(tout, "state.npz")) as t, np.load(os.path.join(jout, "state.npz")) as j:
+        assert sorted(t.files) == sorted(j.files) and all(t[k].shape == j[k].shape for k in j.files)
+    with np.load(os.path.join(tout, "train_state", "state.npz")) as t:
+        assert int(t["['opt_state']/[0]/.count"]) == 4
+    jnns, _ = jcli._load_nns(tout)
+    tnns, _ = tcli._load_nns(jout, "cpu")
+    assert tnns.uw.weights[0].shape[0] == 2 and jax.tree.leaves(jnns)[0].shape[0] == 2
+    hist = _history(tout)
+    assert len(hist) == 4 and all(h["loss"] == pytest.approx(sum(h[c] for c in CHANNELS)) for h in hist)
+    # Warm start from an ensemble run: the sizes must agree.
+    more = ["--device", "cpu", *argv[:-2], "--maxiters", "1", "--output", str(tmp_path / "w")]
+    assert tcli.main([*more, "--ensemble", "2", "--init-from", tout, "--resume-from", tout]) == 0
+    with pytest.raises(SystemExit, match="does not match --ensemble 3"):
+        tcli.main([*more, "--ensemble", "3", "--init-from", tout])
+    capsys.readouterr()

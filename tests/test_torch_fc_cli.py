@@ -151,8 +151,12 @@ def test_train_fc_nde_defaults_and_refusals(tmp_path):
     assert os.path.exists(os.path.join(out, "state.npz")) and len(_history(out)) == 3
     nn, meta = jcli._load_fc_nn(out)
     assert meta["arch"] == {"sizes": [16, 64, 64, 15], "activation": "relu"} and meta["sim_ids"] == [1]
-    with pytest.raises(NotImplementedError, match="Ensembles and flux regression"):
-        tcli.main(["--device", "cpu", "train-fc-nde", *TINY, "--ensemble", "2", "--output", out])
+    ens = str(tmp_path / "fc_ens")
+    assert tcli.main(["--device", "cpu", "train-fc-nde", *TINY, "--maxiters", "2", "--n-train-steps", "6",
+                      "--ensemble", "2", "--output", ens]) == 0
+    stacked, ens_meta = tcli._load_fc_nn(ens, "cpu")
+    assert ens_meta["ensemble"] == 2 and ens_meta["arch"] == meta["arch"]
+    assert stacked.weights[0].shape == (2, 64, 16) and len(_history(ens)) == 2
     with pytest.raises(NotImplementedError, match="3-D LES"):
         tcli.main(["--device", "cpu", "train-fc-nde", *TINY, "--source", "les3d", "--output", out])
 
@@ -201,3 +205,24 @@ def test_train_nn_checkpoint(nn_runs):
     _, tout, _, _ = nn_runs
     assert os.path.exists(os.path.join(tout, "state.npz"))
     assert set(_meta(tout)["arch"]) == {"uw", "vw", "wT"} and _meta(tout)["command"] == "train-nn"
+
+
+def test_train_fc_nde_ensemble_command(tmp_path, capsys):
+    """``train-fc-nde --ensemble 2`` with pre-training and hard causality: the JAX command's meta; both load it."""
+    argv = ["train-fc-nde", "--sim-ids", "1,4", *TINY, "--pretrain-epochs", "2", "--spatial-causality", "hard",
+            "--curriculum", "6,13:2", "--maxiters", "2", "--n-substeps", "2", "--ensemble", "2"]
+    tout, jout = str(tmp_path / "t"), str(tmp_path / "j")
+    assert tcli.main(["--device", "cpu", *argv, "--output", tout]) == 0
+    assert jcli.main([*argv, "--output", jout]) == 0
+    printed = capsys.readouterr().out
+    assert "[pretrain m1]" in printed
+    tmeta, jmeta = _meta(tout), _meta(jout)
+    assert sorted(tmeta) == sorted(jmeta) and tmeta["arch"] == jmeta["arch"] and tmeta["ensemble"] == 2
+    jnn_t, _ = jcli._load_fc_nn(tout)
+    tnn_j, _ = tcli._load_fc_nn(jout, "cpu")
+    tnn_t, _ = tcli._load_fc_nn(tout, "cpu")
+    assert jax.tree.leaves(jnn_t)[0].shape[0] == 2 and tnn_j.weights[0].shape[0] == 2
+    for W in tnn_t.weights:
+        assert not bool(W[:, tmlp.spatial_causality_mask(W.shape[1:])].any())
+    hist = _history(tout)
+    assert len(hist) == 4 and all(np.isfinite(h["loss"]) and h["loss"] == pytest.approx(h["T"]) for h in hist)

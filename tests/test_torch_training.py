@@ -166,8 +166,9 @@ def test_resolve_tridiag_backend():
 def test_optimizers():
     _, (_, tn, _) = _problem()
     assert isinstance(tnde._make_optimizer(tnde.NDETrainConfig(optimizer="sgd"), tn), torch.optim.SGD)
-    with pytest.raises(NotImplementedError, match="lbfgs"):
-        tnde._make_optimizer(tnde.NDETrainConfig(optimizer="lbfgs"), tn)
+    lbfgs = tnde._make_optimizer(tnde.NDETrainConfig(optimizer="lbfgs"), tn)
+    assert isinstance(lbfgs, torch.optim.LBFGS)
+    assert lbfgs.defaults["line_search_fn"] == "strong_wolfe" and lbfgs.defaults["max_iter"] == 1
     with pytest.raises(ValueError, match="unknown optimizer"):
         tnde._make_optimizer(tnde.NDETrainConfig(optimizer="rmsprop"), tn)
 
