@@ -44,7 +44,18 @@ mish), Nz = 32:
   ensemble's uncertainty bands on the three held-out sims with a band
   calibration; ``optimise-mpp`` by EKI (64 parameter sets on the solve's
   batch axis), adam and lbfgs; ``train-fc-nde --ensemble 4`` at phase 24's
-  size and ``fc_ensemble_uq``.
+  size and ``fc_ensemble_uq``;
+- the physics baselines and the evaluation harnesses (phases 30-34):
+  ``bench_kpp`` and ``bench_tke`` (1,024 columns x 288 steps, one stacked
+  Thomas launch per step on (3, 1024, 32) and (4, 1024, 32), trajectories
+  equal to the scan-backed ones); the ``evaluate`` command on the three
+  held-out sims (the flagship closure against mPP alone and KPP) and
+  ``evaluate-fc`` on ids 8 and 9 (against convective adjustment, KPP and
+  TKE), each with its launches counted and its baselines equal on kernel and
+  scan; ``calibrate-kpp`` on the 18 flagship sims (random, gradient and EKI,
+  64 parameter sets per solve on (3, 64, 18, 32), the population equal on
+  kernel and scan and to its single solves); and the blocked f64 GP fit at
+  n = 16,384 against the unblocked one (no hand-written kernel runs there).
 
 It builds the five kernels from ``csrc/`` (one ``nvcc`` each, side by
 side), holds each against its plain PyTorch version, times it, and checks
@@ -108,7 +119,9 @@ CHOLESKY_EARLIER_MS = {"jittered_se_gram": 2.2876, "dense_spd": 1.203}
 # the backward pass, and amplified where the mPP tanh switch is steep.
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_RTOL = 1e-3  # relative to the gradient's 2-norm
-TRAIN_TIMED_STEPS, SCAN_TIMED_STEPS = 3, 1
+# Two timed steps (three, and a separately timed scan-backed step, before the evaluation phases joined: a depth cut
+# that keeps the whole run inside its limit on a slower host).
+TRAIN_TIMED_STEPS = 2
 
 # Gram kernel vs gram_plain, the JAX test's tolerance (tests/test_gp.py::
 # TestPallasGram): two f32 Gram-trick evaluations that sum in other orders.
@@ -201,11 +214,13 @@ NDE_FRACTIONS = ["--auto-balance", "--fraction-T", "0.8", "--fraction-dTdz", "0.
 # roundings (phase 7 counts the differing entries), so the kernel-backed trajectory must equal the
 # scan-backed one exactly.
 FC_COLUMNS, FC_STEPS, FC_REPEATS = 1024, 1152, 5
+FC_PROFILE_STEPS = 288  # the profiled run: its op count per substep and idle share, without 1,152 substeps of tracing
 # Phase 24: train-fc-nde at full width: all nine ids, Nz = 32, 1,153 frames (8 days of 600 s saves), split
 # solver with 4 substeps per save, flux pre-training, and a curriculum whose last stage spans the window
-# (576, 2,304 and 4,608 substeps per solve), 2 iterations per stage. Then the first stage again with
-# --tridiag-backend scan: both losses must equal the kernel-backed run's, for the reason above.
-FC_IDS, FC_N_SAVE, FC_CURRICULUM, FC_ITERS = "1,2,3,4,5,6,7,8,9", 1152, "145:8,577:8,1153:16", 2
+# (576 and 4,608 substeps per solve; a 2,304-substep middle stage of 577:8 ran before the evaluation phases joined:
+# a depth cut), 2 iterations per stage. Then the first stage again with --tridiag-backend scan: both
+# losses must equal the kernel-backed run's, for the reason above.
+FC_IDS, FC_N_SAVE, FC_CURRICULUM, FC_ITERS = "1,2,3,4,5,6,7,8,9", 1152, "145:8,1153:16", 2
 FC_ARGS = ["--nz", str(NZ), "--n-save", str(FC_N_SAVE), "--dt-save", "600", "--method", "split", "--n-substeps", "4",
            "--pretrain-epochs", "20", "--lr", "1e-3", "--maxiters", str(FC_ITERS)]
 
@@ -214,7 +229,11 @@ FC_ARGS = ["--nz", str(NZ), "--n-save", str(FC_N_SAVE), "--dt-save", "600", "--m
 # default base). Folded against looped step: the JAX test's limits for the same comparison
 # (tests/test_deep_ensemble.py::TestMemberFold), the gradient relative to its 2-norm.
 ENS_RUN = REPO / "runs" / "wm_flagship_ens4"
-ENS_K, ENS_TIMED_STEPS = 4, 2
+ENS_K, ENS_TIMED_STEPS = 4, 1  # one timed folded step (two before the KPP/TKE phases joined; depth cut, not width)
+# The member loop, and the folded-vs-loop and kernel-vs-scan comparisons, over the first 32 of the window's 128 saves
+# (288 split substeps; the whole window before the KPP/TKE phases joined, then 64 saves: depth cuts, the widths are
+# unchanged).
+ENS_LOOP_SAVES = 32
 ENS_LOSS_RTOL, ENS_GRAD_RTOL = 1e-5, 5e-4
 ENS_CURRICULUM = "200:20,1153:9"  # phase 26: two stages, one iteration each
 # Phase 27: the held-out sims of studies/flagship_training.py:58, every 9th of 1,153 frames, 9 split substeps per
@@ -225,10 +244,46 @@ UQ_STRIDE = 9
 # iterations) on the 18 TRAIN_FILES; the gradient runs cut to 5 iterations.
 MPP_ITERS, MPP_N_SAVE, MPP_EKI_J, MPP_EKI_ITERS, MPP_SUBSTEPS = 5, 96, 64, 8, 4
 # Phase 29: train-fc-nde --ensemble 4 at phase 24's size, its first stage alone, then fc_ensemble_uq on id 1 over
-# the whole window (every 8th frame, 4 substeps per 600 s save).
-FC_ENS_STAGE, FC_UQ_STRIDE = "145:8", 8
-# Free-convection suites generated once and shared by phases 24 and 29.
+# the first half of the window, 4 days (every 8th of 577 frames, 4 substeps per 600 s save; the whole window before
+# the KPP/TKE phases joined: a depth cut, the widths are unchanged).
+FC_ENS_STAGE, FC_UQ_STRIDE, FC_UQ_FRAMES = "145:8", 8, 577
+# Free-convection suites generated once and shared by phases 24 and 29; wind-mixing suites shared by phases 27, 28,
+# 31 and 33 (keyed as cached_suites keys them).
 FC_SUITES: dict = {}
+WM_SUITES: dict = {}
+# Phase 30: bench_kpp / bench_tke at the JAX package's defaults (benchmarks.py:60 and :89 there): 1,024 linearly
+# stratified columns x 288 steps of 600 s (a 2-day run), Nz = 32; one stacked Thomas launch per step on (3, 1024, 32)
+# and (4, 1024, 32). The kernel runs the scan's sweep in its roundings, so the kernel-backed trajectory must equal
+# the scan-backed one exactly.
+COL_COLUMNS, COL_STEPS, COL_REPEATS = 1024, 288, 3
+COL_PROFILE_STEPS = 32  # the profiled run: its op count per step and idle share, without 288 steps of tracing
+# Phase 31: evaluate of runs/wm_flagship_fold on the held-out sims at the layout of runs/wm_flagship_fold_eval
+# (written by the JAX command): every 9th of 1,153 frames (129 saves), 9 split substeps per save, KPP at its native
+# 600 s step (9 per save).
+EVAL_STRIDE = 9
+FLAGSHIP_EVAL = REPO / "runs" / "wm_flagship_fold_eval"
+# Phase 32: evaluate-fc of runs/fc_flagship on its held-out ids 8 and 9 at the layout of runs/fc_flagship_eval: every
+# 16th of 1,152 saves (72 frames), the command's 8 split substeps per save, KPP and TKE at 600 s (16 per save).
+FC_RUN, FC_EVAL = REPO / "runs" / "fc_flagship", REPO / "runs" / "fc_flagship_eval"
+FC_EVAL_IDS, FC_EVAL_STRIDE, FC_EVAL_SUBSTEPS = (8, 9), 16, 8
+# runs/fc_flagship and runs/fc_flagship_eval were made by the JAX commands with --source les3d (the 3-D LES;
+# studies/chip_session_fc.sh), which the port does not have: its evaluate-fc runs the 1-D stand-ins of the same ids.
+# Phase 32 therefore also runs the port's profile on the stored run's own truth (its sim<i>.npz frames, with each
+# id's constants) and holds each member's mean loss to the stored run's within FC_STORED_RTOL. The limit is coarse:
+# the stored run was made on another device, and the check asks whether the port comes near it on its own truth,
+# where on the stand-ins the two lie up to 47x apart. tests/test_torch_fc_cli.py holds the two commands to each
+# other on that truth in float64.
+FC_STORED_RTOL = 0.15
+# Phase 33: calibrate-kpp with the JAX command's defaults on the 18 TRAIN_FILES: 96 saves generated, the first 32
+# fitted (31 KPP steps of 600 s per solve); 64 plugin draws, 20 line-search or adam iterations; EKI 64 members x 8.
+KPP_N_SAVE, KPP_TRAIN_STEPS, KPP_PLUGIN, KPP_REFINE, KPP_EKI_J, KPP_EKI_ITERS = 96, 32, 64, 20, 64, 8
+KPP_LADDER = 12  # random_line_search's n_steps
+# The population's loss is a mean over (P, n) rows, the single loss over one (n,) vector: on the card the two
+# reductions may round differently, so the adopted loss is held to the plugin's best within a few f32 ulps.
+KPP_LOSS_SLACK = 1e-6
+# Phase 34: the blocked f64 GP fit at the size that motivates the JAX module (ops/blocked_gp.py there), squared
+# exponential at gamma = sqrt(D) (K is not the identity), 33 random targets, against the unblocked fit.
+BGP_N, BGP_D, BGP_BLOCK, BGP_RTOL = 16384, 96, 4096, 1e-8
 
 
 def log(msg: str) -> None:
@@ -1011,7 +1066,8 @@ def train_nde_phase(dev, setup, k0_step: dict, smi: str) -> dict:
         sims = ",".join(benchmarks.TRAIN_FILES)
         full = ["train-nde", "--sims", sims, "--nz", str(NZ), "--n-save", str(NDE_N_SAVE), "--dt-save", "600",
                 "--n-substeps", "1", "--method", "split", "--lr", NDE_LR, "--maxiters", "1", *NDE_FRACTIONS]
-        cli._load_suite = timed("suite", cli._load_suite)
+        # Runs B and C (scan) take the suites runs A and C (kernel) generated.
+        cli._load_suite = timed("suite", cached_suites(cli, {}))
         nde._train_loop = timed("train_loop", nde._train_loop)
         nde.determine_loss_scalings = timed("presolve", nde.determine_loss_scalings)
         try:
@@ -1151,23 +1207,15 @@ def fc_forward_phase(dev, smi: str) -> dict:
                 and bool((T_end == T_end[:1]).all())):
             raise RuntimeError("the kernel-backed free-convection run is not the scan-backed one, or not physical")
 
-        prof = benchmarks.profile_fc_forward(FC_COLUMNS, NZ, FC_STEPS, device=dev)
+        prof = benchmarks.profile_fc_forward(FC_COLUMNS, NZ, FC_PROFILE_STEPS, device=dev)
         log(f"profiled run (torch.profiler): wall {prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.2f} ms, "
             f"idle share {prof['device_idle_share']:.3f}, {prof['device_ops']} device ops "
             f"({prof['device_ops_per_substep']:.1f} per substep)")
         for key, n, ms in prof["top"]:
             log(f"  {key}: {n} x, {ms:.3f} ms")
 
-        shapes = {}
-        for n_sys in (FC_COLUMNS, len(FC_IDS.split(","))):
-            r = benchmarks.bench_tridiagonal(n_sys, NZ, device=dev)
-            bound = r["bytes"] / PEAK_BYTES_PER_S * 1e3
-            shapes[f"{n_sys}x{NZ}"] = {"ms": r["cuda_ms"], "wall_ms": r["cuda_wall_ms"], "plain_ms": r["scan_ms"],
-                                       "library_ms": r["library_ms"], "bound_ms": bound, "bound_by": "bytes",
-                                       "max_abs_err_vs_scan": r["max_abs_err_vs_scan"]}
-            log(f"thomas at {n_sys} x {NZ}: device {r['cuda_ms'] * 1e3:.2f} us (back to back {r['cuda_wall_ms'] * 1e3:.2f}); "
-                f"scan {r['scan_ms'] * 1e3:.1f} us; torch.linalg.solve {r['library_ms'] * 1e3:.1f} us; byte bound "
-                f"{r['bytes']} B / 3.35 TB/s = {bound * 1e3:.4f} us; max abs vs scan {r['max_abs_err_vs_scan']:.3e}")
+        shapes = {f"{n_sys}x{NZ}": thomas_bench_record(benchmarks, dev, n_sys)
+                  for n_sys in (FC_COLUMNS, len(FC_IDS.split(",")))}
         log(f"card: {smi}")
     return {"ms": stats["ms"], "ms_median": stats["ms_median"],
             "column_timesteps_per_sec": stats["column_timesteps_per_sec"], "launches": launches["thomas"],
@@ -1204,16 +1252,8 @@ def train_fc_nde_phase(dev, smi: str) -> dict:
                f"curriculum {FC_CURRICULUM}, {FC_ITERS} iterations per stage"), tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         originals = (fcd.load_free_convection_suite, nde._train_loop)
-        suites, timings = FC_SUITES, []
-
-        def cached_suite(*args, **kw):
-            # Both runs train on one suite: generated once on the CPU, then reused.
-            key = repr((args, sorted(kw.items())))
-            if key not in suites:
-                t = time.perf_counter()
-                suites[key] = originals[0](*args, **kw)
-                timings.append({"kind": "suite", "s": time.perf_counter() - t})
-            return suites[key]
+        timings = []
+        cached_suite = fc_suites(originals[0], timings)  # both runs train on one suite, generated once on the CPU
 
         def timed_loop(*args, **kw):
             torch.cuda.synchronize()
@@ -1290,14 +1330,25 @@ def thomas_shapes(tri):
 
 
 def thomas_bench_record(benchmarks, dev, n_sys: int) -> dict:
-    """``bench_tridiagonal`` at ``n_sys`` x NZ, with its byte bound, logged and returned."""
+    """``bench_tridiagonal`` at ``n_sys`` x NZ, with its byte bound, logged and returned.
+
+    The kernel's device time is the mean over the launches the profiler
+    recorded: late in this long process it has recorded few or none of them
+    (then "not measured"), so phase 10 measures every shape of the port's
+    paths first.
+    """
     r = benchmarks.bench_tridiagonal(n_sys, NZ, device=dev)
     bound = r["bytes"] / PEAK_BYTES_PER_S * 1e3
-    log(f"thomas at {n_sys} x {NZ}: device {r['cuda_ms'] * 1e3:.2f} us (back to back {r['cuda_wall_ms'] * 1e3:.2f}); "
-        f"scan {r['scan_ms'] * 1e3:.1f} us; torch.linalg.solve {r['library_ms'] * 1e3:.1f} us; byte bound "
-        f"{r['bytes']} B / 3.35 TB/s = {bound * 1e3:.4f} us; max abs vs scan {r['max_abs_err_vs_scan']:.3e}")
-    return {"ms": r["cuda_ms"], "wall_ms": r["cuda_wall_ms"], "plain_ms": r["scan_ms"], "library_ms": r["library_ms"],
-            "bound_ms": bound, "bound_by": "bytes", "max_abs_err_vs_scan": r["max_abs_err_vs_scan"]}
+    kernel = ("not measured (the profiler recorded none of its launches)" if r["cuda_ms"] is None else
+              f"{r['cuda_ms'] * 1e3:.2f} us per launch ({r['cuda_recorded']} of {r['repeats']} launches recorded)")
+    log(f"thomas at {n_sys} x {NZ}: device {kernel} (in a CUDA graph of {r['repeats']} launches "
+        f"{r['cuda_graph_ms'] * 1e3:.2f} us each; back to back {r['cuda_wall_ms'] * 1e3:.2f} us); scan "
+        f"{r['scan_ms'] * 1e3:.1f} us; torch.linalg.solve {r['library_ms'] * 1e3:.1f} us; byte bound {r['bytes']} B / "
+        f"3.35 TB/s = {bound * 1e3:.4f} us; max abs vs scan {r['max_abs_err_vs_scan']:.3e}")
+    return {"ms": r["cuda_ms"], "recorded": r["cuda_recorded"], "graph_ms": r["cuda_graph_ms"],
+            "wall_ms": r["cuda_wall_ms"], "plain_ms": r["scan_ms"],
+            "library_ms": r["library_ms"], "bound_ms": bound, "bound_by": "bytes",
+            "max_abs_err_vs_scan": r["max_abs_err_vs_scan"]}
 
 
 def ensemble_step_phase(dev, setup, k0_step: dict, smi: str) -> dict:
@@ -1315,6 +1366,9 @@ def ensemble_step_phase(dev, setup, k0_step: dict, smi: str) -> dict:
                f"flagship step, folded ({ENS_TIMED_STEPS} timed steps) and one solve per member"):
         if meta.get("ensemble") != ENS_K or "mpp" in meta:
             raise RuntimeError(f"{ENS_RUN.name}: meta {meta.get('ensemble')} members, mpp {meta.get('mpp')}")
+        batch = setup["batch"]
+        part = dict(setup, batch=dataclasses.replace(batch, targets=batch.targets[:, : ENS_LOOP_SAVES + 1],
+                                                     t=batch.t[: ENS_LOOP_SAVES + 1]))
         recording, shapes = thomas_shapes(tri)
         original = tri._thomas_cuda
         tri._thomas_cuda = recording
@@ -1326,7 +1380,7 @@ def ensemble_step_phase(dev, setup, k0_step: dict, smi: str) -> dict:
             fold_shapes = sorted(set(shapes))
             shapes.clear()
             _cuda.reset_launch_counts()
-            loop = benchmarks.ensemble_loss_and_grad(setup, ens, member_fold=False)
+            loop = benchmarks.ensemble_loss_and_grad(part, ens, member_fold=False)
             loop_launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
             loop_shapes = sorted(set(shapes))
         finally:
@@ -1344,10 +1398,12 @@ def ensemble_step_phase(dev, setup, k0_step: dict, smi: str) -> dict:
         if (launches["thomas"] != expected or 3 * substeps != solo_per_step or folded["presolve_substeps"] != substeps
                 or fold_shapes != want_fold):
             raise RuntimeError(f"folded step: thomas {launches['thomas']} (expected {expected}), shapes {fold_shapes}")
-        loop_expected = ENS_K * substeps + ENS_K * 3 * substeps
-        log(f"member loop: pre-solve {loop['presolve_ms']:.1f} ms, one loss + gradient {loop['step_ms']:.1f} ms "
-            f"(no adam); launch counts {loop_launches}; expected thomas {loop_expected} = {ENS_K} x ({substeps} "
-            f"pre-solve + 3 x {substeps}), {ENS_K} x phase 9's per step; shapes {loop_shapes}")
+        loop_substeps = substeps * ENS_LOOP_SAVES // (batch.t.shape[0] - 1)
+        loop_expected = ENS_K * loop_substeps + ENS_K * 3 * loop_substeps
+        log(f"member loop over the first {ENS_LOOP_SAVES} saves ({loop_substeps} substeps): pre-solve "
+            f"{loop['presolve_ms']:.1f} ms, one loss + gradient {loop['step_ms']:.1f} ms (no adam); launch counts "
+            f"{loop_launches}; expected thomas {loop_expected} = {ENS_K} x ({loop_substeps} pre-solve + 3 x "
+            f"{loop_substeps}); shapes {loop_shapes}")
         if loop_launches["thomas"] != loop_expected or loop_shapes != [(3, len(benchmarks.TRAIN_FILES), NZ)]:
             raise RuntimeError(f"member loop: thomas {loop_launches['thomas']} (expected {loop_expected}), "
                                f"shapes {loop_shapes}")
@@ -1355,8 +1411,8 @@ def ensemble_step_phase(dev, setup, k0_step: dict, smi: str) -> dict:
         # These launches come after the counts were read. Every form on the member loop's loss scalings, as the
         # JAX test compares them: the weights must not differ by the two pre-solves' roundings.
         same = loop["scalings"]
-        fold_k = benchmarks.ensemble_loss_and_grad(setup, ens, member_fold=True, scalings=same)
-        fold_s = benchmarks.ensemble_loss_and_grad(setup, ens, member_fold=True, scalings=same, tridiag_backend="scan")
+        fold_k = benchmarks.ensemble_loss_and_grad(part, ens, member_fold=True, scalings=same)
+        fold_s = benchmarks.ensemble_loss_and_grad(part, ens, member_fold=True, scalings=same, tridiag_backend="scan")
 
         def rel(a, b):
             return abs(float(a["loss"]) - float(b["loss"])) / abs(float(b["loss"])), float(
@@ -1385,8 +1441,8 @@ def ensemble_step_phase(dev, setup, k0_step: dict, smi: str) -> dict:
     record.update(
         folded={"ms": folded["ms"], "ms_median": folded["ms_median"], "launches": launches["thomas"],
                 "expected": expected, "shapes": fold_shapes, "losses": folded["losses"]},
-        loop={"presolve_ms": loop["presolve_ms"], "step_ms": loop["step_ms"], "launches": loop_launches["thomas"],
-              "expected": loop_expected, "shapes": loop_shapes},
+        loop={"saves": ENS_LOOP_SAVES, "presolve_ms": loop["presolve_ms"], "step_ms": loop["step_ms"],
+              "launches": loop_launches["thomas"], "expected": loop_expected, "shapes": loop_shapes},
         k0_step_ms_median=k0_step["ms_median"], folded_vs_loop={"loss_rel": fl_loss, "grad_rel": fl_grad},
         kernel_vs_scan={"loss_rel": ks_loss, "grad_rel": ks_grad},
         profile={k: prof[k] for k in ("substeps", "wall_ms", "device_busy_ms", "device_idle_share",
@@ -1395,14 +1451,37 @@ def ensemble_step_phase(dev, setup, k0_step: dict, smi: str) -> dict:
 
 
 def cached_suites(cli, seed: dict):
-    """A stand-in for ``cli._load_suite`` that generates each suite once (``seed``: suites already made)."""
-    original, cache = cli._load_suite, dict(seed)
+    """A stand-in for ``cli._load_suite`` that generates each suite once (``seed``: the suites already made, a dict
+    the stand-in adds to, so phases that pass one dict share their suites)."""
+    original, cache = cli._load_suite, seed
 
     def load(names, Nz, data_dir=None, n_save=288, dt_save=600.0, Nz_les=128, device=None):
         key = (tuple(names), Nz, data_dir, n_save, dt_save, Nz_les)
         if key not in cache:
             cache[key] = original(names, Nz, data_dir, n_save, dt_save, Nz_les, device=device)
         return cache[key]
+
+    return load
+
+
+def fc_suites(original, timings: list | None = None):
+    """A stand-in for ``data.free_convection.load_free_convection_suite`` that generates each suite once.
+
+    Suites are kept in ``FC_SUITES`` under their ids and other arguments; ids
+    that a kept suite of the same arguments holds are taken from it (each
+    id's stand-in is the single-id generator's, ``load_free_convection_suite``).
+    A generation's seconds are appended to ``timings`` where given.
+    """
+    def load(ids, *args, **kw):
+        rest = repr((args, sorted(kw.items())))
+        for (have, kept_rest), suite in FC_SUITES.items():
+            if kept_rest == rest and set(ids) <= set(have):
+                return [suite[have.index(i)] for i in ids]
+        t = time.perf_counter()
+        FC_SUITES[(tuple(ids), rest)] = suite = original(ids, *args, **kw)
+        if timings is not None:
+            timings.append({"kind": "suite", "s": time.perf_counter() - t})
+        return suite
 
     return load
 
@@ -1509,6 +1588,8 @@ def ensemble_uq_phase(dev, setup, smi: str) -> dict:
         t = time.perf_counter()
         suite = cli._load_suite(list(UQ_TEST_FILES), NZ, None, NDE_N_SAVE, 600.0, device=dev)
         log(f"held-out suite generated in {time.perf_counter() - t:.2f} s")
+        for i, name in enumerate(UQ_TEST_FILES):  # phase 31 evaluates the same sims, one by one
+            WM_SUITES[((name,), NZ, None, NDE_N_SAVE, 600.0, 128)] = cli._select_sims(suite, i)
         calibration = None
         for i, name in enumerate(UQ_TEST_FILES):
             ds = cli._select_sims(suite, [i])  # a stacked suite of one
@@ -1576,7 +1657,7 @@ def optimise_mpp_phase(dev, setup, smi: str) -> dict:
             return out
 
         shape_rec, shapes = thomas_shapes(tri)
-        cli._load_suite, mc._solve, tri._thomas_cuda = cached_suites(cli, {}), recording, shape_rec
+        cli._load_suite, mc._solve, tri._thomas_cuda = cached_suites(cli, WM_SUITES), recording, shape_rec
         try:
             runs = {}
             for label, extra in (("eki", ["--calibration-method", "eki"]),
@@ -1654,12 +1735,7 @@ def train_fc_nde_ensemble_phase(dev, smi: str) -> dict:
         tmp = Path(tmp)
         originals = (fcd.load_free_convection_suite, de.train_free_convection_deep_ensemble)
         calls = []
-
-        def cached_suite(*args, **kw):
-            key = repr((args, sorted(kw.items())))
-            if key not in FC_SUITES:
-                FC_SUITES[key] = originals[0](*args, **kw)
-            return FC_SUITES[key]
+        cached_suite = fc_suites(originals[0])
 
         def recording(model, stacked_nn, T0, targets, t, config, **kw):
             calls.append((model, de.stack_members([de.member(stacked_nn, m) for m in range(ENS_K)]), T0, targets, t,
@@ -1703,7 +1779,7 @@ def train_fc_nde_ensemble_phase(dev, smi: str) -> dict:
         # Id 1 on its own, with the training scalings and its own boundary fluxes.
         suite = cli._load_fc_suite([1], NZ, None, FC_N_SAVE, 600.0, device=dev)
         model_1 = fcd.build_free_convection_model(suite, model.T_scaling, model.wT_scaling, model.base_closure)
-        tsteps = np.arange(0, FC_N_SAVE + 1, FC_UQ_STRIDE)
+        tsteps = np.arange(0, FC_UQ_FRAMES, FC_UQ_STRIDE)
         _cuda.reset_launch_counts()
         t = time.perf_counter()
         uq = fc_ensemble_uq(model_1, stacked_out, suite, tsteps, n_substeps=4 * FC_UQ_STRIDE)
@@ -1722,6 +1798,416 @@ def train_fc_nde_ensemble_phase(dev, smi: str) -> dict:
         record.update(s=wall, launches=launches["thomas"], expected=expected, losses=[h["loss"] for h in hist],
                       member_mean_rel=rel, uq={"s": uq_wall, "launches": uq_launches, "expected": uq_expected,
                                                "jensen": jensen})
+        log(f"card: {smi}")
+    return record
+
+
+def column_baselines_phase(dev, smi: str) -> dict:
+    """Phase 30: bench_kpp and bench_tke at the JAX defaults, each run on the Thomas kernel against the scan."""
+    import torch
+
+    from climateparameterizations_jl_tpu_torch import benchmarks
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
+
+    record = {}
+    with phase(f"30 bench_kpp and bench_tke ({COL_COLUMNS} columns x {COL_STEPS} steps of 600 s, Nz = {NZ}): the "
+               f"physics baselines on the Thomas kernel"):
+        for kind, n_var in (("kpp", 3), ("tke", 4)):
+            original = tri._thomas_cuda
+            shape_rec, shapes = thomas_shapes(tri)
+            tri._thomas_cuda = shape_rec
+            try:
+                _cuda.reset_launch_counts()
+                stats = getattr(benchmarks, f"bench_{kind}")(COL_COLUMNS, NZ, COL_STEPS, COL_REPEATS, device=dev)
+                launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+            finally:
+                tri._thomas_cuda = original
+            expected = COL_STEPS * stats["calls"]
+            log(f"{kind}: backend {stats['tridiag_backend']}; ms per run min={stats['ms_min']:.2f} median="
+                f"{stats['ms_median']:.2f} max={stats['ms_max']:.2f} all={[round(t, 2) for t in stats['ms']]}; "
+                f"column-timesteps/s (median) {stats['column_timesteps_per_sec']:.4e}; vs the Julia reference's "
+                f"single-column CPU time {stats['vs_reference']:.1f}x; launch counts {launches}, expected thomas "
+                f"{expected} = {COL_STEPS} per run x {stats['calls']} runs, shapes {sorted(set(shapes))}")
+            if (stats["tridiag_backend"] != "cuda" or launches["thomas"] != expected
+                    or any(v for k, v in launches.items() if k != "thomas")
+                    or set(shapes) != {(n_var, COL_COLUMNS, NZ)}):
+                raise RuntimeError(f"bench_{kind}: backend {stats['tridiag_backend']}, {launches}, shapes {set(shapes)}")
+
+            setup = benchmarks.column_forward_setup(kind, COL_COLUMNS, NZ, COL_STEPS, dev)
+            got = benchmarks.column_forward(setup, "cuda")
+            scan_ms, want = cuda_ms(lambda: benchmarks.column_forward(setup, "scan"))
+            cooled = float(got[0, 0, -1] - got[-1, 0, -1])
+            same = bool((got[-1] == got[-1, :1]).all())
+            log(f"{kind} kernel vs scan trajectory {tuple(got.shape)}: torch.equal {torch.equal(got, want)}, entries "
+                f"that differ {int((got != want).sum())} of {got.numel()}; the scan-backed run took {scan_ms:.1f} ms "
+                f"(information); surface cell cooled by {cooled:.4f} K over 2 days; columns identical {same}")
+            if not (torch.equal(got, want) and bool(torch.isfinite(got).all()) and cooled > 0.0 and same):
+                raise RuntimeError(f"{kind}: the kernel-backed run is not the scan-backed one, or not physical")
+
+            prof = benchmarks.profile_column_forward(kind, COL_COLUMNS, NZ, COL_PROFILE_STEPS, device=dev)
+            log(f"{kind} profiled run of {COL_PROFILE_STEPS} steps (torch.profiler): wall {prof['wall_ms']:.1f} ms, device busy "
+                f"{prof['device_busy_ms']:.2f} ms, idle share {prof['device_idle_share']:.3f}, {prof['device_ops']} "
+                f"device ops ({prof['device_ops_per_substep']:.1f} per step)")
+            for key, n, ms in prof["top"]:
+                log(f"  {key}: {n} x, {ms:.3f} ms")
+            record[kind] = {"ms": stats["ms"], "ms_median": stats["ms_median"],
+                            "column_timesteps_per_sec": stats["column_timesteps_per_sec"],
+                            "vs_reference": stats["vs_reference"], "launches": launches["thomas"],
+                            "launches_per_run": COL_STEPS, "runs": stats["calls"],
+                            "shape": [n_var, COL_COLUMNS, NZ], "scan_run_ms": scan_ms,
+                            "profile": {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                                             "device_ops", "device_ops_per_substep")}}
+        log(f"card: {smi}")
+    return record
+
+
+def _kpp_tke_trajectories(ds, t_dim, n_substeps: int, backend: str, wind: bool, tke: bool):
+    """The T trajectories of the KPP (and TKE) baselines of ``eval/profile.py`` for one simulation, on ``backend``."""
+    import torch
+
+    from climateparameterizations_jl_tpu_torch.physics import kpp, tke as tke_mod
+
+    dev, T0 = ds.T.device, ds.T[..., 0, :]
+    zeros = torch.zeros_like(T0)
+    Fb = ds.theta_top * ds.g * ds.alpha
+    forcing = kpp.KPPForcing(Fu=ds.u_top if wind else torch.zeros_like(ds.u_top), Fb=Fb, dTdz_bottom=ds.theta_bottom)
+    state0 = kpp.KPPState(U=ds.u[..., 0, :], V=ds.v[..., 0, :], T=T0) if wind else kpp.KPPState(zeros, zeros, T0)
+    with torch.no_grad():
+        out = [kpp.solve_kpp(state0, t_dim, kpp.KPPParameters.default(device=dev), forcing, ds.H, NZ, ds.f, ds.g,
+                             ds.alpha, n_substeps=n_substeps, tridiag_backend=backend).T]
+        if tke:
+            out.append(tke_mod.solve_tke(
+                tke_mod.TKEState(zeros, zeros, T0, torch.full_like(zeros, 1e-6)), t_dim,
+                tke_mod.TKEParameters.default(device=dev), torch.zeros_like(ds.u_top), Fb, ds.H, NZ, ds.f, ds.g,
+                ds.alpha, n_substeps=n_substeps, tridiag_backend=backend, dTdz_bottom=ds.theta_bottom).T)
+    return out
+
+
+def _summary_beside(port: dict, path: Path, flat: bool):
+    """Log the port's summary beside the JAX command's stored one (information: the data differ)."""
+    stored = json.loads(path.read_text())
+    stored = stored if flat else stored["mean"]
+    for m, v in port.items():
+        log(f"  {m}: port {v:.6e}, stored JAX run {stored.get(m, float('nan')):.6e}")
+
+
+def evaluate_phase(dev, setup, smi: str) -> dict:
+    """Phase 31: the evaluate command in-process on the held-out sims, KPP on kernel and scan."""
+    import numpy as np
+    import torch
+
+    from climateparameterizations_jl_tpu_torch import benchmarks
+    from climateparameterizations_jl_tpu_torch.cli import main as cli
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+
+    names = tuple(benchmarks.TRAIN_FILES)
+    tsteps = np.arange(0, NDE_N_SAVE + 1, EVAL_STRIDE)
+    per_sim = 3 * (len(tsteps) - 1) * EVAL_STRIDE  # NDE, mPP alone and KPP: one solve per substep each
+    expected = per_sim * len(UQ_TEST_FILES)
+    with phase(f"31 evaluate of {FLAGSHIP_RUN.name} on the {len(UQ_TEST_FILES)} held-out sims: {len(tsteps)} saves "
+               f"(every {EVAL_STRIDE}th of {NDE_N_SAVE + 1} frames), {EVAL_STRIDE} split substeps and {EVAL_STRIDE} KPP "
+               f"steps per save"), tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "eval"
+        original = cli._load_suite
+        WM_SUITES[(names, NZ, None, NDE_N_SAVE, 600.0, 128)] = setup["ds"]  # phase 8's suite: the scaling context
+        cli._load_suite = cached_suites(cli, WM_SUITES)
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _cuda.reset_launch_counts()
+            rc = cli.main(["evaluate", "--checkpoint", str(FLAGSHIP_RUN), "--sims", ",".join(names), "--test-sims",
+                           ",".join(UQ_TEST_FILES), "--nz", str(NZ), "--n-save", str(NDE_N_SAVE), "--dt-save", "600",
+                           "--n-train-steps", str(NDE_N_SAVE + 1), "--eval-stride", str(EVAL_STRIDE), "--n-substeps",
+                           str(EVAL_STRIDE), "--kpp-n-substeps", str(EVAL_STRIDE), "--output", str(out)])
+            launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            first = cli._load_suite([UQ_TEST_FILES[0]], NZ, None, NDE_N_SAVE, 600.0, device=dev)
+        finally:
+            cli._load_suite = original
+        summary = json.loads((out / "summary.json").read_text())
+        log(f"exit {rc} in {wall:.2f} s ({wall / len(UQ_TEST_FILES):.2f} s per sim); launch counts {launches}; expected "
+            f"thomas {expected} = {len(UQ_TEST_FILES)} sims x 3 solves (NDE, mPP alone, KPP) x {len(tsteps) - 1} "
+            f"saves x {EVAL_STRIDE}")
+        if rc != 0 or launches["thomas"] != expected or any(v for k, v in launches.items() if k != "thomas"):
+            raise RuntimeError(f"evaluate: exit {rc}, launches {launches} (expected thomas {expected})")
+        with np.load(out / f"evaluation_{UQ_TEST_FILES[0]}.npz") as ev:
+            t_dim, kpp_T = ev["t"], ev["kpp_T"]
+            finite = all(bool(np.isfinite(ev[k]).all()) for k in ev.files)
+            n_keys = len(ev.files)
+        kernel, = _kpp_tke_trajectories(first, t_dim, EVAL_STRIDE, "cuda", wind=True, tke=False)
+        scan_ms, (scan,) = cuda_ms(lambda: _kpp_tke_trajectories(first, t_dim, EVAL_STRIDE, "scan", wind=True,
+                                                                  tke=False))
+        same_file = bool(np.array_equal(kernel.cpu().numpy(), kpp_T))
+        log(f"{UQ_TEST_FILES[0]}: KPP trajectory {tuple(kernel.shape)} kernel vs scan torch.equal "
+            f"{torch.equal(kernel, scan)} (differing entries {int((kernel != scan).sum())}; scan {scan_ms:.0f} ms), the "
+            f"npz's kpp_T is the kernel run: {same_file}; {n_keys} keys, all finite {finite}")
+        if not (torch.equal(kernel, scan) and same_file and finite):
+            raise RuntimeError("evaluate: the KPP baseline differs on kernel and scan, or the profile is not finite")
+        log("mean scaled T loss per member, beside the stored JAX run (runs/wm_flagship_fold_eval/summary.json; "
+            "information only: the card's suites are the port's f32 stand-ins, not JAX's):")
+        _summary_beside(summary["mean"], FLAGSHIP_EVAL / "summary.json", flat=False)
+        log(f"card: {smi}")
+    return {"s": wall, "s_per_sim": wall / len(UQ_TEST_FILES), "launches": launches["thomas"], "expected": expected,
+            "saves": len(tsteps), "summary": summary["mean"], "kpp_kernel_equals_scan": True}
+
+
+def evaluate_fc_phase(dev, smi: str) -> dict:
+    """Phase 32: the evaluate-fc command in-process on ids 8 and 9, KPP and TKE on kernel and scan."""
+    import numpy as np
+    import torch
+
+    from climateparameterizations_jl_tpu_torch.cli import main as cli
+    from climateparameterizations_jl_tpu_torch.data import free_convection as fcd
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+
+    tsteps = np.arange(0, FC_N_SAVE, FC_EVAL_STRIDE)  # --n-eval-steps 1152 of 1,153 frames
+    saves = len(tsteps) - 1
+    per_id = 2 * saves * FC_EVAL_SUBSTEPS + 2 * saves * FC_EVAL_STRIDE  # NDE and conv-adj; KPP and TKE
+    expected = per_id * len(FC_EVAL_IDS)
+    ids = ",".join(map(str, FC_EVAL_IDS))
+    with phase(f"32 evaluate-fc of {FC_RUN.name} on ids {ids}: {len(tsteps)} frames (every {FC_EVAL_STRIDE}th of "
+               f"{FC_N_SAVE} saves), {FC_EVAL_SUBSTEPS} split substeps and {FC_EVAL_STRIDE} KPP / TKE steps per save"), \
+            tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "eval_fc"
+        original = fcd.load_free_convection_suite
+        fcd.load_free_convection_suite = fc_suites(original)  # ids 8 and 9 of phase 24's nine-id suite
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _cuda.reset_launch_counts()
+            rc = cli.main(["evaluate-fc", "--checkpoint", str(FC_RUN), "--sim-ids", ids, "--nz", str(NZ), "--n-save",
+                           str(FC_N_SAVE), "--dt-save", "600", "--n-eval-steps", str(FC_N_SAVE), "--eval-stride",
+                           str(FC_EVAL_STRIDE), "--n-substeps", str(FC_EVAL_SUBSTEPS), "--kpp-n-substeps",
+                           str(FC_EVAL_STRIDE), "--output", str(out)])
+            launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            suite = cli._load_fc_suite(list(FC_EVAL_IDS), NZ, None, FC_N_SAVE, 600.0, device=dev)
+        finally:
+            fcd.load_free_convection_suite = original
+        summary = json.loads((out / "summary.json").read_text())
+        log(f"exit {rc} in {wall:.2f} s; launch counts {launches}; "
+            f"expected thomas {expected} = {len(FC_EVAL_IDS)} ids x ({saves} saves x {FC_EVAL_SUBSTEPS} substeps x 2 "
+            f"(NDE, conv-adj) + {saves} x {FC_EVAL_STRIDE} steps x 2 (KPP, TKE))")
+        if rc != 0 or launches["thomas"] != expected or any(v for k, v in launches.items() if k != "thomas"):
+            raise RuntimeError(f"evaluate-fc: exit {rc}, launches {launches} (expected thomas {expected})")
+        ds = cli._select_sims(suite, 0)
+        with np.load(out / f"sim{FC_EVAL_IDS[0]}.npz") as ev:
+            t_dim, stored = ev["t"], (ev["kpp_T"], ev["tke_T"])
+            finite = all(bool(np.isfinite(ev[k]).all()) for k in ev.files)
+        kernel = _kpp_tke_trajectories(ds, t_dim, FC_EVAL_STRIDE, "cuda", wind=False, tke=True)
+        scan_ms, scan = cuda_ms(lambda: _kpp_tke_trajectories(ds, t_dim, FC_EVAL_STRIDE, "scan", wind=False, tke=True))
+        ok = finite
+        for label, k, s_, f in zip(("KPP", "TKE"), kernel, scan, stored):
+            same, same_file = torch.equal(k, s_), bool(np.array_equal(k.cpu().numpy(), f))
+            log(f"id {FC_EVAL_IDS[0]} {label} trajectory {tuple(k.shape)}: kernel vs scan torch.equal {same} "
+                f"(differing entries {int((k != s_).sum())}); the npz's is the kernel run: {same_file}")
+            ok = ok and same and same_file
+        log(f"(both scan runs {scan_ms:.0f} ms); all npz values finite {finite}")
+        if not ok:
+            raise RuntimeError("evaluate-fc: a baseline differs on kernel and scan, or the profile is not finite")
+        log("mean scaled T loss per member, beside the stored JAX run (runs/fc_flagship_eval/summary.json; "
+            "information only: the stored run's truth is the 3-D LES, the port's the 1-D stand-ins):")
+        _summary_beside(summary, FC_EVAL / "summary.json", flat=True)
+        on_stored = _fc_profile_on_stored_truth(cli, dev, [cli._select_sims(suite, k) for k in range(len(FC_EVAL_IDS))],
+                                                tsteps)
+        log(f"card: {smi}")
+    return {"s": wall, "launches": launches["thomas"], "expected": expected, "frames": len(tsteps),
+            "summary": summary, "kernel_equals_scan": True, "on_stored_truth": on_stored}
+
+
+def _fc_profile_on_stored_truth(cli, dev, stand_ins: list, tsteps) -> dict:
+    """The port's ``free_convection_profile`` of ``runs/fc_flagship`` on the stored JAX run's own truth, per id.
+
+    ``stand_ins`` are the ids' 1-D stand-ins (their constants are the ids'); first shows how far their frames lie
+    from the stored truth. Each member's mean loss over the ids must lie within ``FC_STORED_RTOL`` of the stored
+    run's summary.
+    """
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from climateparameterizations_jl_tpu_torch.core.scalings import ZeroMeanUnitVarianceScaling
+    from climateparameterizations_jl_tpu_torch.data.free_convection import build_free_convection_model
+    from climateparameterizations_jl_tpu_torch.eval.profile import free_convection_profile
+
+    nn, meta = cli._load_fc_nn(str(FC_RUN), dev)
+    f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)  # noqa: E731
+    T_scaling, wT_scaling = (ZeroMeanUnitVarianceScaling(f32(meta["scalings"][v]["mu"]),
+                                                         f32(meta["scalings"][v]["sigma"])) for v in ("T", "wT"))
+    losses: dict = {}
+    for i, stand_in in zip(FC_EVAL_IDS, stand_ins):
+        with np.load(FC_EVAL / f"sim{i}.npz") as ev:
+            stored = {k: ev[k] for k in ev.files}
+        T, wT = stored["truth_T"], stored["truth_wT"]
+        n = min(len(tsteps), T.shape[0])
+        gap = float(np.abs(stand_in.T[tsteps[:n]].cpu().numpy() - T[:n]).max())
+        ds = dataclasses.replace(stand_in, T=f32(T), wT=f32(wT), t=f32(stored["t"]), u=f32(np.zeros_like(T)),
+                                 v=f32(np.zeros_like(T)), uw=f32(np.zeros_like(wT)), vw=f32(np.zeros_like(wT)))
+        model = build_free_convection_model(ds, T_scaling, wT_scaling,
+                                            base_closure=meta.get("base_closure", "convective_adjustment"))
+        ev = free_convection_profile(model, nn, ds, np.arange(T.shape[0]), n_substeps=FC_EVAL_SUBSTEPS,
+                                     kpp_n_substeps=FC_EVAL_STRIDE)
+        log(f"id {i}: the stand-in's frames lie up to {gap:.4f} K from the stored run's truth (max |dT|); the port "
+            f"on the stored truth ({T.shape[0]} frames), mean scaled T loss beside the stored run's:")
+        for m in ("nde", "conv_adj", "kpp", "tke"):
+            port, want = float(np.mean(ev[f"losses_{m}_T"])), float(np.mean(stored[f"losses_{m}_T"]))
+            losses.setdefault(m, []).append(port)
+            log(f"  {m}: port {port:.6e}, stored JAX run {want:.6e} (port / stored - 1 = {port / want - 1:+.4f})")
+    summary = json.loads((FC_EVAL / "summary.json").read_text())
+    means = {m: float(np.mean(v)) for m, v in losses.items()}
+    rel = {m: means[m] / summary[m] - 1 for m in means}
+    log(f"mean over ids {FC_EVAL_IDS}: " + ", ".join(f"{m} {means[m]:.6e} against {summary[m]:.6e} ({rel[m]:+.4f})"
+                                                     for m in means) + f"; limit {FC_STORED_RTOL}")
+    if not all(abs(r) <= FC_STORED_RTOL and np.isfinite(r) for r in rel.values()):
+        raise RuntimeError(f"evaluate-fc: on the stored run's truth the port's losses differ from it by {rel}")
+    return {"means": means, "stored": {m: summary[m] for m in means}, "rel": rel}
+
+
+def calibrate_kpp_phase(dev, smi: str) -> dict:
+    """Phase 33: calibrate-kpp on the 18 TRAIN_FILES with the JAX command's defaults: random, gradient, EKI."""
+    import torch
+
+    from climateparameterizations_jl_tpu_torch import benchmarks
+    from climateparameterizations_jl_tpu_torch.cli import main as cli
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
+    from climateparameterizations_jl_tpu_torch.train import eki as eki_mod
+    from climateparameterizations_jl_tpu_torch.train import kpp_calibration as kc
+
+    names = tuple(benchmarks.TRAIN_FILES)
+    S, steps = len(names), KPP_TRAIN_STEPS - 1
+    expected = {"random": steps * (2 + 3 * KPP_REFINE), "gradient": steps * (1 + 2 * KPP_REFINE),
+                "eki": steps * (KPP_EKI_ITERS + 1)}
+    pop, single, ladder = (3, KPP_PLUGIN, S, NZ), (3, S, NZ), (3, KPP_LADDER, S, NZ)
+    want_shapes = {"random": {pop, single, ladder}, "gradient": {pop, single}, "eki": {(3, KPP_EKI_J, S, NZ)}}
+    record = {}
+    with phase(f"33 calibrate-kpp on the {S} TRAIN_FILES ({steps} KPP steps per solve): random ({KPP_PLUGIN} draws, "
+               f"{KPP_REFINE} line-search iterations), gradient ({KPP_PLUGIN} + {KPP_REFINE} adam), EKI "
+               f"({KPP_EKI_J} x {KPP_EKI_ITERS})"), tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        originals = (cli._load_suite, kc.calibrate_kpp, eki_mod.calibrate_kpp_eki, tri._thomas_cuda)
+        results = {}
+
+        def calibrate(*args, **kw):
+            params, info = originals[1](*args, **kw)
+            results["info"] = info
+            return params, info
+
+        def calibrate_eki(*args, **kw):
+            params, res = originals[2](*args, **kw)
+            results["eki"] = res
+            return params, res
+
+        shape_rec, shapes = thomas_shapes(tri)
+        cli._load_suite, kc.calibrate_kpp, eki_mod.calibrate_kpp_eki = cached_suites(cli, WM_SUITES), calibrate, \
+            calibrate_eki
+        tri._thomas_cuda = shape_rec
+        try:
+            for label in ("random", "gradient", "eki"):
+                shapes.clear()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                _cuda.reset_launch_counts()
+                rc = cli.main(["calibrate-kpp", "--sims", ",".join(names), "--nz", str(NZ), "--n-save",
+                               str(KPP_N_SAVE), "--dt-save", "600", "--n-train-steps", str(KPP_TRAIN_STEPS),
+                               "--n-plugin", str(KPP_PLUGIN), "--n-line-search", str(KPP_REFINE), "--n-ensemble",
+                               str(KPP_EKI_J), "--n-eki-iters", str(KPP_EKI_ITERS), "--calibration-method", label,
+                               "--output", str(tmp / label)])
+                launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                result = json.loads((tmp / label / "kpp_parameters.json").read_text())
+                record[label] = {"s": wall, "launches": launches["thomas"], "expected": expected[label],
+                                 "shapes": sorted(set(shapes)), "result": result}
+                log(f"{label}: exit {rc}, {wall:.2f} s (the suite's generation in the first run), thomas "
+                    f"{launches['thomas']} launches (expected {expected[label]}) of shapes {sorted(set(shapes))}; "
+                    f"{result}")
+                if rc != 0 or launches["thomas"] != expected[label] or set(shapes) != want_shapes[label]:
+                    raise RuntimeError(f"calibrate-kpp {label}: exit {rc}, {launches}, shapes {set(shapes)}")
+                if label != "eki":
+                    info = results.pop("info")
+                    hist = info["history"]
+                    record[label].update(plugin_best_loss=info["plugin_best_loss"], final_loss=info["final_loss"],
+                                         history=hist)
+                    log(f"  plugin best {info['plugin_best_loss']:.6e}, adopted {info['final_loss']:.6e}; history "
+                        f"{[f'{h:.4e}' for h in hist]}")
+                    if not (all(math.isfinite(h) for h in hist)
+                            and info["final_loss"] <= info["plugin_best_loss"] * (1 + KPP_LOSS_SLACK)):
+                        raise RuntimeError(f"calibrate-kpp {label}: a loss is not finite or the plugin's best is lost")
+            res = results["eki"]
+            log(f"eki misfit {res.misfit_history[0]:.4e} -> {res.misfit_history[-1]:.4e} "
+                f"({[f'{m:.3e}' for m in res.misfit_history]}); posterior std {res.theta_std.tolist()}")
+            if not (res.misfit_history[-1] < res.misfit_history[0] and bool(torch.isfinite(res.theta_std).all())):
+                raise RuntimeError("calibrate-kpp eki: the misfit did not fall")
+            record["eki"]["misfit_history"] = res.misfit_history
+
+            # The first population again (the plugin's draws of --seed 0) on the kernel and on the scan, and two of
+            # its members alone: one solve of P sets is the P single solves, bit for bit.
+            ds = cli._load_suite(list(names), NZ, None, KPP_N_SAVE, 600.0, device=dev)
+        finally:
+            cli._load_suite, kc.calibrate_kpp, eki_mod.calibrate_kpp_eki, tri._thomas_cuda = originals
+        gen = torch.Generator().manual_seed(0)
+        lo = torch.tensor([p[0] for p in kc.DEFAULT_PRIORS.values()], dtype=torch.float64)
+        hi = torch.tensor([p[1] for p in kc.DEFAULT_PRIORS.values()], dtype=torch.float64)
+        cand = lo + (hi - lo) * torch.rand((KPP_PLUGIN, len(lo)), generator=gen, dtype=torch.float64)
+        tsteps = list(range(KPP_TRAIN_STEPS))
+        with torch.no_grad():
+            fwd_k, _ = kc.make_kpp_forward_fn(ds, tsteps, NZ)
+            fwd_s, _ = kc.make_kpp_forward_fn(ds, tsteps, NZ, tridiag_backend="scan")
+            got = fwd_k(cand)
+            want = fwd_s(cand)
+            singles = [bool(torch.equal(fwd_k(cand[i]), got[i])) for i in (0, KPP_PLUGIN - 1)]
+        log(f"first population {tuple(got.shape)} (Thomas on {pop} = {KPP_PLUGIN * S} columns x 3): kernel vs scan "
+            f"torch.equal {torch.equal(got, want)} (differing entries {int((got != want).sum())}); members 0 and "
+            f"{KPP_PLUGIN - 1} alone equal their rows: {singles}")
+        if not (torch.equal(got, want) and all(singles)):
+            raise RuntimeError("calibrate-kpp: the population differs on kernel and scan, or from its single solves")
+        record["population_kernel_equals_scan"] = True
+        record["population_equals_singles"] = singles
+        log(f"card: {smi}")
+    return record
+
+
+def blocked_gp_phase(dev, smi: str) -> dict:
+    """Phase 34: the blocked f64 GP fit at n = 16,384 against the unblocked fit: seconds, peak memory, alphas."""
+    import torch
+
+    from climateparameterizations_jl_tpu_torch import benchmarks
+    from climateparameterizations_jl_tpu_torch.closures import gp
+    from climateparameterizations_jl_tpu_torch.ops import _cuda, blocked_gp
+
+    with phase(f"34 gp_fit_blocked at n = {BGP_N}, D = {BGP_D}, block {BGP_BLOCK}, f64, squared exponential (gamma "
+               f"= sqrt(D)), against the unblocked gp_fit"):
+        x, ys, z = benchmarks.gp_inputs(BGP_N, BGP_D, seed=0, device=dev)
+        x, y, z = x.double(), ys[0].double(), z.double()
+        kernel = gp.get_kernel(1, 0.5 * math.log10(BGP_D), device=dev)
+        out = {}
+        for label, fit in (("blocked", lambda: blocked_gp.gp_fit_blocked(x, y, kernel, z, block=BGP_BLOCK)[0]),
+                           ("unblocked", lambda: gp.gp_fit(x, y, kernel, z))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            _cuda.reset_launch_counts()
+            t = time.perf_counter()
+            model = fit()
+            torch.cuda.synchronize()
+            out[label] = {"s": time.perf_counter() - t, "peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
+                          "launches": sum(k.launches for k in _cuda.KERNELS.values()), "alpha": model.alpha}
+            log(f"{label}: {out[label]['s']:.3f} s, peak device memory above the inputs "
+                f"{out[label]['peak_bytes'] / 2**30:.3f} GiB, hand-written kernel launches {out[label]['launches']}")
+            del model
+        a_b, a_u = out["blocked"].pop("alpha"), out["unblocked"].pop("alpha")
+        rel = float((a_b - a_u).abs().max() / a_u.abs().max())
+        log(f"alphas {tuple(a_b.shape)}: max |blocked - unblocked| / max |unblocked| = {rel:.3e} (limit {BGP_RTOL}); "
+            f"finite {bool(torch.isfinite(a_b).all())}")
+        if not (rel <= BGP_RTOL and bool(torch.isfinite(a_b).all())):
+            raise RuntimeError("gp_fit_blocked disagrees with gp_fit")
+        record = {**out, "alpha_rel": rel, "n": BGP_N, "D": BGP_D, "block": BGP_BLOCK}
+        log(f"blocked GP record (no hand-written kernel runs here): {json.dumps(record)}")
         log(f"card: {smi}")
     return record
 
@@ -1934,12 +2420,16 @@ def main() -> int:
         if train_launches["thomas"] != expected or expected == 0:
             raise RuntimeError(f"thomas counted {train_launches['thomas']} launches, expected {expected}")
 
-        scan = benchmarks.bench_train_step(setup, n_timed=SCAN_TIMED_STEPS, device=dev, tridiag_backend="scan")
-        log(f"same step, tridiag_backend='scan': ms per step {[round(t, 1) for t in scan['ms']]} "
-            f"(median {scan['ms_median']:.1f}) vs kernel median {train['ms_median']:.1f}")
-
-        loss_k, grad_k = benchmarks.train_step_loss_and_grad(setup)
-        loss_s, grad_s = benchmarks.train_step_loss_and_grad(setup, tridiag_backend="scan")
+        timed_grads = []  # the setup's backend (the kernel), then scan: (loss, gradient), host ms
+        for overrides in ({}, {"tridiag_backend": "scan"}):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss_grad = benchmarks.train_step_loss_and_grad(setup, **overrides)
+            torch.cuda.synchronize()
+            timed_grads.append((loss_grad, (time.perf_counter() - t) * 1e3))
+        ((loss_k, grad_k), kernel_ms), ((loss_s, grad_s), scan_ms) = timed_grads
+        log(f"one loss and gradient (no adam), host clock: kernel {kernel_ms:.1f} ms, tridiag_backend='scan' "
+            f"{scan_ms:.1f} ms (information)")
         loss_rel = abs(float(loss_k) - float(loss_s)) / abs(float(loss_s))
         grad_rel = float((grad_k - grad_s).norm() / grad_s.norm())
         ok = bool(torch.isfinite(grad_k).all()) and loss_rel <= STEP_LOSS_RTOL and grad_rel <= STEP_GRAD_RTOL
@@ -1950,13 +2440,6 @@ def main() -> int:
             f"through 1,152 substeps and the backward pass, amplified by the mPP tanh switch")
         if not ok:
             raise RuntimeError("kernel-backed and scan-backed steps disagree")
-        # Information, not a check: how far the plain "pcr" backend (parallel
-        # cyclic reduction, another rounding of the same solves) moves the step.
-        loss_p, grad_p = benchmarks.train_step_loss_and_grad(setup, tridiag_backend="pcr")
-        pcr_loss_rel = abs(float(loss_p) - float(loss_s)) / abs(float(loss_s))
-        pcr_grad_rel = float((grad_p - grad_s).norm() / grad_s.norm())
-        log(f"one step, plain pcr vs scan (information): loss rel {pcr_loss_rel:.3e}, gradient "
-            f"|g_p - g_s| / |g_s| = {pcr_grad_rel:.3e}")
 
         prof = benchmarks.profile_train_step(setup, n_saves=2, device=dev)
         log(f"profiled step over {prof['substeps']} substeps (torch.profiler): wall {prof['wall_ms']:.1f} ms, "
@@ -1966,7 +2449,7 @@ def main() -> int:
             log(f"  {key}: {n} x, {ms:.3f} ms")
 
     tbench = {}
-    with phase("10 bench_tridiagonal: kernel, plain versions, torch.linalg.solve"):
+    with phase("10 bench_tridiagonal: kernel, plain versions, torch.linalg.solve (and the shapes of phases 30 and 33)"):
         for n_sys in (16384, 54):
             r = benchmarks.bench_tridiagonal(n_sys, 32, device=dev)
             tbench[n_sys] = r
@@ -1974,6 +2457,7 @@ def main() -> int:
                 f"included): "
                 + ", ".join(f"{k} {r[k + '_ms'] * 1e3:.2f} ({r[k + '_wall_ms'] * 1e3:.2f})"
                             for k in ("cuda", "scan", "pcr", "library"))
+                + f"; kernel in a CUDA graph of {r['repeats']} launches {r['cuda_graph_ms'] * 1e3:.2f} us each"
                 + f"; kernel vs scan max abs {r['max_abs_err_vs_scan']:.3e}")
         big = tbench[16384]
         t_bytes = big["bytes"] / PEAK_BYTES_PER_S * 1e3
@@ -1987,6 +2471,9 @@ def main() -> int:
             f"reached = {small_bound / tbench[54]['cuda_ms']:.4f} (latency-bound; earlier kernel "
             f"{THOMAS_EARLIER_MS['54x32'] * 1e3:.2f} us: {small_bound / THOMAS_EARLIER_MS['54x32']:.4f})")
         thomas_errors["bench_16384x32"] = big["max_abs_err_vs_scan"]
+        # The shapes of phases 30 and 33, measured here while the profiler still records every launch.
+        kpp_tke_shapes = {f"{n_sys}x{NZ}": thomas_bench_record(benchmarks, dev, n_sys)
+                          for n_sys in (3 * COL_COLUMNS, 4 * COL_COLUMNS, 3 * KPP_PLUGIN * len(benchmarks.TRAIN_FILES))}
 
     thomas_record = {
         "name": "thomas",
@@ -2007,12 +2494,13 @@ def main() -> int:
         "training_shape": {"systems": 54, "N": 32, "ms": tbench[54]["cuda_ms"], "wall_ms": tbench[54]["cuda_wall_ms"],
                            "plain_ms": tbench[54]["scan_ms"], "library_ms": tbench[54]["library_ms"],
                            "bound_ms": small_bound, "bound_by": "bytes"},
-        "train_step_ms": {"kernel": train["ms"], "scan": scan["ms"]},
-        "train_step_vs_scan": {"kernel": {"loss_rel": loss_rel, "grad_rel": grad_rel},
-                               "pcr_plain": {"loss_rel": pcr_loss_rel, "grad_rel": pcr_grad_rel}},
+        "train_step_ms": {"kernel": train["ms"]},
+        "loss_and_grad_ms": {"kernel": kernel_ms, "scan": scan_ms},
+        "train_step_vs_scan": {"kernel": {"loss_rel": loss_rel, "grad_rel": grad_rel}},
         "train_step_profile": {k: prof[k] for k in ("substeps", "wall_ms", "device_busy_ms", "device_idle_share",
                                                     "device_ops_per_substep")},
         "train_setup_s": setup_s,
+        "kpp_tke_calibration_shapes": kpp_tke_shapes,
         "build_s": thomas.build_seconds,
     }
     gram_record, chol_record = gp_phases(dev)
@@ -2025,6 +2513,11 @@ def main() -> int:
     thomas_record["ensemble_uq"] = ensemble_uq_phase(dev, setup, smi)
     thomas_record["optimise_mpp"] = optimise_mpp_phase(dev, setup, smi)
     thomas_record["train_fc_nde_ensemble"] = train_fc_nde_ensemble_phase(dev, smi)
+    thomas_record["kpp_tke_forward"] = column_baselines_phase(dev, smi)
+    thomas_record["evaluate"] = evaluate_phase(dev, setup, smi)
+    thomas_record["evaluate_fc"] = evaluate_fc_phase(dev, smi)
+    thomas_record["calibrate_kpp"] = calibrate_kpp_phase(dev, smi)
+    blocked_gp_phase(dev, smi)
     record["ptxas"] = ptxas_summary(kernel.ptxas_report)
     thomas_record["ptxas"] = ptxas_summary(thomas.ptxas_report)
     print(smi, flush=True)

@@ -27,6 +27,9 @@
   free-convection convective-adjustment column forward run, 1,024 columns
   x 1,152 split substeps, one implicit solve per substep through the CUDA
   kernel ``csrc/thomas.cu``.
+- :func:`bench_kpp` and :func:`bench_tke` (``benchmarks.py:60`` and
+  ``:89``): the KPP and TKE baselines over 1,024 columns x 288 steps of a
+  2-day column, one stacked solve per step through ``csrc/thomas.cu``.
 
 Each is timed with CUDA events after a warm-up, and runs on the card only:
 with no card it raises.
@@ -488,8 +491,10 @@ def _per_call_ms(fn, repeats: int, device, kernel: str | None = None) -> dict:
     over ``repeats`` (gaps between kernels excluded). With ``kernel`` (a
     part of a kernel's name) also ``kernel``, the mean device time of a
     launch of the kernels so named (over the launches the trace recorded:
-    it misses one now and then), and ``other`` and ``other_ops``, the time
-    and the count of the calls' other device ops per call.
+    it misses one now and then, and late in a long process most or all of
+    them), ``kernel_launches_recorded``, the count of those launches
+    (``kernel`` is ``None`` when it is 0), and ``other`` and ``other_ops``,
+    the time and the count of the calls' other device ops per call.
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -511,12 +516,38 @@ def _per_call_ms(fn, repeats: int, device, kernel: str | None = None) -> dict:
         mine = [e for e in on_dev if kernel in e.key]
         others = [e for e in on_dev if kernel not in e.key]
         recorded = sum(e.count for e in mine)
-        if recorded == 0:
-            raise RuntimeError(f"no launch of {kernel!r} in the profile: {[(e.key, e.count) for e in on_dev]}")
-        out["kernel"] = _device_ms(mine) / recorded
+        out["kernel_launches_recorded"] = recorded
+        out["kernel"] = _device_ms(mine) / recorded if recorded else None
         out["other"] = _device_ms(others) / repeats
         out["other_ops"] = sum(e.count for e in others) / repeats
     return out
+
+
+def _graph_ms(fn, repeats: int, device) -> float:
+    """ms per call of ``fn`` from CUDA events around one replay of a CUDA graph of ``repeats`` calls.
+
+    The graph replays the calls' kernels back to back without the host, so
+    this is their device time plus the gaps between graph nodes: a check on
+    the profiler's per-launch mean that does not depend on which launches
+    the profiler records.
+    """
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(repeats):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize(device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / repeats
 
 
 def bench_tridiagonal(n_systems: int = 16384, N: int = 32, repeats: int = 50, seed: int = 0, device=None) -> dict:
@@ -529,8 +560,11 @@ def bench_tridiagonal(n_systems: int = 16384, N: int = 32, repeats: int = 50, se
     on the same systems densified to ``(B, N, N)`` before timing (a yardstick
     the port never calls). For each, ``<name>_ms`` is the device time per
     call and ``<name>_wall_ms`` the time per call back to back with the host
-    work (:func:`_per_call_ms`). Also returns the kernel's largest deviation
-    from ``scan``.
+    work (:func:`_per_call_ms`); the kernel's is the mean over the launches
+    the profiler recorded, ``cuda_recorded`` of ``repeats`` (``None`` when it
+    recorded none), and ``cuda_graph_ms`` the kernel's time per launch in a
+    CUDA graph of ``repeats`` back-to-back launches (:func:`_graph_ms`). Also
+    returns the kernel's largest deviation from ``scan``.
     """
     device = _require_card(device, "bench_tridiagonal")
     from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
@@ -551,8 +585,11 @@ def bench_tridiagonal(n_systems: int = 16384, N: int = 32, repeats: int = 50, se
     out = {"n_systems": n_systems, "N": N, "repeats": repeats}
     results = {name: fn() for name, fn in calls.items()}
     for name, fn in calls.items():
-        t = _per_call_ms(fn, repeats, device)
-        out[f"{name}_ms"], out[f"{name}_wall_ms"] = t["device"], t["wall"]
+        t = _per_call_ms(fn, repeats, device, kernel="thomas_kernel" if name == "cuda" else None)
+        out[f"{name}_ms"], out[f"{name}_wall_ms"] = t.get("kernel", t["device"]), t["wall"]
+        if name == "cuda":
+            out["cuda_recorded"] = t["kernel_launches_recorded"]
+            out["cuda_graph_ms"] = _graph_ms(fn, repeats, device)
     out["max_abs_err_vs_scan"] = float((results["cuda"] - results["scan"]).abs().max())
     out["bytes"] = 5 * n_systems * N * 4
     return out
@@ -632,6 +669,112 @@ def profile_fc_forward(n_columns: int = 1024, Nz: int = 32, n_steps: int = 1152,
     model, T0 = fc_forward_setup(n_columns, Nz, n_steps, device)
     backend = resolve_tridiag_backend(tridiag_backend, n_steps, device)
     return _profiled(lambda: fc_forward(model, T0, n_steps, backend), n_steps, device)
+
+
+# ---------------------------------------------------------------------------
+# KPP and TKE column baselines
+# ---------------------------------------------------------------------------
+
+# The Julia reference's recorded wall times for ONE column over the 2-day
+# run (wind_mixing/Benchmarking.jl:22-55: single-threaded CPU, circa 2021),
+# kept as the JAX package's REFERENCE_SECONDS. They are CPU times of the
+# reference, not measurements of any accelerator.
+REFERENCE_SECONDS = {"kpp_run_2day_column": 25.762e-3, "tke_run_2day_column": 2.710e-3}
+
+
+def column_forward_setup(kind: str, n_columns: int = 1024, Nz: int = 32, n_steps: int = 288, device=None) -> dict:
+    """The JAX package's ``bench_kpp`` / ``bench_tke`` inputs (``kind`` ``"kpp"`` or ``"tke"``), f32.
+
+    ``n_columns`` linearly stratified columns ``19 + 0.01 (z + H)``, H = 256
+    m, at rest (TKE ``e = 1e-6``); ``Fu = -5e-4``, ``Fb = 3e-8`` (KPP also
+    ``dTdz_bottom = 0.01``); ``n_steps`` saves of 600 s, one step each; f =
+    1e-4, g = 9.81, alpha = 2e-4.
+    """
+    from climateparameterizations_jl_tpu_torch.physics import kpp, tke
+
+    device = resolve_device(device)
+    f32, H = torch.float32, 256.0
+    zc = (torch.arange(Nz, dtype=f32, device=device) + 0.5) * (H / Nz) - H
+    T0 = torch.broadcast_to(19.0 + 0.01 * (zc + H), (n_columns, Nz)).contiguous()
+    zeros = torch.zeros((n_columns, Nz), dtype=f32, device=device)
+    full = lambda v: torch.full((n_columns,), v, dtype=f32, device=device)  # noqa: E731
+    setup = {"kind": kind, "n_columns": n_columns, "Nz": Nz, "n_steps": n_steps, "H": H,
+             "t_save": torch.linspace(0.0, n_steps * 600.0, n_steps + 1, dtype=f32, device=device)}
+    if kind == "kpp":
+        setup.update(state0=kpp.KPPState(U=zeros, V=zeros, T=T0), params=kpp.KPPParameters.default(device=device),
+                     forcing=kpp.KPPForcing(Fu=full(-5e-4), Fb=full(3e-8), dTdz_bottom=full(0.01)))
+    elif kind == "tke":
+        setup.update(state0=tke.TKEState(U=zeros, V=zeros, T=T0, e=torch.full_like(zeros, 1e-6)),
+                     params=tke.TKEParameters.default(device=device), Fu=full(-5e-4), Fb=full(3e-8))
+    else:
+        raise ValueError(f"unknown column model {kind!r} (kpp | tke)")
+    return setup
+
+
+def column_forward(setup: dict, tridiag_backend: str):
+    """One run of the setup's column model: the T trajectory ``(n_steps + 1, n_columns, Nz)``, no autograd."""
+    from climateparameterizations_jl_tpu_torch.physics import kpp, tke
+
+    args = (setup["H"], setup["Nz"], 1e-4, 9.81, 2e-4)
+    with torch.no_grad():
+        if setup["kind"] == "kpp":
+            return kpp.solve_kpp(setup["state0"], setup["t_save"], setup["params"], setup["forcing"], *args,
+                                 tridiag_backend=tridiag_backend).T
+        return tke.solve_tke(setup["state0"], setup["t_save"], setup["params"], setup["Fu"], setup["Fb"], *args,
+                             tridiag_backend=tridiag_backend).T
+
+
+def _bench_column(kind: str, n_columns: int, Nz: int, n_steps: int, repeats: int, tridiag_backend: str,
+                  device) -> dict:
+    from climateparameterizations_jl_tpu_torch.train.nde import resolve_tridiag_backend
+
+    device = _require_card(device, f"bench_{kind}")
+    setup = column_forward_setup(kind, n_columns, Nz, n_steps, device)
+    backend = resolve_tridiag_backend(tridiag_backend, n_steps, device)
+    times, out = _timed(lambda: column_forward(setup, backend), repeats, device)
+    if out.shape != (n_steps + 1, n_columns, Nz) or not bool(torch.isfinite(out).all()):
+        raise RuntimeError(f"{kind} forward run gave shape {tuple(out.shape)} or non-finite values")
+    stats = _stats(times, device)
+    seconds = stats["ms_median"] * 1e-3
+    return {
+        **stats, "n_columns": n_columns, "n_steps": n_steps, "repeats": repeats, "tridiag_backend": backend,
+        "column_timesteps_per_sec": n_columns * n_steps / seconds,
+        # The Julia reference's single-column CPU time over this port's time per column.
+        "vs_reference": REFERENCE_SECONDS[f"{kind}_run_2day_column"] / (seconds / n_columns),
+        "calls": repeats + 1,
+    }
+
+
+def bench_kpp(n_columns: int = 1024, Nz: int = 32, n_steps: int = 288, repeats: int = 5,
+              tridiag_backend: str = "auto", device=None) -> dict:
+    """KPP full evolution, a 2-day column at 600 s steps (the JAX package's ``benchmarks.py:60``,
+    ``Benchmarking.jl:25``): ms per run (min/median/max), column-timesteps/s and ``vs_reference``.
+
+    ``"auto"`` is the Thomas kernel on the card: one launch per step on
+    ``(3, n_columns, Nz)``, ``n_steps`` per run. CUDA events around each run
+    after one warm-up; ``calls`` counts the runs.
+    """
+    return _bench_column("kpp", n_columns, Nz, n_steps, repeats, tridiag_backend, device)
+
+
+def bench_tke(n_columns: int = 1024, Nz: int = 32, n_steps: int = 288, repeats: int = 5,
+              tridiag_backend: str = "auto", device=None) -> dict:
+    """TKE full evolution (the JAX package's ``benchmarks.py:89``, ``Benchmarking.jl:37``), as :func:`bench_kpp`.
+
+    One Thomas launch per step on ``(4, n_columns, Nz)``.
+    """
+    return _bench_column("tke", n_columns, Nz, n_steps, repeats, tridiag_backend, device)
+
+
+def profile_column_forward(kind: str, n_columns: int = 1024, Nz: int = 32, n_steps: int = 288,
+                           tridiag_backend: str = "auto", device=None) -> dict:
+    """Where one ``bench_kpp`` / ``bench_tke`` run's time goes: :func:`_profiled` over one run."""
+    from climateparameterizations_jl_tpu_torch.train.nde import resolve_tridiag_backend
+
+    device = _require_card(device, f"profile_{kind}")
+    setup = column_forward_setup(kind, n_columns, Nz, n_steps, device)
+    backend = resolve_tridiag_backend(tridiag_backend, n_steps, device)
+    return _profiled(lambda: column_forward(setup, backend), n_steps, device)
 
 
 # ---------------------------------------------------------------------------
@@ -777,6 +920,8 @@ def bench_gram(M: int = 1024, N: int = 1024, D: int = 96, family: str = "squared
     results = {name: fn() for name, fn in calls.items()}
     for name, fn in calls.items():
         t = _per_call_ms(fn, repeats, device, kernel="gram_kernel" if name == "cuda" else None)
+        if name == "cuda" and t["kernel"] is None:
+            raise RuntimeError("the profile recorded no launch of gram_kernel")
         out[f"{name}_ms"], out[f"{name}_wall_ms"] = t.get("kernel", t["device"]), t["wall"]
         if name == "cuda":
             out["cuda_other_ms"], out["cuda_other_ops"] = t["other"], t["other_ops"]

@@ -4,8 +4,11 @@ The subcommands ported so far are ``catalog``, ``train-nn`` (direct flux
 regression), ``train-nde`` (wind-mixing NDE training: curriculum, multiple
 shooting, checkpoints, resume, calibrated mPP base, deep ensembles),
 ``extract``, ``train-gp``, ``train-fc-nde`` (free-convection NDE training:
-flux pre-training, spatial causality, curriculum, deep ensembles) and
-``optimise-mpp`` (mPP calibration by gradient or EKI):
+flux pre-training, spatial causality, curriculum, deep ensembles),
+``optimise-mpp`` (mPP calibration by gradient or EKI), ``calibrate-kpp``
+(KPP calibration: random search, gradient or EKI) and the evaluation
+harnesses ``evaluate`` and ``evaluate-fc`` (a trained closure against the
+KPP, TKE and base-closure baselines):
 
     python -m climateparameterizations_jl_tpu_torch.cli train-nde --sims strong_wind \
         --curriculum 6,13:2 --shooting 3 --output runs/nde
@@ -17,6 +20,11 @@ flux pre-training, spatial causality, curriculum, deep ensembles) and
         --pretrain-epochs 50 --curriculum 9,25:2 --output runs/fc
     python -m climateparameterizations_jl_tpu_torch.cli optimise-mpp --sims strong_wind \
         --calibration-method eki --output runs/mpp
+    python -m climateparameterizations_jl_tpu_torch.cli calibrate-kpp --sims strong_wind --output runs/kpp
+    python -m climateparameterizations_jl_tpu_torch.cli evaluate --checkpoint runs/nde \
+        --test-sims strong_wind_weak_cooling --output runs/eval
+    python -m climateparameterizations_jl_tpu_torch.cli evaluate-fc --checkpoint runs/fc --sim-ids 8,9 \
+        --output runs/eval_fc
 
 They run on the card unless ``--device cpu`` is given (the JAX package's
 ``--platform`` flag). ``--config FILE`` (JSON, or YAML where PyYAML is
@@ -24,7 +32,8 @@ installed) supplies flag values; flags typed on the command line win. Run
 directories use the JAX package's format and load in either package.
 ``--data-dir`` reads LESbrary ``.jld2`` files where they exist (h5py needed)
 and falls back to the synthetic stand-ins. The other subcommands are later
-work (``ROADMAP.md``).
+work (``ROADMAP.md``); the commands write the JAX commands' files but no
+figures (``eval/animations.py`` is not ported).
 """
 
 from __future__ import annotations
@@ -803,6 +812,202 @@ def cmd_optimise_mpp(args) -> int:
     return 0
 
 
+def cmd_calibrate_kpp(args) -> int:
+    """KPP parameter calibration on the suite's first ``--n-train-steps`` frames; writes ``kpp_parameters.json``.
+
+    The JAX package's ``calibrate-kpp``: ``--calibration-method random`` (the
+    reference's recipe: ``--n-plugin`` uniform draws, then ``--n-line-search``
+    finite-difference line-search iterations), ``gradient`` (the same draws,
+    then projected adam through the solve) or ``eki`` (``--n-ensemble``
+    parameter sets for ``--n-eki-iters`` iterations). Every population of
+    parameter sets is one KPP solve whose steps each run one Thomas launch
+    on the card. The draws come from a generator seeded with ``--seed``. The
+    json holds the calibrated values and ``loss`` (random, gradient), or each
+    parameter's posterior ``mean`` and ``std`` and the last ``misfit`` (eki).
+    """
+    device = resolve_device(args.device)
+    ds = _load_suite(_sims(args.sims), args.nz, args.data_dir, args.n_save, args.dt_save, device=device)
+    tsteps = np.arange(0, min(args.n_train_steps, ds.t.shape[-1]))
+    generator = torch.Generator().manual_seed(args.seed)
+    if args.calibration_method == "eki":
+        from climateparameterizations_jl_tpu_torch.train.eki import calibrate_kpp_eki
+
+        _, eki = calibrate_kpp_eki(ds, tsteps, args.nz, generator=generator, n_ensemble=args.n_ensemble,
+                                   n_iterations=args.n_eki_iters, inflation=args.eki_inflation)
+        result = {name: {"mean": float(m), "std": float(sd)}
+                  for name, m, sd in zip(eki.names, eki.theta_mean.tolist(), eki.theta_std.tolist())}
+        result["misfit"] = eki.misfit_history[-1]
+    else:
+        from climateparameterizations_jl_tpu_torch.train.kpp_calibration import calibrate_kpp
+
+        _, info = calibrate_kpp(ds, tsteps, args.nz, generator=generator, n_plugin=args.n_plugin,
+                                n_line_search=args.n_line_search,
+                                refine="gradient" if args.calibration_method == "gradient" else "line-search")
+        result = {name: float(v) for name, v in zip(info["names"], info["values"].tolist())}
+        result["loss"] = info["final_loss"]
+    os.makedirs(args.output, exist_ok=True)
+    with open(os.path.join(args.output, "kpp_parameters.json"), "w") as f:
+        json.dump(result, f, indent=2)
+    print(json.dumps(result))
+    return 0
+
+
+# Flags of the JAX commands that need modules still to be ported (ROADMAP.md, queue 1).
+_FIGURES = "queue 1, item 10 (eval/animations.py)"
+_EMBEDDING = "queue 1, item 7 (embed/column_model.py)"
+
+
+def _refuse(flag: str, what: str, item: str):
+    raise SystemExit(f"{flag} {what}, which waits for the port of ROADMAP.md {item}")
+
+
+def cmd_evaluate(args) -> int:
+    """NDE-profile comparison of a trained closure against mPP alone and KPP on held-out sims.
+
+    The JAX package's ``evaluate``: the checkpoint's closure over its
+    training-time base, with the training suite's scalings (``--sims``, else
+    the sims the checkpoint records), on each of ``--test-sims`` over
+    ``arange(0, --n-train-steps, --eval-stride)``. Writes
+    ``evaluation_<sim>.npz`` (``eval/profile.py::nde_profile``),
+    ``uncertainty_<sim>.npz`` for an ensemble checkpoint (whose member 0
+    fills the ``nde`` channels) and ``summary.json`` (``per_sim`` and
+    ``mean`` of each member's T loss). The JAX command's figures are not
+    drawn; ``--animate``, ``--gif-stride``, ``--embedded`` and ``--write-jld2`` raise.
+    """
+    from climateparameterizations_jl_tpu_torch.eval.profile import nde_profile
+
+    if args.animate:
+        _refuse("--animate", "draws the comparison animation", _FIGURES)
+    if args.gif_stride is not None:
+        _refuse("--gif-stride", "sets the comparison animation's frame stride", _FIGURES)
+    if args.write_jld2:
+        _refuse("--write-jld2", "writes the embedded pair (it requires --embedded)", _EMBEDDING)
+    if args.embedded:
+        _refuse("--embedded", "runs the closure inside the host column model", _EMBEDDING)
+    device = resolve_device(args.device)
+    test_sims = _sims(args.test_sims)
+    nns, ckpt_meta = _load_nns(args.checkpoint, device)
+    ensemble_nns = None
+    if ckpt_meta.get("ensemble"):
+        from climateparameterizations_jl_tpu_torch.train.deep_ensemble import member
+
+        ensemble_nns, nns = nns, member(nns, 0)
+        print(f"deep-ensemble checkpoint (K={int(ckpt_meta['ensemble'])}): 'nde' channels show member 0; "
+              f"uncertainty_*.npz / 'nde_ensemble_mean' carry the ensemble", flush=True)
+    # Evaluation uses the TRAINING suite's scalings: --sims, else the checkpoint's recorded sims.
+    if args.sims:
+        train_names, sims_src = _sims(args.sims), "--sims"
+    elif ckpt_meta.get("sims"):
+        train_names, sims_src = _sims(ckpt_meta["sims"]), "checkpoint meta"
+    else:
+        train_names, sims_src = test_sims, "test sims (checkpoint records none)"
+    train_ds = _load_suite(train_names, args.nz, args.data_dir, args.n_save, args.dt_save, device=device)
+    diurnal = bool(ckpt_meta.get("diurnal", any(_suite_diurnal_flags(train_names))))
+    model = _wind_model(
+        train_ds, args.nz, diurnal=diurnal, smooth_NN=bool(ckpt_meta.get("smooth_NN", False)),
+        smooth_Ri=bool(ckpt_meta.get("smooth_Ri", False)),
+        **_base_closure_overrides(ckpt_meta.get("base_closure", "mpp")),
+        **_restore_mpp(ckpt_meta, args.mpp_params, device),
+    )
+    tsteps = np.arange(0, args.n_train_steps, args.eval_stride)
+    os.makedirs(args.output, exist_ok=True)
+    print(f"evaluating {len(test_sims)} sim(s) over {len(tsteps)} frames (window {args.n_train_steps}, stride "
+          f"{args.eval_stride}): {', '.join(test_sims)}", flush=True)
+    print(f"scaling context from {sims_src}: {len(train_names)} sim(s)", flush=True)
+
+    matrix: dict = {}
+    for name in test_sims:
+        ds = _load_suite([name], args.nz, args.data_dir, args.n_save, args.dt_save, device=device)
+        ev = nde_profile(model, nns, ds, tsteps, solver=args.method, n_substeps=args.n_substeps,
+                         kpp_n_substeps=args.kpp_n_substeps)
+        np.savez(os.path.join(args.output, f"evaluation_{name}.npz"), **ev.to_dict())
+        if ensemble_nns is not None:
+            from climateparameterizations_jl_tpu_torch.eval.ensemble_uq import nde_ensemble_uq
+
+            uq = nde_ensemble_uq(model, ensemble_nns, ds, tsteps, solver=args.method, n_substeps=args.n_substeps)
+            np.savez(os.path.join(args.output, f"uncertainty_{name}.npz"), **uq)
+            matrix.setdefault("nde_ensemble_mean", []).append(float(np.mean(uq["losses_ensemble_mean_T"])))
+        for m in ("nde", "mpp", "kpp"):
+            if f"losses_{m}_T" in ev.keys():
+                matrix.setdefault(m, []).append(float(np.mean(ev[f"losses_{m}_T"])))
+
+    summary = {m: float(np.mean(v)) for m, v in matrix.items()}
+    with open(os.path.join(args.output, "summary.json"), "w") as f:
+        json.dump({"per_sim": matrix, "mean": summary}, f, indent=2)
+    print(json.dumps(summary))
+    return 0
+
+
+def cmd_evaluate_fc(args) -> int:
+    """Free-convection comparison (truth, NDE, conv-adj or base, KPP, TKE) across simulation ids.
+
+    The JAX package's ``evaluate-fc`` (``free_convection/test_free_convection_nde.jl:110-165``):
+    the checkpoint's training scalings and base closure where its meta
+    records them (else refitted per sim, with a warning), each of
+    ``--sim-ids`` over ``arange(0, min(--n-eval-steps, frames), --eval-stride)``.
+    Writes ``sim<i>.npz`` (``eval/profile.py::free_convection_profile``),
+    ``uncertainty_sim<i>.npz`` for an ensemble checkpoint and
+    ``summary.json`` (each member's mean T loss over the ids). The loss-matrix
+    figure is not drawn; ``--embedded`` and ``--netcdf`` raise.
+    """
+    from climateparameterizations_jl_tpu_torch.core.scalings import ZeroMeanUnitVarianceScaling
+    from climateparameterizations_jl_tpu_torch.data.free_convection import build_free_convection_model
+    from climateparameterizations_jl_tpu_torch.eval.profile import free_convection_profile
+
+    if args.netcdf:
+        _refuse("--netcdf", "writes the embedded pair (it requires --embedded)", _EMBEDDING)
+    if args.embedded:
+        _refuse("--embedded", "runs the closure inside the host column model", _EMBEDDING)
+    device = resolve_device(args.device)
+    nn, meta = _load_fc_nn(args.checkpoint, device)
+    ensemble_nn = None
+    if meta.get("ensemble"):
+        from climateparameterizations_jl_tpu_torch.train.deep_ensemble import member
+
+        ensemble_nn, nn = nn, member(nn, 0)
+        print(f"deep-ensemble checkpoint (K={int(meta['ensemble'])}): 'nde' channels show member 0; "
+              f"uncertainty_sim*.npz / 'nde_ensemble_mean' carry the ensemble", flush=True)
+    ids = [int(s) for s in _sims(args.sim_ids)]
+    os.makedirs(args.output, exist_ok=True)
+    saved = meta.get("scalings")
+    base_closure = meta.get("base_closure", "convective_adjustment")
+    if saved is None:
+        print("warning: checkpoint has no recorded training scalings; refitting per sim (results not comparable "
+              "to training)")
+    # The ids' stand-ins come from one batched generation (each id's result is the single-id generator's).
+    suite = _load_fc_suite(ids, args.nz, args.data_dir, args.n_save, args.dt_save, args.source, device)
+    matrix: dict = {}
+    for k, i in enumerate(ids):
+        ds = _select_sims(suite, k) if len(ids) > 1 else suite
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)  # noqa: E731
+        if saved is not None:
+            T_scaling = ZeroMeanUnitVarianceScaling(f32(saved["T"]["mu"]), f32(saved["T"]["sigma"]))
+            wT_scaling = ZeroMeanUnitVarianceScaling(f32(saved["wT"]["mu"]), f32(saved["wT"]["sigma"]))
+        else:
+            T_scaling = ZeroMeanUnitVarianceScaling.fit(ds.T.reshape(-1))
+            wT_scaling = ZeroMeanUnitVarianceScaling.fit(ds.wT.reshape(-1))
+        model = build_free_convection_model(ds, T_scaling, wT_scaling, base_closure=base_closure)
+        tsteps = np.arange(0, min(args.n_eval_steps, int(ds.t.shape[-1])), args.eval_stride)
+        ev = free_convection_profile(model, nn, ds, tsteps, n_substeps=args.n_substeps,
+                                     kpp_n_substeps=args.kpp_n_substeps)
+        np.savez(os.path.join(args.output, f"sim{i}.npz"), **ev.to_dict())
+        if ensemble_nn is not None:
+            from climateparameterizations_jl_tpu_torch.eval.ensemble_uq import fc_ensemble_uq
+
+            uq = fc_ensemble_uq(model, ensemble_nn, ds, tsteps, n_substeps=args.n_substeps)
+            np.savez(os.path.join(args.output, f"uncertainty_sim{i}.npz"), **uq)
+            matrix.setdefault("nde_ensemble_mean", []).append(float(np.mean(uq["losses_ensemble_mean_T"])))
+        for m in ("nde", "conv_adj", "base", "kpp", "tke"):
+            if f"losses_{m}_T" in ev.keys():
+                matrix.setdefault(m, []).append(float(np.mean(ev[f"losses_{m}_T"])))
+
+    summary = {m: float(np.mean(v)) for m, v in matrix.items()}
+    with open(os.path.join(args.output, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+    print(json.dumps(summary))
+    return 0
+
+
 def _add_common(p, with_sims: bool = True):
     p.add_argument("--config", default=None, help="JSON/YAML config file (flags typed on the command line win)")
     if with_sims:
@@ -943,6 +1148,63 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multiplicative covariance inflation per EKI iteration (1.0 = off, the library default; "
                         "the tempered updates already prevent collapse)")
     p.set_defaults(fn=cmd_optimise_mpp)
+
+    p = sub.add_parser("calibrate-kpp", help="KPP parameter search (random, exact-gradient, or ensemble-Kalman)")
+    _add_common(p)
+    p.add_argument("--calibration-method", default="random", choices=["random", "gradient", "eki"],
+                   help="random = the reference's recipe (plugin + finite-difference line search); gradient = plugin "
+                        "+ projected adam through the solve; eki = ensemble Kalman inversion")
+    p.add_argument("--n-plugin", type=int, default=64)
+    p.add_argument("--n-line-search", type=int, default=20)
+    p.add_argument("--n-ensemble", type=int, default=64, help="EKI ensemble size")
+    p.add_argument("--n-eki-iters", type=int, default=8)
+    p.add_argument("--eki-inflation", type=float, default=1.0,
+                   help="multiplicative covariance inflation per EKI iteration (1.0 = off)")
+    p.add_argument("--n-train-steps", type=int, default=32)
+    p.set_defaults(fn=cmd_calibrate_kpp)
+
+    p = sub.add_parser("evaluate", help="NDE-profile comparison vs baselines")
+    _add_common(p)
+    p.add_argument("--mpp-params", default=None, metavar="JSON",
+                   help="optimise-mpp mpp_parameters.json: build the base closure from these calibrated parameters "
+                        "(checkpoints record and restore them)")
+    # --sims is the SCALING context (the training suite); None resolves it from the checkpoint's recorded sims.
+    p.set_defaults(sims=None)
+    p.add_argument("--test-sims", default="strong_wind_weak_cooling")
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--method", default="split", choices=["split", "rk4", "heun", "euler"])
+    p.add_argument("--n-substeps", type=int, default=4)
+    p.add_argument("--n-train-steps", type=int, default=32)
+    p.add_argument("--eval-stride", type=int, default=2)
+    p.add_argument("--animate", action="store_true", help="not ported: figures wait for " + _FIGURES)
+    p.add_argument("--gif-stride", type=int, default=None, help="not ported: the animation's frame stride")
+    p.add_argument("--embedded", action="store_true", help="not ported: waits for " + _EMBEDDING)
+    p.add_argument("--write-jld2", action="store_true", help="not ported: waits for " + _EMBEDDING)
+    p.add_argument("--kpp-n-substeps", type=int, default=1,
+                   help="inner KPP steps per save interval: 1 = the reference harness (KPP at the save spacing); "
+                        "the eval stride gives KPP its native 600 s step on strided evaluations")
+    p.set_defaults(fn=cmd_evaluate)
+
+    p = sub.add_parser("evaluate-fc", help="free-convection comparison across sim ids")
+    p.add_argument("--config", default=None, help="JSON/YAML config file (flags typed on the command line win)")
+    p.add_argument("--checkpoint", required=True, help="train-fc-nde output dir")
+    p.add_argument("--sim-ids", default="1,2", help="comma-separated free-convection ids to evaluate")
+    p.add_argument("--data-dir", default=None)
+    p.add_argument("--source", default="auto", choices=["auto", "synthetic", "les3d"],
+                   help="les3d (the 3-D LES generator) is not ported and raises")
+    p.add_argument("--nz", type=int, default=32)
+    p.add_argument("--n-save", type=int, default=96)
+    p.add_argument("--dt-save", type=float, default=600.0)
+    p.add_argument("--n-eval-steps", type=int, default=96)
+    p.add_argument("--eval-stride", type=int, default=4)
+    p.add_argument("--n-substeps", type=int, default=8)
+    p.add_argument("--embedded", action="store_true", help="not ported: waits for " + _EMBEDDING)
+    p.add_argument("--netcdf", action="store_true", help="not ported: waits for " + _EMBEDDING)
+    p.add_argument("--output", default="runs/eval_fc")
+    p.add_argument("--kpp-n-substeps", type=int, default=1,
+                   help="inner KPP (and TKE) steps per save interval: 1 = the reference harness; the eval stride "
+                        "gives both baselines their native 600 s step on strided evaluations")
+    p.set_defaults(fn=cmd_evaluate_fc)
     return parser
 
 

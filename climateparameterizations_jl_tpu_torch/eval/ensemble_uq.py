@@ -16,8 +16,6 @@ block-diagonal form; K is 4 in the flagship ensembles).
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
@@ -26,6 +24,7 @@ from climateparameterizations_jl_tpu_torch.eval.profile import (
     _grid,
     _per_timestep_channels,
     _require_uniform,
+    _single_sim,
     _solve_scaled,
 )
 from climateparameterizations_jl_tpu_torch.models.wind_mixing import (
@@ -34,17 +33,6 @@ from climateparameterizations_jl_tpu_torch.models.wind_mixing import (
     split_uvT,
 )
 from climateparameterizations_jl_tpu_torch.train.deep_ensemble import ensemble_size, unstack_members
-
-
-def _single_sim(ds: ColumnTimeSeries, field: str, where: str) -> ColumnTimeSeries:
-    """``ds`` with a leading suite axis of one dropped; a larger suite raises."""
-    if getattr(ds, field).dim() <= 2:
-        return ds
-    if getattr(ds, field).shape[0] != 1:
-        raise ValueError(f"{where} evaluates ONE held-out simulation; got a stacked suite of "
-                         f"{getattr(ds, field).shape[0]}")
-    return dataclasses.replace(ds, **{f.name: getattr(ds, f.name)[0] for f in dataclasses.fields(ds)
-                                      if getattr(ds, f.name) is not None and getattr(ds, f.name).dim() > 0})
 
 
 def _to_numpy(x) -> np.ndarray:

@@ -83,6 +83,12 @@ def eki_update(u, g, y, noise_std, generator: torch.Generator | None = None):
     return kalman_step(u, g, y, eta, noise_std)
 
 
+def _refuse_mesh(mesh, where: str):
+    if mesh is not None:
+        raise NotImplementedError(f'{where}(mesh=...) shards the population over devices; the parallel '
+                                  'modules are not ported yet (ROADMAP.md, queue 1, item 11, "Parallel")')
+
+
 def eki_calibrate(forward_fn: Callable, y_obs, priors: dict, generator: torch.Generator | None = None,
                   n_ensemble: int = 64, n_iterations: int = 10, noise_std: float | None = None,
                   batch_size: int | None = None, mesh=None, inflation: float = 1.0,
@@ -106,9 +112,7 @@ def eki_calibrate(forward_fn: Callable, y_obs, priors: dict, generator: torch.Ge
     after each update. ``mesh`` (sharding the population over devices)
     waits for the parallel port (``ROADMAP.md``, queue 1, item 11) and raises.
     """
-    if mesh is not None:
-        raise NotImplementedError('eki_calibrate(mesh=...) shards the population over devices; the parallel '
-                                  'modules are not ported yet (ROADMAP.md, queue 1, item 11, "Parallel")')
+    _refuse_mesh(mesh, "eki_calibrate")
     generator = generator if generator is not None else torch.Generator().manual_seed(0)
     names = tuple(priors.keys())
     y = torch.as_tensor(y_obs)
@@ -152,3 +156,32 @@ def eki_calibrate(forward_fn: Callable, y_obs, priors: dict, generator: torch.Ge
     misfits.append(float(torch.mean((sanitized_eval(theta) - y[None, :]) ** 2)))
     return EKIResult(names=names, ensemble=theta, theta_mean=torch.mean(theta, dim=0),
                      theta_std=torch.std(theta, dim=0, correction=0), misfit_history=misfits)
+
+
+def calibrate_kpp_eki(ds, tsteps, Nz: int, generator: torch.Generator | None = None, priors: dict | None = None,
+                      n_ensemble: int = 64, n_iterations: int = 10, base_params=None, n_substeps: int = 1,
+                      mesh=None, inflation: float = 1.0):
+    """KPP calibration by EKI (the reference's unfinished ``train_kpp.jl:78-99``).
+
+    Returns ``(KPPParameters at the ensemble mean, EKIResult)``; the result's
+    spread is the posterior uncertainty. The forward map is the population
+    map of ``train/kpp_calibration.py``: the J parameter sets ride the KPP
+    solve's batch axis, so each forward evaluation is one solve (one Thomas
+    launch per step on the card). ``mesh`` raises, as in :func:`eki_calibrate`.
+    """
+    from climateparameterizations_jl_tpu_torch.physics.kpp import KPPParameters
+    from climateparameterizations_jl_tpu_torch.train.kpp_calibration import (
+        DEFAULT_PRIORS,
+        _with_overrides,
+        make_kpp_forward_fn,
+    )
+
+    _refuse_mesh(mesh, "calibrate_kpp_eki")
+    priors = priors if priors is not None else dict(DEFAULT_PRIORS)
+    names = tuple(priors.keys())
+    base = base_params if base_params is not None else KPPParameters.default(device=ds.T.device)
+    forward, y = make_kpp_forward_fn(ds, tsteps, Nz, base, names, n_substeps)
+    result = eki_calibrate(forward, y, priors, generator=generator, n_ensemble=n_ensemble,
+                           n_iterations=n_iterations, inflation=inflation)
+    calibrated = _with_overrides(base, names, [result.theta_mean[i] for i in range(len(names))])
+    return calibrated, result

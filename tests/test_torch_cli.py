@@ -1,4 +1,5 @@
-"""The port's CLI on the CPU: ``catalog``, ``train-nde`` (deep ensembles too), ``extract`` and ``--config``.
+"""The port's CLI on the CPU: ``catalog``, ``train-nde`` (deep ensembles too), ``extract``, ``--config``,
+``calibrate-kpp`` and ``evaluate``.
 
 The counterparts of ``tests/test_cli.py`` at its ``TINY`` sizes, with
 ``--device cpu``. Run directories are read across the packages: the port's
@@ -8,6 +9,7 @@ JAX command writes for the same flags, and the trained checkpoint
 and equal mPP parameters. The two commands draw their initial weights from
 different generators, so their losses are not compared here
 (``tests/test_torch_nde_training.py`` holds training itself to JAX).
+``evaluate`` is held to the JAX command by value, in float64.
 """
 
 import importlib
@@ -24,15 +26,21 @@ import numpy as np
 import pytest
 import torch
 
+from climateparameterizations_jl_tpu.data import containers as jc
+from climateparameterizations_jl_tpu.eval import animations as janim
 from climateparameterizations_jl_tpu.physics.mpp import MPPParameters as JMPP
+from climateparameterizations_jl_tpu_torch.bridge import from_reference
 from climateparameterizations_jl_tpu_torch.cli import main as tcli
 from climateparameterizations_jl_tpu_torch.train import checkpoint as tck
 from climateparameterizations_jl_tpu_torch.train import nde as tnde
+from test_torch_eval_profile import _column, _f64, _to_torch, jit_reference_harness
+from test_torch_fc_cli import EVAL_RTOL, same_npz_files
 
 jcli = importlib.import_module("climateparameterizations_jl_tpu.cli.main")
 REPO = Path(__file__).resolve().parents[1]
 SHOOT16 = str(REPO / "runs" / "wm_les_shoot16")
 TINY = ["--nz", "16", "--n-save", "12", "--dt-save", "600"]
+RI_RTOL = 1e-6
 CHANNELS = ("u", "v", "T", "dudz", "dvdz", "dTdz")
 
 
@@ -297,3 +305,107 @@ def test_train_nde_ensemble_command(tmp_path, capsys):
     with pytest.raises(SystemExit, match="does not match --ensemble 3"):
         tcli.main([*more, "--ensemble", "3", "--init-from", tout])
     capsys.readouterr()
+
+
+# The files the JAX package's ``evaluate`` and ``calibrate-kpp`` write (its ``cli/main.py`` ``cmd_evaluate``
+# and ``cmd_calibrate_kpp``); ``tests/test_torch_eval_profile.py`` holds the profile's keys and values to JAX.
+_CHANNELS6 = ("u", "v", "T", "du", "dv", "dT")
+EVALUATION_KEYS = {
+    "t", "zc", "zf", "truth_uw", "truth_vw", "truth_wT", "truth_Ri",
+    *(f"{m}_{c}" for m in ("truth", "nde", "mpp", "kpp") for c in ("u", "v", "T")),
+    *(f"{m}_{k}" for m in ("nde", "mpp") for k in ("uw", "vw", "wT", "nn_uw", "nn_vw", "nn_wT", "Ri")),
+    *(f"kpp_{k}" for k in ("uw", "vw", "wT", "Ri")),
+    *(f"losses_{m}_{c}" for m in ("nde", "mpp", "kpp") for c in _CHANNELS6),
+    *(f"loss_{m}{g}" for m in ("nde", "mpp", "kpp") for g in ("", "_gradient")),
+}
+UNCERTAINTY_KEYS = {"t", "zc", "zf", "n_members", "losses_member_T", "losses_ensemble_mean_T",
+                    *(f"ensemble_{c}_{s}" for c in ("u", "v", "T") for s in ("mean", "std"))}
+
+
+@pytest.mark.parametrize("method", ["random", "gradient", "eki"])
+def test_calibrate_kpp_command(tmp_path, capsys, method):
+    """Each method writes the JAX command's ``kpp_parameters.json`` keys; the values lie in the priors."""
+    out = str(tmp_path / method)
+    extra = ["--n-ensemble", "6", "--n-eki-iters", "2"] if method == "eki" else ["--n-plugin", "4",
+                                                                                  "--n-line-search", "2"]
+    assert _main(["calibrate-kpp", "--sims", "strong_wind,strong_wind_weak_cooling", *TINY, "--n-train-steps", "6",
+                  "--calibration-method", method, *extra, "--output", out]) == 0
+    capsys.readouterr()
+    with open(os.path.join(out, "kpp_parameters.json")) as f:
+        result = json.load(f)
+    priors = {"CSL": (0.01, 0.99), "CNL": (0.0, 8.0), "Cb_T": (0.0, 6.0), "CKE": (0.0, 5.0)}
+    if method == "eki":
+        assert set(result) == {*priors, "misfit"} and all(set(result[n]) == {"mean", "std"} for n in priors)
+        values = {n: result[n]["mean"] for n in priors}
+        assert math.isfinite(result["misfit"])
+    else:
+        assert set(result) == {*priors, "loss"} and math.isfinite(result["loss"])
+        values = {n: result[n] for n in priors}
+    assert all(priors[n][0] <= v <= priors[n][1] for n, v in values.items())
+
+
+def test_evaluate_command(tmp_path, capsys):
+    """``evaluate`` of the flagship closure equals the JAX command: every npz value and the summary.
+
+    Both commands get the same simulations, one column made with numpy from
+    a seed per catalog name, and the checkpoint's weights, in float64 (the
+    loaders are replaced by ones returning them; the commands read the meta,
+    the scaling context and the mPP base themselves), so each
+    value is held to JAX within ``EVAL_RTOL`` of its key's scale. The
+    Richardson numbers get ``RI_RTOL`` (6.4e-8 measured): in an unsheared
+    layer Ri is N^2 over the 1e-7 floor of S^2, about 1e16 here, and carries
+    the float64 roundoff of the temperature differences in N^2 up by as much.
+    """
+    argv = ["evaluate", "--checkpoint", str(REPO / "runs" / "wm_flagship_fold"), "--sims", "strong_wind",
+            "--test-sims", "strong_wind_weak_cooling", "--nz", "32", "--n-save", "12", "--n-train-steps", "9",
+            "--eval-stride", "2", "--n-substeps", "2", "--kpp-n-substeps", "2"]
+    seeds = {"strong_wind": 0, "strong_wind_weak_cooling": 1}
+
+    def jax_suite(names, Nz, *args):
+        columns = [_column(seeds[n], NT=12, NZ=Nz) for n in names]
+        return jc.stack_datasets(columns) if len(columns) > 1 else columns[0]
+
+    nns, meta = jcli._load_nns(str(REPO / "runs" / "wm_flagship_fold"))
+    nns = _f64(nns)
+    jout, tout = str(tmp_path / "jax"), str(tmp_path / "port")
+    with pytest.MonkeyPatch.context() as mp:
+        jit_reference_harness(mp)
+        for name in ("plot_training_regions", "plot_loss", "plot_final_profiles", "plot_loss_matrix"):
+            mp.setattr(janim, name, lambda *a, **k: None)
+        mp.setattr(jcli, "_load_nns", lambda directory: (nns, meta))
+        mp.setattr(tcli, "_load_nns", lambda directory, device=None: (from_reference(nns, device, torch.float64),
+                                                                       meta))
+        mp.setattr(jcli, "_load_suite", jax_suite)
+        mp.setattr(tcli, "_load_suite", lambda names, *a, device=None, **k: _to_torch(jax_suite(names, *a)))
+        assert jcli.main([*argv, "--output", jout]) == 0
+        assert _main([*argv, "--output", tout]) == 0
+    capsys.readouterr()
+    with np.load(os.path.join(tout, "evaluation_strong_wind_weak_cooling.npz")) as ev:
+        assert set(ev.files) == EVALUATION_KEYS and ev["kpp_T"].shape == (5, 32)
+    same_npz_files(tout, jout, ["evaluation_strong_wind_weak_cooling.npz"], EVAL_RTOL, RI_RTOL)
+    with open(os.path.join(tout, "summary.json")) as f, open(os.path.join(jout, "summary.json")) as g:
+        got, want = json.load(f), json.load(g)
+    assert list(got) == list(want) == ["per_sim", "mean"] and list(got["mean"]) == ["nde", "mpp", "kpp"]
+    for part in ("per_sim", "mean"):
+        assert list(got[part]) == list(want[part])
+        for k in want[part]:
+            np.testing.assert_allclose(got[part][k], want[part][k], rtol=EVAL_RTOL, err_msg=f"{part} {k}")
+    for flags, item in ((["--animate"], "item 10"), (["--gif-stride", "2"], "item 10"), (["--embedded"], "item 7"),
+                        (["--write-jld2"], "item 7")):
+        with pytest.raises(SystemExit, match=item):
+            _main([*argv, *flags, "--output", str(tmp_path / "refused")])
+
+
+def test_evaluate_ensemble_checkpoint(tmp_path, capsys):
+    """An ensemble checkpoint (``runs/wm_flagship_ens4``): member 0 in the profile, the bands beside it."""
+    out = str(tmp_path / "ens")
+    assert _main(["evaluate", "--checkpoint", str(REPO / "runs" / "wm_flagship_ens4"), "--sims", "strong_wind",
+                  "--test-sims", "strong_wind", "--nz", "32", "--n-save", "12", "--n-train-steps", "7",
+                  "--eval-stride", "3", "--n-substeps", "2", "--output", out]) == 0
+    assert "K=4" in capsys.readouterr().out
+    with np.load(os.path.join(out, "uncertainty_strong_wind.npz")) as uq:
+        assert set(uq.files) == UNCERTAINTY_KEYS and int(uq["n_members"]) == 4
+    with np.load(os.path.join(out, "evaluation_strong_wind.npz")) as ev:
+        assert set(ev.files) == EVALUATION_KEYS
+    with open(os.path.join(out, "summary.json")) as f:
+        assert set(json.load(f)["mean"]) == {"nde", "mpp", "kpp", "nde_ensemble_mean"}

@@ -1,4 +1,4 @@
-"""Port parity: the ``train-fc-nde`` and ``train-nn`` commands against the JAX package's.
+"""Port parity: the ``train-fc-nde``, ``train-nn`` and ``evaluate-fc`` commands against the JAX package's.
 
 The counterparts of ``tests/test_cli.py::test_train_fc_nde`` and
 ``test_train_nn_checkpoint`` at their ``TINY`` sizes, with ``--device cpu``.
@@ -14,21 +14,26 @@ Both commands work in float32. Tolerances: flux regression ``REG_RTOL``
 (the same f32 products summed in other orders), NDE losses and weights
 after the curriculum ``NDE_RTOL`` (the two packages round ``dt / dz^2``
 and the closure's sums differently, a few ulps per substep carried through
-the split solves, their IFT gradients and adam).
+the split solves, their IFT gradients and adam). ``evaluate-fc`` runs in
+float64 on the stored JAX run's own truth (see ``EVAL_RTOL``).
 """
 
 import dataclasses
 import importlib
 import json
 import os
+from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from climateparameterizations_jl_tpu.closures import mlp as jmlp
+from climateparameterizations_jl_tpu.data import containers as jc
 from climateparameterizations_jl_tpu.data import free_convection as jfcd
+from climateparameterizations_jl_tpu.eval import animations as janim
 from climateparameterizations_jl_tpu.train import nn as jnn
 from climateparameterizations_jl_tpu_torch.bridge import from_reference
 from climateparameterizations_jl_tpu_torch.cli import main as tcli
@@ -36,8 +41,10 @@ from climateparameterizations_jl_tpu_torch.closures import mlp as tmlp
 from climateparameterizations_jl_tpu_torch.data import containers as tc
 from climateparameterizations_jl_tpu_torch.data import free_convection as tfcd
 from climateparameterizations_jl_tpu_torch.train import nn as tnn
+from test_torch_eval_profile import _f64, jit_reference_harness
 
 jcli = importlib.import_module("climateparameterizations_jl_tpu.cli.main")
+REPO = Path(__file__).resolve().parents[1]
 TINY = ["--nz", "16", "--n-save", "12", "--dt-save", "600"]
 FC = ["train-fc-nde", "--sim-ids", "1,4,8", *TINY, "--pretrain-epochs", "3", "--conv", "2", "--spatial-causality",
       "hard", "--curriculum", "6,13:2", "--maxiters", "2", "--n-substeps", "2", "--lr", "1e-3"]
@@ -226,3 +233,71 @@ def test_train_fc_nde_ensemble_command(tmp_path, capsys):
         assert not bool(W[:, tmlp.spatial_causality_mask(W.shape[1:])].any())
     hist = _history(tout)
     assert len(hist) == 4 and all(np.isfinite(h["loss"]) and h["loss"] == pytest.approx(h["T"]) for h in hist)
+
+
+# ``evaluate-fc`` of the flagship free-convection closure on its held-out ids, in both packages, on the truth the JAX
+# command was run on: the first frames of ``runs/fc_flagship_eval/sim<i>.npz`` (its 3-D LES data, every 9,600 s),
+# with each id's constants. The data and the checkpoint's weights are handed to both commands in float64 (the
+# checkpoint loaders return the same weights cast up; the commands read the meta, scalings and base closure
+# themselves), so each key is held to JAX within ``EVAL_RTOL`` of its scale. In float32 the two packages round the
+# same solves differently, and a diagnosed flux of a nearly mixed layer (K dT/dz) can move by a tenth of its scale.
+FC_FLAGSHIP, FC_FLAGSHIP_EVAL = REPO / "runs" / "fc_flagship", REPO / "runs" / "fc_flagship_eval"
+FC_EVAL_FRAMES, EVAL_RTOL = 9, 1e-8
+FC_EVAL_ARGV = ["evaluate-fc", "--checkpoint", str(FC_FLAGSHIP), "--sim-ids", "8,9", "--nz", "32", "--n-save", "8",
+                "--dt-save", "9600", "--n-eval-steps", str(FC_EVAL_FRAMES), "--eval-stride", "1", "--n-substeps", "8",
+                "--kpp-n-substeps", "16"]
+
+
+def _stored_fc_truth(i: int):
+    """Id ``i``'s first frames of the JAX run's truth as a JAX dataset, with the id's constants."""
+    Qb, stratification = jfcd._SYNTHETIC_PARAMS[i]
+    with np.load(FC_FLAGSHIP_EVAL / f"sim{i}.npz") as ev:
+        T, wT, t = (ev[k][:FC_EVAL_FRAMES] for k in ("truth_T", "truth_wT", "t"))
+    f32 = lambda x: jnp.asarray(x, jnp.float32)  # noqa: E731
+    g, alpha = 9.80665, 2e-4
+    return jc.ColumnTimeSeries(
+        u=f32(np.zeros_like(T)), v=f32(np.zeros_like(T)), T=f32(T), uw=f32(np.zeros_like(wT)),
+        vw=f32(np.zeros_like(wT)), wT=f32(wT), t=f32(t), H=f32(256.0), f=f32(1e-4), g=f32(g), alpha=f32(alpha),
+        beta=f32(8e-4), u_top=f32(0.0), theta_top=f32(Qb / (alpha * g)), theta_bottom=f32(stratification),
+        diurnal_amplitude=f32(0.0))
+
+
+def same_npz_files(got_dir, want_dir, names, rtol, ri_rtol=None):
+    """Each ``.npz`` of ``names`` in ``got_dir`` has the keys and shapes of ``want_dir``'s, each value within
+    ``rtol`` (a Richardson-number channel within ``ri_rtol`` where given)."""
+    for name in names:
+        with np.load(os.path.join(got_dir, name)) as got, np.load(os.path.join(want_dir, name)) as want:
+            assert sorted(got.files) == sorted(want.files), name
+            for k in want.files:
+                assert got[k].shape == want[k].shape, (name, k)
+                _close([got[k]], [want[k]], ri_rtol if ri_rtol is not None and k.endswith("_Ri") else rtol)
+
+
+def test_evaluate_fc_command(tmp_path, capsys):
+    """``evaluate-fc`` equals the JAX command on the same truth and checkpoint: every npz value and the summary."""
+    stored = {i: _f64(_stored_fc_truth(i)) for i in (8, 9)}
+    nn, meta = jcli._load_fc_nn(str(FC_FLAGSHIP))
+    nn = _f64(nn)
+    jout, tout = str(tmp_path / "jax"), str(tmp_path / "port")
+    with pytest.MonkeyPatch.context() as mp:
+        jit_reference_harness(mp)
+        mp.setattr(jcli, "_load_fc_nn", lambda directory: (nn, meta))
+        mp.setattr(tcli, "_load_fc_nn", lambda directory, device=None: (from_reference(nn, device, torch.float64),
+                                                                          meta))
+        mp.setattr(janim, "plot_loss_matrix", lambda *a, **k: None)
+        mp.setattr(jfcd, "load_free_convection_simulation", lambda i, *a, **k: stored[i])
+        assert jcli.main([*FC_EVAL_ARGV, "--output", jout]) == 0
+        mp.setattr(tfcd, "load_free_convection_suite", lambda ids, *a, **k: [_to_torch(stored[i]) for i in ids])
+        assert tcli.main(["--device", "cpu", *FC_EVAL_ARGV, "--output", tout]) == 0
+    capsys.readouterr()
+    same_npz_files(tout, jout, ["sim8.npz", "sim9.npz"], EVAL_RTOL)
+    with open(os.path.join(tout, "summary.json")) as f, open(os.path.join(jout, "summary.json")) as g:
+        got, want = json.load(f), json.load(g)
+    assert list(got) == list(want) == ["nde", "conv_adj", "kpp", "tke"]
+    _close([got[k] for k in want], [want[k] for k in want], EVAL_RTOL)
+    argv = ["--device", "cpu", *FC_EVAL_ARGV]
+    for flag in ("--embedded", "--netcdf"):
+        with pytest.raises(SystemExit, match="item 7"):
+            tcli.main([*argv, flag, "--output", str(tmp_path / "refused")])
+    with pytest.raises(NotImplementedError):
+        tcli.main([*argv, "--source", "les3d", "--output", str(tmp_path / "les3d")])
