@@ -55,7 +55,17 @@ mish), Nz = 32:
   scan; ``calibrate-kpp`` on the 18 flagship sims (random, gradient and EKI,
   64 parameter sets per solve on (3, 64, 18, 32), the population equal on
   kernel and scan and to its single solves); and the blocked f64 GP fit at
-  n = 16,384 against the unblocked one (no hand-written kernel runs there).
+  n = 16,384 against the unblocked one (no hand-written kernel runs there);
+- the embedding and the double gyre (phases 35-38): the host column's paired
+  runs over 1,024 columns with the flagship MLPs (one stacked Thomas launch
+  on (3, 1024, 32) per host step, the first saves against the scan-backed
+  pair); ``train-embedded`` and ``train-embedded-fc`` in-process (a resume,
+  the first stage again on scan); ``evaluate --embedded`` of
+  ``runs/wm_flagship_default`` on the three held-out sims (beside the stored
+  JAX run) and ``evaluate-fc --embedded``; and the 96x96x32 double gyre with
+  the FC MLP (``bench_double_gyre``, three launches per step on (96, 96, 32),
+  (96, 97, 32) and (97, 96, 32), kernel against scan, then the
+  ``double-gyre`` command for 10 days with its volume and wall invariants).
 
 It builds the five kernels from ``csrc/`` (one ``nvcc`` each, side by
 side), holds each against its plain PyTorch version, times it, and checks
@@ -216,11 +226,12 @@ NDE_FRACTIONS = ["--auto-balance", "--fraction-T", "0.8", "--fraction-dTdz", "0.
 FC_COLUMNS, FC_STEPS, FC_REPEATS = 1024, 1152, 5
 FC_PROFILE_STEPS = 288  # the profiled run: its op count per substep and idle share, without 1,152 substeps of tracing
 # Phase 24: train-fc-nde at full width: all nine ids, Nz = 32, 1,153 frames (8 days of 600 s saves), split
-# solver with 4 substeps per save, flux pre-training, and a curriculum whose last stage spans the window
-# (576 and 4,608 substeps per solve; a 2,304-substep middle stage of 577:8 ran before the evaluation phases joined:
-# a depth cut), 2 iterations per stage. Then the first stage again with --tridiag-backend scan: both
-# losses must equal the kernel-backed run's, for the reason above.
-FC_IDS, FC_N_SAVE, FC_CURRICULUM, FC_ITERS = "1,2,3,4,5,6,7,8,9", 1152, "145:8,1153:16", 2
+# solver with 4 substeps per save, flux pre-training, and a two-stage curriculum of 576 and 2,304 substeps per solve
+# (depth cuts: a 2,304-substep middle stage of 577:8 ran before the evaluation phases joined, and the last stage
+# spanned the window, 1153:16 or 4,608 substeps, before the embedding phases joined), 2 iterations per stage. Then
+# the first stage again with --tridiag-backend scan: both losses must equal the kernel-backed run's, for the reason
+# above.
+FC_IDS, FC_N_SAVE, FC_CURRICULUM, FC_ITERS = "1,2,3,4,5,6,7,8,9", 1152, "145:8,577:16", 2
 FC_ARGS = ["--nz", str(NZ), "--n-save", str(FC_N_SAVE), "--dt-save", "600", "--method", "split", "--n-substeps", "4",
            "--pretrain-epochs", "20", "--lr", "1e-3", "--maxiters", str(FC_ITERS)]
 
@@ -257,11 +268,13 @@ WM_SUITES: dict = {}
 # the scan-backed one exactly.
 COL_COLUMNS, COL_STEPS, COL_REPEATS = 1024, 288, 3
 COL_PROFILE_STEPS = 32  # the profiled run: its op count per step and idle share, without 288 steps of tracing
-# Phase 31: evaluate of runs/wm_flagship_fold on the held-out sims at the layout of runs/wm_flagship_fold_eval
-# (written by the JAX command): every 9th of 1,153 frames (129 saves), 9 split substeps per save, KPP at its native
-# 600 s step (9 per save).
+# Phase 31: evaluate --embedded of runs/wm_flagship_default on the three held-out sims at the layout of
+# runs/wm_flagship_default_eval (written by the JAX command): every 9th of the 1,152 saves (128 frames), 9 split
+# substeps and 9 KPP steps (KPP's native 600 s) per save, and the host column's 10 steps per save. Until the embedding
+# joined this phase evaluated runs/wm_flagship_fold without the embedded pair at the layout of
+# runs/wm_flagship_fold_eval; one run of the command now serves phases 31 and 37 (a depth cut: the run of the other
+# checkpoint went).
 EVAL_STRIDE = 9
-FLAGSHIP_EVAL = REPO / "runs" / "wm_flagship_fold_eval"
 # Phase 32: evaluate-fc of runs/fc_flagship on its held-out ids 8 and 9 at the layout of runs/fc_flagship_eval: every
 # 16th of 1,152 saves (72 frames), the command's 8 split substeps per save, KPP and TKE at 600 s (16 per save).
 FC_RUN, FC_EVAL = REPO / "runs" / "fc_flagship", REPO / "runs" / "fc_flagship_eval"
@@ -284,6 +297,33 @@ KPP_LOSS_SLACK = 1e-6
 # Phase 34: the blocked f64 GP fit at the size that motivates the JAX module (ops/blocked_gp.py there), squared
 # exponential at gamma = sqrt(D) (K is not the identity), 33 random targets, against the unblocked fit.
 BGP_N, BGP_D, BGP_BLOCK, BGP_RTOL = 16384, 96, 4096, 1e-8
+# Phase 35: the embedded wind-mixing host column (embed/column_model.py) over 1,024 columns with the flagship MLPs,
+# baseline and +NN, 128 saves x 10 host steps of 60 s: one stacked Thomas launch on (3, 1024, 32) per host step. The
+# kernel's quotients are the IEEE ones where their operands and results are normal f32 numbers (csrc/thomas.cu:66);
+# here the momentum diffusing down from the surface decays into the subnormal range (below 2^-126) in the deep levels,
+# where the kernel's fast-path division and the scan's IEEE division differ, and the levels next to them inherit
+# differences of that size. The sweep does not amplify them (|cp| < 1 and |a / denom| < 1 on these diagonally
+# dominant systems), and they are far below the ulp of any term they meet in the next step (the shear's 1e-7 floor,
+# the scaled NN inputs of order one). Over the first HOST_CHECK_SAVES saves the kernel-backed pair must therefore
+# equal the scan-backed one to within HOST_TINY_ATOL = 2^-100 in every entry (the entries that differ at all are
+# counted and printed); the scan pair is the slow side, so the whole run is timed on the kernel only.
+HOST_COLUMNS, HOST_SAVES, HOST_SUBSTEPS, HOST_CHECK_SAVES, HOST_PROFILE_SAVES = 1024, 128, 10, 8, 2
+HOST_TINY_ATOL = 2.0**-100
+# Phase 36: train-embedded from runs/wm_flagship_fold on the 18 TRAIN_FILES (phase 8's suite) and train-embedded-fc
+# from runs/fc_flagship on the nine stand-in ids (phase 24's suite), two iterations per stage, 10 host steps per save;
+# the first stage again on scan, its losses held to phase 9's STEP_LOSS_RTOL (per-solve f32 differences through the
+# host steps, the checkpoint recompute and the transposed IFT solves).
+EMB_CURRICULUM, EMB_FC_CURRICULUM, EMB_ITERS, EMB_SUBSTEPS, EMB_LR = "8,32", "17", 2, 10, "2e-4"
+# Phase 37: the embedded pairs of phases 31 and 32 (evaluate --embedded of runs/wm_flagship_default,
+# evaluate-fc --embedded of runs/fc_flagship), beside the stored JAX run runs/wm_flagship_default_eval.
+EMBEDDED_RUN, EMBEDDED_EVAL = REPO / "runs" / "wm_flagship_default", REPO / "runs" / "wm_flagship_default_eval"
+EMBEDDED_SUBSTEPS = 10  # eval/profile.py's embedded_substeps default, which the commands use
+# Phase 38: bench_double_gyre at the JAX defaults (96 x 96 x 32, WENO5, 32 steps of 1,800 s, the FC MLP), three
+# Thomas launches per step on (96, 96, 32), (96, 97, 32) and (97, 96, 32); then the double-gyre command for 10 days.
+GYRE_N, GYRE_NZ, GYRE_STEPS, GYRE_REPEATS, GYRE_PROFILE_STEPS, GYRE_DAYS = 96, 32, 32, 3, 8, 10
+GYRE_SHAPES = {(GYRE_N, GYRE_N, GYRE_NZ), (GYRE_N, GYRE_N + 1, GYRE_NZ), (GYRE_N + 1, GYRE_N, GYRE_NZ)}
+# The JAX test's volume bound (tests/test_embed.py::TestDoubleGyre::test_volume_conserved): |mean eta| per frame.
+GYRE_VOLUME_ATOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -1889,11 +1929,11 @@ def _summary_beside(port: dict, path: Path, flat: bool):
     stored = json.loads(path.read_text())
     stored = stored if flat else stored["mean"]
     for m, v in port.items():
-        log(f"  {m}: port {v:.6e}, stored JAX run {stored.get(m, float('nan')):.6e}")
+        log(f"  {m}: port {v:.6e}, " + (f"stored JAX run {stored[m]:.6e}" if m in stored else "no stored value"))
 
 
 def evaluate_phase(dev, setup, smi: str) -> dict:
-    """Phase 31: the evaluate command in-process on the held-out sims, KPP on kernel and scan."""
+    """Phase 31: the evaluate --embedded command in-process on the held-out sims, KPP on kernel and scan."""
     import numpy as np
     import torch
 
@@ -1902,23 +1942,25 @@ def evaluate_phase(dev, setup, smi: str) -> dict:
     from climateparameterizations_jl_tpu_torch.ops import _cuda
 
     names = tuple(benchmarks.TRAIN_FILES)
-    tsteps = np.arange(0, NDE_N_SAVE + 1, EVAL_STRIDE)
-    per_sim = 3 * (len(tsteps) - 1) * EVAL_STRIDE  # NDE, mPP alone and KPP: one solve per substep each
+    tsteps = np.arange(0, NDE_N_SAVE, EVAL_STRIDE)  # --n-train-steps 1152: the stored run's 128 frames
+    saves = len(tsteps) - 1
+    per_sim = 3 * saves * EVAL_STRIDE + 2 * saves * EMBEDDED_SUBSTEPS  # NDE, mPP alone, KPP; the host pair
     expected = per_sim * len(UQ_TEST_FILES)
-    with phase(f"31 evaluate of {FLAGSHIP_RUN.name} on the {len(UQ_TEST_FILES)} held-out sims: {len(tsteps)} saves "
-               f"(every {EVAL_STRIDE}th of {NDE_N_SAVE + 1} frames), {EVAL_STRIDE} split substeps and {EVAL_STRIDE} KPP "
-               f"steps per save"), tempfile.TemporaryDirectory() as tmp:
+    with phase(f"31 evaluate --embedded of {EMBEDDED_RUN.name} on the {len(UQ_TEST_FILES)} held-out sims: "
+               f"{len(tsteps)} frames (every {EVAL_STRIDE}th of {NDE_N_SAVE} saves), {EVAL_STRIDE} split substeps and "
+               f"{EVAL_STRIDE} KPP steps per save, {EMBEDDED_SUBSTEPS} host steps per save"), \
+            tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "eval"
         original = cli._load_suite
         WM_SUITES[(names, NZ, None, NDE_N_SAVE, 600.0, 128)] = setup["ds"]  # phase 8's suite: the scaling context
-        cli._load_suite = cached_suites(cli, WM_SUITES)
+        cli._load_suite = cached_suites(cli, WM_SUITES)  # the held-out sims of phase 27
         try:
             torch.cuda.synchronize()
             t = time.perf_counter()
             _cuda.reset_launch_counts()
-            rc = cli.main(["evaluate", "--checkpoint", str(FLAGSHIP_RUN), "--sims", ",".join(names), "--test-sims",
+            rc = cli.main(["evaluate", "--embedded", "--checkpoint", str(EMBEDDED_RUN), "--test-sims",
                            ",".join(UQ_TEST_FILES), "--nz", str(NZ), "--n-save", str(NDE_N_SAVE), "--dt-save", "600",
-                           "--n-train-steps", str(NDE_N_SAVE + 1), "--eval-stride", str(EVAL_STRIDE), "--n-substeps",
+                           "--n-train-steps", str(NDE_N_SAVE), "--eval-stride", str(EVAL_STRIDE), "--n-substeps",
                            str(EVAL_STRIDE), "--kpp-n-substeps", str(EVAL_STRIDE), "--output", str(out)])
             launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
             torch.cuda.synchronize()
@@ -1928,33 +1970,30 @@ def evaluate_phase(dev, setup, smi: str) -> dict:
             cli._load_suite = original
         summary = json.loads((out / "summary.json").read_text())
         log(f"exit {rc} in {wall:.2f} s ({wall / len(UQ_TEST_FILES):.2f} s per sim); launch counts {launches}; expected "
-            f"thomas {expected} = {len(UQ_TEST_FILES)} sims x 3 solves (NDE, mPP alone, KPP) x {len(tsteps) - 1} "
-            f"saves x {EVAL_STRIDE}")
+            f"thomas {expected} = {len(UQ_TEST_FILES)} sims x (3 solves (NDE, mPP alone, KPP) x {saves} saves x "
+            f"{EVAL_STRIDE} + 2 host runs x {saves} saves x {EMBEDDED_SUBSTEPS})")
         if rc != 0 or launches["thomas"] != expected or any(v for k, v in launches.items() if k != "thomas"):
             raise RuntimeError(f"evaluate: exit {rc}, launches {launches} (expected thomas {expected})")
         with np.load(out / f"evaluation_{UQ_TEST_FILES[0]}.npz") as ev:
             t_dim, kpp_T = ev["t"], ev["kpp_T"]
             finite = all(bool(np.isfinite(ev[k]).all()) for k in ev.files)
-            n_keys = len(ev.files)
+            keys = sorted(ev.files)
         kernel, = _kpp_tke_trajectories(first, t_dim, EVAL_STRIDE, "cuda", wind=True, tke=False)
         scan_ms, (scan,) = cuda_ms(lambda: _kpp_tke_trajectories(first, t_dim, EVAL_STRIDE, "scan", wind=True,
                                                                   tke=False))
         same_file = bool(np.array_equal(kernel.cpu().numpy(), kpp_T))
         log(f"{UQ_TEST_FILES[0]}: KPP trajectory {tuple(kernel.shape)} kernel vs scan torch.equal "
             f"{torch.equal(kernel, scan)} (differing entries {int((kernel != scan).sum())}; scan {scan_ms:.0f} ms), the "
-            f"npz's kpp_T is the kernel run: {same_file}; {n_keys} keys, all finite {finite}")
+            f"npz's kpp_T is the kernel run: {same_file}; {len(keys)} keys, all finite {finite}")
         if not (torch.equal(kernel, scan) and same_file and finite):
             raise RuntimeError("evaluate: the KPP baseline differs on kernel and scan, or the profile is not finite")
-        log("mean scaled T loss per member, beside the stored JAX run (runs/wm_flagship_fold_eval/summary.json; "
-            "information only: the card's suites are the port's f32 stand-ins, not JAX's):")
-        _summary_beside(summary["mean"], FLAGSHIP_EVAL / "summary.json", flat=False)
         log(f"card: {smi}")
     return {"s": wall, "s_per_sim": wall / len(UQ_TEST_FILES), "launches": launches["thomas"], "expected": expected,
-            "saves": len(tsteps), "summary": summary["mean"], "kpp_kernel_equals_scan": True}
+            "frames": len(tsteps), "summary": summary["mean"], "kpp_kernel_equals_scan": True, "keys": keys}
 
 
 def evaluate_fc_phase(dev, smi: str) -> dict:
-    """Phase 32: the evaluate-fc command in-process on ids 8 and 9, KPP and TKE on kernel and scan."""
+    """Phase 32: the evaluate-fc --embedded command in-process on ids 8 and 9, KPP and TKE on kernel and scan."""
     import numpy as np
     import torch
 
@@ -1964,11 +2003,13 @@ def evaluate_fc_phase(dev, smi: str) -> dict:
 
     tsteps = np.arange(0, FC_N_SAVE, FC_EVAL_STRIDE)  # --n-eval-steps 1152 of 1,153 frames
     saves = len(tsteps) - 1
-    per_id = 2 * saves * FC_EVAL_SUBSTEPS + 2 * saves * FC_EVAL_STRIDE  # NDE and conv-adj; KPP and TKE
+    # NDE and conv-adj; KPP and TKE; the host pair
+    per_id = 2 * saves * FC_EVAL_SUBSTEPS + 2 * saves * FC_EVAL_STRIDE + 2 * saves * EMBEDDED_SUBSTEPS
     expected = per_id * len(FC_EVAL_IDS)
     ids = ",".join(map(str, FC_EVAL_IDS))
-    with phase(f"32 evaluate-fc of {FC_RUN.name} on ids {ids}: {len(tsteps)} frames (every {FC_EVAL_STRIDE}th of "
-               f"{FC_N_SAVE} saves), {FC_EVAL_SUBSTEPS} split substeps and {FC_EVAL_STRIDE} KPP / TKE steps per save"), \
+    with phase(f"32 evaluate-fc --embedded of {FC_RUN.name} on ids {ids}: {len(tsteps)} frames (every "
+               f"{FC_EVAL_STRIDE}th of {FC_N_SAVE} saves), {FC_EVAL_SUBSTEPS} split substeps, {FC_EVAL_STRIDE} KPP / TKE "
+               f"steps and {EMBEDDED_SUBSTEPS} host steps per save"), \
             tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "eval_fc"
         original = fcd.load_free_convection_suite
@@ -1977,8 +2018,8 @@ def evaluate_fc_phase(dev, smi: str) -> dict:
             torch.cuda.synchronize()
             t = time.perf_counter()
             _cuda.reset_launch_counts()
-            rc = cli.main(["evaluate-fc", "--checkpoint", str(FC_RUN), "--sim-ids", ids, "--nz", str(NZ), "--n-save",
-                           str(FC_N_SAVE), "--dt-save", "600", "--n-eval-steps", str(FC_N_SAVE), "--eval-stride",
+            rc = cli.main(["evaluate-fc", "--embedded", "--checkpoint", str(FC_RUN), "--sim-ids", ids, "--nz", str(NZ),
+                           "--n-save", str(FC_N_SAVE), "--dt-save", "600", "--n-eval-steps", str(FC_N_SAVE), "--eval-stride",
                            str(FC_EVAL_STRIDE), "--n-substeps", str(FC_EVAL_SUBSTEPS), "--kpp-n-substeps",
                            str(FC_EVAL_STRIDE), "--output", str(out)])
             launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
@@ -1990,13 +2031,15 @@ def evaluate_fc_phase(dev, smi: str) -> dict:
         summary = json.loads((out / "summary.json").read_text())
         log(f"exit {rc} in {wall:.2f} s; launch counts {launches}; "
             f"expected thomas {expected} = {len(FC_EVAL_IDS)} ids x ({saves} saves x {FC_EVAL_SUBSTEPS} substeps x 2 "
-            f"(NDE, conv-adj) + {saves} x {FC_EVAL_STRIDE} steps x 2 (KPP, TKE))")
+            f"(NDE, conv-adj) + {saves} x {FC_EVAL_STRIDE} steps x 2 (KPP, TKE) + {saves} x {EMBEDDED_SUBSTEPS} host steps "
+            f"x 2 (the pair))")
         if rc != 0 or launches["thomas"] != expected or any(v for k, v in launches.items() if k != "thomas"):
             raise RuntimeError(f"evaluate-fc: exit {rc}, launches {launches} (expected thomas {expected})")
         ds = cli._select_sims(suite, 0)
         with np.load(out / f"sim{FC_EVAL_IDS[0]}.npz") as ev:
             t_dim, stored = ev["t"], (ev["kpp_T"], ev["tke_T"])
             finite = all(bool(np.isfinite(ev[k]).all()) for k in ev.files)
+            keys = sorted(ev.files)
         kernel = _kpp_tke_trajectories(ds, t_dim, FC_EVAL_STRIDE, "cuda", wind=False, tke=True)
         scan_ms, scan = cuda_ms(lambda: _kpp_tke_trajectories(ds, t_dim, FC_EVAL_STRIDE, "scan", wind=False, tke=True))
         ok = finite
@@ -2015,7 +2058,7 @@ def evaluate_fc_phase(dev, smi: str) -> dict:
                                                 tsteps)
         log(f"card: {smi}")
     return {"s": wall, "launches": launches["thomas"], "expected": expected, "frames": len(tsteps),
-            "summary": summary, "kernel_equals_scan": True, "on_stored_truth": on_stored}
+            "summary": summary, "kernel_equals_scan": True, "on_stored_truth": on_stored, "keys": keys}
 
 
 def _fc_profile_on_stored_truth(cli, dev, stand_ins: list, tsteps) -> dict:
@@ -2208,6 +2251,289 @@ def blocked_gp_phase(dev, smi: str) -> dict:
             raise RuntimeError("gp_fit_blocked disagrees with gp_fit")
         record = {**out, "alpha_rel": rel, "n": BGP_N, "D": BGP_D, "block": BGP_BLOCK}
         log(f"blocked GP record (no hand-written kernel runs here): {json.dumps(record)}")
+        log(f"card: {smi}")
+    return record
+
+
+def host_column_phase(dev, flagship, smi: str) -> dict:
+    """Phase 35: the paired host-column runs at full width on the Thomas kernel, the first saves against scan."""
+    import torch
+
+    from climateparameterizations_jl_tpu_torch import benchmarks
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
+
+    steps = 2 * HOST_SAVES * HOST_SUBSTEPS
+    with phase(f"35 the host column at full width: run_paired_columns over {HOST_COLUMNS} columns, flagship MLPs, "
+               f"Nz = {NZ}, {HOST_SAVES} saves x {HOST_SUBSTEPS} host steps, baseline and +NN"):
+        original = tri._thomas_cuda
+        shape_rec, shapes = thomas_shapes(tri)
+        tri._thomas_cuda = shape_rec
+        try:
+            _cuda.reset_launch_counts()
+            stats = benchmarks.bench_host_column(HOST_COLUMNS, NZ, HOST_SAVES, HOST_SUBSTEPS, repeats=1, nns=flagship,
+                                                 device=dev)
+            launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+        finally:
+            tri._thomas_cuda = original
+        expected = steps * stats["calls"]
+        log(f"backend {stats['tridiag_backend']}: ms per paired run {[round(t, 1) for t in stats['ms']]}, "
+            f"{stats['ms_per_host_step']:.3f} ms per host step, column-timesteps/s {stats['column_timesteps_per_sec']:.4e}; "
+            f"launch counts {launches}, expected thomas {expected} = 2 x {HOST_SAVES} x {HOST_SUBSTEPS} per run x "
+            f"{stats['calls']} runs, shapes {sorted(set(shapes))}")
+        if (stats["tridiag_backend"] != "cuda" or launches["thomas"] != expected
+                or any(v for k, v in launches.items() if k != "thomas") or set(shapes) != {(3, HOST_COLUMNS, NZ)}):
+            raise RuntimeError(f"host column: backend {stats['tridiag_backend']}, {launches}, shapes {set(shapes)}")
+
+        setup = benchmarks.host_column_setup(HOST_COLUMNS, NZ, flagship, device=dev)
+        got = benchmarks.host_column_forward(setup, HOST_CHECK_SAVES, HOST_SUBSTEPS, "cuda")
+        scan_ms, want = cuda_ms(lambda: benchmarks.host_column_forward(setup, HOST_CHECK_SAVES, HOST_SUBSTEPS, "scan"))
+        tiny = torch.finfo(torch.float32).tiny  # the smallest normal f32, 2^-126
+        ok, differ, subnormal_differ, total, worst, largest = True, 0, 0, 0, 0.0, 0.0
+        for label, g, w in zip(("baseline", "with_nn"), got, want):
+            for field in ("u", "v", "T"):
+                a, b = getattr(g, field), getattr(w, field)
+                mask = a != b
+                differ += int(mask.sum())
+                subnormal_differ += int((mask & (a.abs() < tiny) & (b.abs() < tiny)).sum())
+                if bool(mask.any()):
+                    worst = max(worst, float((a - b).abs().max()))
+                    largest = max(largest, float(torch.maximum(a[mask].abs(), b[mask].abs()).max()))
+                total += a.numel()
+                ok = ok and bool(torch.isfinite(a).all())
+        moved = float((got[1].T[-1] - got[0].T[-1]).abs().max())
+        log(f"kernel vs scan over the first {HOST_CHECK_SAVES} saves ({HOST_CHECK_SAVES * HOST_SUBSTEPS} host steps per "
+            f"run, both runs, u, v and T): entries that differ {differ} of {total} ({subnormal_differ} of them subnormal "
+            f"on both sides, below {tiny:.3e}); largest magnitude among them {largest:.3e}, largest difference "
+            f"{worst:.3e} (limit {HOST_TINY_ATOL:.3e}); the scan-backed pair took {scan_ms:.1f} ms (information); the NN "
+            f"moved T by up to {moved:.3e} K")
+        if not ok or worst > HOST_TINY_ATOL or not moved > 0.0:
+            raise RuntimeError("host column: the kernel-backed pair is not the scan-backed one, or the NN did nothing")
+
+        prof = benchmarks.profile_host_column(HOST_COLUMNS, NZ, HOST_PROFILE_SAVES, HOST_SUBSTEPS, nns=flagship,
+                                              device=dev)
+        log(f"profiled pair of {prof['substeps']} host steps (torch.profiler): wall {prof['wall_ms']:.1f} ms, device "
+            f"busy {prof['device_busy_ms']:.2f} ms, idle share {prof['device_idle_share']:.3f}, {prof['device_ops']} "
+            f"device ops ({prof['device_ops_per_substep']:.1f} per host step)")
+        for key, n, ms in prof["top"]:
+            log(f"  {key}: {n} x, {ms:.3f} ms")
+        log(f"card: {smi}")
+    return {"ms": stats["ms"], "ms_median": stats["ms_median"], "ms_per_host_step": stats["ms_per_host_step"],
+            "column_timesteps_per_sec": stats["column_timesteps_per_sec"], "launches": launches["thomas"],
+            "launches_per_run": steps, "runs": stats["calls"], "shape": [3, HOST_COLUMNS, NZ],
+            "kernel_vs_scan": {"saves": HOST_CHECK_SAVES, "differ": differ, "differ_subnormal": subnormal_differ,
+                               "of": total, "largest_differing": largest, "max_abs_diff": worst},
+            "scan_pair_ms": scan_ms,
+            "profile": {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share", "device_ops",
+                                             "device_ops_per_substep")}}
+
+
+def embedded_thomas_launches(spec: str, n_frames: int, substeps: int, maxiters: int, presolve: bool) -> tuple:
+    """Thomas launches of a train-embedded(-fc) run from its curriculum: per stage ``w[:s]``, ``(points - 1) s
+    substeps`` host steps per solve, three launches each per iteration (forward, checkpoint recompute, transposed
+    IFT solve), plus one forward pre-solve per stage for the auto-balanced loss scalings (wind mixing). Returns the
+    total and the host steps per stage."""
+    stages = []
+    for item in spec.split(","):
+        w, _, s = item.partition(":")
+        stride = int(s or 1)
+        stages.append((len(range(0, min(int(w), n_frames), stride)) - 1) * stride * substeps)
+    return sum((1 if presolve else 0) * n + 3 * n * maxiters for n in stages), stages
+
+
+def train_embedded_phase(dev, setup, smi: str) -> dict:
+    """Phase 36: train-embedded and train-embedded-fc in process on the card, each first stage again on scan."""
+    import torch
+
+    from climateparameterizations_jl_tpu_torch import benchmarks
+    from climateparameterizations_jl_tpu_torch.cli import main as cli
+    from climateparameterizations_jl_tpu_torch.data import free_convection as fcd
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.train import nde
+
+    names = tuple(benchmarks.TRAIN_FILES)
+    record = {}
+    common = ["--nz", str(NZ), "--n-save", str(NDE_N_SAVE), "--dt-save", "600", "--substeps", str(EMB_SUBSTEPS),
+              "--maxiters", str(EMB_ITERS), "--lr", EMB_LR]
+    wm_args = ["train-embedded", "--init-from", str(FLAGSHIP_RUN), "--sims", ",".join(names), *common, *NDE_FRACTIONS]
+    fc_args = ["train-embedded-fc", "--init-from", str(FC_RUN), "--sim-ids", FC_IDS, *common]
+    with phase(f"36 train-embedded ({len(names)} sims, curriculum {EMB_CURRICULUM}) and train-embedded-fc (ids "
+               f"{FC_IDS}, curriculum {EMB_FC_CURRICULUM}) in process, {EMB_ITERS} iterations per stage, "
+               f"{EMB_SUBSTEPS} host steps per save"), tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        originals = (cli._load_suite, fcd.load_free_convection_suite)
+        WM_SUITES[(names, NZ, None, NDE_N_SAVE, 600.0, 128)] = setup["ds"]  # phase 8's suite
+        cli._load_suite = cached_suites(cli, WM_SUITES)
+        fcd.load_free_convection_suite = fc_suites(originals[1])  # phase 24's nine-id suite
+
+        def run(label, argv, spec, presolve):
+            expected, stages = embedded_thomas_launches(spec, NDE_N_SAVE + 1, EMB_SUBSTEPS, EMB_ITERS, presolve)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _cuda.reset_launch_counts()
+            rc = cli.main(argv)
+            launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            out = Path(argv[argv.index("--output") + 1])
+            with open(out / "history.jsonl") as f:
+                losses = [json.loads(line)["loss"] for line in f]
+            scan = "--tridiag-backend" in argv
+            want = 0 if scan else expected
+            derived = "" if scan else f" = sum over stages of ({'1 pre-solve + ' * presolve}3 x {EMB_ITERS}) x host steps"
+            log(f"{label}: exit {rc} in {wall:.2f} s; host steps per solve per stage {stages}; losses {losses}; launch "
+                f"counts {launches}, expected thomas {want}{derived}")
+            if (rc != 0 or launches["thomas"] != want or any(v for k, v in launches.items() if k != "thomas")
+                    or len(losses) != len(stages) * EMB_ITERS or not all(math.isfinite(v) for v in losses)):
+                raise RuntimeError(f"{label}: exit {rc}, launches {launches} (expected {want}), losses {losses}")
+            return {"s": wall, "launches": launches["thomas"], "expected": want, "host_steps": stages,
+                    "losses": losses}
+
+        try:
+            for kind, argv, spec, presolve in (("train-embedded", wm_args, EMB_CURRICULUM, True),
+                                               ("train-embedded-fc", fc_args, EMB_FC_CURRICULUM, False)):
+                out_a, out_b, out_c = (str(tmp / f"{kind}_{x}") for x in "abc")
+                first = spec.split(",")[0]
+                a = run(f"{kind} A (kernel)", [*argv, "--curriculum", spec, "--output", out_a], spec, presolve)
+                b = run(f"{kind} B (resumed from A, first stage)", [*argv, "--curriculum", first, "--resume-from", out_a,
+                                                                   "--output", out_b], first, presolve)
+                c = run(f"{kind} C (scan, first stage)", [*argv, "--curriculum", first, "--tridiag-backend", "scan",
+                                                          "--output", out_c], first, presolve)
+                n = len(c["losses"])
+                rel = [abs(k - s_) / abs(s_) for k, s_ in zip(a["losses"][:n], c["losses"])]
+                log(f"{kind}: first stage, kernel {a['losses'][:n]} vs scan {c['losses']}: rel {rel} (limit "
+                    f"{STEP_LOSS_RTOL}); resumed run's losses {b['losses']} against A's first {a['losses'][:n]}")
+                if not all(r <= STEP_LOSS_RTOL for r in rel):
+                    raise RuntimeError(f"{kind}: kernel and scan losses differ by {rel}")
+                if b["losses"][0] == a["losses"][0]:
+                    raise RuntimeError(f"{kind}: the resumed run starts from A's initial parameters, not its end")
+                record[kind] = {"run_a": a, "run_b_resumed": b, "run_c_scan": c, "kernel_vs_scan_rel": rel}
+        finally:
+            cli._load_suite, fcd.load_free_convection_suite = originals
+        log(f"card: {smi}")
+    return record
+
+
+def evaluate_embedded_phase(evaluate: dict, evaluate_fc: dict, smi: str) -> dict:
+    """Phase 37: the embedded pairs of the evaluate --embedded and evaluate-fc --embedded runs of phases 31 and 32.
+
+    One run of each command serves both phases (their launch counts, which include the host pair, are held there):
+    here the pair's channels must be in the first file of each and its members in each summary, which the
+    wind-mixing one prints beside the stored JAX run of the same command and checkpoint.
+    """
+    members = ("embedded", "embedded_baseline")
+    with phase("37 the embedded pairs: evaluate --embedded (phase 31's run) and evaluate-fc --embedded (phase 32's)"):
+        wm_keys = {f"{m}_{c}" for m in members for c in ("u", "v", "T", "uw", "vw", "wT", "Ri")}
+        fc_keys = {"embedded_T", "embedded_baseline_T", "embedded_wT"}
+        missing = sorted((wm_keys - set(evaluate["keys"])) | (fc_keys - set(evaluate_fc["keys"])))
+        absent = [m for m in members if m not in evaluate["summary"] or m not in evaluate_fc["summary"]]
+        log(f"evaluate --embedded: {evaluate['s']:.2f} s for {len(UQ_TEST_FILES)} sims, thomas {evaluate['launches']}; "
+            f"evaluate-fc --embedded: {evaluate_fc['s']:.2f} s for ids {FC_EVAL_IDS}, thomas {evaluate_fc['launches']}; "
+            f"embedded channels missing {missing}, members missing from a summary {absent}")
+        if missing or absent:
+            raise RuntimeError(f"embedded evaluation: channels {missing} or members {absent} missing")
+        log("mean scaled T loss per member of evaluate --embedded, beside the stored JAX run (runs/"
+            "wm_flagship_default_eval/summary.json; information only: the card's suites are the port's f32 stand-ins, "
+            "not JAX's; the gap of embedded to the stored run is open, ROADMAP.md queue 3):")
+        _summary_beside(evaluate["summary"], EMBEDDED_EVAL / "summary.json", flat=False)
+        log(f"evaluate-fc --embedded, the stand-ins of ids {FC_EVAL_IDS}: "
+            + ", ".join(f"{m} {evaluate_fc['summary'][m]:.6e}" for m in members))
+        log(f"card: {smi}")
+    return {m: {"evaluate": evaluate["summary"][m], "evaluate_fc": evaluate_fc["summary"][m]} for m in members}
+
+
+def double_gyre_phase(dev, smi: str) -> dict:
+    """Phase 38: bench_double_gyre on the Thomas kernel against scan, then the double-gyre command for 10 days."""
+    import numpy as np
+    import torch
+
+    from climateparameterizations_jl_tpu_torch import benchmarks
+    from climateparameterizations_jl_tpu_torch.cli import main as cli
+    from climateparameterizations_jl_tpu_torch.embed import double_gyre as dg
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
+
+    record = {}
+    with phase(f"38 the double gyre: bench_double_gyre ({GYRE_N} x {GYRE_N} x {GYRE_NZ}, WENO5, {GYRE_STEPS} steps of "
+               f"1,800 s, the FC MLP on every column), then double-gyre --checkpoint {FC_RUN.name} --days {GYRE_DAYS}"), \
+            tempfile.TemporaryDirectory() as tmp:
+        original = tri._thomas_cuda
+        shape_rec, shapes = thomas_shapes(tri)
+        tri._thomas_cuda = shape_rec
+        try:
+            _cuda.reset_launch_counts()
+            stats = benchmarks.bench_double_gyre(GYRE_N, GYRE_N, GYRE_NZ, GYRE_STEPS, repeats=GYRE_REPEATS, device=dev)
+            launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+        finally:
+            tri._thomas_cuda = original
+        expected = 3 * GYRE_STEPS * stats["calls"]
+        log(f"backend {stats['tridiag_backend']}: ms per {GYRE_STEPS}-step run {[round(t, 1) for t in stats['ms']]}, "
+            f"{stats['ms_per_step']:.2f} ms per step, basin column-timesteps/s {stats['column_timesteps_per_sec']:.4e}; "
+            f"launch counts {launches}, expected thomas {expected} = 3 x {GYRE_STEPS} x {stats['calls']} runs, shapes "
+            f"{sorted(set(shapes))}")
+        if (stats["tridiag_backend"] != "cuda" or launches["thomas"] != expected
+                or any(v for k, v in launches.items() if k != "thomas") or set(shapes) != GYRE_SHAPES):
+            raise RuntimeError(f"bench_double_gyre: backend {stats['tridiag_backend']}, {launches}, shapes {set(shapes)}")
+
+        setup = benchmarks.double_gyre_setup(GYRE_N, GYRE_N, GYRE_NZ, device=dev)
+        got = benchmarks.double_gyre_forward(setup, GYRE_STEPS, "cuda")
+        scan_ms, want = cuda_ms(lambda: benchmarks.double_gyre_forward(setup, GYRE_STEPS, "scan"))
+        differ = {f: int((getattr(got, f) != getattr(want, f)).sum()) for f in ("u", "v", "T", "eta")}
+        same = all(torch.equal(getattr(got, f), getattr(want, f)) for f in ("u", "v", "T", "eta"))
+        log(f"kernel vs scan trajectory ({GYRE_STEPS} steps): entries that differ {differ}; the scan-backed run took "
+            f"{scan_ms:.1f} ms (information)")
+        if not same:
+            raise RuntimeError(f"double gyre: the kernel-backed run is not the scan-backed one ({differ})")
+
+        prof = benchmarks.profile_double_gyre(GYRE_N, GYRE_N, GYRE_NZ, GYRE_PROFILE_STEPS, device=dev)
+        log(f"profiled run of {GYRE_PROFILE_STEPS} steps (torch.profiler): wall {prof['wall_ms']:.1f} ms, device busy "
+            f"{prof['device_busy_ms']:.2f} ms, idle share {prof['device_idle_share']:.3f}, {prof['device_ops']} device "
+            f"ops ({prof['device_ops_per_substep']:.1f} per step)")
+        for key, n, ms in prof["top"]:
+            log(f"  {key}: {n} x, {ms:.3f} ms")
+
+        kept = {}
+        run_original = dg.run_double_gyre
+
+        def keep(*args, **kw):
+            kept["traj"] = run_original(*args, **kw)
+            return kept["traj"]
+
+        dg.run_double_gyre = keep
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _cuda.reset_launch_counts()
+            rc = cli.main(["double-gyre", "--checkpoint", str(FC_RUN), "--days", str(GYRE_DAYS),
+                           "--output", str(Path(tmp) / "gyre")])
+            launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        finally:
+            dg.run_double_gyre = run_original
+        traj = kept["traj"]
+        n_steps = int(GYRE_DAYS * 86400 / 1800)
+        with np.load(Path(tmp) / "gyre" / "double_gyre.npz") as out:
+            psi = out["psi"]
+        volume = float(traj.eta.mean(dim=(1, 2)).abs().max())
+        walls = max(float(traj.u[:, :, 0].abs().max()), float(traj.u[:, :, -1].abs().max()),
+                    float(traj.v[:, 0].abs().max()), float(traj.v[:, -1].abs().max()))
+        finite = all(bool(torch.isfinite(x).all()) for x in (traj.u, traj.v, traj.T, traj.eta))
+        log(f"double-gyre: exit {rc} in {wall:.2f} s ({wall / n_steps * 1e3:.2f} ms per step), {traj.T.shape[0]} frames; "
+            f"launch counts {launches}, expected thomas {3 * n_steps}; psi {psi.min():.4f} to {psi.max():.4f} Sv; "
+            f"max |mean eta| over frames {volume:.3e} m (limit {GYRE_VOLUME_ATOL}); max |normal velocity| on the walls "
+            f"{walls} (must be 0); all finite {finite}")
+        if (rc != 0 or launches["thomas"] != 3 * n_steps or any(v for k, v in launches.items() if k != "thomas")
+                or not finite or volume > GYRE_VOLUME_ATOL or walls != 0.0):
+            raise RuntimeError(f"double-gyre: exit {rc}, launches {launches}, volume {volume}, walls {walls}, "
+                               f"finite {finite}")
+        record = {"bench": {k: stats[k] for k in ("ms", "ms_median", "ms_per_step", "column_timesteps_per_sec",
+                                                   "calls")},
+                  "launches": launches["thomas"], "shapes": sorted(GYRE_SHAPES), "scan_run_ms": scan_ms,
+                  "profile": {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share", "device_ops",
+                                                   "device_ops_per_substep")},
+                  "command": {"s": wall, "steps": n_steps, "psi_min_Sv": float(psi.min()),
+                              "psi_max_Sv": float(psi.max()), "volume": volume}}
         log(f"card: {smi}")
     return record
 
@@ -2471,9 +2797,10 @@ def main() -> int:
             f"reached = {small_bound / tbench[54]['cuda_ms']:.4f} (latency-bound; earlier kernel "
             f"{THOMAS_EARLIER_MS['54x32'] * 1e3:.2f} us: {small_bound / THOMAS_EARLIER_MS['54x32']:.4f})")
         thomas_errors["bench_16384x32"] = big["max_abs_err_vs_scan"]
-        # The shapes of phases 30 and 33, measured here while the profiler still records every launch.
+        # The shapes of phases 30, 33 and 38, measured here while the profiler still records every launch.
         kpp_tke_shapes = {f"{n_sys}x{NZ}": thomas_bench_record(benchmarks, dev, n_sys)
-                          for n_sys in (3 * COL_COLUMNS, 4 * COL_COLUMNS, 3 * KPP_PLUGIN * len(benchmarks.TRAIN_FILES))}
+                          for n_sys in (3 * COL_COLUMNS, 4 * COL_COLUMNS, 3 * KPP_PLUGIN * len(benchmarks.TRAIN_FILES),
+                                        GYRE_N * GYRE_N, GYRE_N * (GYRE_N + 1))}
 
     thomas_record = {
         "name": "thomas",
@@ -2518,6 +2845,11 @@ def main() -> int:
     thomas_record["evaluate_fc"] = evaluate_fc_phase(dev, smi)
     thomas_record["calibrate_kpp"] = calibrate_kpp_phase(dev, smi)
     blocked_gp_phase(dev, smi)
+    thomas_record["host_column"] = host_column_phase(dev, flagship, smi)
+    thomas_record["train_embedded"] = train_embedded_phase(dev, setup, smi)
+    thomas_record["evaluate_embedded"] = evaluate_embedded_phase(thomas_record["evaluate"], thomas_record["evaluate_fc"],
+                                                                 smi)
+    thomas_record["double_gyre"] = double_gyre_phase(dev, smi)
     record["ptxas"] = ptxas_summary(kernel.ptxas_report)
     thomas_record["ptxas"] = ptxas_summary(thomas.ptxas_report)
     print(smi, flush=True)

@@ -30,6 +30,12 @@
 - :func:`bench_kpp` and :func:`bench_tke` (``benchmarks.py:60`` and
   ``:89``): the KPP and TKE baselines over 1,024 columns x 288 steps of a
   2-day column, one stacked solve per step through ``csrc/thomas.cu``.
+- :func:`bench_host_column`: the embedded wind-mixing host column
+  (``embed/column_model.py``), baseline and +NN over 1,024 columns, one
+  stacked solve of ``(u, v, T)`` per host step through ``csrc/thomas.cu``.
+- :func:`bench_double_gyre` (``benchmarks.py:321``, ``BASELINE.md``): the
+  96x96x32 double gyre with the free-convection MLP on every column, three
+  batched solves per step through ``csrc/thomas.cu``.
 
 Each is timed with CUDA events after a warm-up, and runs on the card only:
 with no card it raises.
@@ -775,6 +781,153 @@ def profile_column_forward(kind: str, n_columns: int = 1024, Nz: int = 32, n_ste
     setup = column_forward_setup(kind, n_columns, Nz, n_steps, device)
     backend = resolve_tridiag_backend(tridiag_backend, n_steps, device)
     return _profiled(lambda: column_forward(setup, backend), n_steps, device)
+
+
+# ---------------------------------------------------------------------------
+# Embedding: the host column and the double gyre
+# ---------------------------------------------------------------------------
+
+
+def host_column_setup(n_columns: int = 1024, Nz: int = 32, nns=None, seed: int = 0, device=None) -> dict:
+    """The embedded wind-mixing host over ``n_columns`` columns, each with its own surface forcing.
+
+    The model of :func:`make_setup` (``nns`` when given, else drawn from a
+    seeded generator) in :func:`~..embed.column_model.host_for_wind_mixing`;
+    from a numpy generator seeded with ``seed``: per-column ``Fu`` in
+    [-5e-4, -1e-4] m^2/s^2 and ``Ftheta`` in [-1.5e-5, 1.5e-5] K m/s (the
+    catalog's wind and buoyancy-flux range), ``dTdz_bottom = 0.01``, and
+    the states at rest on ``19 + 0.01 (z + H)`` plus ``1e-3 N(0, 1)`` K.
+    """
+    from climateparameterizations_jl_tpu_torch.embed.column_model import HostColumnState, host_for_wind_mixing
+
+    device = resolve_device(device)
+    model, nns, _, _ = make_setup(Nz, 1, seed, nns, device)
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)  # noqa: E731
+    host = host_for_wind_mixing(model, f(-1e-4 - 4e-4 * rng.uniform(size=n_columns)),
+                                f(1.5e-5 * (2.0 * rng.uniform(size=n_columns) - 1.0)), f(np.full(n_columns, 0.01)))
+    H = 256.0
+    zc = (np.arange(Nz) + 0.5) * (H / Nz) - H
+    T0 = f(19.0 + 0.01 * (zc + H) + 1e-3 * rng.standard_normal((n_columns, Nz)))
+    zeros = torch.zeros_like(T0)
+    return {"host": host, "nns": nns, "state0": HostColumnState(u=zeros, v=zeros, T=T0), "n_columns": n_columns,
+            "Nz": Nz, "dt": 60.0}
+
+
+def host_column_forward(setup: dict, n_save: int, save_every: int, tridiag_backend: str):
+    """The paired host-column runs ``(baseline, with_nn)`` of a setup, no autograd: ``2 n_save save_every`` solves."""
+    from climateparameterizations_jl_tpu_torch.embed.column_model import run_paired_columns
+
+    with torch.no_grad():
+        return run_paired_columns(setup["host"], setup["nns"], setup["state0"], setup["dt"], n_save, save_every,
+                                  tridiag_backend)
+
+
+def bench_host_column(n_columns: int = 1024, Nz: int = 32, n_save: int = 128, save_every: int = 10,
+                      repeats: int = 1, nns=None, tridiag_backend: str = "auto", device=None) -> dict:
+    """Time the paired host-column runs (the embedded evaluation's pair, ``evaluate --embedded``).
+
+    ``n_save`` saves of ``save_every`` host steps of 60 s, baseline and
+    +NN: ``2 n_save save_every`` stacked solves on ``(3, n_columns, Nz)``
+    per run, Thomas launches on the card. CUDA events around each run after
+    one warm-up; ``ms_per_host_step`` divides the median run by its steps;
+    ``calls`` counts the runs.
+    """
+    from climateparameterizations_jl_tpu_torch.train.nde import resolve_tridiag_backend
+
+    device = _require_card(device, "bench_host_column")
+    setup = host_column_setup(n_columns, Nz, nns, device=device)
+    steps = 2 * n_save * save_every
+    backend = resolve_tridiag_backend(tridiag_backend, steps, device)
+    times, (base, with_nn) = _timed(lambda: host_column_forward(setup, n_save, save_every, backend), repeats, device)
+    if with_nn.T.shape != (n_save + 1, n_columns, Nz) or not all(
+            bool(torch.isfinite(x).all()) for sol in (base, with_nn) for x in (sol.u, sol.v, sol.T)):
+        raise RuntimeError(f"host-column run gave shape {tuple(with_nn.T.shape)} or non-finite values")
+    stats = _stats(times, device)
+    return {
+        **stats, "n_columns": n_columns, "n_save": n_save, "save_every": save_every, "host_steps": steps,
+        "tridiag_backend": backend, "ms_per_host_step": stats["ms_median"] / steps,
+        "column_timesteps_per_sec": n_columns * steps / (stats["ms_median"] * 1e-3), "calls": repeats + 1,
+    }
+
+
+def profile_host_column(n_columns: int = 1024, Nz: int = 32, n_save: int = 2, save_every: int = 10, nns=None,
+                        tridiag_backend: str = "auto", device=None) -> dict:
+    """Where a paired host-column run's time goes: :func:`_profiled` over one run (ops per host step)."""
+    from climateparameterizations_jl_tpu_torch.train.nde import resolve_tridiag_backend
+
+    device = _require_card(device, "profile_host_column")
+    setup = host_column_setup(n_columns, Nz, nns, device=device)
+    backend = resolve_tridiag_backend(tridiag_backend, n_save * save_every, device)
+    return _profiled(lambda: host_column_forward(setup, n_save, save_every, backend), 2 * n_save * save_every,
+                     device)
+
+
+def double_gyre_setup(Nx: int = 96, Ny: int = 96, Nz: int = 32, advection: str = "weno5", seed: int = 0,
+                      device=None) -> dict:
+    """The JAX package's ``bench_double_gyre`` configuration: the default basin at rest, the FC MLP on every column.
+
+    The MLP is drawn from a ``torch.Generator`` seeded with ``seed`` (JAX
+    draws its own with ``jax.random``), T scaled by (15, 5) and wT by (0, 1e-5).
+    """
+    from climateparameterizations_jl_tpu_torch.closures.mlp import free_convection_mlp
+    from climateparameterizations_jl_tpu_torch.embed.double_gyre import DoubleGyreModel, DoubleGyreState
+
+    device = resolve_device(device)
+    model = DoubleGyreModel.default(Nx=Nx, Ny=Ny, Nz=Nz, advection=advection, device=device)
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=device)  # noqa: E731
+    return {"model": model, "state0": DoubleGyreState.rest(model),
+            "nn": free_convection_mlp(torch.Generator().manual_seed(seed), Nz, device=device),
+            "T_scaling": ZeroMeanUnitVarianceScaling(f(15.0), f(5.0)),
+            "wT_scaling": ZeroMeanUnitVarianceScaling(f(0.0), f(1e-5))}
+
+
+def double_gyre_forward(setup: dict, n_steps: int, tridiag_backend: str, dt: float = 1800.0):
+    """One save interval of ``n_steps`` basin steps with the NN closure: the trajectory ``(2, ...)``."""
+    from climateparameterizations_jl_tpu_torch.embed.double_gyre import run_double_gyre
+
+    return run_double_gyre(setup["model"], setup["state0"], dt, n_save=1, save_every=n_steps, nn=setup["nn"],
+                           T_scaling=setup["T_scaling"], wT_scaling=setup["wT_scaling"],
+                           tridiag_backend=tridiag_backend)
+
+
+def bench_double_gyre(Nx: int = 96, Ny: int = 96, Nz: int = 32, n_steps: int = 32, advection: str = "weno5",
+                      tridiag_backend: str = "auto", repeats: int = 3, device=None) -> dict:
+    """The 3-D double gyre with the embedded NN closure: ms per run and basin column-timesteps per second.
+
+    The JAX package's ``bench_double_gyre`` (``benchmarks.py:321``): the
+    default 96x96x32 basin, WENO5, ``n_steps`` steps of 1,800 s, the FC MLP
+    on every column; three batched solves per step (9,216 and 2 x 9,312
+    systems of 32 levels at the default size), Thomas launches on the card.
+    The JAX benchmark's even-``n_steps`` rule belongs to its scan unroll and
+    does not apply. CUDA events around each run after one warm-up; ``calls``
+    counts the runs.
+    """
+    from climateparameterizations_jl_tpu_torch.train.nde import resolve_tridiag_backend
+
+    device = _require_card(device, "bench_double_gyre")
+    setup = double_gyre_setup(Nx, Ny, Nz, advection, device=device)
+    backend = resolve_tridiag_backend(tridiag_backend, n_steps, device)
+    times, traj = _timed(lambda: double_gyre_forward(setup, n_steps, backend), repeats, device)
+    if not all(bool(torch.isfinite(x).all()) for x in (traj.u, traj.v, traj.T, traj.eta)):
+        raise RuntimeError("double-gyre run produced non-finite values")
+    stats = _stats(times, device)
+    return {
+        **stats, "Nx": Nx, "Ny": Ny, "Nz": Nz, "n_steps": n_steps, "repeats": repeats, "tridiag_backend": backend,
+        "ms_per_step": stats["ms_median"] / n_steps,
+        "column_timesteps_per_sec": Nx * Ny * n_steps / (stats["ms_median"] * 1e-3), "calls": repeats + 1,
+    }
+
+
+def profile_double_gyre(Nx: int = 96, Ny: int = 96, Nz: int = 32, n_steps: int = 8, tridiag_backend: str = "auto",
+                        device=None) -> dict:
+    """Where a ``bench_double_gyre`` run's time goes: :func:`_profiled` over one run of ``n_steps`` steps."""
+    from climateparameterizations_jl_tpu_torch.train.nde import resolve_tridiag_backend
+
+    device = _require_card(device, "profile_double_gyre")
+    setup = double_gyre_setup(Nx, Ny, Nz, device=device)
+    backend = resolve_tridiag_backend(tridiag_backend, n_steps, device)
+    return _profiled(lambda: double_gyre_forward(setup, n_steps, backend), n_steps, device)
 
 
 # ---------------------------------------------------------------------------

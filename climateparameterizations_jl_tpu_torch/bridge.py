@@ -5,7 +5,9 @@ it takes an object of the JAX package (or any object with the same fields)
 whose class name is one of the port's (``MLP``, ``ConvMLP``, ``FluxNNs``,
 ``PackedFluxNNs``, ``ZeroMeanUnitVarianceScaling``, ``WindMixingScalings``,
 ``MPPParameters``, ``BoundaryConditions``, ``WindMixingModel``,
-``FreeConvectionModel``, and the GP classes ``GPKernel``, ``SpectralMixtureKernel``, ``GPModel``, ``FluxGPs``),
+``FreeConvectionModel``, the embedding's ``HostColumnModel``,
+``HostColumnState``, ``DoubleGyreModel`` and ``DoubleGyreState``, and the
+GP classes ``GPKernel``, ``SpectralMixtureKernel``, ``GPModel``, ``FluxGPs``),
 reads each field the port's class declares, and turns every array leaf into
 a tensor through numpy (``np.asarray``). Static fields (``Nz``, flags,
 activation names) pass through unchanged. The JAX RNG is never re-seeded on
@@ -27,6 +29,8 @@ from climateparameterizations_jl_tpu_torch.closures.gp import GPKernel, GPModel,
 from climateparameterizations_jl_tpu_torch.closures.mlp import MLP, ConvMLP
 from climateparameterizations_jl_tpu_torch.core.scalings import ZeroMeanUnitVarianceScaling
 from climateparameterizations_jl_tpu_torch.device import resolve_device
+from climateparameterizations_jl_tpu_torch.embed.column_model import HostColumnModel, HostColumnState
+from climateparameterizations_jl_tpu_torch.embed.double_gyre import DoubleGyreModel, DoubleGyreState
 from climateparameterizations_jl_tpu_torch.models.free_convection import FreeConvectionModel
 from climateparameterizations_jl_tpu_torch.models.gp_closure import FluxGPs
 from climateparameterizations_jl_tpu_torch.models.wind_mixing import (
@@ -42,7 +46,8 @@ _GP_CLASSES = (GPKernel, SpectralMixtureKernel, GPModel, FluxGPs)
 _CLASSES = {
     cls.__name__: cls
     for cls in (MLP, ConvMLP, FluxNNs, PackedFluxNNs, ZeroMeanUnitVarianceScaling, WindMixingScalings,
-                MPPParameters, BoundaryConditions, WindMixingModel, FreeConvectionModel, *_GP_CLASSES)
+                MPPParameters, BoundaryConditions, WindMixingModel, FreeConvectionModel, HostColumnModel,
+                HostColumnState, DoubleGyreModel, DoubleGyreState, *_GP_CLASSES)
 }
 _GRAM_BACKENDS = {"xla": "plain", "pallas": "cuda"}
 

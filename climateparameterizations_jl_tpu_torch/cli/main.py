@@ -6,9 +6,12 @@ shooting, checkpoints, resume, calibrated mPP base, deep ensembles),
 ``extract``, ``train-gp``, ``train-fc-nde`` (free-convection NDE training:
 flux pre-training, spatial causality, curriculum, deep ensembles),
 ``optimise-mpp`` (mPP calibration by gradient or EKI), ``calibrate-kpp``
-(KPP calibration: random search, gradient or EKI) and the evaluation
+(KPP calibration: random search, gradient or EKI), the evaluation
 harnesses ``evaluate`` and ``evaluate-fc`` (a trained closure against the
-KPP, TKE and base-closure baselines):
+KPP, TKE and base-closure baselines, and with ``--embedded`` inside the
+host column model), the a-posteriori trainers ``train-embedded`` and
+``train-embedded-fc`` (gradients through the host column) and
+``double-gyre`` (the 3-D basin with the free-convection closure):
 
     python -m climateparameterizations_jl_tpu_torch.cli train-nde --sims strong_wind \
         --curriculum 6,13:2 --shooting 3 --output runs/nde
@@ -24,7 +27,11 @@ KPP, TKE and base-closure baselines):
     python -m climateparameterizations_jl_tpu_torch.cli evaluate --checkpoint runs/nde \
         --test-sims strong_wind_weak_cooling --output runs/eval
     python -m climateparameterizations_jl_tpu_torch.cli evaluate-fc --checkpoint runs/fc --sim-ids 8,9 \
-        --output runs/eval_fc
+        --embedded --output runs/eval_fc
+    python -m climateparameterizations_jl_tpu_torch.cli train-embedded --init-from runs/nde \
+        --curriculum 8,16 --output runs/emb
+    python -m climateparameterizations_jl_tpu_torch.cli train-embedded-fc --init-from runs/fc --output runs/emb_fc
+    python -m climateparameterizations_jl_tpu_torch.cli double-gyre --checkpoint runs/fc --days 10 --output runs/gyre
 
 They run on the card unless ``--device cpu`` is given (the JAX package's
 ``--platform`` flag). ``--config FILE`` (JSON, or YAML where PyYAML is
@@ -33,7 +40,7 @@ directories use the JAX package's format and load in either package.
 ``--data-dir`` reads LESbrary ``.jld2`` files where they exist (h5py needed)
 and falls back to the synthetic stand-ins. The other subcommands are later
 work (``ROADMAP.md``); the commands write the JAX commands' files but no
-figures (``eval/animations.py`` is not ported).
+figures (``eval/animations.py`` is not ported, so ``--animate`` raises).
 """
 
 from __future__ import annotations
@@ -854,11 +861,36 @@ def cmd_calibrate_kpp(args) -> int:
 
 # Flags of the JAX commands that need modules still to be ported (ROADMAP.md, queue 1).
 _FIGURES = "queue 1, item 10 (eval/animations.py)"
-_EMBEDDING = "queue 1, item 7 (embed/column_model.py)"
+_LES3D = "queue 1, item 9 (data/les.py)"
 
 
 def _refuse(flag: str, what: str, item: str):
     raise SystemExit(f"{flag} {what}, which waits for the port of ROADMAP.md {item}")
+
+
+def _write_embedded_jld2(sim_dir: str, ev, ds, Nz: int) -> None:
+    """The embedded pair of one evaluation as LESbrary-layout ``baseline.jld2`` / ``neural_network.jld2``.
+
+    The reference's JLD2OutputWriter files (``NDE_oceananigans.jl:421-454``),
+    read back by ``eval/profile.py::nde_profile_from_saved``; the sim's
+    constants come from its suite ``ds``.
+    """
+    from climateparameterizations_jl_tpu_torch.data.containers import ColumnTimeSeries
+    from climateparameterizations_jl_tpu_torch.data.lesbrary import write_les_profiles
+
+    os.makedirs(sim_dir, exist_ok=True)
+    Nt = ev["t"].shape[0]
+    first = lambda a: float(a.reshape(-1)[0])  # noqa: E731
+    for tag, m in (("baseline", "embedded_baseline"), ("neural_network", "embedded")):
+        cts = ColumnTimeSeries(
+            u=np.reshape(ev[f"{m}_u"], (Nt, Nz)), v=np.reshape(ev[f"{m}_v"], (Nt, Nz)),
+            T=np.reshape(ev[f"{m}_T"], (Nt, Nz)), uw=np.reshape(ev[f"{m}_uw"], (Nt, Nz + 1)),
+            vw=np.reshape(ev[f"{m}_vw"], (Nt, Nz + 1)), wT=np.reshape(ev[f"{m}_wT"], (Nt, Nz + 1)),
+            t=np.asarray(ev["t"]), H=first(ds.H), f=first(ds.f), g=first(ds.g), alpha=first(ds.alpha),
+            beta=first(ds.beta), u_top=first(ds.u_top), theta_top=first(ds.theta_top),
+            theta_bottom=first(ds.theta_bottom),
+        )
+        write_les_profiles(os.path.join(sim_dir, f"{tag}.jld2"), cts)
 
 
 def cmd_evaluate(args) -> int:
@@ -871,8 +903,11 @@ def cmd_evaluate(args) -> int:
     ``evaluation_<sim>.npz`` (``eval/profile.py::nde_profile``),
     ``uncertainty_<sim>.npz`` for an ensemble checkpoint (whose member 0
     fills the ``nde`` channels) and ``summary.json`` (``per_sim`` and
-    ``mean`` of each member's T loss). The JAX command's figures are not
-    drawn; ``--animate``, ``--gif-stride``, ``--embedded`` and ``--write-jld2`` raise.
+    ``mean`` of each member's T loss). ``--embedded`` adds the host-column
+    pair (``embedded``, ``embedded_baseline``; 10 host steps per save
+    interval) and ``--write-jld2`` writes it as LESbrary-layout
+    ``<sim>/baseline.jld2`` and ``<sim>/neural_network.jld2`` (h5py). The
+    JAX command's figures are not drawn; ``--animate`` and ``--gif-stride`` raise.
     """
     from climateparameterizations_jl_tpu_torch.eval.profile import nde_profile
 
@@ -880,10 +915,8 @@ def cmd_evaluate(args) -> int:
         _refuse("--animate", "draws the comparison animation", _FIGURES)
     if args.gif_stride is not None:
         _refuse("--gif-stride", "sets the comparison animation's frame stride", _FIGURES)
-    if args.write_jld2:
-        _refuse("--write-jld2", "writes the embedded pair (it requires --embedded)", _EMBEDDING)
-    if args.embedded:
-        _refuse("--embedded", "runs the closure inside the host column model", _EMBEDDING)
+    if args.write_jld2 and not args.embedded:
+        raise SystemExit("--write-jld2 requires --embedded (it writes the embedded pair)")
     device = resolve_device(args.device)
     test_sims = _sims(args.test_sims)
     nns, ckpt_meta = _load_nns(args.checkpoint, device)
@@ -919,15 +952,17 @@ def cmd_evaluate(args) -> int:
     for name in test_sims:
         ds = _load_suite([name], args.nz, args.data_dir, args.n_save, args.dt_save, device=device)
         ev = nde_profile(model, nns, ds, tsteps, solver=args.method, n_substeps=args.n_substeps,
-                         kpp_n_substeps=args.kpp_n_substeps)
+                         include_embedded=args.embedded, kpp_n_substeps=args.kpp_n_substeps)
         np.savez(os.path.join(args.output, f"evaluation_{name}.npz"), **ev.to_dict())
+        if args.write_jld2:
+            _write_embedded_jld2(os.path.join(args.output, name), ev, ds, args.nz)
         if ensemble_nns is not None:
             from climateparameterizations_jl_tpu_torch.eval.ensemble_uq import nde_ensemble_uq
 
             uq = nde_ensemble_uq(model, ensemble_nns, ds, tsteps, solver=args.method, n_substeps=args.n_substeps)
             np.savez(os.path.join(args.output, f"uncertainty_{name}.npz"), **uq)
             matrix.setdefault("nde_ensemble_mean", []).append(float(np.mean(uq["losses_ensemble_mean_T"])))
-        for m in ("nde", "mpp", "kpp"):
+        for m in ("nde", "mpp", "kpp", "embedded", "embedded_baseline"):
             if f"losses_{m}_T" in ev.keys():
                 matrix.setdefault(m, []).append(float(np.mean(ev[f"losses_{m}_T"])))
 
@@ -947,17 +982,17 @@ def cmd_evaluate_fc(args) -> int:
     ``--sim-ids`` over ``arange(0, min(--n-eval-steps, frames), --eval-stride)``.
     Writes ``sim<i>.npz`` (``eval/profile.py::free_convection_profile``),
     ``uncertainty_sim<i>.npz`` for an ensemble checkpoint and
-    ``summary.json`` (each member's mean T loss over the ids). The loss-matrix
-    figure is not drawn; ``--embedded`` and ``--netcdf`` raise.
+    ``summary.json`` (each member's mean T loss over the ids). ``--embedded``
+    adds the conv-adj host-column pair and ``--netcdf`` writes it as the
+    reference's ``sim<i>/oceananigans_*.nc`` pair (h5py). The loss-matrix
+    figure is not drawn.
     """
     from climateparameterizations_jl_tpu_torch.core.scalings import ZeroMeanUnitVarianceScaling
     from climateparameterizations_jl_tpu_torch.data.free_convection import build_free_convection_model
     from climateparameterizations_jl_tpu_torch.eval.profile import free_convection_profile
 
-    if args.netcdf:
-        _refuse("--netcdf", "writes the embedded pair (it requires --embedded)", _EMBEDDING)
-    if args.embedded:
-        _refuse("--embedded", "runs the closure inside the host column model", _EMBEDDING)
+    if args.netcdf and not args.embedded:
+        raise SystemExit("--netcdf requires --embedded (it writes the embedded pair)")
     device = resolve_device(args.device)
     nn, meta = _load_fc_nn(args.checkpoint, device)
     ensemble_nn = None
@@ -989,15 +1024,23 @@ def cmd_evaluate_fc(args) -> int:
         model = build_free_convection_model(ds, T_scaling, wT_scaling, base_closure=base_closure)
         tsteps = np.arange(0, min(args.n_eval_steps, int(ds.t.shape[-1])), args.eval_stride)
         ev = free_convection_profile(model, nn, ds, tsteps, n_substeps=args.n_substeps,
-                                     kpp_n_substeps=args.kpp_n_substeps)
+                                     include_embedded=args.embedded, kpp_n_substeps=args.kpp_n_substeps)
         np.savez(os.path.join(args.output, f"sim{i}.npz"), **ev.to_dict())
+        if args.netcdf:
+            # The reference-layout NetCDF pair (oceananigans_nn.jl:174-192), one directory per simulation.
+            from climateparameterizations_jl_tpu_torch.data.netcdf import write_paired_column_netcdf
+
+            sim_dir = os.path.join(args.output, f"sim{i}")
+            os.makedirs(sim_dir, exist_ok=True)
+            write_paired_column_netcdf(sim_dir, ev["zc"], ev["zf"], ev["t"], ev["embedded_baseline_T"],
+                                       ev["embedded_T"], ev["embedded_wT"], attrs={"simulation_id": i})
         if ensemble_nn is not None:
             from climateparameterizations_jl_tpu_torch.eval.ensemble_uq import fc_ensemble_uq
 
             uq = fc_ensemble_uq(model, ensemble_nn, ds, tsteps, n_substeps=args.n_substeps)
             np.savez(os.path.join(args.output, f"uncertainty_sim{i}.npz"), **uq)
             matrix.setdefault("nde_ensemble_mean", []).append(float(np.mean(uq["losses_ensemble_mean_T"])))
-        for m in ("nde", "conv_adj", "base", "kpp", "tke"):
+        for m in ("nde", "conv_adj", "base", "kpp", "tke", "embedded", "embedded_baseline"):
             if f"losses_{m}_T" in ev.keys():
                 matrix.setdefault(m, []).append(float(np.mean(ev[f"losses_{m}_T"])))
 
@@ -1005,6 +1048,258 @@ def cmd_evaluate_fc(args) -> int:
     with open(os.path.join(args.output, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
     print(json.dumps(summary))
+    return 0
+
+
+def cmd_train_embedded(args) -> int:
+    """A-posteriori training: the flux NNs optimized THROUGH the embedded host column.
+
+    The JAX package's ``train-embedded`` (``train/embedded.py``): the host
+    column ``evaluate --embedded`` scores, ``--substeps`` host steps per save
+    interval, every implicit step one Thomas launch on the card (forward,
+    checkpoint recompute and the transposed solve of the backward pass).
+    The training sims default to the ``--init-from`` checkpoint's; its NNs
+    keep their training scalings (``--scaling-sims``, else the checkpoint's
+    sims) and their mPP base (``meta["mpp"]``, or ``--mpp-params``).
+    Writes the run directory in the JAX format (``meta["sims"]`` is the
+    scaling suite, ``train_sims`` the training one).
+    """
+    from climateparameterizations_jl_tpu_torch.closures.mlp import wind_mixing_mlp
+    from climateparameterizations_jl_tpu_torch.models.wind_mixing import FluxNNs
+    from climateparameterizations_jl_tpu_torch.train.embedded import train_embedded_wind_mixing
+    from climateparameterizations_jl_tpu_torch.train.nde import NDETrainConfig
+
+    device = resolve_device(args.device)
+    init_meta: dict = {}
+    nns = None
+    if args.init_from:
+        nns, init_meta = _load_nns(args.init_from, device)
+        if int(init_meta.get("ensemble", 0) or 0):
+            raise SystemExit("train-embedded: deep-ensemble checkpoints are not supported yet; extract a member first")
+    if args.sims:
+        names = _sims(args.sims)
+    elif init_meta.get("sims"):
+        names = _sims(init_meta["sims"])
+    else:
+        raise SystemExit("train-embedded: pass --sims (or --init-from a checkpoint that records its sims)")
+    ds = _load_suite(names, args.nz, args.data_dir, args.n_save, args.dt_save, device=device)
+
+    if args.scaling_sims:
+        scaling_names, scaling_src = _sims(args.scaling_sims), "--scaling-sims"
+    elif init_meta.get("sims"):
+        scaling_names, scaling_src = _sims(init_meta["sims"]), "checkpoint meta"
+    else:
+        scaling_names, scaling_src = names, "training sims"
+    scaling_ds = ds if scaling_names == names else _load_suite(scaling_names, args.nz, args.data_dir, args.n_save,
+                                                               args.dt_save, device=device)
+    flags = _suite_diurnal_flags(names)
+    diurnal = bool(init_meta.get("diurnal", any(flags))) or any(flags)
+    base_closure = init_meta.get("base_closure", args.base_closure)
+    model = _wind_model(
+        scaling_ds, args.nz, diurnal=diurnal, smooth_NN=bool(init_meta.get("smooth_NN", False)),
+        smooth_Ri=bool(init_meta.get("smooth_Ri", False)), **_base_closure_overrides(base_closure),
+        **_restore_mpp(init_meta, args.mpp_params, device),
+    )
+    if nns is None:
+        gen = torch.Generator().manual_seed(args.seed)
+        nns = FluxNNs(*(wind_mixing_mlp(gen, args.nz, scale=args.init_scale, device=device) for _ in range(3)))
+    config = NDETrainConfig(
+        learning_rate=args.lr, maxiters=args.maxiters, n_substeps=args.substeps,
+        gradient_scaling=args.gradient_scaling, optimizer=args.optimizer, tridiag_backend=args.tridiag_backend,
+        training_fractions=(
+            {"T": args.fraction_T, "dTdz": args.fraction_dTdz, "profile": args.fraction_profile}
+            if args.auto_balance
+            else None
+        ),
+    )
+    stages = _parse_curriculum(args.curriculum, int(ds.t.shape[-1]), args.substeps, args.maxiters, args.lr,
+                               default_window=args.n_train_steps)
+    print(f"train-embedded: {len(names)} sim(s), {len(stages)} stage(s), scaling context from {scaling_src} "
+          f"({len(scaling_names)} sim(s))", flush=True)
+    nns, history = train_embedded_wind_mixing(
+        model, nns, ds, config, stages=stages, callback=_history_writer(args.output),
+        checkpoint_dir=os.path.join(args.output, "train_state"), resume_from=_resolve_train_state(args.resume_from),
+    )
+    _save_nns(args.output, nns, {
+        "command": "train-embedded",
+        # evaluate reads its scaling context from "sims": the scaling suite, the training sims beside it.
+        "sims": ",".join(scaling_names), "train_sims": ",".join(names), "nz": args.nz,
+        "smooth_NN": bool(init_meta.get("smooth_NN", False)), "smooth_Ri": bool(init_meta.get("smooth_Ri", False)),
+        "diurnal": bool(diurnal), "base_closure": base_closure, "ensemble": 0, "mpp": _mpp_meta(model),
+    })
+    first, last = sum(history[0].values()), sum(history[-1].values())
+    print(f"train-embedded: loss {first:.4e} -> {last:.4e}; saved to {args.output}")
+    return 0
+
+
+def cmd_train_embedded_fc(args) -> int:
+    """FC a-posteriori training: the heat-flux NN optimized THROUGH the embedded conv-adj host column.
+
+    The JAX package's ``train-embedded-fc``: the host column ``evaluate-fc
+    --embedded`` scores, one Thomas launch per host step on the card
+    (forward, recompute, transposed solve). The ids default to the
+    ``--init-from`` checkpoint's; its NN keeps its training scalings and
+    base closure. Writes an ``evaluate-fc``-compatible run directory.
+    ``--source les3d`` raises.
+    """
+    from climateparameterizations_jl_tpu_torch.closures import mlp
+    from climateparameterizations_jl_tpu_torch.core.scalings import ZeroMeanUnitVarianceScaling
+    from climateparameterizations_jl_tpu_torch.data.free_convection import (
+        FREE_CONVECTION_IDS,
+        build_free_convection_model,
+    )
+    from climateparameterizations_jl_tpu_torch.train.checkpoint import save_checkpoint
+    from climateparameterizations_jl_tpu_torch.train.embedded import train_embedded_free_convection
+    from climateparameterizations_jl_tpu_torch.train.nde import NDETrainConfig
+
+    if args.source == "les3d":
+        _refuse("--source les3d", "generates the data with the 3-D LES", _LES3D)
+    device = resolve_device(args.device)
+    init_meta: dict = {}
+    nn = None
+    if args.init_from:
+        nn, init_meta = _load_fc_nn(args.init_from, device)
+        if int(init_meta.get("ensemble", 0) or 0):
+            raise SystemExit("train-embedded-fc: deep-ensemble checkpoints are not supported yet; extract a member "
+                             "first")
+        if init_meta["arch"]["sizes"][-1] + 1 != args.nz:
+            raise SystemExit(f"train-embedded-fc: checkpoint arch is Nz={init_meta['arch']['sizes'][-1] + 1}, got "
+                             f"--nz {args.nz}")
+    if args.sim_ids:
+        ids = [int(s) for s in _sims(args.sim_ids)]
+    elif init_meta.get("sim_ids"):
+        ids = [int(s) for s in init_meta["sim_ids"]]
+    else:
+        raise SystemExit("train-embedded-fc: pass --sim-ids (or --init-from a checkpoint that records its sims)")
+    bad = sorted(set(ids) - set(FREE_CONVECTION_IDS))
+    if bad:
+        print(f"warning: unknown simulation ids {bad} (valid: {sorted(FREE_CONVECTION_IDS)})")
+    ds = _load_fc_suite(ids, args.nz, args.data_dir, args.n_save, args.dt_save, args.source, device)
+
+    saved = init_meta.get("scalings")
+    if saved is not None:
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)  # noqa: E731
+        T_scaling = ZeroMeanUnitVarianceScaling(f32(saved["T"]["mu"]), f32(saved["T"]["sigma"]))
+        wT_scaling = ZeroMeanUnitVarianceScaling(f32(saved["wT"]["mu"]), f32(saved["wT"]["sigma"]))
+    else:
+        T_scaling = ZeroMeanUnitVarianceScaling.fit(ds.T.reshape(-1))
+        wT_scaling = ZeroMeanUnitVarianceScaling.fit(ds.wT.reshape(-1))
+    base_closure = init_meta.get("base_closure", args.base_closure)
+    model = build_free_convection_model(ds, T_scaling, wT_scaling, base_closure=base_closure)
+    if nn is None:
+        nn = mlp.free_convection_mlp(torch.Generator().manual_seed(args.seed), args.nz, device=device)
+    config = NDETrainConfig(learning_rate=args.lr, maxiters=args.maxiters, n_substeps=args.substeps,
+                            optimizer=args.optimizer, tridiag_backend=args.tridiag_backend)
+    n_frames = int(ds.t.shape[-1])
+    stages = _parse_curriculum(args.curriculum, n_frames, args.substeps, args.maxiters, args.lr,
+                               default_window=min(args.n_train_steps, n_frames))
+    print(f"train-embedded-fc: {len(ids)} sim(s), {len(stages)} stage(s), base '{base_closure}', scalings from "
+          f"{'checkpoint' if saved else 'training sims'}", flush=True)
+    nn, history = train_embedded_free_convection(
+        model, nn, ds, config, stages=stages, callback=_history_writer(args.output),
+        checkpoint_dir=os.path.join(args.output, "train_state"), resume_from=_resolve_train_state(args.resume_from),
+    )
+    meta = {
+        "command": "train-embedded-fc", "sim_ids": ids, "conv": init_meta.get("conv", 0), "ensemble": 0,
+        "base_closure": base_closure,
+        "scalings": {
+            "T": {"mu": float(T_scaling.mu), "sigma": float(T_scaling.sigma)},
+            "wT": {"mu": float(wT_scaling.mu), "sigma": float(wT_scaling.sigma)},
+        },
+    }
+    if isinstance(nn, mlp.ConvMLP):
+        meta["arch"] = {"sizes": list(nn.mlp.sizes), "activation": nn.mlp.activation, "conv_width": nn.width}
+    else:
+        meta["arch"] = {"sizes": list(nn.sizes), "activation": nn.activation}
+    save_checkpoint(args.output, nn, meta)
+    first, last = sum(history[0].values()), sum(history[-1].values())
+    print(f"train-embedded-fc: loss {first:.4e} -> {last:.4e}; saved to {args.output}")
+    return 0
+
+
+def cmd_double_gyre(args) -> int:
+    """The 3-D double gyre, optionally with a free-convection closure on every column.
+
+    The JAX package's ``double-gyre``: ``--days`` of ``--dt`` steps at
+    ``--nx`` x ``--ny`` x ``--nz-gyre``, ``--n-frames`` saved; the
+    closure of ``--checkpoint`` under its training scalings, behind the
+    ``--nn-T-remap`` guard and the optional ``--nn-stability-gate``. Every
+    step runs three batched implicit solves, on the Thomas kernel on the
+    card (``--tridiag-backend auto``). Writes ``double_gyre.npz`` (T, eta,
+    the streamfunction psi in Sv, the surface velocities) and prints psi's
+    range; ``--animate`` raises (no figures).
+    """
+    from climateparameterizations_jl_tpu_torch.core.scalings import ZeroMeanUnitVarianceScaling
+    from climateparameterizations_jl_tpu_torch.embed.double_gyre import (
+        DoubleGyreModel,
+        DoubleGyreState,
+        barotropic_streamfunction,
+        run_double_gyre,
+    )
+    from climateparameterizations_jl_tpu_torch.train.nde import resolve_tridiag_backend
+
+    if args.animate:
+        _refuse("--animate", "draws the basin animation", _FIGURES)
+    device = resolve_device(args.device)
+    model = DoubleGyreModel.default(Nx=args.nx, Ny=args.ny, Nz=args.nz_gyre, advection=args.advection,
+                                    momentum_advection=args.momentum_advection, device=device)
+    state0 = DoubleGyreState.rest(model)
+    nn = T_scaling = wT_scaling = None
+    if args.checkpoint:
+        nn, meta = _load_fc_nn(args.checkpoint, device)
+        saved = meta.get("scalings")
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)  # noqa: E731
+        if saved is not None:
+            # The NN is only valid under its training normalization.
+            T_scaling = ZeroMeanUnitVarianceScaling(f32(saved["T"]["mu"]), f32(saved["T"]["sigma"]))
+            wT_scaling = ZeroMeanUnitVarianceScaling(f32(saved["wT"]["mu"]), f32(saved["wT"]["sigma"]))
+        else:
+            print("warning: checkpoint has no recorded scalings; using --T-mu/--T-sigma/--wT-sigma flags")
+            T_scaling = ZeroMeanUnitVarianceScaling(f32(args.T_mu), f32(args.T_sigma))
+            wT_scaling = ZeroMeanUnitVarianceScaling(f32(0.0), f32(args.wT_sigma))
+
+    T_remap = None
+    if nn is not None and args.nn_T_remap != "none":
+        # The reference remaps basin temperatures into the closure's training range
+        # (T_profile = 19.65 + T_profile/20, double_gyre_nn.jl:155). "auto" maps the restoring range
+        # [T_north, T_south] to mu +- sigma of the checkpoint's scaling.
+        if args.nn_T_remap == "auto":
+            mu, sigma = float(T_scaling.mu), float(T_scaling.sigma)
+            t_lo, t_hi = float(model.T_north), float(model.T_south)
+            b = (t_hi - t_lo) / (2.0 * sigma)
+            a = mu - 0.5 * (t_lo + t_hi) / b
+        else:
+            a, b = (float(s) for s in args.nn_T_remap.split(","))
+        T_remap = (a, b)
+        print(f"NN T remap: T -> {a:.4g} + T/{b:.4g}")
+
+    nn_stability_gate = None
+    if nn is not None and args.nn_stability_gate != "none":
+        # The drift guard (embed/double_gyre.py::nn_closure_forcing); "auto" is a tenth of the basin's bulk
+        # stratification.
+        if args.nn_stability_gate == "auto":
+            nn_stability_gate = 0.1 * float(model.T_south - model.T_north) / float(model.H)
+        else:
+            nn_stability_gate = float(args.nn_stability_gate)
+        if not nn_stability_gate > 0:
+            raise SystemExit(f"--nn-stability-gate must be a positive stratification scale in K/m (or 'auto'/'none'); "
+                             f"got {nn_stability_gate}")
+        print(f"NN stability gate: sigmoid(-dT/dz / {nn_stability_gate:.4g} K/m)")
+
+    n_steps = int(args.days * 86400.0 / args.dt)
+    save_every = max(1, n_steps // max(args.n_frames, 1))
+    traj = run_double_gyre(
+        model, state0, dt=args.dt, n_save=max(1, n_steps // save_every), save_every=save_every, nn=nn,
+        T_scaling=T_scaling, wT_scaling=wT_scaling, T_remap=T_remap,
+        tridiag_backend=resolve_tridiag_backend(args.tridiag_backend, save_every, device),
+        nn_stability_gate=nn_stability_gate,
+    )
+    as_np = lambda x: x.detach().cpu().numpy()  # noqa: E731
+    psi = as_np(barotropic_streamfunction(model, traj.u[-1])) / 1e6
+    os.makedirs(args.output, exist_ok=True)
+    np.savez(os.path.join(args.output, "double_gyre.npz"), T=as_np(traj.T), eta=as_np(traj.eta), psi=psi,
+             u_surface=as_np(traj.u[..., -1]), v_surface=as_np(traj.v[..., -1]))
+    print(json.dumps({"psi_min_Sv": float(psi.min()), "psi_max_Sv": float(psi.max()), "frames": int(traj.T.shape[0])}))
     return 0
 
 
@@ -1178,8 +1473,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval-stride", type=int, default=2)
     p.add_argument("--animate", action="store_true", help="not ported: figures wait for " + _FIGURES)
     p.add_argument("--gif-stride", type=int, default=None, help="not ported: the animation's frame stride")
-    p.add_argument("--embedded", action="store_true", help="not ported: waits for " + _EMBEDDING)
-    p.add_argument("--write-jld2", action="store_true", help="not ported: waits for " + _EMBEDDING)
+    p.add_argument("--embedded", action="store_true", help="also run the host column model (baseline + NN)")
+    p.add_argument("--write-jld2", action="store_true",
+                   help="write the embedded pair as LESbrary-layout .jld2 sims (requires --embedded; h5py)")
     p.add_argument("--kpp-n-substeps", type=int, default=1,
                    help="inner KPP steps per save interval: 1 = the reference harness (KPP at the save spacing); "
                         "the eval stride gives KPP its native 600 s step on strided evaluations")
@@ -1198,13 +1494,107 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-eval-steps", type=int, default=96)
     p.add_argument("--eval-stride", type=int, default=4)
     p.add_argument("--n-substeps", type=int, default=8)
-    p.add_argument("--embedded", action="store_true", help="not ported: waits for " + _EMBEDDING)
-    p.add_argument("--netcdf", action="store_true", help="not ported: waits for " + _EMBEDDING)
+    p.add_argument("--embedded", action="store_true")
+    p.add_argument("--netcdf", action="store_true",
+                   help="also write the reference-layout oceananigans_*.nc pair per sim (requires --embedded; h5py)")
     p.add_argument("--output", default="runs/eval_fc")
     p.add_argument("--kpp-n-substeps", type=int, default=1,
                    help="inner KPP (and TKE) steps per save interval: 1 = the reference harness; the eval stride "
                         "gives both baselines their native 600 s step on strided evaluations")
     p.set_defaults(fn=cmd_evaluate_fc)
+
+    p = sub.add_parser("train-embedded",
+                       help="a-posteriori training: optimize the flux NNs through the embedded host column")
+    _add_common(p, with_sims=False)
+    p.add_argument("--mpp-params", default=None, metavar="JSON",
+                   help="optimise-mpp mpp_parameters.json: build the base closure from these calibrated parameters "
+                        "(checkpoints record and restore them)")
+    p.add_argument("--sims", default=None, help="comma-separated catalog names (default: the --init-from checkpoint's)")
+    p.add_argument("--data-dir", default=None,
+                   help="root of local LESbrary .jld2 files (h5py needed; synthetic stand-ins otherwise)")
+    p.add_argument("--nz", type=int, default=32)
+    p.add_argument("--n-save", type=int, default=96, help="LES frames to generate or load")
+    p.add_argument("--dt-save", type=float, default=600.0)
+    p.add_argument("--init-from", default=None, help="checkpoint dir to fine-tune (train-nde output); omit for a fresh "
+                                                     "init")
+    p.add_argument("--scaling-sims", default=None,
+                   help="override the scaling-context suite (default: the checkpoint's recorded sims)")
+    p.add_argument("--init-scale", type=float, default=1e-5)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--maxiters", type=int, default=50)
+    p.add_argument("--substeps", type=int, default=10,
+                   help="host steps per save interval (evaluate --embedded uses 10)")
+    p.add_argument("--n-train-steps", type=int, default=32)
+    p.add_argument("--curriculum", default=None, help="comma-separated window lengths w[:stride], e.g. 8,16,32")
+    p.add_argument("--gradient-scaling", type=float, default=5e-3)
+    p.add_argument("--base-closure", default="mpp", choices=["mpp", "conv-adj", "none"],
+                   help="host base physics for a FRESH init (--init-from checkpoints carry their own)")
+    p.add_argument("--auto-balance", action="store_true")
+    p.add_argument("--fraction-T", type=float, default=0.8)
+    p.add_argument("--fraction-dTdz", type=float, default=0.8)
+    p.add_argument("--fraction-profile", type=float, default=0.5)
+    p.add_argument("--resume-from", default=None, help="run dir (or its train_state/) with params + optimizer state")
+    p.add_argument("--optimizer", default="adam", choices=["adam", "sgd", "lbfgs"])
+    p.add_argument("--tridiag-backend", default="auto", choices=["auto", "scan", "pcr", "cuda"],
+                   help="host column's implicit solve; auto is the CUDA kernel on the card, scan on the CPU")
+    p.set_defaults(fn=cmd_train_embedded)
+
+    p = sub.add_parser("train-embedded-fc",
+                       help="FC a-posteriori training: optimize the heat-flux NN through the embedded conv-adj host "
+                            "column")
+    _add_common(p, with_sims=False)
+    p.add_argument("--sim-ids", default=None, help="comma-separated free-convection ids (default: the --init-from "
+                                                   "checkpoint's)")
+    p.add_argument("--data-dir", default=None)
+    p.add_argument("--source", default="auto", choices=["auto", "synthetic", "les3d"],
+                   help="les3d (the 3-D LES generator) is not ported and raises")
+    p.add_argument("--les-cache-dir", default=None, help="cache dir of --source les3d (not ported)")
+    p.add_argument("--nz", type=int, default=32)
+    p.add_argument("--n-save", type=int, default=96)
+    p.add_argument("--dt-save", type=float, default=600.0)
+    p.add_argument("--init-from", default=None, help="train-fc-nde checkpoint to fine-tune; omit for a fresh init")
+    p.add_argument("--base-closure", default="convective_adjustment", choices=["convective_adjustment", "none"],
+                   help="host base physics for a FRESH init (--init-from checkpoints carry their own)")
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--maxiters", type=int, default=50)
+    p.add_argument("--substeps", type=int, default=10,
+                   help="host steps per save interval (evaluate-fc --embedded uses 10)")
+    p.add_argument("--n-train-steps", type=int, default=32)
+    p.add_argument("--curriculum", default=None, help="comma-separated window lengths w[:stride], e.g. 8,16,32")
+    p.add_argument("--resume-from", default=None, help="run dir (or its train_state/) with params + optimizer state")
+    p.add_argument("--optimizer", default="adam", choices=["adam", "sgd", "lbfgs"])
+    p.add_argument("--tridiag-backend", default="auto", choices=["auto", "scan", "pcr", "cuda"],
+                   help="host column's implicit solve; auto is the CUDA kernel on the card, scan on the CPU")
+    p.set_defaults(fn=cmd_train_embedded_fc)
+
+    p = sub.add_parser("double-gyre", help="3-D basin run with optional NN closure")
+    _add_common(p, with_sims=False)
+    p.add_argument("--nx", type=int, default=96)
+    p.add_argument("--ny", type=int, default=96)
+    p.add_argument("--nz-gyre", type=int, default=32)
+    p.add_argument("--days", type=float, default=30.0)
+    p.add_argument("--dt", type=float, default=1800.0)
+    p.add_argument("--n-frames", type=int, default=10)
+    p.add_argument("--checkpoint", default=None, help="free-convection NN checkpoint dir")
+    p.add_argument("--T-mu", type=float, default=10.0)
+    p.add_argument("--T-sigma", type=float, default=5.0)
+    p.add_argument("--wT-sigma", type=float, default=1e-5)
+    p.add_argument("--max-steps-per-dispatch", type=int, default=None,
+                   help="accepted for the JAX flag set and ignored: the port runs its steps eagerly")
+    p.add_argument("--nn-T-remap", default="auto",
+                   help="basin-T -> NN-input remap 'a + T/b': 'auto' (from the checkpoint's scalings), 'none' (raw T), "
+                        "or 'A,B' (the reference hardcodes 19.65,20 at double_gyre_nn.jl:155)")
+    p.add_argument("--nn-stability-gate", default="none",
+                   help="taper the NN flux by sigmoid(-dT/dz / s): 'none' (the reference's ungated behavior), 'auto' "
+                        "(s = 0.1 x bulk basin stratification), or a value s in K/m")
+    p.add_argument("--animate", action="store_true", help="not ported: figures wait for " + _FIGURES)
+    p.add_argument("--tridiag-backend", default="auto", choices=["auto", "scan", "pcr", "cuda"],
+                   help="implicit vertical-mixing solves; auto is the CUDA kernel on the card, scan on the CPU")
+    p.add_argument("--advection", default="weno5", choices=["weno5", "centered"],
+                   help="tracer advection scheme (the reference passes WENO5 model-wide)")
+    p.add_argument("--momentum-advection", default="weno5", choices=["weno5", "centered"],
+                   help="momentum advection scheme (2nd-order advective form or WENO5 flux form)")
+    p.set_defaults(fn=cmd_double_gyre)
     return parser
 
 

@@ -16,8 +16,11 @@ the Thomas kernel for card tensors, the plain scan on the CPU. The JAX
 package vmaps the flux diagnostics over the saved frames; here the
 ``(Nt, 3 Nz)`` trajectory goes through one batched call with a ``(Nt,)``
 time vector (``_effective_bcs`` gives each frame its own diurnal flux).
-The embedded host-column comparison (``include_embedded``) waits for the
-embedding port (``ROADMAP.md``, queue 1, item 7) and raises.
+``include_embedded`` adds the host-column comparison (``embed/column_model.py``):
+the closure inside the dimensional host column, baseline and +NN, one
+Thomas launch per host step on the card; its flux diagnostics also go
+through one call over the saved frames, with the frames' times broadcast
+over the time axis.
 """
 
 from __future__ import annotations
@@ -54,9 +57,6 @@ from climateparameterizations_jl_tpu_torch.physics.tke import (
     solve_tke,
     tke_diagnostic_heat_flux,
 )
-
-EMBEDDED_REFUSAL = ("include_embedded=True runs the trained closure inside the host column model, whose port "
-                    "waits for the embedding modules (ROADMAP.md, queue 1, item 7)")
 
 
 def _per_timestep_channels(pred, target, Nz: int, dz_hat: float) -> dict:
@@ -180,7 +180,8 @@ def _add_scalar_aggregates(out: dict) -> None:
 
 def nde_profile(model: WindMixingModel, nns, ds_test: ColumnTimeSeries, tsteps, *, solver: str = "split",
                 n_substeps: int = 4, kpp_params: KPPParameters | None = None, include_kpp: bool = True,
-                include_embedded: bool = False, kpp_n_substeps: int = 1) -> ProfileEvaluation:
+                include_embedded: bool = False, embedded_substeps: int = 10,
+                kpp_n_substeps: int = 1) -> ProfileEvaluation:
     """Full comparison for one held-out wind-mixing simulation.
 
     ``model.scalings`` must be the TRAINING scalings (the reference's
@@ -190,10 +191,11 @@ def nde_profile(model: WindMixingModel, nns, ds_test: ColumnTimeSeries, tsteps, 
     (``wind_mixing/src/k_profile_parameterization.jl:51``); the eval stride
     gives KPP its native 600 s step. Diurnal models run KPP with the daily
     cycle and diagnose its fluxes under the flux of each saved frame.
+    ``include_embedded`` adds the paired host-column runs (``embedded_baseline``
+    and ``embedded``, ``embedded_substeps`` host steps per save interval)
+    with their losses, flux and Ri channels.
     Parity: ``NDE_profile`` (``training_postprocessing.jl:250-632``).
     """
-    if include_embedded:
-        raise NotImplementedError(EMBEDDED_REFUSAL)
     ds_test = _single_sim(ds_test, "u", "nde_profile")
     s = model.scalings
     batch: TrainingBatch = training_tensors(ds_test, s, tsteps, tau=model.tau, diurnal=model.diurnal)
@@ -232,8 +234,54 @@ def nde_profile(model: WindMixingModel, nns, ds_test: ColumnTimeSeries, tsteps, 
 
         if include_kpp:
             _kpp_baseline(out, model, ds_test, tsteps, truth, kpp_params, kpp_n_substeps)
+        if include_embedded:
+            _embedded_wind_mixing(out, model, nns, ds_test, tsteps, truth, embedded_substeps)
     _add_scalar_aggregates(out)
     return ProfileEvaluation(out)
+
+
+def _embedded_wind_mixing(out: dict, model: WindMixingModel, nns, ds_test: ColumnTimeSeries, tsteps, truth,
+                          embedded_substeps: int) -> None:
+    """:func:`nde_profile`'s embedded channels, written into ``out``.
+
+    Parity: ``solve_oceananigans_modified_pacanowski_philander_nn`` and
+    ``NDE_profile_oceananigans`` (``training_postprocessing.jl:634-1156``):
+    the same NNs inside the host column, baseline and +NN, over the host
+    the a-posteriori trainer uses (``host_for_wind_mixing``).
+    """
+    from climateparameterizations_jl_tpu_torch.embed.column_model import (
+        HostColumnState,
+        diagnose_host_fluxes,
+        host_for_wind_mixing,
+        run_paired_columns,
+    )
+    from climateparameterizations_jl_tpu_torch.train.nde import resolve_tridiag_backend
+
+    s, Nz = model.scalings, model.Nz
+    host = host_for_wind_mixing(model, ds_test.u_top, ds_test.theta_top, ds_test.theta_bottom,
+                                diurnal_amplitude=ds_test.diurnal_amplitude)
+    i0 = int(np.asarray(tsteps)[0])
+    state0 = HostColumnState(u=ds_test.u[..., i0, :], v=ds_test.v[..., i0, :], T=ds_test.T[..., i0, :])
+    t_dim = out["t"]
+    n_frames = len(t_dim) - 1
+    dtype, dev = state0.T.dtype, state0.T.device
+    dt_emb = torch.as_tensor((t_dim[-1] - t_dim[0]) / (n_frames * embedded_substeps), dtype=dtype, device=dev)
+    backend = resolve_tridiag_backend("auto", n_frames * embedded_substeps, dev)
+    baseline, with_nn = run_paired_columns(host, nns, state0, dt_emb, n_frames, embedded_substeps, backend,
+                                           t0=float(t_dim[0]))
+    # Each frame's own time, broadcast over the time axis of the trajectory (Nt, ..., Nz).
+    t_frames = torch.as_tensor(t_dim, dtype=dtype, device=dev).reshape((-1,) + (1,) * (state0.T.dim() - 1))
+    for name, sol, run_nns in (("embedded_baseline", baseline, None), ("embedded", with_nn, nns)):
+        u, v, T = (torch.movedim(a, 0, -2) for a in (sol.u, sol.v, sol.T))
+        out[f"{name}_u"], out[f"{name}_v"], out[f"{name}_T"] = _np(u), _np(v), _np(T)
+        scaled = join_uvT(s.u.scale(u), s.v.scale(v), s.T.scale(T))
+        for k, val in _per_timestep_channels(scaled, truth, Nz, model.dz_hat).items():
+            out[f"losses_{name}_{k}"] = _np(val)
+        # Embedded flux and Ri diagnostics (NDE_oceananigans.jl:157-286), every frame in one call.
+        fluxes = diagnose_host_fluxes(host, run_nns, sol, t_frames)
+        for flux, val in zip(("uw", "vw", "wT"), fluxes):
+            out[f"{name}_{flux}"] = _np(torch.movedim(val, 0, -2))
+        out[f"{name}_Ri"] = _np(_ri(model, *split_uvT(scaled, Nz)))
 
 
 def _kpp_baseline(out: dict, model: WindMixingModel, ds_test: ColumnTimeSeries, tsteps, truth, kpp_params,
@@ -322,21 +370,22 @@ def nde_profile_from_saved(sim_dir: str, model: WindMixingModel, ds_truth: Colum
 def free_convection_profile(model, nn, ds_test: ColumnTimeSeries, tsteps, *, n_substeps: int = 2,
                             solver: str = "split", kpp_params: KPPParameters | None = None,
                             tke_params: TKEParameters | None = None, include_kpp: bool = True,
-                            include_tke: bool = True, include_embedded: bool = False, kpp_n_substeps: int = 1,
-                            tke_n_substeps: int | None = None) -> ProfileEvaluation:
+                            include_tke: bool = True, include_embedded: bool = False, embedded_substeps: int = 10,
+                            kpp_n_substeps: int = 1, tke_n_substeps: int | None = None) -> ProfileEvaluation:
     """Free-convection comparison: truth, NDE, conv-adj only (or "base"), KPP and TKE.
 
     ``kpp_n_substeps`` as in :func:`nde_profile`; ``tke_n_substeps``
     defaults to it, so one knob gives both baselines their native step. The
     NN-free member is ``conv_adj`` when the model's base closure is
-    convective adjustment, else ``base`` (surface fluxes only). Parity:
+    convective adjustment, else ``base`` (surface fluxes only).
+    ``include_embedded`` adds the conv-adj host column, baseline and +NN
+    (``embedded_substeps`` host steps per save interval), and the NN heat
+    flux along the +NN run. Parity:
     ``free_convection/test_free_convection_nde.jl:110-165``.
     """
     from climateparameterizations_jl_tpu_torch.models.free_convection import diagnose_wT, solve_free_convection_nde
     from climateparameterizations_jl_tpu_torch.train.nde import resolve_tridiag_backend
 
-    if include_embedded:
-        raise NotImplementedError(EMBEDDED_REFUSAL)
     ds_test = _single_sim(ds_test, "T", "free_convection_profile")
     dev = ds_test.T.device
     tsteps = np.asarray(tsteps)
@@ -389,4 +438,42 @@ def free_convection_profile(model, nn, ds_test: ColumnTimeSeries, tsteps, *, n_s
             out["losses_tke_T"] = mse_t(model.T_scaling.scale(tke.T), T_truth_scaled)
             out["tke_wT"] = _np(tke_diagnostic_heat_flux(tke, model.H / Nz, tke_params, Fb, ds_test.g,
                                                          ds_test.alpha))
+        if include_embedded:
+            _embedded_free_convection(out, model, nn, ds_test, T_truth, T_truth_scaled, t_dim, n_save,
+                                      embedded_substeps, mse_t)
     return ProfileEvaluation(out)
+
+
+def _embedded_free_convection(out: dict, model, nn, ds_test: ColumnTimeSeries, T_truth, T_truth_scaled, t_dim,
+                              n_save: int, embedded_substeps: int, mse_t) -> None:
+    """:func:`free_convection_profile`'s embedded channels, written into ``out``.
+
+    Parity: ``oceananigans_convective_adjustment_nn``
+    (``free_convection/src/oceananigans_nn.jl:42-211``): the trained NN as
+    a forcing in a dimensional column with implicit convective adjustment,
+    over the host the FC a-posteriori trainer uses; then the NN heat flux
+    along the +NN run (``diagnose_wT_NN``, ``oceananigans_nn.jl:184-192``).
+    """
+    from climateparameterizations_jl_tpu_torch.embed.column_model import (
+        HostColumnState,
+        diagnose_nn_heat_flux,
+        host_for_free_convection,
+        run_paired_columns,
+    )
+    from climateparameterizations_jl_tpu_torch.models.wind_mixing import FluxNNs
+    from climateparameterizations_jl_tpu_torch.train.nde import resolve_tridiag_backend
+
+    dtype, dev = T_truth.dtype, T_truth.device
+    host = host_for_free_convection(model, ds_test.f, ds_test.g, ds_test.alpha, Ftheta=ds_test.theta_top,
+                                    dTdz_bottom=ds_test.theta_bottom)
+    zeros = torch.zeros_like(T_truth[..., 0, :])
+    state0 = HostColumnState(u=zeros, v=zeros, T=T_truth[..., 0, :])
+    dt_emb = torch.as_tensor((t_dim[-1] - t_dim[0]) / (n_save * embedded_substeps), dtype=dtype, device=dev)
+    backend = resolve_tridiag_backend("auto", n_save * embedded_substeps, dev)
+    nns = FluxNNs(uw=None, vw=None, wT=nn)
+    baseline, with_nn = run_paired_columns(host, nns, state0, dt_emb, n_save, embedded_substeps, backend)
+    for name, sol in (("embedded_baseline", baseline), ("embedded", with_nn)):
+        T_emb = torch.movedim(sol.T, 0, -2)
+        out[f"{name}_T"] = _np(T_emb)
+        out[f"losses_{name}_T"] = mse_t(model.T_scaling.scale(T_emb), T_truth_scaled)
+    out["embedded_wT"] = _np(diagnose_nn_heat_flux(host, nns, torch.movedim(with_nn.T, 0, -2)))

@@ -294,50 +294,59 @@ def resume_train_state(checkpoint_dir: str, nns, optimizer: str = "adam"):
     return state["params"], state["opt_state"]
 
 
+def train_stages(params, stages: Sequence[CurriculumStage], stage_loss_fn: Callable, config: NDETrainConfig,
+                 callback=None, checkpoint_dir: str | None = None, resume_from: str | None = None, project=None):
+    """Run a curriculum: one optimizer per stage, the optimizer state carried across stages.
+
+    ``stage_loss_fn(i, stage, stage_config, params)`` builds stage ``i``'s
+    ``loss_fn`` from the params the stage starts with; ``stage_config`` is
+    ``config`` with the stage's ``n_substeps`` where it sets one. Each
+    stage has its own optimizer at its own learning rate, and the optimizer
+    state carries across stages, as the JAX package carries optax's
+    (adam's step count keeps counting, so its bias correction does not
+    restart). ``resume_from`` restores params and optimizer state first;
+    ``checkpoint_dir`` saves both after every stage, in the JAX package's
+    format. Returns ``(params, history)``, a list of per-iteration channel
+    dicts.
+    """
+    opt_state = None
+    if resume_from is not None:
+        params, opt_state = resume_train_state(resume_from, params, config.optimizer)
+    history = []
+    for i, stage in enumerate(stages):
+        stage_config = dataclasses.replace(config, n_substeps=stage.n_substeps) if stage.n_substeps else config
+        loss_fn = stage_loss_fn(i, stage, stage_config, params)
+        optimizer = _make_optimizer(stage_config, params, stage.learning_rate)
+        params, h, opt_state = _train_loop(loss_fn, params, optimizer, stage.maxiters, callback, opt_state, project)
+        history.extend(h)
+        if checkpoint_dir is not None:
+            save_checkpoint(checkpoint_dir, {"params": params, "opt_state": opt_state},
+                            {"stage": i, "optimizer": config.optimizer, "learning_rate": config.learning_rate})
+    return params, history
+
+
 def train_wind_mixing_nde(model: WindMixingModel, nns, batch: TrainingBatch, config: NDETrainConfig,
                           stages: Sequence[CurriculumStage] | None = None, full_batch_fn: Callable | None = None,
                           callback=None, checkpoint_dir: str | None = None, resume_from: str | None = None):
     """Train the three flux MLPs through the NDE solve; returns ``(nns, history)``.
 
     With ``stages``, ``full_batch_fn(tsteps)`` builds each stage's batch
-    (curriculum training); each stage has its own optimizer at its own
-    learning rate, and the optimizer state carries across stages, as the
-    JAX package carries optax's (adam's step count keeps counting, so its
-    bias correction does not restart). ``checkpoint_dir`` saves params and
-    optimizer state after every stage; ``resume_from`` restores both
+    (curriculum training, :func:`train_stages`); without, ``batch`` is one
+    stage of ``config.maxiters`` iterations. ``checkpoint_dir`` saves params
+    and optimizer state after every stage; ``resume_from`` restores both
     first. ``history`` is a list of per-iteration channel dicts.
     """
-    opt_state = None
-    if resume_from is not None:
-        nns, opt_state = resume_train_state(resume_from, nns, config.optimizer)
-
-    def _save(nns, opt_state, stage_idx):
-        if checkpoint_dir is not None:
-            save_checkpoint(checkpoint_dir, {"params": nns, "opt_state": opt_state},
-                            {"stage": stage_idx, "optimizer": config.optimizer,
-                             "learning_rate": config.learning_rate})
-
     _require_uniform(batch.t, "train_wind_mixing_nde")
     if stages is None:
-        loss_scalings = determine_loss_scalings(model, nns, batch, config)
-        loss_fn = make_wind_mixing_loss_fn(model, batch, loss_scalings, config)
-        nns, history, opt_state = _train_loop(loss_fn, nns, _make_optimizer(config, nns), config.maxiters,
-                                              callback, opt_state)
-        _save(nns, opt_state, 0)
-        return nns, history
+        stages = [CurriculumStage(tsteps=None, maxiters=config.maxiters, learning_rate=config.learning_rate)]
 
-    history = []
-    for i, stage in enumerate(stages):
-        stage_batch = full_batch_fn(stage.tsteps)
+    def stage_loss_fn(i, stage, stage_config, nns):
+        stage_batch = batch if stage.tsteps is None else full_batch_fn(stage.tsteps)
         _require_uniform(stage_batch.t, f"curriculum stage {i}")
-        stage_config = dataclasses.replace(config, n_substeps=stage.n_substeps) if stage.n_substeps else config
         loss_scalings = determine_loss_scalings(model, nns, stage_batch, stage_config)
-        loss_fn = make_wind_mixing_loss_fn(model, stage_batch, loss_scalings, stage_config)
-        optimizer = _make_optimizer(stage_config, nns, stage.learning_rate)
-        nns, h, opt_state = _train_loop(loss_fn, nns, optimizer, stage.maxiters, callback, opt_state)
-        history.extend(h)
-        _save(nns, opt_state, i)
-    return nns, history
+        return make_wind_mixing_loss_fn(model, stage_batch, loss_scalings, stage_config)
+
+    return train_stages(nns, stages, stage_loss_fn, config, callback, checkpoint_dir, resume_from)
 
 
 def train_free_convection_nde(model: FreeConvectionModel, nn, T0, targets, t, config: NDETrainConfig, callback=None,

@@ -1,5 +1,5 @@
 """The port's CLI on the CPU: ``catalog``, ``train-nde`` (deep ensembles too), ``extract``, ``--config``,
-``calibrate-kpp`` and ``evaluate``.
+``calibrate-kpp``, ``evaluate`` (with ``--embedded`` and ``--write-jld2``), ``train-embedded`` and ``double-gyre``.
 
 The counterparts of ``tests/test_cli.py`` at its ``TINY`` sizes, with
 ``--device cpu``. Run directories are read across the packages: the port's
@@ -9,10 +9,13 @@ JAX command writes for the same flags, and the trained checkpoint
 and equal mPP parameters. The two commands draw their initial weights from
 different generators, so their losses are not compared here
 (``tests/test_torch_nde_training.py`` holds training itself to JAX).
-``evaluate`` is held to the JAX command by value, in float64.
+``evaluate --embedded --write-jld2`` and ``train-embedded`` are held to the
+JAX commands by value, in float64; ``double-gyre`` to the JAX command's
+output on the same basin and closure.
 """
 
 import importlib
+import importlib.util
 import json
 import math
 import os
@@ -318,6 +321,11 @@ EVALUATION_KEYS = {
     *(f"losses_{m}_{c}" for m in ("nde", "mpp", "kpp") for c in _CHANNELS6),
     *(f"loss_{m}{g}" for m in ("nde", "mpp", "kpp") for g in ("", "_gradient")),
 }
+EMBEDDED_KEYS = {
+    *(f"{m}_{k}" for m in ("embedded", "embedded_baseline") for k in ("u", "v", "T", "uw", "vw", "wT", "Ri")),
+    *(f"losses_{m}_{c}" for m in ("embedded", "embedded_baseline") for c in _CHANNELS6),
+    *(f"loss_{m}{g}" for m in ("embedded", "embedded_baseline") for g in ("", "_gradient")),
+}
 UNCERTAINTY_KEYS = {"t", "zc", "zf", "n_members", "losses_member_T", "losses_ensemble_mean_T",
                     *(f"ensemble_{c}_{s}" for c in ("u", "v", "T") for s in ("mean", "std"))}
 
@@ -345,7 +353,8 @@ def test_calibrate_kpp_command(tmp_path, capsys, method):
 
 
 def test_evaluate_command(tmp_path, capsys):
-    """``evaluate`` of the flagship closure equals the JAX command: every npz value and the summary.
+    """``evaluate --embedded --write-jld2`` of the flagship closure equals the JAX command: every npz value, the
+    summary and, where h5py is installed, the embedded pair's ``.jld2`` files (read back by the port's LESbrary reader).
 
     Both commands get the same simulations, one column made with numpy from
     a seed per catalog name, and the checkpoint's weights, in float64 (the
@@ -359,6 +368,8 @@ def test_evaluate_command(tmp_path, capsys):
     argv = ["evaluate", "--checkpoint", str(REPO / "runs" / "wm_flagship_fold"), "--sims", "strong_wind",
             "--test-sims", "strong_wind_weak_cooling", "--nz", "32", "--n-save", "12", "--n-train-steps", "9",
             "--eval-stride", "2", "--n-substeps", "2", "--kpp-n-substeps", "2"]
+    have_h5py = importlib.util.find_spec("h5py") is not None  # the .jld2 writer's; without it the pair is not written
+    embedded = ["--embedded", "--write-jld2"] if have_h5py else ["--embedded"]
     seeds = {"strong_wind": 0, "strong_wind_weak_cooling": 1}
 
     def jax_suite(names, Nz, *args):
@@ -377,22 +388,35 @@ def test_evaluate_command(tmp_path, capsys):
                                                                        meta))
         mp.setattr(jcli, "_load_suite", jax_suite)
         mp.setattr(tcli, "_load_suite", lambda names, *a, device=None, **k: _to_torch(jax_suite(names, *a)))
-        assert jcli.main([*argv, "--output", jout]) == 0
-        assert _main([*argv, "--output", tout]) == 0
+        assert jcli.main([*argv, *embedded, "--output", jout]) == 0
+        assert _main([*argv, *embedded, "--output", tout]) == 0
     capsys.readouterr()
     with np.load(os.path.join(tout, "evaluation_strong_wind_weak_cooling.npz")) as ev:
-        assert set(ev.files) == EVALUATION_KEYS and ev["kpp_T"].shape == (5, 32)
+        assert set(ev.files) == EVALUATION_KEYS | EMBEDDED_KEYS and ev["kpp_T"].shape == (5, 32)
+        assert ev["embedded_T"].shape == (5, 32) and ev["embedded_wT"].shape == (5, 33)
     same_npz_files(tout, jout, ["evaluation_strong_wind_weak_cooling.npz"], EVAL_RTOL, RI_RTOL)
     with open(os.path.join(tout, "summary.json")) as f, open(os.path.join(jout, "summary.json")) as g:
         got, want = json.load(f), json.load(g)
-    assert list(got) == list(want) == ["per_sim", "mean"] and list(got["mean"]) == ["nde", "mpp", "kpp"]
+    assert list(got) == list(want) == ["per_sim", "mean"]
+    assert list(got["mean"]) == ["nde", "mpp", "kpp", "embedded", "embedded_baseline"]
     for part in ("per_sim", "mean"):
         assert list(got[part]) == list(want[part])
         for k in want[part]:
             np.testing.assert_allclose(got[part][k], want[part][k], rtol=EVAL_RTOL, err_msg=f"{part} {k}")
-    for flags, item in ((["--animate"], "item 10"), (["--gif-stride", "2"], "item 10"), (["--embedded"], "item 7"),
-                        (["--write-jld2"], "item 7")):
-        with pytest.raises(SystemExit, match=item):
+    from climateparameterizations_jl_tpu_torch.data.lesbrary import read_les_profiles
+
+    for tag in ("baseline", "neural_network") if have_h5py else ():
+        got_f, want_f = (read_les_profiles(os.path.join(d, "strong_wind_weak_cooling", f"{tag}.jld2"))
+                         for d in (tout, jout))
+        for field in ("u", "v", "T", "uw", "vw", "wT", "t", "H", "f", "g", "alpha", "beta", "u_top", "theta_top",
+                      "theta_bottom"):
+            a, b = getattr(got_f, field).numpy(), getattr(want_f, field).numpy()
+            assert a.shape == b.shape, (tag, field)
+            np.testing.assert_allclose(a, b, rtol=EVAL_RTOL, atol=EVAL_RTOL * max(float(np.abs(b).max()), 1e-30),
+                                       err_msg=f"{tag} {field}")
+    for flags, message in ((["--animate"], "item 10"), (["--gif-stride", "2"], "item 10"),
+                           (["--write-jld2"], "requires --embedded")):
+        with pytest.raises(SystemExit, match=message):
             _main([*argv, *flags, "--output", str(tmp_path / "refused")])
 
 
@@ -409,3 +433,103 @@ def test_evaluate_ensemble_checkpoint(tmp_path, capsys):
         assert set(ev.files) == EVALUATION_KEYS
     with open(os.path.join(out, "summary.json")) as f:
         assert set(json.load(f)["mean"]) == {"nde", "mpp", "kpp", "nde_ensemble_mean"}
+
+
+def _json_same(got: dict, want: dict):
+    """Equal dicts, floats within ``EVAL_RTOL``."""
+    assert list(got) == list(want)
+    for k, w in want.items():
+        if isinstance(w, dict):
+            _json_same(got[k], w)
+        elif isinstance(w, float):
+            assert got[k] == pytest.approx(w, rel=EVAL_RTOL), k
+        else:
+            assert got[k] == w, k
+
+
+def _same_run_dirs(got_dir: str, want_dir: str, rtol: float):
+    """Two run directories: the same history (every channel), weights and meta."""
+    got_h, want_h = _history(got_dir), _history(want_dir)
+    assert len(got_h) == len(want_h)
+    for g, w in zip(got_h, want_h):
+        assert list(g) == list(w)
+        np.testing.assert_allclose([g[k] for k in w], [w[k] for k in w], rtol=rtol, atol=1e-300)
+    same_npz_files(got_dir, want_dir, ["state.npz"], rtol)
+    with open(os.path.join(got_dir, "meta.json")) as f, open(os.path.join(want_dir, "meta.json")) as g:
+        _json_same(json.load(f), json.load(g))
+
+
+def test_train_embedded_command(tmp_path, capsys):
+    """``train-embedded`` from the flagship checkpoint equals the JAX command: history, weights and meta, and after a
+    resume from each package's train state again.
+
+    Both get the same float64 simulations (a column made with numpy from a seed per name, for the two training
+    sims and the checkpoint's 18 scaling sims) and the checkpoint's weights in float64, over a two-stage curriculum
+    with auto-balanced loss weights; every channel and weight within ``EVAL_RTOL``.
+    """
+    ckpt = str(REPO / "runs" / "wm_flagship_fold")
+    nns, meta = jcli._load_nns(ckpt)
+    nns = _f64(nns)
+    names = ["strong_wind", "strong_wind_weak_cooling", *meta["sims"].split(",")]
+    seeds = {n: i for i, n in enumerate(names)}
+
+    def jax_suite(names, Nz, *args):
+        columns = [_column(seeds[n], NT=12, NZ=Nz) for n in names]
+        return jc.stack_datasets(columns) if len(columns) > 1 else columns[0]
+
+    argv = ["train-embedded", "--init-from", ckpt, "--sims", "strong_wind,strong_wind_weak_cooling", "--nz", "32",
+            "--n-save", "12", "--substeps", "2", "--lr", "1e-3", "--auto-balance"]
+    jout, tout = str(tmp_path / "jax"), str(tmp_path / "port")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jcli, "_load_nns", lambda directory: (nns, meta))
+        mp.setattr(tcli, "_load_nns", lambda directory, device=None: (from_reference(nns, device, torch.float64),
+                                                                       meta))
+        mp.setattr(jcli, "_load_suite", jax_suite)
+        mp.setattr(tcli, "_load_suite", lambda names, *a, device=None, **k: _to_torch(jax_suite(names, *a)))
+        first = ["--curriculum", "4,7", "--maxiters", "2"]
+        assert jcli.main([*argv, *first, "--output", jout]) == 0
+        assert _main([*argv, *first, "--output", tout]) == 0
+        _same_run_dirs(tout, jout, EVAL_RTOL)
+        with open(os.path.join(tout, "meta.json")) as f:
+            got = json.load(f)
+        assert got["sims"] == meta["sims"] and got["train_sims"] == "strong_wind,strong_wind_weak_cooling"
+        assert got["command"] == "train-embedded" and set(got["mpp"]) == {"nu_0", "nu_minus", "Ri_c", "delta_Ri", "Pr"}
+        assert _count(tout) == 4
+        # Each resumes the other's train state for one more stage.
+        more = ["--curriculum", "4", "--maxiters", "1"]
+        assert jcli.main([*argv, *more, "--resume-from", tout, "--output", jout + "_b"]) == 0
+        assert _main([*argv, *more, "--resume-from", jout, "--output", tout + "_b"]) == 0
+        _same_run_dirs(tout + "_b", jout + "_b", EVAL_RTOL)
+        assert _count(tout + "_b") == 5
+    capsys.readouterr()
+    with pytest.raises(SystemExit, match="deep-ensemble"):
+        _main(["train-embedded", "--init-from", str(REPO / "runs" / "wm_flagship_ens4"), *TINY,
+               "--output", str(tmp_path / "ens")])
+    with pytest.raises(SystemExit, match="pass --sims"):
+        _main(["train-embedded", *TINY, "--output", str(tmp_path / "none")])
+
+
+def test_double_gyre_command(tmp_path, capsys):
+    """``double-gyre`` with the free-convection closure equals the JAX command's output on a 16 x 12 x 32 basin.
+
+    Both commands build the basin, the closure's remap and gate from the same flags and checkpoint, in float32:
+    every saved field within ``F32_RTOL = 1e-4`` of its scale (the momentum starts from rest, so its first values
+    are differences of order-one pressure and surface terms, which the packages round in their own orders).
+    """
+    F32_RTOL = 1e-4
+    argv = ["double-gyre", "--checkpoint", str(REPO / "runs" / "fc_flagship"), "--nx", "16", "--ny", "12",
+            "--nz-gyre", "32", "--days", "0.125", "--n-frames", "3", "--nn-stability-gate", "auto"]
+    jout, tout = str(tmp_path / "jax"), str(tmp_path / "port")
+    assert jcli.main([*argv, "--output", jout]) == 0
+    assert _main([*argv, "--output", tout]) == 0
+    printed = capsys.readouterr().out.strip().splitlines()
+    assert "NN stability gate" in "\n".join(printed) and json.loads(printed[-1])["frames"] == 4
+    with np.load(os.path.join(tout, "double_gyre.npz")) as got, np.load(os.path.join(jout, "double_gyre.npz")) as want:
+        assert sorted(got.files) == sorted(want.files) == ["T", "eta", "psi", "u_surface", "v_surface"]
+        for k in want.files:
+            assert got[k].shape == want[k].shape and got[k].dtype == np.float32
+            scale = float(np.abs(want[k]).max())
+            assert float(np.abs(got[k] - want[k]).max()) <= F32_RTOL * scale, k
+    for flags, message in ((["--animate"], "item 10"), (["--nn-stability-gate", "0"], "positive")):
+        with pytest.raises(SystemExit, match=message):
+            _main([*argv, *flags, "--output", str(tmp_path / "refused")])

@@ -9,7 +9,9 @@ constant-flux sim; rk4 on a diurnal one) and
 order, with its shape and its value within ``RTOL = 1e-8`` of the entry's
 scale: the solves (NDE, mPP alone, convective adjustment, KPP, TKE) run the
 same float64 operations, and the flux diagnostics go through one batched
-call over the frames where JAX vmaps over them. The loss matrices compare
+call over the frames where JAX vmaps over them; so do the embedded
+host-column runs (``include_embedded``), whose flux diagnostics take the
+frames' times broadcast over the time axis. The loss matrices compare
 float for float (``MATRIX_RTOL``: the same means in float64).
 ``nde_profile_from_saved`` reads a saved baseline / +NN pair written with
 the JAX package's LESbrary writer (h5py) at another save interval than the
@@ -159,15 +161,35 @@ def test_nde_profile_rk4_diurnal_matches_jax():
 
 
 def test_profiles_refuse_the_embedded_run_and_stacked_suites(wind):
+    """The embedded run (``include_embedded``) of one simulation is JAX's, every key; on a stacked suite, or over
+    non-uniform frames, the profile refuses, with the embedded run as without."""
     ds, model, nns = wind
     tmodel, tnns = from_reference(model, "cpu", torch.float64), from_reference(nns, "cpu", torch.float64)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tprof.nde_profile(tmodel, tnns, _to_torch(ds), TSTEPS, include_embedded=True)
+    want = jprof.nde_profile(model, nns, ds, TSTEPS, include_embedded=True, include_kpp=False,
+                             embedded_substeps=3).to_dict()
+    got = tprof.nde_profile(tmodel, tnns, _to_torch(ds), TSTEPS, include_embedded=True, include_kpp=False,
+                            embedded_substeps=3).to_dict()
+    _same_dict(got, want)
+    assert got["embedded_uw"].shape == (12, NZ + 1) and "loss_embedded_baseline_gradient" in got
     two = _to_torch(jc.stack_datasets([ds, ds]))
-    with pytest.raises(ValueError, match="ONE held-out"):
-        tprof.nde_profile(tmodel, tnns, two, TSTEPS)
-    with pytest.raises(ValueError, match="uniformly spaced"):
-        tprof.nde_profile(tmodel, tnns, _to_torch(ds), np.array([0, 1, 2, 4]))
+    for embedded in (False, True):
+        with pytest.raises(ValueError, match="ONE held-out"):
+            tprof.nde_profile(tmodel, tnns, two, TSTEPS, include_embedded=embedded)
+        with pytest.raises(ValueError, match="uniformly spaced"):
+            tprof.nde_profile(tmodel, tnns, _to_torch(ds), np.array([0, 1, 2, 4]), include_embedded=embedded)
+
+
+def test_nde_profile_embedded_diurnal_matches_jax():
+    """A diurnal sim: the embedded run's surface flux cycles, and each frame's diagnosed top wT is its own time's."""
+    ds, model, nns = _wind(True)
+    want = jprof.nde_profile(model, nns, ds, TSTEPS, solver="rk4", n_substeps=2, include_embedded=True,
+                             include_kpp=False).to_dict()
+    got = tprof.nde_profile(from_reference(model, "cpu", torch.float64), from_reference(nns, "cpu", torch.float64),
+                            _to_torch(ds), TSTEPS, solver="rk4", n_substeps=2, include_embedded=True,
+                            include_kpp=False).to_dict()
+    _same_dict(got, want)
+    top = got["embedded_wT"][:, -1]
+    assert np.ptp(top) > 0.1 * np.abs(top).max()
 
 
 def test_nde_profile_from_saved_matches_jax(wind, tmp_path):
@@ -219,9 +241,15 @@ def test_free_convection_profile_matches_jax(free_convection, base):
     _same_dict(got, want)
     label = "conv_adj" if base == "convective_adjustment" else "base"
     assert f"losses_{label}_T" in got and got["tke_wT"].shape == (12, NZ + 1)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tprof.free_convection_profile(from_reference(model, "cpu", torch.float64), None, _to_torch(ds), TSTEPS,
-                                      include_embedded=True)
+    # The embedded conv-adj pair (over a zero-physics host for the base-free model) and the NN heat flux.
+    want = jprof.free_convection_profile(model, nn, ds, TSTEPS, n_substeps=2, include_kpp=False, include_tke=False,
+                                         include_embedded=True, embedded_substeps=3).to_dict()
+    got = tprof.free_convection_profile(from_reference(model, "cpu", torch.float64),
+                                        from_reference(nn, "cpu", torch.float64), _to_torch(ds), TSTEPS,
+                                        n_substeps=2, include_kpp=False, include_tke=False, include_embedded=True,
+                                        embedded_substeps=3).to_dict()
+    _same_dict(got, want)
+    assert got["embedded_wT"].shape == (12, NZ + 1) and float(np.abs(got["embedded_wT"]).max()) > 0
 
 
 def test_loss_matrices_and_epoch_replay_match_jax(free_convection):

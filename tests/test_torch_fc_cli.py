@@ -20,6 +20,7 @@ float64 on the stored JAX run's own truth (see ``EVAL_RTOL``).
 
 import dataclasses
 import importlib
+import importlib.util
 import json
 import os
 from pathlib import Path
@@ -274,7 +275,12 @@ def same_npz_files(got_dir, want_dir, names, rtol, ri_rtol=None):
 
 
 def test_evaluate_fc_command(tmp_path, capsys):
-    """``evaluate-fc`` equals the JAX command on the same truth and checkpoint: every npz value and the summary."""
+    """``evaluate-fc --embedded --netcdf`` equals the JAX command on the same truth and checkpoint: every npz value,
+    the summary and, where h5py is installed, each id's NetCDF pair (read back by the port's reader)."""
+    from climateparameterizations_jl_tpu_torch.data.netcdf import read_netcdf
+
+    have_h5py = importlib.util.find_spec("h5py") is not None  # the NetCDF writer's; without it the pair is not written
+    embedded = ["--embedded", "--netcdf"] if have_h5py else ["--embedded"]
     stored = {i: _f64(_stored_fc_truth(i)) for i in (8, 9)}
     nn, meta = jcli._load_fc_nn(str(FC_FLAGSHIP))
     nn = _f64(nn)
@@ -286,18 +292,69 @@ def test_evaluate_fc_command(tmp_path, capsys):
                                                                           meta))
         mp.setattr(janim, "plot_loss_matrix", lambda *a, **k: None)
         mp.setattr(jfcd, "load_free_convection_simulation", lambda i, *a, **k: stored[i])
-        assert jcli.main([*FC_EVAL_ARGV, "--output", jout]) == 0
+        assert jcli.main([*FC_EVAL_ARGV, *embedded, "--output", jout]) == 0
         mp.setattr(tfcd, "load_free_convection_suite", lambda ids, *a, **k: [_to_torch(stored[i]) for i in ids])
-        assert tcli.main(["--device", "cpu", *FC_EVAL_ARGV, "--output", tout]) == 0
+        assert tcli.main(["--device", "cpu", *FC_EVAL_ARGV, *embedded, "--output", tout]) == 0
     capsys.readouterr()
     same_npz_files(tout, jout, ["sim8.npz", "sim9.npz"], EVAL_RTOL)
+    with np.load(os.path.join(tout, "sim8.npz")) as ev:
+        assert ev["embedded_T"].shape == (FC_EVAL_FRAMES, 32) and ev["embedded_wT"].shape == (FC_EVAL_FRAMES, 33)
     with open(os.path.join(tout, "summary.json")) as f, open(os.path.join(jout, "summary.json")) as g:
         got, want = json.load(f), json.load(g)
-    assert list(got) == list(want) == ["nde", "conv_adj", "kpp", "tke"]
+    assert list(got) == list(want) == ["nde", "conv_adj", "kpp", "tke", "embedded", "embedded_baseline"]
     _close([got[k] for k in want], [want[k] for k in want], EVAL_RTOL)
+    for i in (8, 9) if have_h5py else ():
+        for name in ("oceananigans_convective_adjustment.nc", "oceananigans_neural_network.nc"):
+            (gv, gc, ga), (wv, wc, wa) = (read_netcdf(os.path.join(d, f"sim{i}", name)) for d in (tout, jout))
+            assert sorted(gv) == sorted(wv) and sorted(gc) == sorted(wc) and int(ga["simulation_id"]) == i
+            for k in wv:
+                assert gv[k][0] == wv[k][0]
+                _close([gv[k][1]], [wv[k][1]], EVAL_RTOL)
+            for k in wc:
+                _close([gc[k]], [wc[k]], EVAL_RTOL)
     argv = ["--device", "cpu", *FC_EVAL_ARGV]
-    for flag in ("--embedded", "--netcdf"):
-        with pytest.raises(SystemExit, match="item 7"):
-            tcli.main([*argv, flag, "--output", str(tmp_path / "refused")])
+    with pytest.raises(SystemExit, match="requires --embedded"):
+        tcli.main([*argv, "--netcdf", "--output", str(tmp_path / "refused")])
     with pytest.raises(NotImplementedError):
         tcli.main([*argv, "--source", "les3d", "--output", str(tmp_path / "les3d")])
+
+
+def test_train_embedded_fc_command(tmp_path, capsys):
+    """``train-embedded-fc`` from the flagship closure equals the JAX command on the same truth: history, weights
+    and meta, and after a resume from each package's train state again; ``--source les3d`` refuses.
+
+    Both get ids 8 and 9 of the stored JAX run's truth and the checkpoint's weights in float64 (as
+    ``test_evaluate_fc_command``); every loss and weight within ``EVAL_RTOL``.
+    """
+    stored = {i: _f64(_stored_fc_truth(i)) for i in (8, 9)}
+    nn, meta = jcli._load_fc_nn(str(FC_FLAGSHIP))
+    nn = _f64(nn)
+    argv = ["train-embedded-fc", "--init-from", str(FC_FLAGSHIP), "--sim-ids", "8,9", "--nz", "32", "--n-save", "8",
+            "--dt-save", "9600", "--substeps", "2", "--lr", "1e-3"]
+    jout, tout = str(tmp_path / "jax"), str(tmp_path / "port")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jcli, "_load_fc_nn", lambda directory: (nn, meta))
+        mp.setattr(tcli, "_load_fc_nn", lambda directory, device=None: (from_reference(nn, device, torch.float64),
+                                                                          meta))
+        mp.setattr(jfcd, "load_free_convection_simulation", lambda i, *a, **k: stored[i])
+        mp.setattr(tfcd, "load_free_convection_suite", lambda ids, *a, **k: [_to_torch(stored[i]) for i in ids])
+        for out, main, device, resume in ((jout, jcli.main, [], []), (tout, tcli.main, ["--device", "cpu"], []),
+                                          (jout + "_b", jcli.main, [], ["--resume-from", tout]),
+                                          (tout + "_b", tcli.main, ["--device", "cpu"], ["--resume-from", jout])):
+            stages = ["--curriculum", "5", "--maxiters", "1"] if resume else ["--curriculum", "4,7", "--maxiters", "2"]
+            assert main([*device, *argv, *stages, *resume, "--output", out]) == 0
+    capsys.readouterr()
+    for got, want in ((tout, jout), (tout + "_b", jout + "_b")):
+        got_h, want_h = _history(got), _history(want)
+        assert len(got_h) == len(want_h) and all(np.isfinite(h["loss"]) for h in got_h)
+        _close([h["loss"] for h in got_h], [h["loss"] for h in want_h], EVAL_RTOL)
+        same_npz_files(got, want, ["state.npz"], EVAL_RTOL)
+        with open(os.path.join(got, "meta.json")) as f, open(os.path.join(want, "meta.json")) as g:
+            got_m, want_m = json.load(f), json.load(g)
+        assert list(got_m) == list(want_m) and got_m["arch"] == want_m["arch"] == meta["arch"]
+        assert got_m["command"] == "train-embedded-fc" and got_m["sim_ids"] == [8, 9]
+        for v in ("T", "wT"):
+            _close([got_m["scalings"][v]["mu"], got_m["scalings"][v]["sigma"]],
+                   [want_m["scalings"][v]["mu"], want_m["scalings"][v]["sigma"]], EVAL_RTOL)
+    with pytest.raises(SystemExit, match="item 9"):
+        tcli.main(["--device", "cpu", *argv, "--source", "les3d", "--output", str(tmp_path / "les3d")])

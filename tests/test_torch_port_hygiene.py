@@ -10,12 +10,14 @@ import climateparameterizations_jl_tpu_torch as port
 from climateparameterizations_jl_tpu_torch import benchmarks
 from climateparameterizations_jl_tpu_torch.bridge import from_reference
 from climateparameterizations_jl_tpu_torch.closures import mlp
+from climateparameterizations_jl_tpu_torch.embed.double_gyre import DoubleGyreModel
 from climateparameterizations_jl_tpu_torch.ops import fused_rhs
 from climateparameterizations_jl_tpu_torch.physics.mpp import MPPParameters
 from climateparameterizations_jl_tpu_torch.train import checkpoint
 
 REPO = Path(__file__).resolve().parents[1]
-SCRIPTS = [REPO / name for name in ("chip_smoke.py", "bench_turns.py", "fused_rk4_phases.py", "gram_phases.py")]
+SCRIPTS = [REPO / name for name in ("chip_smoke.py", "bench_turns.py", "fused_rk4_phases.py", "gram_phases.py",
+                                    "embedded_stored_truth.py")]
 PORT_FILES = sorted((REPO / "climateparameterizations_jl_tpu_torch").rglob("*.py")) + SCRIPTS
 FORBIDDEN = {"jax", "jaxlib", "climateparameterizations_jl_tpu"}
 
@@ -45,7 +47,8 @@ def test_port_files_found():
     assert {"cli/__main__.py", "cli/main.py", "closures/gp.py", "models/gp_closure.py", "ops/gram.py",
             "ops/cholesky.py", "core/convective_adjust.py", "physics/convective_adjustment.py",
             "models/free_convection.py", "data/lesbrary.py", "data/netcdf.py", "data/flux_reconstruction.py",
-            "data/free_convection.py", "train/nn.py"} <= names
+            "data/free_convection.py", "train/nn.py", "embed/column_model.py", "embed/double_gyre.py",
+            "train/embedded.py", "core/advection.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -112,7 +115,8 @@ def test_entry_points_raise_without_card(no_card):
     lambda: mlp.mlp_init(torch.Generator().manual_seed(0), (4, 4)),
     lambda: mlp.wind_mixing_mlp(torch.Generator().manual_seed(0), 8),
     lambda: MPPParameters.default(),
-], ids=["mlp_init", "wind_mixing_mlp", "MPPParameters.default"])
+    lambda: DoubleGyreModel.default(8, 8, 4),
+], ids=["mlp_init", "wind_mixing_mlp", "MPPParameters.default", "DoubleGyreModel.default"])
 def test_constructors_raise_without_card(no_card, make):
     # Public constructors follow the entry points: cuda unless asked, never a quiet CPU.
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -126,8 +130,12 @@ def test_constructors_raise_without_card(no_card, make):
     lambda: benchmarks.bench_nde_train_step(2, n_window=2, method="rk4", device="cpu"),
     lambda: benchmarks.bench_fc_forward(8, 8, 2, repeats=1, device="cpu"),
     lambda: benchmarks.profile_fc_forward(8, 8, 2, device="cpu"),
+    lambda: benchmarks.bench_host_column(4, 8, 1, 1, device="cpu"),
+    lambda: benchmarks.profile_host_column(4, 8, 1, 1, device="cpu"),
+    lambda: benchmarks.bench_double_gyre(8, 8, 4, 1, repeats=1, device="cpu"),
+    lambda: benchmarks.profile_double_gyre(8, 8, 4, 1, device="cpu"),
 ], ids=["bench_nde_forward", "bench_train_step", "bench_tridiagonal", "bench_nde_train_step", "bench_fc_forward",
-        "profile_fc_forward"])
+        "profile_fc_forward", "bench_host_column", "profile_host_column", "bench_double_gyre", "profile_double_gyre"])
 def test_bench_refuses_cpu(bench):
     with pytest.raises(RuntimeError, match="card"):
         bench()
@@ -148,3 +156,22 @@ def test_training_entry_points_raise_without_card(no_card):
         benchmarks.fc_forward_setup(8, 8, 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _load_fc_suite([1], 8, n_save=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        benchmarks.host_column_setup(4, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        benchmarks.double_gyre_setup(8, 8, 4)
+
+
+@pytest.mark.parametrize("argv", [
+    ["train-embedded", "--sims", "strong_wind", "--nz", "8", "--n-save", "4"],
+    ["train-embedded-fc", "--sim-ids", "1", "--nz", "8", "--n-save", "4"],
+    ["evaluate", "--embedded", "--checkpoint", str(REPO / "runs" / "wm_flagship_fold")],
+    ["evaluate-fc", "--embedded", "--checkpoint", str(REPO / "runs" / "fc_flagship")],
+    ["double-gyre", "--nx", "8", "--ny", "8", "--nz-gyre", "4", "--days", "0.1"],
+], ids=["train-embedded", "train-embedded-fc", "evaluate --embedded", "evaluate-fc --embedded", "double-gyre"])
+def test_commands_raise_without_card(no_card, argv, tmp_path):
+    # The commands run on the card unless --device cpu is given: without one they raise before any work.
+    from climateparameterizations_jl_tpu_torch.cli.main import main
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([*argv, "--output", str(tmp_path / "out")])
