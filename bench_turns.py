@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time a kernel of two trees in turns, on one card.
 
-    python3 bench_turns.py --parent DIR [--mode forward|gram] [--pairs 8] [--out FILE]
+    python3 bench_turns.py --parent DIR [--mode forward|gram|thomas] [--pairs 8] [--out FILE]
 
 ``DIR`` holds another tree's ``climateparameterizations_jl_tpu_torch``
 package (for example the parent commit, from ``git archive <commit>
@@ -21,6 +21,15 @@ requests, one case at a time:
   ``torch.profiler`` trace of ``GRAM_CALLS`` calls (mean us per recorded
   launch), the other device ops of a call, and the wall us per call back to
   back (CUDA events); compared by the kernel's us.
+- ``thomas``: the Thomas kernel ``csrc/thomas.cu`` through ``_cuda.THOMAS``
+  on contiguous f32 ``(B, N)`` systems (``THOMAS_SHAPES``: 16,384 x 32 and
+  9,216 x 32 of the training and gyre paths, 4,224 x 64 and 4,224 x 128 of
+  the LES pressure solve; diagonally dominant, from a numpy generator seeded
+  0, as ``benchmarks.bench_tridiagonal``): the kernel's device time by its
+  name in a ``torch.profiler`` trace of ``THOMAS_CALLS`` calls (mean us per
+  recorded launch), its us per launch in a CUDA graph of ``THOMAS_CALLS``
+  launches, and the wall us per call back to back; compared by the
+  kernel's us.
 
 The workers run one at a time; the side that runs first alternates from pair
 to pair. It prints the card's name and power limit, one JSON line per pair
@@ -39,10 +48,13 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
-CASES = {"forward": ("float32", "bfloat16"), "gram": ("squared_exponential", "matern12")}
-METRIC = {"forward": "ms_median", "gram": "kernel_us"}
+THOMAS_SHAPES = {"16384x32": (16384, 32), "9216x32": (9216, 32), "4224x64": (4224, 64), "4224x128": (4224, 128)}
+CASES = {"forward": ("float32", "bfloat16"), "gram": ("squared_exponential", "matern12"),
+         "thomas": tuple(THOMAS_SHAPES)}
+METRIC = {"forward": "ms_median", "gram": "kernel_us", "thomas": "kernel_us"}
 GRAM_SHAPE = (1024, 1024, 96)
 GRAM_CALLS = 200
+THOMAS_CALLS = 200
 
 
 def forward_worker(tree: str):
@@ -111,9 +123,76 @@ def gram_worker(tree: str):
     return run
 
 
+def _profiled_kernel(call, name: str, calls: int, dev) -> dict:
+    """``call`` timed three ways: the kernel ``name``'s mean device us per launch the profiler recorded over
+    ``calls`` calls, the us per call in a CUDA graph of ``calls`` calls, and the wall us per call back to back."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(10):
+        call()
+    torch.cuda.synchronize(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        call()
+    end.record()
+    end.synchronize()
+    wall_us = start.elapsed_time(end) * 1e3 / calls
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize(dev)
+    mine = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and name in e.key]
+    recorded = sum(e.count for e in mine)
+    if recorded == 0:
+        raise RuntimeError(f"no {name} launch in the profile")
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            call()
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return {"kernel_us": sum(e.self_device_time_total for e in mine) / recorded, "recorded": recorded,
+            "graph_us": start.elapsed_time(end) * 1e3 / calls, "wall_us": wall_us}
+
+
+def thomas_worker(tree: str):
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda", 0)
+    _cuda.THOMAS.load()
+    print(f"[{tree}] thomas.cu:\n{_cuda.THOMAS.ptxas_report}", file=sys.stderr, flush=True)
+    systems = {}
+    for case, (n_systems, n) in THOMAS_SHAPES.items():
+        rng = np.random.default_rng(0)
+        f = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+        systems[case] = (f(rng.normal(size=(n_systems, n)) * 0.1), f(1.0 + np.abs(rng.normal(size=(n_systems, n)))),
+                         f(rng.normal(size=(n_systems, n)) * 0.1), f(rng.normal(size=(n_systems, n))))
+
+    def run(case: str) -> dict:
+        args = systems[case]
+        return _profiled_kernel(lambda: _cuda.THOMAS(*args), "thomas_kernel", THOMAS_CALLS, dev)
+
+    return run
+
+
 def worker(tree: str, mode: str) -> None:
     sys.path.insert(0, str(Path(tree).resolve()))
-    run = {"forward": forward_worker, "gram": gram_worker}[mode](tree)
+    run = {"forward": forward_worker, "gram": gram_worker, "thomas": thomas_worker}[mode](tree)
     print(json.dumps({"ready": True}), flush=True)
     for line in sys.stdin:
         print(json.dumps(run(line.strip())), flush=True)

@@ -65,7 +65,16 @@ mish), Nz = 32:
   JAX run) and ``evaluate-fc --embedded``; and the 96x96x32 double gyre with
   the FC MLP (``bench_double_gyre``, three launches per step on (96, 96, 32),
   (96, 97, 32) and (97, 96, 32), kernel against scan, then the
-  ``double-gyre`` command for 10 days with its volume and wall invariants).
+  ``double-gyre`` command for 10 days with its volume and wall invariants);
+- the 3-D LES (phase 39): ``bench_les`` at 64^3 (one Thomas launch per
+  Euler step on the 4,224 x 64 pressure systems), 20 Euler and 4 RK3 steps
+  kernel-backed against scan-backed (equal, divergence-free), the
+  ``generate-les`` command at its 32^3 default (1,088 x 32) and the
+  free-convection ``les3d`` source at 64 x 64 x 128 (4,224 x 128) through
+  its cache;
+- the column ensemble on one card (phase 40): ``bench_column_ensemble``
+  (1,024 members x 256 split substeps, one launch per substep on (3, 1024,
+  32)), kernel against scan, and the ``ensemble`` command.
 
 It builds the five kernels from ``csrc/`` (one ``nvcc`` each, side by
 side), holds each against its plain PyTorch version, times it, and checks
@@ -279,14 +288,23 @@ EVAL_STRIDE = 9
 # 16th of 1,152 saves (72 frames), the command's 8 split substeps per save, KPP and TKE at 600 s (16 per save).
 FC_RUN, FC_EVAL = REPO / "runs" / "fc_flagship", REPO / "runs" / "fc_flagship_eval"
 FC_EVAL_IDS, FC_EVAL_STRIDE, FC_EVAL_SUBSTEPS = (8, 9), 16, 8
-# runs/fc_flagship and runs/fc_flagship_eval were made by the JAX commands with --source les3d (the 3-D LES;
-# studies/chip_session_fc.sh), which the port does not have: its evaluate-fc runs the 1-D stand-ins of the same ids.
-# Phase 32 therefore also runs the port's profile on the stored run's own truth (its sim<i>.npz frames, with each
-# id's constants) and holds each member's mean loss to the stored run's within FC_STORED_RTOL. The limit is coarse:
-# the stored run was made on another device, and the check asks whether the port comes near it on its own truth,
-# where on the stand-ins the two lie up to 47x apart. tests/test_torch_fc_cli.py holds the two commands to each
-# other on that truth in float64.
-FC_STORED_RTOL = 0.15
+# runs/fc_flagship and runs/fc_flagship_eval were made by the JAX commands with --source les3d (the 3-D LES at its
+# full 64 x 64 x 128 box, 1,153 saves; studies/chip_session_fc.sh), far beyond this run's time; its evaluate-fc runs
+# the 1-D stand-ins of the same ids. Phase 32 therefore also runs the port's profile of each stored FC run on that
+# run's own truth (its sim<i>.npz frames, with each id's constants), with KPP and TKE stepped once per frame as the
+# stored runs were (FC_STORED_KPP_STEPS: they predate the KPP step knob), and holds each member's mean loss to the
+# stored run's within FC_STORED_RTOL: the largest gap a CPU run of the port showed, with a small margin. The CPU run
+# (PERF.md section 6) gave runs/fc_flagship nde -1.51 % (the NDE's first-frame transient, ROADMAP.md queue 3),
+# tke +0.20 %, kpp -0.01 %; runs/fc_les3d and runs/fc_les3d_conv (144 frames every 4,800 s) tke -0.66 %, kpp -0.12 %,
+# nde -0.001 %. It was 0.15 while KPP and TKE ran at 16 steps per frame. tests/test_torch_fc_cli.py holds the two
+# commands to each other on that truth in float64.
+FC_STORED_KPP_STEPS = 1
+FC_STORED_RTOL = 0.02
+FC_STORED_RUNS = (
+    (FC_RUN, FC_EVAL),
+    (REPO / "runs" / "fc_les3d", REPO / "runs" / "fc_les3d_eval"),
+    (REPO / "runs" / "fc_les3d_conv", REPO / "runs" / "fc_les3d_conv_eval"),
+)
 # Phase 33: calibrate-kpp with the JAX command's defaults on the 18 TRAIN_FILES: 96 saves generated, the first 32
 # fitted (31 KPP steps of 600 s per solve); 64 plugin draws, 20 line-search or adam iterations; EKI 64 members x 8.
 KPP_N_SAVE, KPP_TRAIN_STEPS, KPP_PLUGIN, KPP_REFINE, KPP_EKI_J, KPP_EKI_ITERS = 96, 32, 64, 20, 64, 8
@@ -298,17 +316,13 @@ KPP_LOSS_SLACK = 1e-6
 # exponential at gamma = sqrt(D) (K is not the identity), 33 random targets, against the unblocked fit.
 BGP_N, BGP_D, BGP_BLOCK, BGP_RTOL = 16384, 96, 4096, 1e-8
 # Phase 35: the embedded wind-mixing host column (embed/column_model.py) over 1,024 columns with the flagship MLPs,
-# baseline and +NN, 128 saves x 10 host steps of 60 s: one stacked Thomas launch on (3, 1024, 32) per host step. The
-# kernel's quotients are the IEEE ones where their operands and results are normal f32 numbers (csrc/thomas.cu:66);
-# here the momentum diffusing down from the surface decays into the subnormal range (below 2^-126) in the deep levels,
-# where the kernel's fast-path division and the scan's IEEE division differ, and the levels next to them inherit
-# differences of that size. The sweep does not amplify them (|cp| < 1 and |a / denom| < 1 on these diagonally
-# dominant systems), and they are far below the ulp of any term they meet in the next step (the shear's 1e-7 floor,
-# the scaled NN inputs of order one). Over the first HOST_CHECK_SAVES saves the kernel-backed pair must therefore
-# equal the scan-backed one to within HOST_TINY_ATOL = 2^-100 in every entry (the entries that differ at all are
-# counted and printed); the scan pair is the slow side, so the whole run is timed on the kernel only.
+# baseline and +NN, 128 saves x 10 host steps of 60 s: one stacked Thomas launch on (3, 1024, 32) per host step. Here
+# the momentum diffusing down from the surface decays into the subnormal range (below 2^-126) in the deep levels. The
+# kernel's quotients fall back to IEEE division wherever its fast path is not exact (csrc/thomas.cu, quotient), so
+# over the first HOST_CHECK_SAVES saves the kernel-backed pair must equal the scan-backed one in every entry (the
+# subnormal entries are counted and printed); the scan pair is the slow side, so the whole run is timed on the kernel
+# only.
 HOST_COLUMNS, HOST_SAVES, HOST_SUBSTEPS, HOST_CHECK_SAVES, HOST_PROFILE_SAVES = 1024, 128, 10, 8, 2
-HOST_TINY_ATOL = 2.0**-100
 # Phase 36: train-embedded from runs/wm_flagship_fold on the 18 TRAIN_FILES (phase 8's suite) and train-embedded-fc
 # from runs/fc_flagship on the nine stand-in ids (phase 24's suite), two iterations per stage, 10 host steps per save;
 # the first stage again on scan, its losses held to phase 9's STEP_LOSS_RTOL (per-solve f32 differences through the
@@ -324,6 +338,39 @@ GYRE_N, GYRE_NZ, GYRE_STEPS, GYRE_REPEATS, GYRE_PROFILE_STEPS, GYRE_DAYS = 96, 3
 GYRE_SHAPES = {(GYRE_N, GYRE_N, GYRE_NZ), (GYRE_N, GYRE_N + 1, GYRE_NZ), (GYRE_N + 1, GYRE_N, GYRE_NZ)}
 # The JAX test's volume bound (tests/test_embed.py::TestDoubleGyre::test_volume_conserved): |mean eta| per frame.
 GYRE_VOLUME_ATOL = 1e-6
+# Phase 39: the 3-D LES (data/les.py). Each pressure solve is one Thomas launch on 2 Ny (Nx // 2 + 1) systems of Nz
+# levels (the real and imaginary parts of every horizontal mode): 1,088 x 32 at generate-les's default 32^3 box,
+# 4,224 x 64 at bench_les's 64^3, 4,224 x 128 for the les3d sources' 64 x 64 x 128 (LES_THOMAS_SHAPES, timed in
+# phase 10). (a) bench_les at the JAX defaults: 64^3, 100 Euler steps per run, 3 timed runs, a profiled run of
+# LES_PROFILE_STEPS steps. (b) LES_EULER_STEPS Euler steps, then LES_RK3_STEPS RK3 steps, at 64^3 from bench_les's
+# state, kernel-backed and scan-backed side by side: every field equal after every step (the kernel equals the scan
+# to the last bit, and both runs make the same other calls), and after every step max |div u| below LES_DIV_LIMIT:
+# a CPU f32 run of the same steps gave at most 4.47e-7 1/s (u up to 0.024 m/s, dx = 8 m), the limit is
+# 4.5 times that. (c) generate-les in-process at its defaults (32^3, RK3 at dt = 24 s, 25 steps per 600 s save)
+# with --n-save cut to LES_GEN_N_SAVE (48 by default; a depth cut). Its heat budget: the LES's diffusion is
+# kappa * Laplacian(T) with kappa varying (non-conservative form, as in the JAX package, which the port equals to
+# 1e-13 in tests/test_torch_les.py), so under the wind's eddy diffusivity at the top cell the column loses far more
+# heat than the surface flux takes: the CPU f32 run of the same command lost LES_HEAT_RATIO_CPU = 10.70 times
+# the surface and bottom fluxes' heat over 4 saves (-0.3953 K m against -0.03695 K m), and the card 10.690 at the same
+# 4 saves (14.13 and 14.127 over 8 saves). The phase holds the ratio within LES_HEAT_RATIO_RTOL = 3 % of
+# LES_HEAT_RATIO_CPU, a band that a doubled or halved flux or eddy diffusivity leaves. (d) the free-convection les3d
+# source, id 1, at its full 64 x 64 x 128 box (RK3 at dt = 12 s, 50 steps per save) with n_save cut to LES_FC_N_SAVE
+# (a depth cut), through a cache directory: a second load reads the cache, equal, with no launch. The cuts of (a), (c)
+# and (d) (a profile of 5 steps, not 10; 4 saves, not 8; 1 save, not 2) came after a clean-tree smoke took 1,102 s on
+# a slow host.
+LES_THOMAS_SHAPES = ((2 * 32 * 17, 32), (2 * 64 * 33, 64), (2 * 64 * 33, 128))
+# Phase 10 times those shapes over 10 calls per backend, not 50: the plain backends and the densified library solve
+# at 128 levels take 19 s over 50 (a depth cut that keeps the smoke near 900 s).
+LES_BENCH_REPEATS = 10
+LES_N, LES_NZ, LES_STEPS, LES_REPEATS, LES_PROFILE_STEPS = 64, 64, 100, 3, 5
+LES_EULER_STEPS, LES_RK3_STEPS, LES_DIV_LIMIT = 20, 4, 2e-6
+LES_GEN_N_SAVE, LES_HEAT_RATIO_CPU, LES_HEAT_RATIO_RTOL = 4, 10.70, 0.03
+LES_FC_N_SAVE = 1
+# Phase 40: the column ensemble on one card: bench_column_ensemble at the JAX defaults (1,024 members, Nz = 32, one
+# save of 256 split substeps: one Thomas launch per substep on (3, 1024, 32)), the same solve kernel-backed and
+# scan-backed (equal), and the ensemble command at its defaults (256 members, 32 frames, 4 substeps per save) with the
+# flagship closure on phase 8's 18-sim suite (it perturbs the first sim).
+ENSEMBLE_MEMBERS, ENSEMBLE_STEPS, ENSEMBLE_REPEATS = 1024, 256, 3
 
 
 def log(msg: str) -> None:
@@ -1369,26 +1416,34 @@ def thomas_shapes(tri):
     return recording, shapes
 
 
-def thomas_bench_record(benchmarks, dev, n_sys: int) -> dict:
-    """``bench_tridiagonal`` at ``n_sys`` x NZ, with its byte bound, logged and returned.
+def thomas_bench_record(benchmarks, dev, n_sys: int, N: int = NZ, repeats: int = 50) -> dict:
+    """``bench_tridiagonal`` at ``n_sys`` x ``N`` (``repeats`` calls per backend), with its byte bound, logged and
+    returned.
 
     The kernel's device time is the mean over the launches the profiler
     recorded: late in this long process it has recorded few or none of them
     (then "not measured"), so phase 10 measures every shape of the port's
-    paths first.
+    paths first. The kernel must equal ``_thomas_scan`` and lie within
+    THOMAS_RTOL / THOMAS_ATOL of ``_thomas_pcr`` (of the solution's largest
+    magnitude), or this raises.
     """
-    r = benchmarks.bench_tridiagonal(n_sys, NZ, device=dev)
+    r = benchmarks.bench_tridiagonal(n_sys, N, repeats=repeats, device=dev)
     bound = r["bytes"] / PEAK_BYTES_PER_S * 1e3
     kernel = ("not measured (the profiler recorded none of its launches)" if r["cuda_ms"] is None else
               f"{r['cuda_ms'] * 1e3:.2f} us per launch ({r['cuda_recorded']} of {r['repeats']} launches recorded)")
-    log(f"thomas at {n_sys} x {NZ}: device {kernel} (in a CUDA graph of {r['repeats']} launches "
+    pcr_limit = THOMAS_ATOL + THOMAS_RTOL * r["max_abs_x"]
+    log(f"thomas at {n_sys} x {N}: device {kernel} (in a CUDA graph of {r['repeats']} launches "
         f"{r['cuda_graph_ms'] * 1e3:.2f} us each; back to back {r['cuda_wall_ms'] * 1e3:.2f} us); scan "
         f"{r['scan_ms'] * 1e3:.1f} us; torch.linalg.solve {r['library_ms'] * 1e3:.1f} us; byte bound {r['bytes']} B / "
-        f"3.35 TB/s = {bound * 1e3:.4f} us; max abs vs scan {r['max_abs_err_vs_scan']:.3e}")
+        f"3.35 TB/s = {bound * 1e3:.4f} us; max abs vs scan {r['max_abs_err_vs_scan']:.3e} (equal: "
+        f"{r['cuda_equals_scan']}); max abs vs pcr {r['max_abs_err_vs_pcr']:.3e} (limit {pcr_limit:.3e})")
+    if not (r["cuda_equals_scan"] and r["max_abs_err_vs_pcr"] <= pcr_limit):
+        raise RuntimeError(f"thomas at {n_sys} x {N}: not equal to _thomas_scan, or outside the limit of _thomas_pcr")
     return {"ms": r["cuda_ms"], "recorded": r["cuda_recorded"], "graph_ms": r["cuda_graph_ms"],
-            "wall_ms": r["cuda_wall_ms"], "plain_ms": r["scan_ms"],
+            "wall_ms": r["cuda_wall_ms"], "plain_ms": r["scan_ms"], "pcr_ms": r["pcr_ms"],
             "library_ms": r["library_ms"], "bound_ms": bound, "bound_by": "bytes",
-            "max_abs_err_vs_scan": r["max_abs_err_vs_scan"]}
+            "max_abs_err_vs_scan": r["max_abs_err_vs_scan"], "equals_scan": r["cuda_equals_scan"],
+            "max_abs_err_vs_pcr": r["max_abs_err_vs_pcr"]}
 
 
 def ensemble_step_phase(dev, setup, k0_step: dict, smi: str) -> dict:
@@ -2054,20 +2109,28 @@ def evaluate_fc_phase(dev, smi: str) -> dict:
         log("mean scaled T loss per member, beside the stored JAX run (runs/fc_flagship_eval/summary.json; "
             "information only: the stored run's truth is the 3-D LES, the port's the 1-D stand-ins):")
         _summary_beside(summary, FC_EVAL / "summary.json", flat=True)
-        on_stored = _fc_profile_on_stored_truth(cli, dev, [cli._select_sims(suite, k) for k in range(len(FC_EVAL_IDS))],
-                                                tsteps)
+        on_stored = _fc_profile_on_stored_truth(cli, dev, [cli._select_sims(suite, k) for k in range(len(FC_EVAL_IDS))])
         log(f"card: {smi}")
     return {"s": wall, "launches": launches["thomas"], "expected": expected, "frames": len(tsteps),
             "summary": summary, "kernel_equals_scan": True, "on_stored_truth": on_stored, "keys": keys}
 
 
-def _fc_profile_on_stored_truth(cli, dev, stand_ins: list, tsteps) -> dict:
-    """The port's ``free_convection_profile`` of ``runs/fc_flagship`` on the stored JAX run's own truth, per id.
+def _fc_profile_on_stored_truth(cli, dev, stand_ins: list) -> dict:
+    """The port's ``free_convection_profile`` of each stored FC run (``FC_STORED_RUNS``) on its own stored truth.
 
-    ``stand_ins`` are the ids' 1-D stand-ins (their constants are the ids'); first shows how far their frames lie
-    from the stored truth. Each member's mean loss over the ids must lie within ``FC_STORED_RTOL`` of the stored
-    run's summary.
+    ``stand_ins`` are the ids' 1-D stand-ins (their constants are the ids'); each run's log first shows how far
+    their frames lie from its stored truth. Each member's mean loss over the ids must lie within FC_STORED_RTOL of
+    the stored run's summary.
     """
+    out = {}
+    for run, eval_dir in FC_STORED_RUNS:
+        out[run.name] = _stored_fc_run(cli, dev, stand_ins, run, eval_dir)
+    return out
+
+
+def _stored_fc_run(cli, dev, stand_ins: list, run: Path, eval_dir: Path) -> dict:
+    """:func:`_fc_profile_on_stored_truth` for one run: its checkpoint on ``eval_dir``'s truth of ``FC_EVAL_IDS``,
+    ``FC_EVAL_SUBSTEPS`` split substeps and, as the stored runs were made, one KPP and one TKE step per frame."""
     import dataclasses
 
     import numpy as np
@@ -2077,37 +2140,40 @@ def _fc_profile_on_stored_truth(cli, dev, stand_ins: list, tsteps) -> dict:
     from climateparameterizations_jl_tpu_torch.data.free_convection import build_free_convection_model
     from climateparameterizations_jl_tpu_torch.eval.profile import free_convection_profile
 
-    nn, meta = cli._load_fc_nn(str(FC_RUN), dev)
+    nn, meta = cli._load_fc_nn(str(run), dev)
     f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)  # noqa: E731
     T_scaling, wT_scaling = (ZeroMeanUnitVarianceScaling(f32(meta["scalings"][v]["mu"]),
                                                          f32(meta["scalings"][v]["sigma"])) for v in ("T", "wT"))
     losses: dict = {}
+    log(f"{run.name} on the stored truth of {eval_dir.name}:")
     for i, stand_in in zip(FC_EVAL_IDS, stand_ins):
-        with np.load(FC_EVAL / f"sim{i}.npz") as ev:
+        with np.load(eval_dir / f"sim{i}.npz") as ev:
             stored = {k: ev[k] for k in ev.files}
         T, wT = stored["truth_T"], stored["truth_wT"]
-        n = min(len(tsteps), T.shape[0])
-        gap = float(np.abs(stand_in.T[tsteps[:n]].cpu().numpy() - T[:n]).max())
+        stride = int(round(float(stored["t"][1] - stored["t"][0]) / 600.0))
+        frames = np.arange(0, stand_in.T.shape[0], stride)[: T.shape[0]]
+        gap = float(np.abs(stand_in.T[frames].cpu().numpy() - T[: len(frames)]).max())
         ds = dataclasses.replace(stand_in, T=f32(T), wT=f32(wT), t=f32(stored["t"]), u=f32(np.zeros_like(T)),
                                  v=f32(np.zeros_like(T)), uw=f32(np.zeros_like(wT)), vw=f32(np.zeros_like(wT)))
         model = build_free_convection_model(ds, T_scaling, wT_scaling,
                                             base_closure=meta.get("base_closure", "convective_adjustment"))
         ev = free_convection_profile(model, nn, ds, np.arange(T.shape[0]), n_substeps=FC_EVAL_SUBSTEPS,
-                                     kpp_n_substeps=FC_EVAL_STRIDE)
+                                     kpp_n_substeps=FC_STORED_KPP_STEPS)
         log(f"id {i}: the stand-in's frames lie up to {gap:.4f} K from the stored run's truth (max |dT|); the port "
-            f"on the stored truth ({T.shape[0]} frames), mean scaled T loss beside the stored run's:")
+            f"on the stored truth ({T.shape[0]} frames, every {stride}th save), mean scaled T loss beside the stored "
+            f"run's:")
         for m in ("nde", "conv_adj", "kpp", "tke"):
             port, want = float(np.mean(ev[f"losses_{m}_T"])), float(np.mean(stored[f"losses_{m}_T"]))
             losses.setdefault(m, []).append(port)
             log(f"  {m}: port {port:.6e}, stored JAX run {want:.6e} (port / stored - 1 = {port / want - 1:+.4f})")
-    summary = json.loads((FC_EVAL / "summary.json").read_text())
+    summary = json.loads((eval_dir / "summary.json").read_text())
     means = {m: float(np.mean(v)) for m, v in losses.items()}
     rel = {m: means[m] / summary[m] - 1 for m in means}
     log(f"mean over ids {FC_EVAL_IDS}: " + ", ".join(f"{m} {means[m]:.6e} against {summary[m]:.6e} ({rel[m]:+.4f})"
                                                      for m in means) + f"; limit {FC_STORED_RTOL}")
     if not all(abs(r) <= FC_STORED_RTOL and np.isfinite(r) for r in rel.values()):
-        raise RuntimeError(f"evaluate-fc: on the stored run's truth the port's losses differ from it by {rel}")
-    return {"means": means, "stored": {m: summary[m] for m in means}, "rel": rel}
+        raise RuntimeError(f"evaluate-fc: on {eval_dir.name}'s truth the port's losses differ from it by {rel}")
+    return {"means": means, "stored": {m: summary[m] for m in means}, "rel": rel, "limit": FC_STORED_RTOL}
 
 
 def calibrate_kpp_phase(dev, smi: str) -> dict:
@@ -2289,25 +2355,24 @@ def host_column_phase(dev, flagship, smi: str) -> dict:
         got = benchmarks.host_column_forward(setup, HOST_CHECK_SAVES, HOST_SUBSTEPS, "cuda")
         scan_ms, want = cuda_ms(lambda: benchmarks.host_column_forward(setup, HOST_CHECK_SAVES, HOST_SUBSTEPS, "scan"))
         tiny = torch.finfo(torch.float32).tiny  # the smallest normal f32, 2^-126
-        ok, differ, subnormal_differ, total, worst, largest = True, 0, 0, 0, 0.0, 0.0
+        ok, differ, subnormal, total, worst = True, 0, 0, 0, 0.0
         for label, g, w in zip(("baseline", "with_nn"), got, want):
             for field in ("u", "v", "T"):
                 a, b = getattr(g, field), getattr(w, field)
                 mask = a != b
                 differ += int(mask.sum())
-                subnormal_differ += int((mask & (a.abs() < tiny) & (b.abs() < tiny)).sum())
+                subnormal += int(((a != 0) & (a.abs() < tiny)).sum())
                 if bool(mask.any()):
                     worst = max(worst, float((a - b).abs().max()))
-                    largest = max(largest, float(torch.maximum(a[mask].abs(), b[mask].abs()).max()))
                 total += a.numel()
                 ok = ok and bool(torch.isfinite(a).all())
         moved = float((got[1].T[-1] - got[0].T[-1]).abs().max())
         log(f"kernel vs scan over the first {HOST_CHECK_SAVES} saves ({HOST_CHECK_SAVES * HOST_SUBSTEPS} host steps per "
-            f"run, both runs, u, v and T): entries that differ {differ} of {total} ({subnormal_differ} of them subnormal "
-            f"on both sides, below {tiny:.3e}); largest magnitude among them {largest:.3e}, largest difference "
-            f"{worst:.3e} (limit {HOST_TINY_ATOL:.3e}); the scan-backed pair took {scan_ms:.1f} ms (information); the NN "
-            f"moved T by up to {moved:.3e} K")
-        if not ok or worst > HOST_TINY_ATOL or not moved > 0.0:
+            f"run, both runs, u, v and T): entries that differ {differ} of {total} (limit 0; {subnormal} entries of the "
+            f"kernel-backed run are subnormal, below {tiny:.3e}, where the kernel's quotients take the IEEE division), "
+            f"largest difference {worst:.3e}; the scan-backed pair took {scan_ms:.1f} ms (information); the NN moved T "
+            f"by up to {moved:.3e} K")
+        if not ok or differ or not moved > 0.0:
             raise RuntimeError("host column: the kernel-backed pair is not the scan-backed one, or the NN did nothing")
 
         prof = benchmarks.profile_host_column(HOST_COLUMNS, NZ, HOST_PROFILE_SAVES, HOST_SUBSTEPS, nns=flagship,
@@ -2321,8 +2386,8 @@ def host_column_phase(dev, flagship, smi: str) -> dict:
     return {"ms": stats["ms"], "ms_median": stats["ms_median"], "ms_per_host_step": stats["ms_per_host_step"],
             "column_timesteps_per_sec": stats["column_timesteps_per_sec"], "launches": launches["thomas"],
             "launches_per_run": steps, "runs": stats["calls"], "shape": [3, HOST_COLUMNS, NZ],
-            "kernel_vs_scan": {"saves": HOST_CHECK_SAVES, "differ": differ, "differ_subnormal": subnormal_differ,
-                               "of": total, "largest_differing": largest, "max_abs_diff": worst},
+            "kernel_vs_scan": {"saves": HOST_CHECK_SAVES, "differ": differ, "of": total, "subnormal_entries": subnormal,
+                               "max_abs_diff": worst},
             "scan_pair_ms": scan_ms,
             "profile": {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share", "device_ops",
                                              "device_ops_per_substep")}}
@@ -2434,7 +2499,10 @@ def evaluate_embedded_phase(evaluate: dict, evaluate_fc: dict, smi: str) -> dict
             raise RuntimeError(f"embedded evaluation: channels {missing} or members {absent} missing")
         log("mean scaled T loss per member of evaluate --embedded, beside the stored JAX run (runs/"
             "wm_flagship_default_eval/summary.json; information only: the card's suites are the port's f32 stand-ins, "
-            "not JAX's; the gap of embedded to the stored run is open, ROADMAP.md queue 3):")
+            "not JAX's. The gap of embedded to the stored run is explained (ROADMAP.md queue 3, item 3a): the stored "
+            "run's stand-ins had a bottom gradient of 0.002 K/m, the port's (as the JAX package's now) 0; on the "
+            "stored truth with that gradient, embedded_stored_truth.py --stored-bottom-gradient gives embedded "
+            "8.905e-5 against the stored 8.918e-5, on the CPU):")
         _summary_beside(evaluate["summary"], EMBEDDED_EVAL / "summary.json", flat=False)
         log(f"evaluate-fc --embedded, the stand-ins of ids {FC_EVAL_IDS}: "
             + ", ".join(f"{m} {evaluate_fc['summary'][m]:.6e}" for m in members))
@@ -2534,6 +2602,225 @@ def double_gyre_phase(dev, smi: str) -> dict:
                                                    "device_ops_per_substep")},
                   "command": {"s": wall, "steps": n_steps, "psi_min_Sv": float(psi.min()),
                               "psi_max_Sv": float(psi.max()), "volume": volume}}
+        log(f"card: {smi}")
+    return record
+
+
+def les_phase(dev, smi: str) -> dict:
+    """Phase 39: the 3-D LES on the card: bench_les, kernel against scan, generate-les and the les3d source."""
+    import torch
+
+    from climateparameterizations_jl_tpu_torch import benchmarks
+    from climateparameterizations_jl_tpu_torch.cli import main as cli
+    from climateparameterizations_jl_tpu_torch.data import free_convection as fcd
+    from climateparameterizations_jl_tpu_torch.data import les
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
+
+    bench_shape = (2, LES_N, LES_N // 2 + 1, LES_NZ)
+    record: dict = {}
+    with phase(f"39 the 3-D LES: bench_les ({LES_N}^2 x {LES_NZ}, {LES_STEPS} Euler steps), kernel vs scan, "
+               f"generate-les (32^3, RK3, {LES_GEN_N_SAVE} saves) and the les3d source (64 x 64 x 128, "
+               f"{LES_FC_N_SAVE} saves)"), tempfile.TemporaryDirectory() as tmp:
+        original = tri._thomas_cuda
+        shape_rec, shapes = thomas_shapes(tri)
+        tri._thomas_cuda = shape_rec
+        try:
+            # (a) bench_les
+            _cuda.reset_launch_counts()
+            b = benchmarks.bench_les(LES_N, LES_NZ, LES_STEPS, repeats=LES_REPEATS, profile_steps=LES_PROFILE_STEPS,
+                                     device=dev)
+            launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+            expected = (b["calls"] + 1) * LES_STEPS + 2 * LES_PROFILE_STEPS
+            prof = b["profile"]
+            log(f"(a) bench_les: dt {b['dt_s']:.3f} s, ms per run of {LES_STEPS} steps {[round(t, 1) for t in b['ms']]}, "
+                f"{b['ms_per_step']:.3f} ms per step, cell-steps/s {b['cell_steps_per_sec']:.4e}; thomas launches per "
+                f"step {b['thomas_launches_per_step']} on {b['thomas_systems']} x {b['thomas_N']}; launch counts "
+                f"{launches}, expected thomas {expected} = ({b['calls']} timed + 1 counted) x {LES_STEPS} + 2 x "
+                f"{LES_PROFILE_STEPS} (profiled); shapes {sorted(set(shapes))}")
+            log(f"    profiled run of {prof['substeps']} steps: wall {prof['wall_ms']:.1f} ms, device busy "
+                f"{prof['device_busy_ms']:.2f} ms, idle share {prof['device_idle_share']:.3f}, "
+                f"{prof['device_ops_per_substep']:.1f} device ops per step; thomas {prof['kernel_ms']:.3f} ms over "
+                f"{prof['kernel_launches_recorded']} recorded launches, {prof['thomas_device_share']:.4f} of the "
+                f"device time")
+            for key, n, ms in prof["top"]:
+                log(f"      {key}: {n} x, {ms:.3f} ms")
+            if (b["tridiag_backend"] != "cuda" or launches["thomas"] != expected or b["thomas_launches_per_step"] != 1
+                    or any(v for k, v in launches.items() if k != "thomas") or set(shapes) != {bench_shape}):
+                raise RuntimeError(f"bench_les: backend {b['tridiag_backend']}, {launches}, shapes {set(shapes)}")
+            record["bench_les"] = {k: b[k] for k in ("ms", "ms_median", "ms_per_step", "cell_steps_per_sec", "dt_s",
+                                                     "thomas_launches_per_step", "thomas_systems", "thomas_N")}
+            record["bench_les"]["launches"] = launches["thomas"]
+            record["bench_les"]["profile"] = {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                                                   "device_ops_per_substep", "kernel_ms",
+                                                                   "thomas_device_share")}
+
+            # (b) kernel against scan, step by step
+            setup = benchmarks.les_setup(LES_N, LES_NZ, device=dev)
+            c, dt = setup["config"], setup["dt"]
+            sk = ss = setup["state0"]
+            del shapes[:]
+            _cuda.reset_launch_counts()
+            divs, first_differ = [], None
+            for k in range(LES_EULER_STEPS + LES_RK3_STEPS):
+                method = "euler" if k < LES_EULER_STEPS else "rk3"
+                sk = les.les_step(c, sk, dt, method, tridiag_backend="cuda")
+                ss = les.les_step(c, ss, dt, method, tridiag_backend="scan")
+                same = all(torch.equal(getattr(sk, f), getattr(ss, f)) for f in ("u", "v", "w", "T"))
+                if not same and first_differ is None:
+                    first_differ = k
+                divs.append(float(les._divergence(c, sk.u, sk.v, sk.w).abs().max()))
+            torch.cuda.synchronize()
+            launches_b = _cuda.THOMAS.launches
+            expected_b = LES_EULER_STEPS + 3 * LES_RK3_STEPS
+            finite = all(bool(torch.isfinite(getattr(sk, f)).all()) for f in ("u", "v", "w", "T"))
+            log(f"(b) {LES_EULER_STEPS} Euler + {LES_RK3_STEPS} RK3 steps at {LES_N}^2 x {LES_NZ}, kernel vs scan: "
+                f"first step where a field differs {first_differ} (none: equal throughout); thomas launches "
+                f"{launches_b} (expected {expected_b}) on {sorted(set(shapes))}; max |div| per step max {max(divs):.3e} "
+                f"(limit {LES_DIV_LIMIT}), last {divs[-1]:.3e}; max |u| {float(sk.u.abs().max()):.4e} m/s, max |w| "
+                f"{float(sk.w.abs().max()):.4e} m/s")
+            if (first_differ is not None or not finite or max(divs) > LES_DIV_LIMIT or launches_b != expected_b
+                    or set(shapes) != {bench_shape}):
+                raise RuntimeError("LES: the kernel-backed run is not the scan-backed one, or it is not divergence-free")
+            record["kernel_vs_scan"] = {"steps": LES_EULER_STEPS + LES_RK3_STEPS, "equal": True,
+                                        "max_div": max(divs), "launches": launches_b}
+
+            # (c) generate-les
+            out = Path(tmp) / "les"
+            del shapes[:]
+            _cuda.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rc = cli.main(["generate-les", "--n-save", str(LES_GEN_N_SAVE), "--output", str(out)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+            ds = fcd.load_column_npz(str(out / "les_profiles.npz"))
+            save_every = int(round(600.0 / 24.0))
+            steps = LES_GEN_N_SAVE * save_every
+            finite = all(bool(torch.isfinite(getattr(ds, f)).all()) for f in ("u", "v", "T", "uw", "vw", "wT"))
+            dz = float(ds.H) / ds.T.shape[-1]
+            heat = ds.T.double().sum(-1) * dz
+            span = float(ds.t[-1] - ds.t[0])
+            want_dH = -(float(ds.theta_top) + 1e-5 * float(ds.theta_bottom)) * span
+            ratio = float(heat[-1] - heat[0]) / want_dH
+            log(f"(c) generate-les: exit {rc} in {wall:.2f} s ({wall / steps * 1e3:.2f} ms per RK3 step), frames "
+                f"{ds.T.shape[0]} (expected {LES_GEN_N_SAVE + 1}), finite {finite}; launch counts {launches}, expected "
+                f"thomas {3 * steps} = 3 x {steps} RK3 steps on {sorted(set(shapes))}; heat content change "
+                f"{float(heat[-1] - heat[0]):.4e} K m against the surface and bottom fluxes' {want_dH:.4e} K m: ratio "
+                f"{ratio:.3f} (the CPU f32 run: {LES_HEAT_RATIO_CPU}; limit {LES_HEAT_RATIO_RTOL:.0%} of it)")
+            if (rc != 0 or ds.T.shape[0] != LES_GEN_N_SAVE + 1 or not finite or launches["thomas"] != 3 * steps
+                    or any(v for k, v in launches.items() if k != "thomas") or set(shapes) != {(2, 32, 17, 32)}
+                    or not abs(ratio / LES_HEAT_RATIO_CPU - 1) <= LES_HEAT_RATIO_RTOL):
+                raise RuntimeError(f"generate-les: exit {rc}, frames {ds.T.shape[0]}, finite {finite}, {launches}, "
+                                   f"shapes {set(shapes)}, heat ratio {ratio}")
+            record["generate_les"] = {"s": wall, "steps": steps, "launches": launches["thomas"], "heat_ratio": ratio}
+
+            # (d) the free-convection les3d source at the full box, through a cache
+            cache = str(Path(tmp) / "cache")
+            del shapes[:]
+            _cuda.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            first = fcd.load_free_convection_simulation(1, n_save=LES_FC_N_SAVE, source="les3d", les_cache_dir=cache,
+                                                        device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches_d = _cuda.THOMAS.launches
+            again = fcd.load_free_convection_simulation(1, n_save=LES_FC_N_SAVE, source="les3d", les_cache_dir=cache,
+                                                        device=dev)
+            steps = LES_FC_N_SAVE * 50
+            same = all(torch.equal(getattr(first, f), getattr(again, f)) for f in ("u", "v", "T", "uw", "vw", "wT", "t"))
+            finite = all(bool(torch.isfinite(getattr(first, f)).all()) for f in ("u", "v", "T", "uw", "vw", "wT"))
+            log(f"(d) les3d source, id 1 at 64 x 64 x 128: {wall:.2f} s ({wall / steps * 1e3:.2f} ms per RK3 step), "
+                f"coarse T {tuple(first.T.shape)}, finite {finite}; thomas launches {launches_d} (expected {3 * steps} "
+                f"= 3 x {steps} RK3 steps) on {sorted(set(shapes))}; then {_cuda.THOMAS.launches - launches_d} more "
+                f"for the cached load, which equals the first: {same}")
+            if (launches_d != 3 * steps or _cuda.THOMAS.launches != launches_d or not same or not finite
+                    or first.T.shape != (LES_FC_N_SAVE + 1, NZ) or set(shapes) != {(2, 64, 33, 128)}):
+                raise RuntimeError("les3d source: wrong launches or shapes, or the cached load differs")
+            record["les3d_source"] = {"s": wall, "steps": steps, "launches": launches_d}
+        finally:
+            tri._thomas_cuda = original
+        log(f"card: {smi}")
+    return record
+
+
+def column_ensemble_phase(dev, setup, smi: str) -> dict:
+    """Phase 40: the column ensemble on one card: bench_column_ensemble, kernel vs scan, the ensemble command."""
+    import contextlib
+    import io
+
+    import torch
+
+    from climateparameterizations_jl_tpu_torch import benchmarks
+    from climateparameterizations_jl_tpu_torch.cli import main as cli
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
+    from climateparameterizations_jl_tpu_torch.parallel import sharding
+    from climateparameterizations_jl_tpu_torch.train.nde import NDETrainConfig
+
+    names = tuple(benchmarks.TRAIN_FILES)
+    record: dict = {}
+    with phase(f"40 the column ensemble: bench_column_ensemble ({ENSEMBLE_MEMBERS} members x {ENSEMBLE_STEPS} split "
+               f"substeps), kernel vs scan, the ensemble command on phase 8's {len(names)}-sim suite"), \
+            tempfile.TemporaryDirectory() as tmp:
+        original, original_suite = tri._thomas_cuda, cli._load_suite
+        shape_rec, shapes = thomas_shapes(tri)
+        tri._thomas_cuda = shape_rec
+        try:
+            _cuda.reset_launch_counts()
+            b = benchmarks.bench_column_ensemble(ENSEMBLE_MEMBERS, NZ, ENSEMBLE_STEPS, repeats=ENSEMBLE_REPEATS,
+                                                 device=dev)
+            launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+            expected = b["calls"] * ENSEMBLE_STEPS
+            log(f"bench_column_ensemble: ms per solve {[round(t, 1) for t in b['ms']]}, column-timesteps/s "
+                f"{b['column_timesteps_per_sec']:.4e}; launch counts {launches}, expected thomas {expected} = "
+                f"{b['calls']} solves x {ENSEMBLE_STEPS} substeps; shapes {sorted(set(shapes))}")
+            if (launches["thomas"] != expected or b["thomas_launches"] != expected
+                    or any(v for k, v in launches.items() if k != "thomas")
+                    or set(shapes) != {(3, ENSEMBLE_MEMBERS, NZ)}):
+                raise RuntimeError(f"bench_column_ensemble: {launches}, shapes {set(shapes)}")
+            record["bench"] = {k: b[k] for k in ("ms", "ms_median", "column_timesteps_per_sec", "thomas_launches")}
+
+            model, nns, bcs, x0 = benchmarks.column_ensemble_setup(ENSEMBLE_MEMBERS, NZ, dev)
+            mesh = sharding.make_mesh(device=dev)
+            trajs = {}
+            for backend in ("cuda", "scan"):
+                config = NDETrainConfig(n_substeps=ENSEMBLE_STEPS, method="split", tridiag_backend=backend)
+                trajs[backend] = sharding.make_sharded_ensemble_solver(model, config, mesh)(
+                    nns, bcs, x0, 0.0, 1e-5 * ENSEMBLE_STEPS, 1)
+            same = torch.equal(trajs["cuda"], trajs["scan"])
+            log(f"kernel vs scan, {ENSEMBLE_MEMBERS} members x {ENSEMBLE_STEPS} substeps: torch.equal {same} (differing "
+                f"entries {int((trajs['cuda'] != trajs['scan']).sum())} of {trajs['cuda'].numel()})")
+            if not same:
+                raise RuntimeError("ensemble: the kernel-backed solve differs from the scan-backed one")
+
+            WM_SUITES[(names, NZ, None, NDE_N_SAVE, 600.0, 128)] = setup["ds"]  # phase 8's suite
+            cli._load_suite = cached_suites(cli, WM_SUITES)
+            del shapes[:]
+            _cuda.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = Path(tmp) / "ensemble"
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["ensemble", "--sims", ",".join(names), "--n-save", str(NDE_N_SAVE), "--checkpoint",
+                               str(FLAGSHIP_RUN), "--output", str(out)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+            line = json.loads(buf.getvalue().strip().splitlines()[-1])
+            expected = (32 - 1) * 4  # the command's defaults: 32 frames, 4 substeps per save
+            log(f"ensemble command: exit {rc} in {wall:.2f} s, {line}; launch counts {launches}, expected thomas "
+                f"{expected} = 31 saves x 4 substeps on {sorted(set(shapes))}")
+            if (rc != 0 or not line["finite"] or line["members"] != 256 or line["frames"] != 32
+                    or launches["thomas"] != expected or set(shapes) != {(3, 256, NZ)}
+                    or not line["final_mean_spread"] > 0.0):
+                raise RuntimeError(f"ensemble command: exit {rc}, {line}, {launches}, shapes {set(shapes)}")
+            record["command"] = {"s": wall, "launches": launches["thomas"], **line}
+        finally:
+            tri._thomas_cuda, cli._load_suite = original, original_suite
         log(f"card: {smi}")
     return record
 
@@ -2693,7 +2980,8 @@ def main() -> int:
             f"{tlib.thomas_max_n()}; 16-byte copies and a float4 sweep where N % 4 == 0 and the rows are "
             f"16-byte aligned, else 4-byte copies; {tlib.thomas_smem_bytes(32)} B of shared memory per CTA at "
             f"N = 32 ({tlib.thomas_smem_bytes(256)} at N = 256); the operations of _thomas_scan in its rounding, "
-            f"one reciprocal per level shared by its two IEEE quotients")
+            f"one reciprocal per level shared by its two quotients, and a correctly rounded redo of a system's sweep "
+            f"where a quotient left the fast path's exact range")
         args = diag_dominant_systems((1, 4), seed=0)
         got = thomas(*args)
         torch.cuda.synchronize()
@@ -2775,7 +3063,8 @@ def main() -> int:
             log(f"  {key}: {n} x, {ms:.3f} ms")
 
     tbench = {}
-    with phase("10 bench_tridiagonal: kernel, plain versions, torch.linalg.solve (and the shapes of phases 30 and 33)"):
+    with phase("10 bench_tridiagonal: kernel, plain versions, torch.linalg.solve (and the shapes of phases 30, 33, 38 "
+               "and 39)"):
         for n_sys in (16384, 54):
             r = benchmarks.bench_tridiagonal(n_sys, 32, device=dev)
             tbench[n_sys] = r
@@ -2801,6 +3090,10 @@ def main() -> int:
         kpp_tke_shapes = {f"{n_sys}x{NZ}": thomas_bench_record(benchmarks, dev, n_sys)
                           for n_sys in (3 * COL_COLUMNS, 4 * COL_COLUMNS, 3 * KPP_PLUGIN * len(benchmarks.TRAIN_FILES),
                                         GYRE_N * GYRE_N, GYRE_N * (GYRE_N + 1))}
+        # The LES pressure solves of phase 39 (generate-les at 32^3, bench_les at 64^3, the les3d sources at
+        # 64 x 64 x 128): equal to _thomas_scan, within the phase's limit of _thomas_pcr.
+        les_shapes = {f"{n_sys}x{n}": thomas_bench_record(benchmarks, dev, n_sys, n, repeats=LES_BENCH_REPEATS)
+                      for n_sys, n in LES_THOMAS_SHAPES}
 
     thomas_record = {
         "name": "thomas",
@@ -2828,6 +3121,7 @@ def main() -> int:
                                                     "device_ops_per_substep")},
         "train_setup_s": setup_s,
         "kpp_tke_calibration_shapes": kpp_tke_shapes,
+        "les_shapes": les_shapes,
         "build_s": thomas.build_seconds,
     }
     gram_record, chol_record = gp_phases(dev)
@@ -2850,6 +3144,8 @@ def main() -> int:
     thomas_record["evaluate_embedded"] = evaluate_embedded_phase(thomas_record["evaluate"], thomas_record["evaluate_fc"],
                                                                  smi)
     thomas_record["double_gyre"] = double_gyre_phase(dev, smi)
+    thomas_record["les"] = les_phase(dev, smi)
+    thomas_record["column_ensemble"] = column_ensemble_phase(dev, setup, smi)
     record["ptxas"] = ptxas_summary(kernel.ptxas_report)
     thomas_record["ptxas"] = ptxas_summary(thomas.ptxas_report)
     print(smi, flush=True)

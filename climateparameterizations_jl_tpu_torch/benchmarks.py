@@ -36,6 +36,12 @@
 - :func:`bench_double_gyre` (``benchmarks.py:321``, ``BASELINE.md``): the
   96x96x32 double gyre with the free-convection MLP on every column, three
   batched solves per step through ``csrc/thomas.cu``.
+- :func:`bench_les` (``benchmarks.py:395``): the 3-D LES data generator at
+  64^3, forward Euler, one pressure solve per step (the real and imaginary
+  parts of every horizontal mode as one batch) through ``csrc/thomas.cu``.
+- :func:`bench_column_ensemble` (``benchmarks.py:361``, ``BASELINE.md``):
+  the 1,024-member perturbed-IC column ensemble, one split solve of 256
+  substeps on one card, one Thomas launch per substep for all members.
 
 Each is timed with CUDA events after a warm-up, and runs on the card only:
 with no card it raises.
@@ -570,7 +576,9 @@ def bench_tridiagonal(n_systems: int = 16384, N: int = 32, repeats: int = 50, se
     the profiler recorded, ``cuda_recorded`` of ``repeats`` (``None`` when it
     recorded none), and ``cuda_graph_ms`` the kernel's time per launch in a
     CUDA graph of ``repeats`` back-to-back launches (:func:`_graph_ms`). Also
-    returns the kernel's largest deviation from ``scan``.
+    returns the kernel's largest deviation from ``scan`` and from ``pcr``,
+    whether it equals ``scan`` (``cuda_equals_scan``) and the solution's
+    largest magnitude.
     """
     device = _require_card(device, "bench_tridiagonal")
     from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
@@ -597,6 +605,9 @@ def bench_tridiagonal(n_systems: int = 16384, N: int = 32, repeats: int = 50, se
             out["cuda_recorded"] = t["kernel_launches_recorded"]
             out["cuda_graph_ms"] = _graph_ms(fn, repeats, device)
     out["max_abs_err_vs_scan"] = float((results["cuda"] - results["scan"]).abs().max())
+    out["max_abs_err_vs_pcr"] = float((results["cuda"] - results["pcr"]).abs().max())
+    out["cuda_equals_scan"] = bool(torch.equal(results["cuda"], results["scan"]))
+    out["max_abs_x"] = float(results["scan"].abs().max())
     out["bytes"] = 5 * n_systems * N * 4
     return out
 
@@ -636,7 +647,7 @@ def profile_train_step(setup: dict, n_saves: int = 2, device=None, ensemble: int
     return _profiled(step, n_saves * config.n_substeps, device)
 
 
-def _profiled(fn, substeps: int, device) -> dict:
+def _profiled(fn, substeps: int, device, kernel: str | None = None) -> dict:
     """One call of ``fn`` under ``torch.profiler`` after an unprofiled warm-up call.
 
     Returns the wall time, the device time of every CUDA kernel, memcpy and
@@ -644,7 +655,9 @@ def _profiled(fn, substeps: int, device) -> dict:
     device ops in all and per substep, and the eight largest by device time.
     Profiling adds host time, so the idle share is that of the profiled call.
     ``device_ops == 0`` means the profiler saw no device activity (then
-    nothing is measured).
+    nothing is measured). With ``kernel`` (a part of a kernel's name) also
+    ``kernel_ms`` and ``kernel_launches_recorded``, the device time and the
+    count of the launches so named that the profiler recorded.
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -659,11 +672,16 @@ def _profiled(fn, substeps: int, device) -> dict:
     busy_ms = _device_ms(on_device)
     ops = sum(e.count for e in on_device)
     top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]
-    return {
+    out = {
         "substeps": substeps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms, "device_ops": ops, "device_ops_per_substep": ops / substeps,
         "top": [(e.key[:60], e.count, e.self_device_time_total * 1e-3) for e in top],
     }
+    if kernel is not None:
+        mine = [e for e in on_device if kernel in e.key]
+        out["kernel_ms"] = _device_ms(mine)
+        out["kernel_launches_recorded"] = sum(e.count for e in mine)
+    return out
 
 
 def profile_fc_forward(n_columns: int = 1024, Nz: int = 32, n_steps: int = 1152, tridiag_backend: str = "auto",
@@ -928,6 +946,123 @@ def profile_double_gyre(Nx: int = 96, Ny: int = 96, Nz: int = 32, n_steps: int =
     setup = double_gyre_setup(Nx, Ny, Nz, device=device)
     backend = resolve_tridiag_backend(tridiag_backend, n_steps, device)
     return _profiled(lambda: double_gyre_forward(setup, n_steps, backend), n_steps, device)
+
+
+# ---------------------------------------------------------------------------
+# The 3-D LES data generator and the column ensemble
+# ---------------------------------------------------------------------------
+
+
+def les_setup(n_horizontal: int = 64, Nz: int = 64, device=None) -> dict:
+    """The JAX package's ``bench_les`` inputs: the default LES box at ``n_horizontal^2 x Nz``, its
+    initial state (noise from a ``torch.Generator`` seeded with 0) and ``stable_dt``.
+
+    ``thomas_systems`` is the batch of each pressure solve, ``2 Ny (Nx // 2 + 1)``
+    systems of ``Nz`` levels (the real and imaginary parts of every horizontal mode).
+    """
+    from climateparameterizations_jl_tpu_torch.data.les import LESConfig, initial_state, stable_dt
+
+    device = resolve_device(device)
+    config = LESConfig.default(Nx=n_horizontal, Ny=n_horizontal, Nz=Nz, device=device)
+    state0 = initial_state(config)
+    return {"config": config, "state0": state0, "dt": stable_dt(config),
+            "thomas_systems": 2 * n_horizontal * (n_horizontal // 2 + 1), "thomas_N": Nz}
+
+
+def les_forward(setup: dict, n_steps: int, tridiag_backend: str):
+    """``n_steps`` Euler LES steps from the setup's initial state, at ``t = 0`` each (as the JAX benchmark steps)."""
+    from climateparameterizations_jl_tpu_torch.data.les import les_step
+
+    state = setup["state0"]
+    for _ in range(n_steps):
+        state = les_step(setup["config"], state, setup["dt"], "euler", tridiag_backend=tridiag_backend)
+    return state
+
+
+def bench_les(n_horizontal: int = 64, Nz: int = 64, n_steps: int = 100, repeats: int = 3, profile_steps: int = 10,
+              device=None) -> dict:
+    """The 3-D LES generator's throughput: ms per run of ``n_steps`` Euler steps and cell-steps per second.
+
+    The JAX package's ``bench_les`` (``benchmarks.py:395``): the default box
+    at ``n_horizontal^2 x Nz``, ``stable_dt``, forward Euler. CUDA events
+    around each run after one warm-up (``calls`` counts the runs). Each step
+    runs one pressure solve: ``thomas_launches_per_step`` is counted over the
+    last timed run, on ``thomas_systems x thomas_N``. A run of
+    ``profile_steps`` steps under ``torch.profiler`` gives the device ops per
+    step, the card's idle share and the Thomas kernel's share of the device
+    time (``profile``).
+    """
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.train.nde import resolve_tridiag_backend
+
+    device = _require_card(device, "bench_les")
+    setup = les_setup(n_horizontal, Nz, device=device)
+    backend = resolve_tridiag_backend("auto", n_steps, device)
+    times, state = _timed(lambda: les_forward(setup, n_steps, backend), repeats, device)
+    if not all(bool(torch.isfinite(x).all()) for x in (state.u, state.v, state.w, state.T)):
+        raise RuntimeError("LES run produced non-finite values")
+    before = _cuda.THOMAS.launches
+    les_forward(setup, n_steps, backend)
+    torch.cuda.synchronize(device)
+    launches = _cuda.THOMAS.launches - before
+    prof = _profiled(lambda: les_forward(setup, profile_steps, backend), profile_steps, device, kernel="thomas_kernel")
+    prof["thomas_device_share"] = prof["kernel_ms"] / prof["device_busy_ms"] if prof["device_busy_ms"] else None
+    stats = _stats(times, device)
+    cells = n_horizontal * n_horizontal * Nz
+    return {
+        **stats, "n_horizontal": n_horizontal, "Nz": Nz, "n_steps": n_steps, "repeats": repeats, "dt_s": setup["dt"],
+        "tridiag_backend": backend, "ms_per_step": stats["ms_median"] / n_steps,
+        "cell_steps_per_sec": cells * n_steps / (stats["ms_median"] * 1e-3), "calls": repeats + 1,
+        "thomas_launches_per_step": launches / n_steps, "thomas_systems": setup["thomas_systems"],
+        "thomas_N": setup["thomas_N"], "profile": prof,
+    }
+
+
+def column_ensemble_setup(n_members: int = 1024, Nz: int = 32, device=None) -> tuple:
+    """``(model, nns, bcs, x0)`` of the JAX package's ``bench_column_ensemble`` (``benchmarks.py:361``).
+
+    :func:`make_setup`'s model and MLPs, ``x0 = 0.1 N(0, 1)`` ``(n_members,
+    3 Nz)`` from a numpy generator seeded with 0, and per-member BCs: top
+    ``uw = -0.5``, top ``wT = 0.3``, the rest and the diurnal amplitude 0.
+    """
+    model, nns, _, x0 = make_setup(Nz, n_members, 0, device=device)
+    zeros = torch.zeros(n_members, dtype=torch.float32, device=x0.device)
+    bcs = BoundaryConditions(uw_bot=zeros, uw_top=zeros - 0.5, vw_bot=zeros, vw_top=zeros, wT_bot=zeros,
+                             wT_top=zeros + 0.3, diurnal_amplitude=zeros)
+    return model, nns, bcs, x0
+
+
+def bench_column_ensemble(n_members: int = 1024, Nz: int = 32, n_steps: int = 256, repeats: int = 3,
+                          device=None) -> dict:
+    """The column ensemble on one card: ms per solve and column-timesteps per second.
+
+    The JAX package's ``bench_column_ensemble``: ``n_members`` columns, one
+    save of ``n_steps`` split substeps (non-dimensional ``dt_save = 1e-5
+    n_steps``) through ``parallel/sharding.py::make_sharded_ensemble_solver``
+    on a one-device mesh, i.e. one batched split solve with every member on
+    the batch axis: one Thomas launch per substep on ``(3, n_members, Nz)``.
+    CUDA events around each solve after one warm-up; ``calls`` counts the
+    solves and ``thomas_launches`` the launches of all of them.
+    """
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.parallel.sharding import make_mesh, make_sharded_ensemble_solver
+    from climateparameterizations_jl_tpu_torch.train.nde import NDETrainConfig
+
+    device = _require_card(device, "bench_column_ensemble")
+    model, nns, bcs, x0 = column_ensemble_setup(n_members, Nz, device)
+    config = NDETrainConfig(n_substeps=n_steps, method="split")
+    solver = make_sharded_ensemble_solver(model, config, make_mesh(device=device))
+    before = _cuda.THOMAS.launches
+    times, traj = _timed(lambda: solver(nns, bcs, x0, 0.0, 1e-5 * n_steps, 1), repeats, device)
+    launches = _cuda.THOMAS.launches - before
+    if traj.shape != (2, n_members, 3 * Nz) or not bool(torch.isfinite(traj).all()):
+        raise RuntimeError(f"ensemble solve gave shape {tuple(traj.shape)} or non-finite values")
+    stats = _stats(times, device)
+    return {
+        **stats, "n_members": n_members, "Nz": Nz, "n_steps": n_steps, "repeats": repeats,
+        "column_timesteps_per_sec": n_members * n_steps / (stats["ms_median"] * 1e-3), "calls": repeats + 1,
+        "thomas_launches": launches, "thomas_systems": 3 * n_members, "thomas_N": Nz,
+    }
 
 
 # ---------------------------------------------------------------------------

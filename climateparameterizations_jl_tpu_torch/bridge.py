@@ -6,11 +6,12 @@ whose class name is one of the port's (``MLP``, ``ConvMLP``, ``FluxNNs``,
 ``PackedFluxNNs``, ``ZeroMeanUnitVarianceScaling``, ``WindMixingScalings``,
 ``MPPParameters``, ``BoundaryConditions``, ``WindMixingModel``,
 ``FreeConvectionModel``, the embedding's ``HostColumnModel``,
-``HostColumnState``, ``DoubleGyreModel`` and ``DoubleGyreState``, and the
-GP classes ``GPKernel``, ``SpectralMixtureKernel``, ``GPModel``, ``FluxGPs``),
-reads each field the port's class declares, and turns every array leaf into
-a tensor through numpy (``np.asarray``). Static fields (``Nz``, flags,
-activation names) pass through unchanged. The JAX RNG is never re-seeded on
+``HostColumnState``, ``DoubleGyreModel`` and ``DoubleGyreState``, the 3-D
+LES's ``LESConfig`` and ``LESState``, and the GP classes ``GPKernel``,
+``SpectralMixtureKernel``, ``GPModel``, ``FluxGPs``), reads each field the
+port's class declares, and turns every array leaf into a tensor through
+numpy (``np.asarray``). Static fields (``Nz``, flags, activation names)
+pass through unchanged. The JAX RNG is never re-seeded on
 this side: weights cross as numbers.
 
 GP objects keep each leaf's own dtype (GP models are f64 by default), and a
@@ -28,6 +29,7 @@ import torch
 from climateparameterizations_jl_tpu_torch.closures.gp import GPKernel, GPModel, SpectralMixtureKernel
 from climateparameterizations_jl_tpu_torch.closures.mlp import MLP, ConvMLP
 from climateparameterizations_jl_tpu_torch.core.scalings import ZeroMeanUnitVarianceScaling
+from climateparameterizations_jl_tpu_torch.data.les import LESConfig, LESState
 from climateparameterizations_jl_tpu_torch.device import resolve_device
 from climateparameterizations_jl_tpu_torch.embed.column_model import HostColumnModel, HostColumnState
 from climateparameterizations_jl_tpu_torch.embed.double_gyre import DoubleGyreModel, DoubleGyreState
@@ -47,7 +49,7 @@ _CLASSES = {
     cls.__name__: cls
     for cls in (MLP, ConvMLP, FluxNNs, PackedFluxNNs, ZeroMeanUnitVarianceScaling, WindMixingScalings,
                 MPPParameters, BoundaryConditions, WindMixingModel, FreeConvectionModel, HostColumnModel,
-                HostColumnState, DoubleGyreModel, DoubleGyreState, *_GP_CLASSES)
+                HostColumnState, DoubleGyreModel, DoubleGyreState, LESConfig, LESState, *_GP_CLASSES)
 }
 _GRAM_BACKENDS = {"xla": "plain", "pallas": "cuda"}
 

@@ -10,8 +10,10 @@ flux pre-training, spatial causality, curriculum, deep ensembles),
 harnesses ``evaluate`` and ``evaluate-fc`` (a trained closure against the
 KPP, TKE and base-closure baselines, and with ``--embedded`` inside the
 host column model), the a-posteriori trainers ``train-embedded`` and
-``train-embedded-fc`` (gradients through the host column) and
-``double-gyre`` (the 3-D basin with the free-convection closure):
+``train-embedded-fc`` (gradients through the host column),
+``double-gyre`` (the 3-D basin with the free-convection closure),
+``generate-les`` (the 3-D LES data generator) and ``ensemble`` (the
+perturbed-IC column ensemble):
 
     python -m climateparameterizations_jl_tpu_torch.cli train-nde --sims strong_wind \
         --curriculum 6,13:2 --shooting 3 --output runs/nde
@@ -32,15 +34,19 @@ host column model), the a-posteriori trainers ``train-embedded`` and
         --curriculum 8,16 --output runs/emb
     python -m climateparameterizations_jl_tpu_torch.cli train-embedded-fc --init-from runs/fc --output runs/emb_fc
     python -m climateparameterizations_jl_tpu_torch.cli double-gyre --checkpoint runs/fc --days 10 --output runs/gyre
+    python -m climateparameterizations_jl_tpu_torch.cli generate-les --n-save 48 --output runs/les
+    python -m climateparameterizations_jl_tpu_torch.cli ensemble --checkpoint runs/nde --n-members 1024 --output runs/ens
 
 They run on the card unless ``--device cpu`` is given (the JAX package's
 ``--platform`` flag). ``--config FILE`` (JSON, or YAML where PyYAML is
 installed) supplies flag values; flags typed on the command line win. Run
 directories use the JAX package's format and load in either package.
 ``--data-dir`` reads LESbrary ``.jld2`` files where they exist (h5py needed)
-and falls back to the synthetic stand-ins. The other subcommands are later
-work (``ROADMAP.md``); the commands write the JAX commands' files but no
-figures (``eval/animations.py`` is not ported, so ``--animate`` raises).
+and falls back to the synthetic stand-ins; the free-convection commands'
+``--source les3d`` generates their data with the 3-D LES instead. The other
+subcommands are later work (``ROADMAP.md``); the commands write the JAX
+commands' files but no figures (``eval/animations.py`` is not ported, so
+``--animate`` raises).
 """
 
 from __future__ import annotations
@@ -152,17 +158,21 @@ def _load_suite(names, Nz: int, data_dir=None, n_save=288, dt_save=600.0, Nz_les
     return suite.to(device)
 
 
-def _load_fc_suite(ids, Nz: int, data_dir=None, n_save=96, dt_save=600.0, source="auto", device=None):
+def _load_fc_suite(ids, Nz: int, data_dir=None, n_save=96, dt_save=600.0, source="auto", device=None,
+                   les_cache_dir=None):
     """The coarse free-convection suite of ``ids``, stacked on a leading axis (one id: unstacked), on ``device``.
 
     Files under ``data_dir`` where they exist, else the synthetic stand-ins
-    in one batched solve on the CPU (``data/free_convection.py``).
+    in one batched solve on the CPU (``data/free_convection.py``);
+    ``source="les3d"``: each id's 3-D LES run on ``device``, through
+    ``les_cache_dir`` where given.
     """
     from climateparameterizations_jl_tpu_torch.data.containers import stack_datasets
     from climateparameterizations_jl_tpu_torch.data.free_convection import load_free_convection_suite
 
     device = resolve_device(device)
-    datasets = load_free_convection_suite(ids, data_dir, Nz, n_save=n_save, dt_save=dt_save, source=source)
+    datasets = load_free_convection_suite(ids, data_dir, Nz, n_save=n_save, dt_save=dt_save, source=source,
+                                          les_cache_dir=les_cache_dir, device=device)
     suite = stack_datasets(datasets) if len(datasets) > 1 else datasets[0]
     return suite.to(device)
 
@@ -686,7 +696,8 @@ def cmd_train_fc_nde(args) -> int:
     bad = sorted(set(ids) - set(FREE_CONVECTION_IDS))
     if bad:
         print(f"warning: unknown simulation ids {bad} (valid: {sorted(FREE_CONVECTION_IDS)})")
-    ds = _load_fc_suite(ids, args.nz, args.data_dir, args.n_save, args.dt_save, args.source, device)
+    ds = _load_fc_suite(ids, args.nz, args.data_dir, args.n_save, args.dt_save, args.source, device,
+                        args.les_cache_dir)
     T_scaling = ZeroMeanUnitVarianceScaling.fit(ds.T.reshape(-1))
     wT_scaling = ZeroMeanUnitVarianceScaling.fit(ds.wT.reshape(-1))
     t_row = ds.t.reshape(-1, ds.t.shape[-1])[0]
@@ -861,7 +872,6 @@ def cmd_calibrate_kpp(args) -> int:
 
 # Flags of the JAX commands that need modules still to be ported (ROADMAP.md, queue 1).
 _FIGURES = "queue 1, item 10 (eval/animations.py)"
-_LES3D = "queue 1, item 9 (data/les.py)"
 
 
 def _refuse(flag: str, what: str, item: str):
@@ -1010,7 +1020,8 @@ def cmd_evaluate_fc(args) -> int:
         print("warning: checkpoint has no recorded training scalings; refitting per sim (results not comparable "
               "to training)")
     # The ids' stand-ins come from one batched generation (each id's result is the single-id generator's).
-    suite = _load_fc_suite(ids, args.nz, args.data_dir, args.n_save, args.dt_save, args.source, device)
+    suite = _load_fc_suite(ids, args.nz, args.data_dir, args.n_save, args.dt_save, args.source, device,
+                           args.les_cache_dir)
     matrix: dict = {}
     for k, i in enumerate(ids):
         ds = _select_sims(suite, k) if len(ids) > 1 else suite
@@ -1140,7 +1151,6 @@ def cmd_train_embedded_fc(args) -> int:
     (forward, recompute, transposed solve). The ids default to the
     ``--init-from`` checkpoint's; its NN keeps its training scalings and
     base closure. Writes an ``evaluate-fc``-compatible run directory.
-    ``--source les3d`` raises.
     """
     from climateparameterizations_jl_tpu_torch.closures import mlp
     from climateparameterizations_jl_tpu_torch.core.scalings import ZeroMeanUnitVarianceScaling
@@ -1152,8 +1162,6 @@ def cmd_train_embedded_fc(args) -> int:
     from climateparameterizations_jl_tpu_torch.train.embedded import train_embedded_free_convection
     from climateparameterizations_jl_tpu_torch.train.nde import NDETrainConfig
 
-    if args.source == "les3d":
-        _refuse("--source les3d", "generates the data with the 3-D LES", _LES3D)
     device = resolve_device(args.device)
     init_meta: dict = {}
     nn = None
@@ -1174,7 +1182,8 @@ def cmd_train_embedded_fc(args) -> int:
     bad = sorted(set(ids) - set(FREE_CONVECTION_IDS))
     if bad:
         print(f"warning: unknown simulation ids {bad} (valid: {sorted(FREE_CONVECTION_IDS)})")
-    ds = _load_fc_suite(ids, args.nz, args.data_dir, args.n_save, args.dt_save, args.source, device)
+    ds = _load_fc_suite(ids, args.nz, args.data_dir, args.n_save, args.dt_save, args.source, device,
+                        args.les_cache_dir)
 
     saved = init_meta.get("scalings")
     if saved is not None:
@@ -1303,6 +1312,158 @@ def cmd_double_gyre(args) -> int:
     return 0
 
 
+def cmd_generate_les(args) -> int:
+    """Run the 3-D LES and save its horizontally averaged profiles (``les_profiles.npz``).
+
+    The JAX package's ``generate-les`` (the reference's LES script
+    ``wind_mixing/wind_mixing.jl:1-143``): an ``--n-horizontal^2 x
+    --nz-les`` box (``data/les.py``), ``--les-method`` at ``--dt`` or the
+    stability bound (CFL 0.6 for rk3, 0.2 for euler), one frame every
+    ``round(--dt-save / dt)`` steps, every pressure solve one Thomas launch on
+    the card. ``--jld2-name`` takes the catalog entry's signed fluxes,
+    Coriolis and diurnal flag (a contradicting ``--qu`` / ``--qb`` or a
+    ``--diurnal`` on a constant-flux name is refused before the run) and also
+    writes the reference-layout ``.jld2`` under that name (h5py; refused
+    before the run where it is not installed). The initial noise comes from a
+    ``torch.Generator`` seeded with 0, so the fields are not the JAX
+    command's. Prints a JSON line.
+    """
+    from climateparameterizations_jl_tpu_torch.data.free_convection import save_column_npz
+    from climateparameterizations_jl_tpu_torch.data.les import LESConfig, run_les, stable_dt
+
+    diurnal = args.diurnal
+    if args.jld2_name:
+        from climateparameterizations_jl_tpu_torch.data.lesbrary import HAVE_H5PY
+        from climateparameterizations_jl_tpu_torch.data.registry import (
+            lesbrary_relative_path,
+            signed_momentum_flux,
+            simulation_parameters,
+        )
+
+        spec = simulation_parameters(args.jld2_name)  # raises on an unknown name, before the run
+        lesbrary_relative_path(args.jld2_name)
+        if diurnal and not spec.diurnal:
+            raise SystemExit(f"--diurnal with constant-flux catalog name {args.jld2_name!r}: downstream loaders would "
+                             "pin the cyclic data to a constant amplitude; use a *_diurnal_* name")
+        diurnal = diurnal or bool(spec.diurnal)
+        # A file written under a catalog name carries that name's forcing.
+        spec_qu = signed_momentum_flux(spec)
+        for flag, value, spec_value in (("--qu", args.qu, spec_qu), ("--qb", args.qb, spec.Qb)):
+            if value is not None and abs(value - spec_value) > 1e-12 * max(abs(spec_value), 1e-30):
+                raise SystemExit(f"{flag}={value} contradicts catalog entry {args.jld2_name!r} ({flag[2:]}="
+                                 f"{spec_value}); drop the flag (the spec's value is the default) or use a matching name")
+        if not HAVE_H5PY:
+            raise SystemExit("--jld2-name writes a .jld2 file, which needs h5py; it is not installed")
+        qu = spec_qu if args.qu is None else args.qu
+        qb = spec.Qb if args.qb is None else args.qb
+        f_cor = spec.f
+    else:
+        qu = args.qu if args.qu is not None else -5e-4
+        qb = args.qb if args.qb is not None else 3e-8
+        f_cor = 1e-4
+    device = resolve_device(args.device)
+    config = LESConfig.default(Nx=args.n_horizontal, Ny=args.n_horizontal, Nz=args.nz_les, Qu=qu, Qb=qb, f=f_cor,
+                               diurnal=diurnal, device=device)
+    cfl = 0.6 if args.les_method == "rk3" else 0.2
+    dt = args.dt if args.dt else stable_dt(config, u_max=args.u_max, cfl=cfl)
+    save_every = max(1, int(round(args.dt_save / dt)))
+    ds = run_les(config, dt=dt, n_save=args.n_save, save_every=save_every, method=args.les_method,
+                 max_frames_per_dispatch=args.max_frames_per_dispatch,
+                 max_steps_per_dispatch=args.max_steps_per_dispatch).to("cpu")
+    os.makedirs(args.output, exist_ok=True)
+    path = os.path.join(args.output, "les_profiles.npz")
+    save_column_npz(path, ds)
+    result = {"output": path, "dt": float(dt), "save_every": save_every, "frames": int(ds.t.shape[-1])}
+    if args.jld2_name:
+        from climateparameterizations_jl_tpu_torch.data.lesbrary import write_les_profiles
+
+        result["jld2"] = write_les_profiles(os.path.join(args.output, lesbrary_relative_path(args.jld2_name)), ds)
+    T = ds.T.numpy()
+    result["T_final_range"] = [float(T[-1].min()), float(T[-1].max())]
+    result["finite"] = bool(np.isfinite(T).all())
+    print(json.dumps(result))
+    return 0
+
+
+def _ensemble_perturbation(seed: int, n_members: int, width: int, device) -> torch.Tensor:
+    """The ensemble's standard-normal initial perturbation ``(n_members, width)``, f32, from a ``torch.Generator``."""
+    return torch.randn((n_members, width), generator=torch.Generator().manual_seed(seed)).to(device)
+
+
+def cmd_ensemble(args) -> int:
+    """Perturbed-IC column ensemble (uncertainty quantification) on one card.
+
+    The JAX package's ``ensemble``: ``--n-members`` copies of the first
+    simulation's initial column, each perturbed by ``--perturbation`` times
+    standard-normal noise in scaled units, with that simulation's BCs, run
+    over its first ``--n-steps`` frames at ``--n-substeps`` split substeps per
+    save, all members in one batched solve per substep
+    (``parallel/sharding.py``: a one-device mesh; on the card one Thomas
+    launch per substep). ``--checkpoint`` gives the closure (member 0 of a
+    deep ensemble) over its training-time mPP base (``--mpp-params`` wins);
+    without one the run is physics only. The noise comes from a
+    ``torch.Generator`` seeded with ``--seed``, so the members are not the
+    JAX command's. Writes ``ensemble.npz`` (per-frame mean and std over the
+    members, dimensional t) and prints a JSON line.
+    """
+    from climateparameterizations_jl_tpu_torch.data.containers import training_tensors
+    from climateparameterizations_jl_tpu_torch.models.wind_mixing import BoundaryConditions, FluxNNs, pack_flux_nns
+    from climateparameterizations_jl_tpu_torch.parallel.sharding import make_mesh, make_sharded_ensemble_solver
+    from climateparameterizations_jl_tpu_torch.train.nde import NDETrainConfig
+
+    device = resolve_device(args.device)
+    names = _sims(args.sims)
+    ds = _load_suite(names, args.nz, args.data_dir, args.n_save, args.dt_save, device=device)
+    if args.checkpoint:
+        nns, ckpt_meta = _load_nns(args.checkpoint, device)
+        if ckpt_meta.get("ensemble"):
+            # This command spreads the initial condition under one closure: member 0.
+            from climateparameterizations_jl_tpu_torch.train.deep_ensemble import member
+
+            nns = member(nns, 0)
+            print(f"deep-ensemble checkpoint (K={int(ckpt_meta['ensemble'])}): perturbed-IC ensemble runs member 0",
+                  flush=True)
+    else:
+        nns, ckpt_meta = FluxNNs(uw=None, vw=None, wT=None), {}
+    # The diurnal amplitude is per sim, so constant members keep their frozen BC under any(flags).
+    diurnal = bool(ckpt_meta.get("diurnal", any(_suite_diurnal_flags(names))))
+    model = _wind_model(
+        ds, args.nz, diurnal=diurnal,
+        smooth_NN=bool(ckpt_meta.get("smooth_NN", False)),
+        smooth_Ri=bool(ckpt_meta.get("smooth_Ri", False)),
+        **_base_closure_overrides(ckpt_meta.get("base_closure", "mpp")),
+        **_restore_mpp(ckpt_meta, getattr(args, "mpp_params", None), device),
+    )
+    packed = pack_flux_nns(nns)
+    if packed is not None:  # one fused matmul chain per RHS
+        nns = packed
+
+    tsteps = np.arange(0, min(args.n_steps, int(ds.t.shape[-1])))
+    batch = training_tensors(ds, model.scalings, tsteps, tau=model.tau, diurnal=diurnal)
+    E, width = args.n_members, 3 * args.nz
+    # The members perturb the first simulation's initial column and take its BCs; later sims only shape the scalings.
+    x0_base = batch.x0.reshape(-1, width)[0]
+    x0 = x0_base[None, :] + args.perturbation * _ensemble_perturbation(args.seed, E, width, device)
+    bcs = BoundaryConditions(**{
+        f.name: torch.broadcast_to(torch.as_tensor(getattr(batch.bcs, f.name), device=device).reshape(-1)[0], (E,))
+        for f in dataclasses.fields(BoundaryConditions)
+    })
+    config = NDETrainConfig(n_substeps=args.n_substeps, method="split")
+    solver = make_sharded_ensemble_solver(model, config, make_mesh(device=device))
+    t = batch.t.detach().cpu().numpy()
+    traj = solver(nns, bcs, x0, float(t[0]), float(t[1] - t[0]), len(t) - 1).cpu().numpy()  # (Nt, E, 3 Nz)
+
+    os.makedirs(args.output, exist_ok=True)
+    mean, std = traj.mean(axis=1), traj.std(axis=1)
+    np.savez(os.path.join(args.output, "ensemble.npz"), mean=mean, std=std, t=t * float(model.tau))
+    print(json.dumps({
+        "members": E, "frames": int(traj.shape[0]),
+        "final_mean_spread": float(std[-1].mean()),
+        "finite": bool(np.isfinite(traj).all()),
+    }))
+    return 0
+
+
 def _add_common(p, with_sims: bool = True):
     p.add_argument("--config", default=None, help="JSON/YAML config file (flags typed on the command line win)")
     if with_sims:
@@ -1405,7 +1566,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data-dir", default=None,
                    help="root of free_convection_<id>/instantaneous_statistics_with_halos.jld2 files (h5py needed)")
     p.add_argument("--source", default="auto", choices=["auto", "synthetic", "les3d"],
-                   help="les3d (the 3-D LES generator) is not ported and raises")
+                   help="les3d generates the data with the 3-D LES (on the card unless --device cpu)")
+    p.add_argument("--les-cache-dir", default=None,
+                   help="cache dir for les3d-generated profiles (skip identical LES re-runs; either package's files)")
     p.add_argument("--nz", type=int, default=32)
     p.add_argument("--n-save", type=int, default=96)
     p.add_argument("--dt-save", type=float, default=600.0)
@@ -1487,7 +1650,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sim-ids", default="1,2", help="comma-separated free-convection ids to evaluate")
     p.add_argument("--data-dir", default=None)
     p.add_argument("--source", default="auto", choices=["auto", "synthetic", "les3d"],
-                   help="les3d (the 3-D LES generator) is not ported and raises")
+                   help="les3d generates the data with the 3-D LES (on the card unless --device cpu)")
+    p.add_argument("--les-cache-dir", default=None,
+                   help="cache dir for les3d-generated profiles (skip identical LES re-runs; either package's files)")
     p.add_argument("--nz", type=int, default=32)
     p.add_argument("--n-save", type=int, default=96)
     p.add_argument("--dt-save", type=float, default=600.0)
@@ -1547,8 +1712,9 @@ def build_parser() -> argparse.ArgumentParser:
                                                    "checkpoint's)")
     p.add_argument("--data-dir", default=None)
     p.add_argument("--source", default="auto", choices=["auto", "synthetic", "les3d"],
-                   help="les3d (the 3-D LES generator) is not ported and raises")
-    p.add_argument("--les-cache-dir", default=None, help="cache dir of --source les3d (not ported)")
+                   help="les3d generates the data with the 3-D LES (on the card unless --device cpu)")
+    p.add_argument("--les-cache-dir", default=None,
+                   help="cache dir for les3d-generated profiles (skip identical LES re-runs; either package's files)")
     p.add_argument("--nz", type=int, default=32)
     p.add_argument("--n-save", type=int, default=96)
     p.add_argument("--dt-save", type=float, default=600.0)
@@ -1595,6 +1761,41 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--momentum-advection", default="weno5", choices=["weno5", "centered"],
                    help="momentum advection scheme (2nd-order advective form or WENO5 flux form)")
     p.set_defaults(fn=cmd_double_gyre)
+
+    p = sub.add_parser("ensemble", help="perturbed-IC column-ensemble forward run (UQ), all members in one solve")
+    _add_common(p)
+    p.add_argument("--mpp-params", default=None, metavar="JSON",
+                   help="optimise-mpp mpp_parameters.json: build the base closure from these calibrated parameters "
+                        "(checkpoints record and restore them)")
+    p.add_argument("--checkpoint", default=None, help="trained NNs (default: physics only)")
+    p.add_argument("--n-members", type=int, default=256)
+    p.add_argument("--perturbation", type=float, default=1e-2, help="IC noise in scaled units")
+    p.add_argument("--n-steps", type=int, default=32)
+    p.add_argument("--n-substeps", type=int, default=4)
+    p.set_defaults(fn=cmd_ensemble)
+
+    p = sub.add_parser("generate-les", help="run the 3-D LES and save averaged training profiles")
+    p.add_argument("--n-horizontal", type=int, default=32)
+    p.add_argument("--nz-les", type=int, default=32)
+    p.add_argument("--qu", type=float, default=None,
+                   help="surface momentum flux [m2/s2]; default -5e-4, or the catalog value when --jld2-name is given "
+                        "(a mismatch with the named entry is refused)")
+    p.add_argument("--qb", type=float, default=None,
+                   help="surface buoyancy flux [m2/s3]; default 3e-8, or the catalog value when --jld2-name is given")
+    p.add_argument("--dt", type=float, default=None, help="LES step [s] (default: the stability bound)")
+    p.add_argument("--u-max", type=float, default=0.2, help="velocity scale for the stability bound")
+    p.add_argument("--dt-save", type=float, default=600.0)
+    p.add_argument("--n-save", type=int, default=48)
+    p.add_argument("--les-method", default="rk3", choices=["euler", "rk3"])
+    p.add_argument("--max-frames-per-dispatch", type=int, default=256,
+                   help="accepted for the JAX flag set and ignored: the port runs its steps eagerly")
+    p.add_argument("--max-steps-per-dispatch", type=int, default=None,
+                   help="accepted for the JAX flag set and ignored: the port runs its steps eagerly")
+    p.add_argument("--diurnal", action="store_true",
+                   help="sinusoidal daily surface-flux cycle (Qb = amplitude); inferred from a diurnal --jld2-name")
+    p.add_argument("--jld2-name", default=None, help="also write a reference-layout .jld2 under this catalog name")
+    p.add_argument("--output", default="runs/les")
+    p.set_defaults(fn=cmd_generate_les)
     return parser
 
 

@@ -5,9 +5,10 @@ Port of ``climateparameterizations_jl_tpu/data/free_convection.py``
 ``load_data``, and ``free_convection/src/training_data.jl``). A simulation
 id reads ``<data_dir>/free_convection_<id>/instantaneous_statistics_with_halos.jld2``
 where that file exists (the reference's DataDeps layout; needs h5py), and
-otherwise generates the id's synthetic stand-in on the CPU. The 3-D LES
-source raises ``NotImplementedError`` (``ROADMAP.md``, queue 1, "3-D LES"),
-and the JAX package's downloader is not ported.
+otherwise generates the id's synthetic stand-in on the CPU; ``source="les3d"``
+generates it with the 3-D LES (``data/les.py``), optionally through a cache
+directory that either package's files can fill. The JAX package's
+downloader is not ported.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ _SYNTHETIC_PARAMS = {
     4: (7.5e-8, 2e-3), 5: (1e-7, 2e-3), 6: (2.5e-8, 1e-3),
     7: (5e-8, 1e-3), 8: (7.5e-8, 1e-3), 9: (1e-7, 1e-3),
 }
-SOURCES = ("auto", "synthetic")
+SOURCES = ("auto", "synthetic", "les3d")
 
 
 def validate_simulation_ids(ids_train, ids_test) -> bool:
@@ -100,30 +101,78 @@ def _check_id(simulation_id: int):
 
 def load_free_convection_simulation(simulation_id: int, data_dir: str | None = None, Nz: int = 32,
                                     Nz_les: int = 128, n_save: int = 96, dt_save: float = 600.0,
-                                    source: str = "auto") -> ColumnTimeSeries:
+                                    source: str = "auto", les_cache_dir: str | None = None,
+                                    device=None) -> ColumnTimeSeries:
     """One free-convection simulation coarse-grained to ``Nz`` levels, as CPU tensors.
 
     ``source`` ``"auto"`` or ``"synthetic"`` (the JAX package's spelling;
     both read the id's file under ``data_dir`` where it exists, as the JAX
     loader does) falls back to the id's synthetic stand-in at ``Nz_les``
-    levels and ``n_save`` saves; ``"les3d"`` raises ``NotImplementedError``
-    (so the JAX signature's ``les_cache_dir``, a cache of that source, is
-    not ported).
+    levels and ``n_save`` saves. ``"les3d"`` runs the 3-D LES on ``device``
+    (the card unless the caller passes the CPU; see :func:`les3d_simulation`),
+    through ``les_cache_dir`` where given.
     """
-    return load_free_convection_suite([simulation_id], data_dir, Nz, Nz_les, n_save, dt_save, source)[0]
+    return load_free_convection_suite([simulation_id], data_dir, Nz, Nz_les, n_save, dt_save, source,
+                                      les_cache_dir, device)[0]
+
+
+def les3d_cache_path(les_cache_dir: str, simulation_id: int, Nz_les: int, n_save: int, dt_save: float) -> str:
+    """The JAX package's cache file of an ``les3d`` run: one name and npz layout for both packages."""
+    return os.path.join(les_cache_dir, f"les3d_sim{simulation_id}_N{Nz_les}_n{n_save}_dt{dt_save:g}.npz")
+
+
+def les3d_simulation(simulation_id: int, Nz_les: int = 128, n_save: int = 96, dt_save: float = 600.0,
+                     les_cache_dir: str | None = None, device=None) -> ColumnTimeSeries:
+    """The id's free-convection run of the 3-D LES at ``Nz_les`` levels, before coarse-graining, as CPU tensors.
+
+    The JAX package's ``source="les3d"``: the id's surface buoyancy flux
+    (``Qu = 0``) and its stratification as the initial and bottom gradient,
+    an ``Nx = Ny = min(Nz_les, 64)`` box, RK3 at ``stable_dt(cfl=0.6)``,
+    ``round(dt_save / dt)`` steps per save, the noise from a generator seeded
+    with the id (the port's generator: the fields are not the JAX
+    package's). ``les_cache_dir`` keeps the profiles under
+    :func:`les3d_cache_path`: a file there (written by either package) is
+    read instead of running the LES, an unreadable one is regenerated with a
+    warning.
+    """
+    from climateparameterizations_jl_tpu_torch.data.les import LESConfig, run_les, stable_dt
+
+    _check_id(simulation_id)
+    cache_path = None
+    if les_cache_dir is not None:
+        cache_path = les3d_cache_path(les_cache_dir, simulation_id, Nz_les, n_save, dt_save)
+        if os.path.exists(cache_path):
+            try:
+                return load_column_npz(cache_path)
+            except Exception as e:  # a corrupt or stale-schema cache: regenerate
+                logger.warning("LES cache %s unreadable (%s); regenerating", cache_path, e)
+    Qb, strat = _SYNTHETIC_PARAMS[simulation_id]
+    n_h = min(Nz_les, 64)
+    config = LESConfig.default(Nx=n_h, Ny=n_h, Nz=Nz_les, Qu=0.0, Qb=Qb, dTdz=strat, device=device)
+    dt = stable_dt(config, cfl=0.6)
+    ds = run_les(config, dt=dt, n_save=n_save, save_every=max(1, int(round(dt_save / dt))),
+                 generator=torch.Generator().manual_seed(simulation_id), method="rk3").to("cpu")
+    if cache_path is not None:
+        save_column_npz(cache_path, ds)
+    return ds
 
 
 def load_free_convection_suite(simulation_ids, data_dir: str | None = None, Nz: int = 32, Nz_les: int = 128,
-                               n_save: int = 96, dt_save: float = 600.0, source: str = "auto") -> list:
+                               n_save: int = 96, dt_save: float = 600.0, source: str = "auto",
+                               les_cache_dir: str | None = None, device=None) -> list:
     """:func:`load_free_convection_simulation` for each id, in order.
 
     Ids read from files are read one by one; the synthetic stand-ins of the
     others are generated in one batched solve, whose per-id result is the
-    single-id generator's (``data/synthetic.py``).
+    single-id generator's (``data/synthetic.py``). With ``source="les3d"``
+    each id runs its own LES (:func:`les3d_simulation`) on ``device``.
     """
     require_ported_source(source, allowed=SOURCES)
     for i in simulation_ids:
         _check_id(i)
+    if source == "les3d":
+        return [coarsen_dataset(les3d_simulation(i, Nz_les, n_save, dt_save, les_cache_dir, device), Nz)
+                for i in simulation_ids]
     out = [None] * len(simulation_ids)
     synthetic = []
     for k, i in enumerate(simulation_ids):

@@ -7,9 +7,8 @@ suite: :func:`simulation_parameters` parses them, and
 :func:`lesbrary_relative_path` rebuilds the reference's ``.jld2`` paths.
 :func:`load_simulation` reads ``<data_dir>/<lesbrary_relative_path(name)>``
 where that file exists (``data/lesbrary.py``, which needs h5py) and
-otherwise generates the name's synthetic stand-in (``data/synthetic.py``).
-The 3-D LES generator is not ported: ``source="les3d"`` raises
-``NotImplementedError`` (``ROADMAP.md``, queue 1, "3-D LES"). The JAX
+otherwise generates the name's synthetic stand-in (``data/synthetic.py``);
+``source="les3d"`` generates it with the 3-D LES (``data/les.py``). The JAX
 package's downloader (``fetch_free_convection``) is not ported.
 """
 
@@ -157,12 +156,8 @@ WIND_MIXING_CATALOG = _build_catalog()
 FREE_CONVECTION_IDS = tuple(range(1, 10))
 
 
-def require_ported_source(source: str = "auto", allowed=("auto",)) -> None:
-    """Raise ``NotImplementedError`` for the 3-D LES source and ``ValueError`` for one not in ``allowed``."""
-    if source == "les3d":
-        raise NotImplementedError(
-            'source="les3d" (the 3-D LES generator) is not ported yet (ROADMAP.md, queue 1, "3-D LES")'
-        )
+def require_ported_source(source: str = "auto", allowed=("auto", "les3d")) -> None:
+    """Raise ``ValueError`` for a source not in ``allowed``."""
     if source not in allowed:
         raise ValueError(f"unknown source {source!r}")
 
@@ -181,18 +176,33 @@ def signed_momentum_flux(spec: SimulationSpec) -> float:
 
 
 def load_simulation(name: str, data_dir: str | None = None, Nz_les: int = 128, n_save: int = 288,
-                    dt_save: float = 600.0, source: str = "auto", **synthetic_kwargs):
+                    dt_save: float = 600.0, source: str = "auto", device=None, **synthetic_kwargs):
     """One catalog simulation as a :class:`~..data.containers.ColumnTimeSeries` of CPU tensors.
 
-    The reference's ``.jld2`` file from ``data_dir`` when it exists (HDF5
-    reader), else the synthetic column stand-in of the name's forcing,
-    generated on the CPU (``data/synthetic.py``). A file does not record the
-    diurnal flag (the reference encodes it in the name): it is stamped from
-    the catalog, ``diurnal_amplitude = theta_top`` for diurnal names and 0
-    otherwise. ``source="les3d"`` raises ``NotImplementedError``.
+    ``source="auto"``: the reference's ``.jld2`` file from ``data_dir`` when
+    it exists (HDF5 reader), else the synthetic column stand-in of the name's
+    forcing, generated on the CPU (``data/synthetic.py``). A file does not
+    record the diurnal flag (the reference encodes it in the name): it is
+    stamped from the catalog, ``diurnal_amplitude = theta_top`` for diurnal
+    names and 0 otherwise.
+
+    ``source="les3d"`` generates the data with the 3-D LES (``data/les.py``)
+    under the name's signed fluxes, Coriolis and diurnal flag: an
+    ``Nx = Ny = min(Nz_les, 64)`` box of ``Nz_les`` levels, forward Euler at
+    :func:`~..data.les.stable_dt`, ``round(dt_save / dt)`` steps per save,
+    noise from a generator seeded with 0. The LES runs on ``device`` (the
+    card unless the caller passes the CPU); the profiles come back on the CPU.
     """
     require_ported_source(source)
     spec = simulation_parameters(name)
+    if source == "les3d":
+        from climateparameterizations_jl_tpu_torch.data.les import LESConfig, run_les, stable_dt
+
+        n_h = min(Nz_les, 64)
+        config = LESConfig.default(Nx=n_h, Ny=n_h, Nz=Nz_les, Qu=signed_momentum_flux(spec), Qb=spec.Qb, f=spec.f,
+                                   diurnal=spec.diurnal, device=device)
+        dt = stable_dt(config)
+        return run_les(config, dt=dt, n_save=n_save, save_every=max(1, int(round(dt_save / dt)))).to("cpu")
     path = lesbrary_file(name, data_dir)
     if path is not None:
         import torch

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The port's embedded evaluation on the stored JAX run's own truth.
 
-    python3 embedded_stored_truth.py [--device cpu] [--out FILE]
+    python3 embedded_stored_truth.py [--device cpu] [--out FILE] [--old-ri-rule] [--stored-bottom-gradient]
 
 ``runs/wm_flagship_default_eval`` was written by the JAX package's
 ``evaluate --embedded`` of ``runs/wm_flagship_default`` on the three held-out
@@ -24,6 +24,13 @@ host column had before its gradient-safe regularizer: ``1e-12`` added to
 dT/dz alone and no floor on the shear, in place of ``1e-7`` on every
 gradient and the ``1e-20`` shear floor. It tests whether that change
 explains a gap of ``embedded`` to the stored run.
+
+``--stored-bottom-gradient`` gives each held-out sim the bottom temperature
+gradient of the stored run's stand-ins, ``theta_bottom = 0.002`` K/m (the
+JAX package's wind-mixing stand-ins had it until they were given a zero
+bottom gradient; the port follows the JAX package as it stands). The host
+column's bottom heat flux follows it. This is what explains the gap of
+``embedded`` to the stored run.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ REPO = Path(__file__).resolve().parent
 RUN, EVAL = REPO / "runs" / "wm_flagship_default", REPO / "runs" / "wm_flagship_default_eval"
 TEST_SIMS = ("wind_-4.5e-4_cooling_2.5e-8", "wind_-2.5e-4_cooling_1.5e-8", "wind_-4.5e-4_heating_-2.5e-8")
 N_SAVE, STRIDE, NZ = 1152, 9, 32
+STORED_THETA_BOTTOM = 0.002  # K/m, the bottom gradient of the stored run's stand-ins
 MEMBERS = ("nde", "mpp", "kpp", "embedded", "embedded_baseline")
 
 
@@ -52,6 +60,8 @@ def main() -> int:
     parser.add_argument("--out", default=None, help="write the losses here as JSON")
     parser.add_argument("--old-ri-rule", action="store_true",
                         help="the host column's Ri without the gradient-safe regularizer (see the docstring)")
+    parser.add_argument("--stored-bottom-gradient", action="store_true",
+                        help=f"the stored run's bottom gradient theta_bottom = {STORED_THETA_BOTTOM} (see the docstring)")
     args = parser.parse_args()
     if args.old_ri_rule:
         _use_old_ri_rule()
@@ -75,6 +85,8 @@ def main() -> int:
         stand_in = cli._select_sims(stand_ins, k)
         gap = float(np.abs(stand_in.T[::STRIDE][: t.shape[0]].cpu().numpy() - truth["T"]).max())
         ds = dataclasses.replace(stand_in, t=f32(t), **{f: f32(v) for f, v in truth.items()})
+        if args.stored_bottom_gradient:
+            ds = dataclasses.replace(ds, theta_bottom=torch.full_like(ds.theta_bottom, STORED_THETA_BOTTOM))
         ev = nde_profile(model, nns, ds, np.arange(t.shape[0]), solver="split", n_substeps=STRIDE,
                          include_embedded=True, kpp_n_substeps=STRIDE)
         losses = {m: float(np.mean(ev[f"losses_{m}_T"])) for m in MEMBERS}

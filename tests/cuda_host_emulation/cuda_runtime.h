@@ -1,6 +1,7 @@
 // Host stand-in for the CUDA runtime header, for building the kernels of
 // climateparameterizations_jl_tpu_torch/csrc/ with g++ and running them on the
-// CPU (tests/test_torch_fused_rk4_host.py, tests/test_torch_gram_host.py).
+// CPU (tests/test_torch_fused_rk4_host.py, tests/test_torch_gram_host.py,
+// tests/test_torch_thomas_host.py).
 // Each CUDA thread of a block is a std::thread; __syncthreads, named barriers
 // (bar.sync), __shfl_xor_sync and mma.sync m16n8k16 are emulated with
 // std::barrier, so a block runs its real schedule with real concurrency;
@@ -22,6 +23,7 @@
 #define __host__
 #define __shared__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
 
@@ -80,10 +82,18 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   return r;
 }
 
-// rcp.approx.ftz + one Newton step gives 1/x rounded for a normal x and NaN otherwise.
-inline float rcp_rn(float x) { return std::isnormal(x) ? 1.0f / x : NAN; }
+// rcp.approx.ftz + one Newton step gives 1/x rounded for a normal x whose
+// reciprocal is normal, a signed zero where the reciprocal is subnormal
+// (flushed, then kept by the Newton step), and NaN otherwise.
+inline float rcp_rn(float x) {
+  if (!std::isnormal(x)) return NAN;
+  const float r = 1.0f / x;
+  return std::isnormal(r) ? r : std::copysign(0.0f, x);
+}
 inline float sqrt_rn(float x) { return std::isnormal(x) && x > 0.0f ? std::sqrt(x) : NAN; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
 inline float exp2_approx(float x) { return std::exp2(x); }
 inline float sqrt_approx(float x) { return std::sqrt(x); }
 

@@ -291,6 +291,29 @@ def test_thomas_unaligned_rows_match_scan(card, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [32, 64, 128])
+@pytest.mark.parametrize("scale_exp", [0, -110, -136, -146])
+def test_thomas_subnormal_rhs_bitwise(card, n, scale_exp):
+    # Right-hand sides scaled into and through the subnormal range (2^-126 and
+    # below), and solutions decaying into it: the kernel falls back to IEEE
+    # division wherever its fast-path quotient is not exact, so it equals
+    # _thomas_scan to the last bit (sign of zero included). The corners are
+    # zeroed as tridiagonal_solve zeroes them. 4,224 systems is the LES
+    # pressure solve's batch at 64^2 and 64 x 64 x 128.
+    from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
+
+    dl, d, du, b = _systems(card, (4224, n), seed=n - scale_exp)
+    dl[:, 0] = 0.0
+    du[:, -1] = 0.0
+    b = b * torch.exp2(torch.linspace(float(scale_exp), float(scale_exp) - 10.0, n, device=card))
+    got = tri._thomas_cuda(dl, d, du, b)
+    want = tri._thomas_scan(dl, d, du, b)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if scale_exp <= -136:
+        assert bool(((want != 0) & (want.abs() < 2.0**-126)).any())
+
+
+@pytest.mark.cuda
 def test_thomas_ift_gradient_matches_scan(card):
     from climateparameterizations_jl_tpu_torch.ops import tridiagonal as tri
 

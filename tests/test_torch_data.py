@@ -74,11 +74,30 @@ def test_catalog_matches_jax():
         tr.simulation_parameters("wind_fast")
 
 
-def test_unported_sources_raise():
-    # The 3-D LES is not ported; a data_dir without the name's file falls back
-    # to the synthetic stand-in, as in the JAX package (files: test_torch_lesbrary.py).
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tr.load_simulation("wind_-5e-4_new", source="les3d")
+def test_unported_sources_raise(monkeypatch):
+    # source="les3d" runs the 3-D LES (data/les.py) with the name's fluxes, in a tiny 8^3 box, from the JAX
+    # package's initial state handed over through numpy (the two packages draw their noise from different
+    # generators): the fields agree to 1e-5 of their scale (two Euler steps, no chaos yet; under the suite's
+    # x64 mode the JAX package runs part of its f32 LES in float64, its eigenvalues and its complex solve; measured
+    # 7e-7 in T), the covariance fluxes to 1e-3 of theirs (differences of means of products of f32 fields:
+    # measured 3e-4 in wT). An unknown source raises. A data_dir without the name's file falls back to the
+    # synthetic stand-in, as in the JAX package (files: test_torch_lesbrary.py).
+    from climateparameterizations_jl_tpu.data import les as jles
+    from climateparameterizations_jl_tpu_torch.data import les as tles
+
+    import jax
+
+    jconfig = jles.LESConfig.default(Nx=8, Ny=8, Nz=8, Qu=-5e-4, Qb=0.0)
+    js0 = jles.initial_state(jconfig, jax.random.PRNGKey(0))
+    handed = tles.LESState(*(torch.tensor(np.asarray(getattr(js0, f))) for f in ("u", "v", "w", "T")))
+    monkeypatch.setattr(tles, "initial_state", lambda config, generator=None, noise=1e-3: handed)
+    les = dict(Nz_les=8, n_save=2, dt_save=60.0, source="les3d")
+    got, want = tr.load_simulation("wind_-5e-4_new", device="cpu", **les), jr.load_simulation("wind_-5e-4_new", **les)
+    assert got.T.shape == (3, 8) and got.T.device.type == "cpu" and float(got.u_top) < 0.0
+    for f in FIELDS:
+        _close(getattr(got, f), getattr(want, f), rtol=1e-5, scale_atol=1e-3 if f in ("uw", "vw", "wT") else 1e-5)
+    with pytest.raises(ValueError, match="unknown source"):
+        tr.load_simulation("wind_-5e-4_new", source="lesbrary")
     small = dict(Nz_les=16, n_save=2)
     assert torch.equal(tr.load_simulation("wind_-5e-4_new", data_dir="/nonexistent", **small).T,
                        tr.load_simulation("wind_-5e-4_new", **small).T)

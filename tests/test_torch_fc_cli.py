@@ -99,9 +99,10 @@ def fc_runs(tmp_path_factory):
         mp.setattr(jnn, "train_flux_nn", _recording(jnn.train_flux_nn, pre["jax"]))
         assert jcli.main([*FC, "--output", jout]) == 0
 
-        def jax_suite(ids, data_dir=None, Nz=32, Nz_les=128, n_save=96, dt_save=600.0, source="auto"):
-            return [_to_torch(jfcd.load_free_convection_simulation(i, data_dir, Nz, Nz_les, n_save, dt_save, source))
-                    for i in ids]
+        def jax_suite(ids, data_dir=None, Nz=32, Nz_les=128, n_save=96, dt_save=600.0, source="auto",
+                      les_cache_dir=None, device=None):
+            return [_to_torch(jfcd.load_free_convection_simulation(i, data_dir, Nz, Nz_les, n_save, dt_save, source,
+                                                                   les_cache_dir)) for i in ids]
 
         def jax_conv(gen, Nz, conv_width=2, activation="relu", dtype=torch.float32, device=None):
             return from_reference(jmlp.free_convection_conv_mlp(jax.random.PRNGKey(0), Nz, conv_width, activation),
@@ -165,8 +166,19 @@ def test_train_fc_nde_defaults_and_refusals(tmp_path):
     stacked, ens_meta = tcli._load_fc_nn(ens, "cpu")
     assert ens_meta["ensemble"] == 2 and ens_meta["arch"] == meta["arch"]
     assert stacked.weights[0].shape == (2, 64, 16) and len(_history(ens)) == 2
-    with pytest.raises(NotImplementedError, match="3-D LES"):
-        tcli.main(["--device", "cpu", "train-fc-nde", *TINY, "--source", "les3d", "--output", out])
+    # --source les3d through a cache the JAX package wrote (id 1's profiles at the LES's 128 levels): the port reads
+    # the JAX file, coarse-grains it as the JAX loader does, and trains on it.
+    cache = str(tmp_path / "les_cache")
+    jfcd.save_column_npz(os.path.join(cache, "les3d_sim1_N128_n12_dt600.npz"),
+                         jfcd.load_free_convection_simulation(1, None, 128, n_save=12))
+    want = jfcd.load_free_convection_simulation(1, None, 16, n_save=12, source="les3d", les_cache_dir=cache)
+    got = tcli._load_fc_suite([1], 16, None, 12, 600.0, "les3d", "cpu", cache)
+    for f in ("T", "wT", "t", "theta_top", "theta_bottom"):
+        np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(want, f)), rtol=1e-6, atol=0)
+    les = str(tmp_path / "fc_les3d")
+    assert tcli.main(["--device", "cpu", "train-fc-nde", *TINY, "--source", "les3d", "--les-cache-dir", cache,
+                      "--maxiters", "2", "--n-train-steps", "6", "--output", les]) == 0
+    assert len(_history(les)) == 2 and all(np.isfinite(h["loss"]) for h in _history(les))
 
 
 @pytest.fixture(scope="module")
@@ -263,6 +275,15 @@ def _stored_fc_truth(i: int):
         diurnal_amplitude=f32(0.0))
 
 
+def _stored_truth_cache(tmp_path, stored: dict) -> str:
+    """A ``--les-cache-dir`` holding ``stored`` (id -> JAX dataset) under the les3d cache names of ``FC_EVAL_ARGV``'s
+    save grid, written by the JAX package's ``save_column_npz``."""
+    cache = str(tmp_path / "les_cache")
+    for i, ds in stored.items():
+        jfcd.save_column_npz(os.path.join(cache, f"les3d_sim{i}_N128_n8_dt9600.npz"), ds)
+    return cache
+
+
 def same_npz_files(got_dir, want_dir, names, rtol, ri_rtol=None):
     """Each ``.npz`` of ``names`` in ``got_dir`` has the keys and shapes of ``want_dir``'s, each value within
     ``rtol`` (a Richardson-number channel within ``ri_rtol`` where given)."""
@@ -293,10 +314,15 @@ def test_evaluate_fc_command(tmp_path, capsys):
         mp.setattr(janim, "plot_loss_matrix", lambda *a, **k: None)
         mp.setattr(jfcd, "load_free_convection_simulation", lambda i, *a, **k: stored[i])
         assert jcli.main([*FC_EVAL_ARGV, *embedded, "--output", jout]) == 0
+        # --source les3d reads the same truth from float64 cache files that the JAX package wrote.
+        cache = _stored_truth_cache(tmp_path, stored)
+        assert tcli.main(["--device", "cpu", *FC_EVAL_ARGV, "--embedded", "--source", "les3d", "--les-cache-dir",
+                          cache, "--output", tout + "_les3d"]) == 0
         mp.setattr(tfcd, "load_free_convection_suite", lambda ids, *a, **k: [_to_torch(stored[i]) for i in ids])
         assert tcli.main(["--device", "cpu", *FC_EVAL_ARGV, *embedded, "--output", tout]) == 0
     capsys.readouterr()
     same_npz_files(tout, jout, ["sim8.npz", "sim9.npz"], EVAL_RTOL)
+    same_npz_files(tout + "_les3d", jout, ["sim8.npz", "sim9.npz"], EVAL_RTOL)
     with np.load(os.path.join(tout, "sim8.npz")) as ev:
         assert ev["embedded_T"].shape == (FC_EVAL_FRAMES, 32) and ev["embedded_wT"].shape == (FC_EVAL_FRAMES, 33)
     with open(os.path.join(tout, "summary.json")) as f, open(os.path.join(jout, "summary.json")) as g:
@@ -315,13 +341,12 @@ def test_evaluate_fc_command(tmp_path, capsys):
     argv = ["--device", "cpu", *FC_EVAL_ARGV]
     with pytest.raises(SystemExit, match="requires --embedded"):
         tcli.main([*argv, "--netcdf", "--output", str(tmp_path / "refused")])
-    with pytest.raises(NotImplementedError):
-        tcli.main([*argv, "--source", "les3d", "--output", str(tmp_path / "les3d")])
 
 
 def test_train_embedded_fc_command(tmp_path, capsys):
     """``train-embedded-fc`` from the flagship closure equals the JAX command on the same truth: history, weights
-    and meta, and after a resume from each package's train state again; ``--source les3d`` refuses.
+    and meta, and after a resume from each package's train state again; also with ``--source les3d`` reading the
+    same truth from the JAX package's cache files.
 
     Both get ids 8 and 9 of the stored JAX run's truth and the checkpoint's weights in float64 (as
     ``test_evaluate_fc_command``); every loss and weight within ``EVAL_RTOL``.
@@ -337,6 +362,9 @@ def test_train_embedded_fc_command(tmp_path, capsys):
         mp.setattr(tcli, "_load_fc_nn", lambda directory, device=None: (from_reference(nn, device, torch.float64),
                                                                           meta))
         mp.setattr(jfcd, "load_free_convection_simulation", lambda i, *a, **k: stored[i])
+        # --source les3d reads the same truth from float64 cache files that the JAX package wrote.
+        assert tcli.main(["--device", "cpu", *argv, "--curriculum", "4,7", "--maxiters", "2", "--source", "les3d",
+                          "--les-cache-dir", _stored_truth_cache(tmp_path, stored), "--output", tout + "_les3d"]) == 0
         mp.setattr(tfcd, "load_free_convection_suite", lambda ids, *a, **k: [_to_torch(stored[i]) for i in ids])
         for out, main, device, resume in ((jout, jcli.main, [], []), (tout, tcli.main, ["--device", "cpu"], []),
                                           (jout + "_b", jcli.main, [], ["--resume-from", tout]),
@@ -344,7 +372,7 @@ def test_train_embedded_fc_command(tmp_path, capsys):
             stages = ["--curriculum", "5", "--maxiters", "1"] if resume else ["--curriculum", "4,7", "--maxiters", "2"]
             assert main([*device, *argv, *stages, *resume, "--output", out]) == 0
     capsys.readouterr()
-    for got, want in ((tout, jout), (tout + "_b", jout + "_b")):
+    for got, want in ((tout, jout), (tout + "_b", jout + "_b"), (tout + "_les3d", jout)):
         got_h, want_h = _history(got), _history(want)
         assert len(got_h) == len(want_h) and all(np.isfinite(h["loss"]) for h in got_h)
         _close([h["loss"] for h in got_h], [h["loss"] for h in want_h], EVAL_RTOL)
@@ -356,5 +384,3 @@ def test_train_embedded_fc_command(tmp_path, capsys):
         for v in ("T", "wT"):
             _close([got_m["scalings"][v]["mu"], got_m["scalings"][v]["sigma"]],
                    [want_m["scalings"][v]["mu"], want_m["scalings"][v]["sigma"]], EVAL_RTOL)
-    with pytest.raises(SystemExit, match="item 9"):
-        tcli.main(["--device", "cpu", *argv, "--source", "les3d", "--output", str(tmp_path / "les3d")])

@@ -400,8 +400,18 @@ def test_ids_sources_and_npz(tmp_path, caplog):
             assert tfcd.validate_simulation_ids(train, test) == jfcd.validate_simulation_ids(train, test)
     with pytest.raises(KeyError):
         tfcd.load_free_convection_simulation(10)
-    with pytest.raises(NotImplementedError, match="3-D LES"):
-        tfcd.load_free_convection_simulation(1, source="les3d")
+    # source="les3d" reads the les3d cache that either package wrote (same name, same npz layout): a JAX-written
+    # file loads in the port, a port-written one in the JAX package, each coarse-grained by both alike.
+    cache = str(tmp_path / "les_cache")
+    jfcd.save_column_npz(tfcd.les3d_cache_path(cache, 1, 16, 2, 600.0), js.synthetic_free_convection_les(
+        Qb=1e-8, Nz=16, n_save=2, stratification=2e-3))
+    tfcd.save_column_npz(tfcd.les3d_cache_path(cache, 2, 16, 2, 600.0), ts.synthetic_free_convection_les(
+        Qb=2.5e-8, Nz=16, n_save=2, stratification=2e-3))
+    for i in (1, 2):
+        kw = dict(Nz=4, Nz_les=16, n_save=2, source="les3d", les_cache_dir=cache)
+        got, want = tfcd.load_free_convection_simulation(i, **kw), jfcd.load_free_convection_simulation(i, **kw)
+        for f in ("T", "wT", "t", "theta_top"):
+            np.testing.assert_allclose(_np(getattr(got, f)), np.asarray(getattr(want, f)), rtol=1e-6, atol=0)
     with pytest.raises(ValueError, match="unknown source"):
         tfcd.load_free_convection_simulation(1, source="files")
     train, test = tfcd.load_data([1, 2], [3], Nz=4, Nz_les=16, n_save=2)

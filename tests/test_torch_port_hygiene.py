@@ -10,6 +10,7 @@ import climateparameterizations_jl_tpu_torch as port
 from climateparameterizations_jl_tpu_torch import benchmarks
 from climateparameterizations_jl_tpu_torch.bridge import from_reference
 from climateparameterizations_jl_tpu_torch.closures import mlp
+from climateparameterizations_jl_tpu_torch.data.les import LESConfig
 from climateparameterizations_jl_tpu_torch.embed.double_gyre import DoubleGyreModel
 from climateparameterizations_jl_tpu_torch.ops import fused_rhs
 from climateparameterizations_jl_tpu_torch.physics.mpp import MPPParameters
@@ -48,7 +49,8 @@ def test_port_files_found():
             "ops/cholesky.py", "core/convective_adjust.py", "physics/convective_adjustment.py",
             "models/free_convection.py", "data/lesbrary.py", "data/netcdf.py", "data/flux_reconstruction.py",
             "data/free_convection.py", "train/nn.py", "embed/column_model.py", "embed/double_gyre.py",
-            "train/embedded.py", "core/advection.py"} <= names
+            "train/embedded.py", "core/advection.py", "data/les.py", "parallel/__init__.py",
+            "parallel/sharding.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -109,6 +111,12 @@ def test_entry_points_raise_without_card(no_card):
             make(model, nns, bcs, 1e-5, 1, 4)
     with pytest.raises(RuntimeError):
         fused_rhs.make_fast_rhs(model, nns, bcs)
+    from climateparameterizations_jl_tpu_torch.cli.main import main
+
+    for argv in (["generate-les", "--n-horizontal", "8", "--nz-les", "8", "--n-save", "1"],
+                 ["ensemble", "--nz", "8", "--n-save", "4", "--n-members", "2", "--n-steps", "2"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main([*argv, "--output", "/nonexistent/out"])
 
 
 @pytest.mark.parametrize("make", [
@@ -116,7 +124,8 @@ def test_entry_points_raise_without_card(no_card):
     lambda: mlp.wind_mixing_mlp(torch.Generator().manual_seed(0), 8),
     lambda: MPPParameters.default(),
     lambda: DoubleGyreModel.default(8, 8, 4),
-], ids=["mlp_init", "wind_mixing_mlp", "MPPParameters.default", "DoubleGyreModel.default"])
+    lambda: LESConfig.default(8, 8, 4),
+], ids=["mlp_init", "wind_mixing_mlp", "MPPParameters.default", "DoubleGyreModel.default", "LESConfig.default"])
 def test_constructors_raise_without_card(no_card, make):
     # Public constructors follow the entry points: cuda unless asked, never a quiet CPU.
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -134,8 +143,11 @@ def test_constructors_raise_without_card(no_card, make):
     lambda: benchmarks.profile_host_column(4, 8, 1, 1, device="cpu"),
     lambda: benchmarks.bench_double_gyre(8, 8, 4, 1, repeats=1, device="cpu"),
     lambda: benchmarks.profile_double_gyre(8, 8, 4, 1, device="cpu"),
+    lambda: benchmarks.bench_les(8, 8, 1, repeats=1, device="cpu"),
+    lambda: benchmarks.bench_column_ensemble(8, 8, 2, repeats=1, device="cpu"),
 ], ids=["bench_nde_forward", "bench_train_step", "bench_tridiagonal", "bench_nde_train_step", "bench_fc_forward",
-        "profile_fc_forward", "bench_host_column", "profile_host_column", "bench_double_gyre", "profile_double_gyre"])
+        "profile_fc_forward", "bench_host_column", "profile_host_column", "bench_double_gyre", "profile_double_gyre",
+        "bench_les", "bench_column_ensemble"])
 def test_bench_refuses_cpu(bench):
     with pytest.raises(RuntimeError, match="card"):
         bench()
@@ -168,7 +180,11 @@ def test_training_entry_points_raise_without_card(no_card):
     ["evaluate", "--embedded", "--checkpoint", str(REPO / "runs" / "wm_flagship_fold")],
     ["evaluate-fc", "--embedded", "--checkpoint", str(REPO / "runs" / "fc_flagship")],
     ["double-gyre", "--nx", "8", "--ny", "8", "--nz-gyre", "4", "--days", "0.1"],
-], ids=["train-embedded", "train-embedded-fc", "evaluate --embedded", "evaluate-fc --embedded", "double-gyre"])
+    ["generate-les", "--n-horizontal", "8", "--nz-les", "8", "--n-save", "1"],
+    ["ensemble", "--nz", "8", "--n-save", "4", "--n-members", "2", "--n-steps", "2"],
+    ["train-fc-nde", "--sim-ids", "1", "--nz", "8", "--n-save", "1", "--source", "les3d"],
+], ids=["train-embedded", "train-embedded-fc", "evaluate --embedded", "evaluate-fc --embedded", "double-gyre",
+        "generate-les", "ensemble", "train-fc-nde --source les3d"])
 def test_commands_raise_without_card(no_card, argv, tmp_path):
     # The commands run on the card unless --device cpu is given: without one they raise before any work.
     from climateparameterizations_jl_tpu_torch.cli.main import main
