@@ -74,7 +74,15 @@ mish), Nz = 32:
   its cache;
 - the column ensemble on one card (phase 40): ``bench_column_ensemble``
   (1,024 members x 256 split substeps, one launch per substep on (3, 1024,
-  32)), kernel against scan, and the ``ensemble`` command.
+  32)), kernel against scan, and the ``ensemble`` command;
+- the suite and the headline (phases 41-42): ``benchmark --suite --quick``
+  through the CLI (the twelve rows of ``benchmarks.run_suite``, with the
+  Thomas, fused RK4 and Gram kernels launched), then
+  ``benchmarks.headline`` at full width (the 1,024 x 1,024 forward, the
+  32,768-column peak row, one sequential and one ``shooting=16`` flagship
+  step) and ``eval/report.py::training_report`` of the flagship closure on a
+  held-out sim with matplotlib hidden (the card's machine has none): its
+  arrays, its summary and the stderr line naming the figures not drawn.
 
 It builds the five kernels from ``csrc/`` (one ``nvcc`` each, side by
 side), holds each against its plain PyTorch version, times it, and checks
@@ -285,9 +293,11 @@ COL_PROFILE_STEPS = 32  # the profiled run: its op count per step and idle share
 # checkpoint went).
 EVAL_STRIDE = 9
 # Phase 32: evaluate-fc of runs/fc_flagship on its held-out ids 8 and 9 at the layout of runs/fc_flagship_eval: every
-# 16th of 1,152 saves (72 frames), the command's 8 split substeps per save, KPP and TKE at 600 s (16 per save).
+# 16th save, the command's 8 split substeps per save, KPP and TKE at 600 s (16 per save); over the first 576 of the
+# 1,152 saves (36 frames, 4 days), a depth cut made when phases 41-42 joined (the whole window took 22.8 s for the
+# command and 27 s for its KPP / TKE rerun on kernel and scan). The stored runs' own truth below keeps its frames.
 FC_RUN, FC_EVAL = REPO / "runs" / "fc_flagship", REPO / "runs" / "fc_flagship_eval"
-FC_EVAL_IDS, FC_EVAL_STRIDE, FC_EVAL_SUBSTEPS = (8, 9), 16, 8
+FC_EVAL_IDS, FC_EVAL_STRIDE, FC_EVAL_SUBSTEPS, FC_EVAL_WINDOW = (8, 9), 16, 8, 576
 # runs/fc_flagship and runs/fc_flagship_eval were made by the JAX commands with --source les3d (the 3-D LES at its
 # full 64 x 64 x 128 box, 1,153 saves; studies/chip_session_fc.sh), far beyond this run's time; its evaluate-fc runs
 # the 1-D stand-ins of the same ids. Phase 32 therefore also runs the port's profile of each stored FC run on that
@@ -360,7 +370,8 @@ GYRE_VOLUME_ATOL = 1e-6
 # a slow host.
 LES_THOMAS_SHAPES = ((2 * 32 * 17, 32), (2 * 64 * 33, 64), (2 * 64 * 33, 128))
 # Phase 10 times those shapes over 10 calls per backend, not 50: the plain backends and the densified library solve
-# at 128 levels take 19 s over 50 (a depth cut that keeps the smoke near 900 s).
+# at 128 levels take 19 s over 50 (a depth cut that keeps the smoke near 900 s). Since phases 41-42 joined, the
+# five shapes of phases 30, 33 and 38 are timed over 10 calls too (they took 4.1-5.2 s each over 50).
 LES_BENCH_REPEATS = 10
 LES_N, LES_NZ, LES_STEPS, LES_REPEATS, LES_PROFILE_STEPS = 64, 64, 100, 3, 5
 LES_EULER_STEPS, LES_RK3_STEPS, LES_DIV_LIMIT = 20, 4, 2e-6
@@ -371,6 +382,14 @@ LES_FC_N_SAVE = 1
 # scan-backed (equal), and the ensemble command at its defaults (256 members, 32 frames, 4 substeps per save) with the
 # flagship closure on phase 8's 18-sim suite (it perturbs the first sim).
 ENSEMBLE_MEMBERS, ENSEMBLE_STEPS, ENSEMBLE_REPEATS = 1024, 256, 3
+# Phase 41: benchmark --suite --quick, its twelve rows (the JAX run_suite's keys) and the time each is checked by;
+# phase 42: the training report's window (frames 0, 9, ..., 63: 8 frames, 7 save intervals of 5,400 s) and its
+# substeps per save interval (300 s, the JAX report test's step).
+SUITE_KEYS = ("kpp_2day_columns", "tke_2day_columns", "gp_build", "gp_build_pallas", "gp_ml2_step",
+              "fc_conv_adj_forward", "nde_forward", "nde_train_step", "double_gyre_nn", "column_ensemble", "les_3d",
+              "tridiagonal")
+SUITE_TIME_KEYS = {"tridiagonal": "cuda_graph_ms"}
+REPORT_WINDOW, REPORT_SUBSTEPS = 64, 18
 
 
 def log(msg: str) -> None:
@@ -873,25 +892,6 @@ def gp_phases(dev):
     return gram_record, chol_record
 
 
-def nonmatmul_flops_per_column_step(Nz: int, h1: int, h2: int) -> int:
-    """The f32 work of the fused RK4 function outside its three NN products, per column and RK4 step.
-
-    Counted from the function as the plain version writes it, whatever a
-    kernel's own arithmetic (a cheaper mish does not lower it), per RHS
-    evaluation (an FMA is 2; expf, log1pf,
-    tanhf and a division 1 each, so this is a lower bound): the face
-    viscosity (3 differences, 3 eps adds, Ri 7, the tanh argument 2, tanh,
-    nu 2) on each interior face, the bias adds, mish (max, abs, expf,
-    log1pf, add, tanhf, mul) on each hidden activation, the mPP term
-    (difference, nu d, coefficient, subtraction) on each interior face
-    flux, and the stencil, Coriolis and BC row (7) on each lane; then 13
-    per lane and step for the RK4 stage inputs and combination.
-    """
-    F, ni = 3 * Nz, Nz - 1
-    per_rhs = 18 * ni + 3 * (h1 + h2 + ni) + 7 * 3 * (h1 + h2) + 4 * 3 * ni + 7 * F
-    return 4 * per_rhs + 13 * F
-
-
 def bf16_phases(dev, flagship, f32_ms: float) -> dict:
     """Phases 18-21: the bf16 fused RK4 kernel and the rk4 fast-assembly training step; returns the kernel's record."""
     import torch
@@ -978,9 +978,8 @@ def bf16_phases(dev, flagship, f32_ms: float) -> dict:
         if not hmma:
             raise RuntimeError("no HMMA instruction in the bf16 kernel's SASS: its products are not on the tensor cores")
         h1, h2 = nns.uw.weights[0].shape[0], nns.uw.weights[1].shape[0]
-        F, ni, col_steps = 3 * NZ, NZ - 1, FULL_COLUMNS * BENCH_STEPS
-        mm_flops = col_steps * 4 * 2 * (F * 3 * h1 + 3 * h1 * h2 + 3 * h2 * ni)
-        ew_flops = col_steps * nonmatmul_flops_per_column_step(NZ, h1, h2)
+        F = 3 * NZ
+        mm_flops, ew_flops = benchmarks.fused_rk4_flops(FULL_COLUMNS, BENCH_STEPS, NZ, h1, h2)
         n_bytes = 4 * (2 * FULL_COLUMNS * F + run.kernel_weights.numel()) + 2 * run.kernel_frags.numel()
         t_tc, t_cc = mm_flops / PEAK_BF16_FLOPS * 1e3, ew_flops / PEAK_F32_FLOPS * 1e3
         t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
@@ -2056,14 +2055,14 @@ def evaluate_fc_phase(dev, smi: str) -> dict:
     from climateparameterizations_jl_tpu_torch.data import free_convection as fcd
     from climateparameterizations_jl_tpu_torch.ops import _cuda
 
-    tsteps = np.arange(0, FC_N_SAVE, FC_EVAL_STRIDE)  # --n-eval-steps 1152 of 1,153 frames
+    tsteps = np.arange(0, FC_EVAL_WINDOW, FC_EVAL_STRIDE)  # --n-eval-steps 576 of 1,153 frames
     saves = len(tsteps) - 1
     # NDE and conv-adj; KPP and TKE; the host pair
     per_id = 2 * saves * FC_EVAL_SUBSTEPS + 2 * saves * FC_EVAL_STRIDE + 2 * saves * EMBEDDED_SUBSTEPS
     expected = per_id * len(FC_EVAL_IDS)
     ids = ",".join(map(str, FC_EVAL_IDS))
     with phase(f"32 evaluate-fc --embedded of {FC_RUN.name} on ids {ids}: {len(tsteps)} frames (every "
-               f"{FC_EVAL_STRIDE}th of {FC_N_SAVE} saves), {FC_EVAL_SUBSTEPS} split substeps, {FC_EVAL_STRIDE} KPP / TKE "
+               f"{FC_EVAL_STRIDE}th of the first {FC_EVAL_WINDOW} saves), {FC_EVAL_SUBSTEPS} split substeps, {FC_EVAL_STRIDE} KPP / TKE "
                f"steps and {EMBEDDED_SUBSTEPS} host steps per save"), \
             tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "eval_fc"
@@ -2074,7 +2073,7 @@ def evaluate_fc_phase(dev, smi: str) -> dict:
             t = time.perf_counter()
             _cuda.reset_launch_counts()
             rc = cli.main(["evaluate-fc", "--embedded", "--checkpoint", str(FC_RUN), "--sim-ids", ids, "--nz", str(NZ),
-                           "--n-save", str(FC_N_SAVE), "--dt-save", "600", "--n-eval-steps", str(FC_N_SAVE), "--eval-stride",
+                           "--n-save", str(FC_N_SAVE), "--dt-save", "600", "--n-eval-steps", str(FC_EVAL_WINDOW), "--eval-stride",
                            str(FC_EVAL_STRIDE), "--n-substeps", str(FC_EVAL_SUBSTEPS), "--kpp-n-substeps",
                            str(FC_EVAL_STRIDE), "--output", str(out)])
             launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
@@ -2825,6 +2824,141 @@ def column_ensemble_phase(dev, setup, smi: str) -> dict:
     return record
 
 
+def _numbers(tree, path=""):
+    """Every int and float of a JSON-like tree with its path (bools are not numbers here)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _numbers(v, f"{path}.{k}" if path else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _numbers(v, f"{path}[{i}]")
+    elif isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        yield path, tree
+
+
+def suite_phase(smi: str) -> dict:
+    """Phase 41: ``benchmark --suite --quick`` through the CLI; every row present, finite and timed."""
+    import contextlib
+    import io
+
+    import torch
+
+    from climateparameterizations_jl_tpu_torch.cli import main as cli
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+
+    with phase("41 benchmark --suite --quick through the CLI: the twelve rows of benchmarks.run_suite on the card"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _cuda.reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["benchmark", "--suite", "--quick"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+        suite = json.loads(buf.getvalue())
+        log(f"exit {rc} in {wall:.2f} s; rows {list(suite)}; launch counts {launches}")
+        if rc != 0 or list(suite) != list(SUITE_KEYS):
+            raise RuntimeError(f"benchmark --suite: exit {rc}, rows {list(suite)}")
+        bad = [(p, v) for p, v in _numbers(suite) if not math.isfinite(v)]
+        skipped = [k for k, row in suite.items() if "skipped" in row or "error" in row]
+        timed = {k: suite[k][SUITE_TIME_KEYS.get(k, "ms_median")] for k in suite}
+        if bad or skipped or not all(v is not None and v > 0 for v in timed.values()):
+            raise RuntimeError(f"benchmark --suite: non-finite {bad[:5]}, skipped {skipped}, times {timed}")
+        for k, row in suite.items():
+            roof = (f"; bound {row['bound_ms']:.4f} ms by {row['bound_by']}, share {row['share_of_bound']:.4f}, "
+                    f"mfu {row['mfu_pct']:.3f} %, {row['hbm_gbps']:.1f} GB/s" if "bound_ms" in row else "")
+            log(f"  {k}: {SUITE_TIME_KEYS.get(k, 'ms_median')} {timed[k]:.4f}{roof}")
+        for name in ("thomas", "fused_rk4", "gram"):
+            if not launches[name] > 0:
+                raise RuntimeError(f"benchmark --suite launched {name} no time")
+        log(f"card: {smi}")
+    return {"s": wall, "launches": launches, "ms": timed,
+            "roofline": {k: {c: row[c] for c in ("bound_ms", "bound_by", "share_of_bound", "mfu_pct", "hbm_gbps")}
+                         for k, row in suite.items() if "bound_ms" in row}}
+
+
+def headline_report_phase(dev, setup, flagship, smi: str) -> dict:
+    """Phase 42: benchmarks.headline at full width, then training_report on a held-out sim without matplotlib."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from climateparameterizations_jl_tpu_torch import benchmarks
+    from climateparameterizations_jl_tpu_torch.cli import main as cli
+    from climateparameterizations_jl_tpu_torch.eval import training_report
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+
+    record: dict = {}
+    tsteps = np.arange(0, REPORT_WINDOW, EVAL_STRIDE)
+    saves = len(tsteps) - 1
+    # rk4 (first, with the host pair): KPP one step per save, 2 host runs x saves x 10; split: NDE, mPP alone x
+    # saves x REPORT_SUBSTEPS substeps, and KPP again.
+    expected = saves + 2 * saves * EMBEDDED_SUBSTEPS + 2 * saves * REPORT_SUBSTEPS + saves
+    with phase(f"42 benchmarks.headline(n_timed=1, n_repeats=1) at full width, then training_report of "
+               f"{FLAGSHIP_RUN.name} on {UQ_TEST_FILES[0]} ({len(tsteps)} frames, rk4 and split) without matplotlib"), \
+            tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _cuda.reset_launch_counts()
+        line = benchmarks.headline(n_timed=1, n_repeats=1, nns=flagship, setup=setup, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+        log(f"headline in {wall:.2f} s: {json.dumps(line)}")
+        log(f"launch counts {launches}")
+        bad = [(p, v) for p, v in _numbers(line) if not (math.isfinite(v) and v > 0)]
+        if bad or not launches["fused_rk4"] > 0 or not launches["thomas"] > 0:
+            raise RuntimeError(f"headline: not finite and positive {bad}, launches {launches}")
+        record["headline"] = {"s": wall, "line": line, "launches": launches}
+
+        ds_test = cached_suites(cli, WM_SUITES)([UQ_TEST_FILES[0]], NZ, None, NDE_N_SAVE, 600.0, device=dev)
+        history = [{"iter": i, "loss": 1.0 / (i + 1)} for i in range(4)]
+        hidden = {name: sys.modules.pop(name) for name in list(sys.modules)
+                  if name == "matplotlib" or name.startswith("matplotlib.")
+                  or name == "climateparameterizations_jl_tpu_torch.eval.animations"}
+        sys.modules["matplotlib"] = None  # the card's machine has no matplotlib: hide it where a host has one
+        err = io.StringIO()
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _cuda.reset_launch_counts()
+            with contextlib.redirect_stderr(err):
+                out = training_report(setup["model"], flagship, ds_test, tsteps, str(Path(tmp) / "report"),
+                                      history=history, n_substeps=REPORT_SUBSTEPS, animate=False)
+            torch.cuda.synchronize()
+            report_s = time.perf_counter() - t
+        finally:
+            del sys.modules["matplotlib"]
+            sys.modules.update(hidden)
+        launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+        files = sorted(p.name for p in (Path(tmp) / "report").iterdir())
+        summary = out["summary"]
+        log(f"training_report in {report_s:.2f} s: files {files}; stderr {err.getvalue().strip()!r}; launch counts "
+            f"{launches}, expected thomas {expected} = rk4 ({saves} KPP steps + 2 host runs x {saves} saves x "
+            f"{EMBEDDED_SUBSTEPS}) + split (2 solves x {saves} saves x {REPORT_SUBSTEPS} + {saves} KPP steps)")
+        log(f"summary {summary}")
+        want_keys = {f"{m}_{s}" for s in ("rk4", "split") for m in ("nde", "mpp", "kpp")} | {
+            "embedded_rk4", "embedded_baseline_rk4"}
+        undrawn = ("training_loss.png", "loss_rk4.png", "loss_split.png")
+        finite = True
+        for solver in ("rk4", "split"):
+            with np.load(Path(tmp) / "report" / f"profile_{solver}.npz") as ev:
+                finite &= all(bool(np.isfinite(ev[k]).all()) for k in ev.files if not k.endswith("_Ri"))
+        line_ok = err.getvalue().count("\n") == 1 and "matplotlib" in err.getvalue() and all(
+            n in err.getvalue() for n in undrawn)
+        if (files != ["profile_rk4.npz", "profile_split.npz", "summary.json"] or set(summary) != want_keys
+                or not all(math.isfinite(v) for v in summary.values()) or not finite or not line_ok
+                or launches["thomas"] != expected):
+            raise RuntimeError(f"training_report: files {files}, summary {summary}, finite {finite}, stderr "
+                               f"{err.getvalue()!r}, launches {launches} (expected thomas {expected})")
+        record["report"] = {"s": report_s, "frames": len(tsteps), "launches": launches["thomas"], "summary": summary}
+        log(f"card: {smi}")
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -2942,10 +3076,9 @@ def main() -> int:
 
         h1 = nns.uw.weights[0].shape[0]
         h2 = nns.uw.weights[1].shape[0]
-        F, ni, col_steps = 3 * NZ, NZ - 1, FULL_COLUMNS * BENCH_STEPS
+        F = 3 * NZ
         # The products and the work outside them run on the same CUDA cores in f32.
-        mm_flops = col_steps * 4 * 2 * (F * 3 * h1 + 3 * h1 * h2 + 3 * h2 * ni)
-        ew_flops = col_steps * nonmatmul_flops_per_column_step(NZ, h1, h2)
+        mm_flops, ew_flops = benchmarks.fused_rk4_flops(FULL_COLUMNS, BENCH_STEPS, NZ, h1, h2)
         n_bytes = 4 * (2 * FULL_COLUMNS * F + run.kernel_weights.numel())
         t_ops, t_bytes = (mm_flops + ew_flops) / PEAK_F32_FLOPS * 1e3, n_bytes / PEAK_BYTES_PER_S * 1e3
         bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -3087,7 +3220,7 @@ def main() -> int:
             f"{THOMAS_EARLIER_MS['54x32'] * 1e3:.2f} us: {small_bound / THOMAS_EARLIER_MS['54x32']:.4f})")
         thomas_errors["bench_16384x32"] = big["max_abs_err_vs_scan"]
         # The shapes of phases 30, 33 and 38, measured here while the profiler still records every launch.
-        kpp_tke_shapes = {f"{n_sys}x{NZ}": thomas_bench_record(benchmarks, dev, n_sys)
+        kpp_tke_shapes = {f"{n_sys}x{NZ}": thomas_bench_record(benchmarks, dev, n_sys, repeats=LES_BENCH_REPEATS)
                           for n_sys in (3 * COL_COLUMNS, 4 * COL_COLUMNS, 3 * KPP_PLUGIN * len(benchmarks.TRAIN_FILES),
                                         GYRE_N * GYRE_N, GYRE_N * (GYRE_N + 1))}
         # The LES pressure solves of phase 39 (generate-les at 32^3, bench_les at 64^3, the les3d sources at
@@ -3146,6 +3279,8 @@ def main() -> int:
     thomas_record["double_gyre"] = double_gyre_phase(dev, smi)
     thomas_record["les"] = les_phase(dev, smi)
     thomas_record["column_ensemble"] = column_ensemble_phase(dev, setup, smi)
+    thomas_record["suite"] = suite_phase(smi)
+    thomas_record["headline_report"] = headline_report_phase(dev, setup, flagship, smi)
     record["ptxas"] = ptxas_summary(kernel.ptxas_report)
     thomas_record["ptxas"] = ptxas_summary(thomas.ptxas_report)
     print(smi, flush=True)

@@ -146,9 +146,7 @@ def bench_nde_forward(n_columns: int = 1024, Nz: int = 32, n_steps: int = 1024, 
     ``calls`` is the number of runner calls made (warm-up included), each
     one kernel launch.
     """
-    device = resolve_device(device)
-    if device.type != "cuda":
-        raise RuntimeError("bench_nde_forward times the CUDA kernel; it needs a card")
+    device = _require_card(device, "bench_nde_forward")
     model, nns, bcs, x0 = make_setup(Nz, n_columns, seed, nns, device)
     run = make_fused_runner_mxu(model, nns, bcs, FORWARD_DT, n_steps, n_columns, matmul_dtype=matmul_dtype,
                                 device=device)
@@ -157,11 +155,46 @@ def bench_nde_forward(n_columns: int = 1024, Nz: int = 32, n_steps: int = 1024, 
     if not bool(torch.isfinite(out).all()):
         raise RuntimeError("forward solve produced non-finite values")
     stats = _stats(times, device)
+    h1, h2 = nns.uw.weights[0].shape[0], nns.uw.weights[1].shape[0]
+    matmul_flops, other_flops = fused_rk4_flops(n_columns, n_steps, Nz, h1, h2)
+    n_bytes = 4 * (2 * n_columns * 3 * Nz + run.kernel_weights.numel())
+    if run.kernel_frags is not None:
+        n_bytes += 2 * run.kernel_frags.numel()
     return {
         **stats, "n_columns": n_columns, "n_steps": n_steps, "repeats": repeats,
         "column_timesteps_per_sec": n_columns * n_steps / (stats["ms_median"] * 1e-3),
-        "calls": repeats + 1,
+        "calls": repeats + 1, "matmul_flops": matmul_flops, "other_flops": other_flops, "bytes": n_bytes,
     }
+
+
+def nonmatmul_flops_per_column_step(Nz: int, h1: int, h2: int) -> int:
+    """The f32 work of the fused RK4 function outside its three NN products, per column and RK4 step.
+
+    Counted from the function as the plain version writes it, whatever a
+    kernel's own arithmetic (a cheaper mish does not lower it), per RHS
+    evaluation (an FMA is 2; expf, log1pf, tanhf and a division 1 each, so
+    this is a lower bound): the face viscosity (3 differences, 3 eps adds,
+    Ri 7, the tanh argument 2, tanh, nu 2) on each interior face, the bias
+    adds, mish (max, abs, expf, log1pf, add, tanhf, mul) on each hidden
+    activation, the mPP term (difference, nu d, coefficient, subtraction) on
+    each interior face flux, and the stencil, Coriolis and BC row (7) on each
+    lane; then 13 per lane and step for the RK4 stage inputs and combination.
+    """
+    F, ni = 3 * Nz, Nz - 1
+    per_rhs = 18 * ni + 3 * (h1 + h2 + ni) + 7 * 3 * (h1 + h2) + 4 * 3 * ni + 7 * F
+    return 4 * per_rhs + 13 * F
+
+
+def fused_rk4_flops(n_columns: int, n_steps: int, Nz: int, h1: int, h2: int) -> tuple[int, int]:
+    """``(matmul, other)`` FLOPs of ``n_steps`` fused RK4 steps over ``n_columns`` columns (``PERF.md`` §6, row 2).
+
+    The products: four RHS evaluations a step of the three packed layers
+    ``3 Nz -> 3 h1 -> 3 h2 -> Nz - 1`` (2 per multiply-add); the rest:
+    :func:`nonmatmul_flops_per_column_step`.
+    """
+    F, ni, col_steps = 3 * Nz, Nz - 1, n_columns * n_steps
+    matmul = col_steps * 4 * 2 * (F * 3 * h1 + 3 * h1 * h2 + 3 * h2 * ni)
+    return matmul, col_steps * nonmatmul_flops_per_column_step(Nz, h1, h2)
 
 
 def _require_card(device, what: str) -> torch.device:
@@ -1255,3 +1288,136 @@ def bench_cholesky(n: int = 1024, block: int = 128, repeats: int = 20, seed: int
     out["bytes"] = 8 * n * n
     out["matrix"] = K
     return out
+
+
+# ---------------------------------------------------------------------------
+# The suite runner and the headline
+# ---------------------------------------------------------------------------
+
+# bench.py's yardstick: the reference's KPP 2-day column read as 1,153 steps
+# in 25.762 ms of single-threaded Julia CPU time (wind_mixing/Benchmarking.jl:25).
+BASELINE_COLUMN_TIMESTEPS_PER_SEC = 4.5e4
+HEADLINE_METRIC = "column-timesteps/sec (fwd, mPP+3NN RHS, RK4, 32 levels x 1024 columns)"
+
+
+def gp_build_work(n_train: int, n_features: int = 96, n_targets: int = GP_TARGETS) -> tuple[float, float]:
+    """``(flops, bytes)`` of building the three flux GPs of :func:`bench_gp`, fitted one by one.
+
+    Three Grams as ``PERF.md`` §6 row 4 counts one (``2 n^2 D + 4 n D``), three
+    Cholesky factorizations (``n^3 / 3``) and three pairs of triangular
+    solves with ``n_targets`` right-hand sides (``2 n^2 T``); bytes: the
+    inputs (predictors, feature grid, three target sets) read once and the
+    three factors and weight sets written once, f32.
+    """
+    n, D, T = n_train, n_features, n_targets
+    flops = 3 * (2 * n * n * D + 4 * n * D) + 3 * n**3 / 3 + 3 * 2 * n * n * T
+    n_bytes = 4 * (n * D + D + 3 * n * T + 3 * n * n + 3 * n * T)
+    return float(flops), float(n_bytes)
+
+
+def run_suite(quick: bool = False, device=None) -> dict:
+    """Run every benchmark on the card; returns ``{name: stats}`` with JSON values only.
+
+    The JAX package's ``run_suite`` (``benchmarks.py:474-504``): the same
+    twelve rows and ``quick`` scaling (sizes x 0.25, with the same floors).
+    ``gp_build`` fits on the plain backend and ``gp_build_pallas`` on the
+    Gram kernel (``backend="cuda"``; the JAX row's Pallas kernel), without
+    the fitted models. Rows whose work ``PERF.md`` §6 counts carry the
+    roofline columns of ``utils/profiling.py::attach_roofline``:
+    ``nde_forward`` (the fused RK4 count), ``gp_build`` and
+    ``gp_build_pallas`` (:func:`gp_build_work`) and ``tridiagonal`` (the
+    Thomas kernel's bytes, on its device time per launch).
+    """
+    from climateparameterizations_jl_tpu_torch.utils.profiling import attach_roofline
+
+    device = _require_card(device, "run_suite")
+    scale = 0.25 if quick else 1.0
+    n_cols = max(64, int(1024 * scale))
+    n_gp = max(128, int(1024 * scale))
+    suite = {
+        "kpp_2day_columns": bench_kpp(n_columns=n_cols, device=device),
+        "tke_2day_columns": bench_tke(n_columns=n_cols, device=device),
+        "gp_build": bench_gp(n_train=n_gp, backend="plain", device=device),
+        "gp_build_pallas": bench_gp(n_train=n_gp, backend="cuda", device=device),
+        "gp_ml2_step": bench_gp_ml2_step(n_train=n_gp, device=device),
+        "fc_conv_adj_forward": bench_fc_forward(n_columns=n_cols, n_steps=max(64, int(1152 * scale)), device=device),
+        "nde_forward": bench_nde_forward(n_columns=n_cols, n_steps=max(64, int(1024 * scale)), device=device),
+        "nde_train_step": bench_nde_train_step(n_sims=max(2, int(8 * scale)), n_window=max(8, int(32 * scale)),
+                                               device=device),
+        "double_gyre_nn": bench_double_gyre(Nx=max(16, int(96 * scale)), Ny=max(16, int(96 * scale)),
+                                            n_steps=max(4, int(32 * scale)), device=device),
+        "column_ensemble": bench_column_ensemble(n_members=n_cols, n_steps=max(32, int(256 * scale)), device=device),
+        "les_3d": bench_les(n_horizontal=max(16, int(64 * scale)), Nz=max(16, int(64 * scale)),
+                            n_steps=max(10, int(100 * scale)), device=device),
+        "tridiagonal": bench_tridiagonal(n_systems=max(1024, int(16384 * scale)), device=device),
+    }
+    for key in ("gp_build", "gp_build_pallas"):
+        del suite[key]["models"]
+        flops, n_bytes = gp_build_work(suite[key]["n_train"], suite[key]["n_features"])
+        attach_roofline(suite[key], flops=flops, bytes=n_bytes)
+    fwd = suite["nde_forward"]
+    attach_roofline(fwd, flops=fwd["matmul_flops"] + fwd["other_flops"], bytes=fwd["bytes"])
+    # The kernel's device time per launch; where the profiler recorded none of its launches (late in a long
+    # process), its time per launch in a CUDA graph of back-to-back launches.
+    tri = suite["tridiagonal"]
+    tri["roofline_ms_from"] = "cuda_ms" if tri["cuda_recorded"] else "cuda_graph_ms"
+    attach_roofline(tri, flops=8 * tri["n_systems"] * tri["N"], bytes=tri["bytes"],
+                    seconds=tri[tri["roofline_ms_from"]] * 1e-3)
+    return suite
+
+
+def _train_rows(setup: dict, shooting: int, n_timed: int, n_repeats: int, device) -> tuple[list, dict]:
+    """``n_repeats`` blocks of :func:`bench_train_step`: the mean ms per step of each block, and the last block."""
+    blocks = [bench_train_step(setup, n_timed=n_timed, device=device, shooting=shooting) for _ in range(n_repeats)]
+    return [statistics.mean(b["ms"]) for b in blocks], blocks[-1]
+
+
+def headline(n_timed: int = 5, n_repeats: int = 3, nns=None, setup: dict | None = None, device=None) -> dict:
+    """The repo's one-line benchmark on the card: ``bench.py``'s payload, computed by the port.
+
+    ``bench.py::_run_headline`` and ``_payload``: forward column-timesteps
+    per second at 1,024 columns x 1,024 RK4 steps (the fused kernel; the
+    median of 5 runs, with their min and max as ``spread``),
+    ``vs_baseline`` against the reference's 4.5e4, and in ``extra`` the
+    32,768-column x 256-step peak row (median of 3, with ``mfu_pct``
+    against the f32 peak) and the flagship training-step rows, sequential
+    and ``shooting=16`` (:func:`bench_train_step`: ``n_repeats`` blocks of
+    ``n_timed`` steps; ms per step is the median over the blocks' means).
+    ``nns`` are the forward rows' MLPs and ``setup`` the training rows'
+    (:func:`flagship_train_setup`, made when not given). A failing row raises.
+    """
+    from climateparameterizations_jl_tpu_torch.utils.profiling import attach_roofline, nvidia_smi
+
+    device = _require_card(device, "headline")
+    stats = bench_nde_forward(1024, 32, 1024, repeats=5, nns=nns, device=device)
+    work = 1024 * 1024
+    value = stats["column_timesteps_per_sec"]
+    spread = {"min": round(work / (stats["ms_max"] * 1e-3), 1), "max": round(work / (stats["ms_min"] * 1e-3), 1),
+              "repeats": 5}
+    peak = bench_nde_forward(32768, 32, 256, repeats=3, nns=nns, device=device)
+    attach_roofline(peak, flops=peak["matmul_flops"] + peak["other_flops"], bytes=peak["bytes"])
+    peak_work = 32768 * 256
+    extra = {"peak_fwd_32768_columns": {
+        "column_timesteps_per_s": round(peak["column_timesteps_per_sec"], 1),
+        "min": round(peak_work / (peak["ms_max"] * 1e-3), 1), "max": round(peak_work / (peak["ms_min"] * 1e-3), 1),
+        "mfu_pct": round(peak["mfu_pct"], 1), "repeats": 3,
+    }}
+    if setup is None:
+        setup = flagship_train_setup(nns=None, device=device)
+    seq, seq_last = _train_rows(setup, 0, n_timed, n_repeats, device)
+    shoot, shoot_last = _train_rows(setup, 16, n_timed, n_repeats, device)
+    seq_ms, shoot_ms = statistics.median(seq), statistics.median(shoot)
+    extra["train_step_flagship"] = {
+        "config": "tridiag=auto + fast_assembly=auto (the port's defaults: the Thomas kernel on the card)",
+        "sequential_ms_per_iter": round(seq_ms, 2), "sequential_ms_min": round(min(seq), 2),
+        "sequential_ms_max": round(max(seq), 2), "sequential_tridiag": seq_last["tridiag_backend"],
+        "shooting16_ms_per_iter": round(shoot_ms, 2), "shooting16_ms_min": round(min(shoot), 2),
+        "shooting16_ms_max": round(max(shoot), 2), "shooting16_tridiag": shoot_last["tridiag_backend"],
+        "shooting_speedup": round(seq_ms / shoot_ms, 2), "repeats": n_repeats, "sims": seq_last["sims"],
+        "inner_steps": seq_last["substeps"],
+    }
+    return {
+        "metric": HEADLINE_METRIC, "value": round(value, 1), "unit": "column-timesteps/s",
+        "vs_baseline": round(value / BASELINE_COLUMN_TIMESTEPS_PER_SEC, 2), "platform": "gpu",
+        "device": torch.cuda.get_device_name(device), "nvidia_smi": nvidia_smi(), "spread": spread, "extra": extra,
+    }

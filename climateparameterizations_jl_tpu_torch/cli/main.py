@@ -12,8 +12,9 @@ KPP, TKE and base-closure baselines, and with ``--embedded`` inside the
 host column model), the a-posteriori trainers ``train-embedded`` and
 ``train-embedded-fc`` (gradients through the host column),
 ``double-gyre`` (the 3-D basin with the free-convection closure),
-``generate-les`` (the 3-D LES data generator) and ``ensemble`` (the
-perturbed-IC column ensemble):
+``generate-les`` (the 3-D LES data generator), ``ensemble`` (the
+perturbed-IC column ensemble) and ``benchmark`` (the headline line, or the
+suite with ``--suite``):
 
     python -m climateparameterizations_jl_tpu_torch.cli train-nde --sims strong_wind \
         --curriculum 6,13:2 --shooting 3 --output runs/nde
@@ -36,6 +37,7 @@ perturbed-IC column ensemble):
     python -m climateparameterizations_jl_tpu_torch.cli double-gyre --checkpoint runs/fc --days 10 --output runs/gyre
     python -m climateparameterizations_jl_tpu_torch.cli generate-les --n-save 48 --output runs/les
     python -m climateparameterizations_jl_tpu_torch.cli ensemble --checkpoint runs/nde --n-members 1024 --output runs/ens
+    python -m climateparameterizations_jl_tpu_torch.cli benchmark --suite --quick
 
 They run on the card unless ``--device cpu`` is given (the JAX package's
 ``--platform`` flag). ``--config FILE`` (JSON, or YAML where PyYAML is
@@ -43,10 +45,14 @@ installed) supplies flag values; flags typed on the command line win. Run
 directories use the JAX package's format and load in either package.
 ``--data-dir`` reads LESbrary ``.jld2`` files where they exist (h5py needed)
 and falls back to the synthetic stand-ins; the free-convection commands'
-``--source les3d`` generates their data with the 3-D LES instead. The other
-subcommands are later work (``ROADMAP.md``); the commands write the JAX
-commands' files but no figures (``eval/animations.py`` is not ported, so
-``--animate`` raises).
+``--source les3d`` generates their data with the 3-D LES instead. Every
+JAX subcommand but ``fetch`` (the downloader) is here, with the JAX flags.
+The commands write the JAX commands' files, figures included
+(``eval/animations.py``; ``--animation-format gif|mp4``). Where matplotlib
+cannot be imported (the card's machine has none), ``evaluate``,
+``evaluate-fc`` and ``train-gp`` write every array and summary, and name the
+figures they did not draw in one line on stderr; ``--animate`` exits
+non-zero there.
 """
 
 from __future__ import annotations
@@ -346,16 +352,32 @@ def _history_writer(output: str, print_every: int = 10):
     return callback
 
 
-@contextlib.contextmanager
-def _profiler_trace(directory: str, device: torch.device):
-    """``torch.profiler`` over the block, written to ``directory/trace.json`` (Chrome trace format)."""
-    from torch.profiler import ProfilerActivity, profile
+class _Figures:
+    """A command's figures, drawn into its output directory through ``eval/animations.py``.
 
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    os.makedirs(directory, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(directory, "trace.json"))
+    Where matplotlib cannot be imported, each figure's file name is kept
+    instead, and :meth:`report` names them on stderr in one line; a
+    figure that fails to draw raises.
+    """
+
+    def __init__(self, output: str, animate: str | None = None):
+        from climateparameterizations_jl_tpu_torch.eval.report import NO_MATPLOTLIB, animations_or_none
+
+        self.anim, self.output, self.undrawn = animations_or_none(), output, []
+        if animate is not None and self.anim is None:
+            raise SystemExit(f"--animate draws {animate}, and {NO_MATPLOTLIB}")
+
+    def draw(self, name: str, plot):
+        """``plot(animations_module, path)`` with ``path = output/name``."""
+        if self.anim is None:
+            self.undrawn.append(name)
+            return None
+        return plot(self.anim, os.path.join(self.output, name))
+
+    def report(self):
+        from climateparameterizations_jl_tpu_torch.eval.report import report_undrawn
+
+        report_undrawn(self.undrawn)
 
 
 def _select_sims(ds, keep):
@@ -516,7 +538,9 @@ def cmd_train_nde(args) -> int:
         train = functools.partial(train_wind_mixing_deep_ensemble, member_fold=pack_member_flux_nns(nns) is not None)
     else:
         train = train_wind_mixing_nde
-    with _profiler_trace(args.trace, device) if args.trace else contextlib.nullcontext():
+    from climateparameterizations_jl_tpu_torch.utils.profiling import trace
+
+    with trace(args.trace, device) if args.trace else contextlib.nullcontext():
         nns, history = train(
             model, nns, batch, config,
             stages=stages if len(stages) > 1 else None,
@@ -545,8 +569,8 @@ def cmd_train_gp(args) -> int:
     grid winner by ML-II with ``--gram-backend`` (``cuda``: the fused Gram
     kernel, f32); the final fits share predictors (``gp_fit_multi``);
     ``--integrate`` also runs the GP-closure DE on the test sim. Writes
-    ``gp_report.json`` with the JAX command's keys; the uncertainty plots
-    (``gp_uncertainty_<flux>.png``) are not drawn (``ROADMAP.md``).
+    ``gp_report.json`` with the JAX command's keys and the posterior band of
+    each reported flux, ``gp_uncertainty_<flux>.png``.
     """
     from climateparameterizations_jl_tpu_torch.closures.gp import (
         GPKernel,
@@ -572,6 +596,7 @@ def cmd_train_gp(args) -> int:
     kernel_ids = tuple(int(k) for k in _sims(args.kernel_ids))
     log_gammas = np.linspace(-1.5, 1.5, 10)
     os.makedirs(args.output, exist_ok=True)
+    figures = _Figures(args.output)
     report = {}
     fluxes = list(_sims(args.fluxes))
     # --integrate needs all three flux GPs; fit the union once.
@@ -628,13 +653,16 @@ def cmd_train_gp(args) -> int:
             continue
         kernel = selected[flux]
         x_te, y_te = test_pairs[flux]
-        mse = float(torch.mean((gp_predict(model, x_te) - y_te) ** 2))
+        pred = gp_predict(model, x_te)
+        mse = float(torch.mean((pred - y_te) ** 2))
         unc = gp_uncertainty(model, x_te)
         name = kernel.family if isinstance(kernel, GPKernel) else "spectral_mixture"
         report[flux] = {"kernel": name, "mse": mse, "mean_posterior_variance": float(torch.mean(unc)),
                         "max_posterior_variance": float(torch.max(unc))}
         if isinstance(kernel, GPKernel):
             report[flux]["log_gamma"] = float(torch.log10(kernel.gamma))
+        figures.draw(f"gp_uncertainty_{flux}.png",
+                     lambda anim, path: anim.plot_gp_uncertainty(pred, y_te, unc, path, flux=flux))
         print(f"train-gp[{flux}]: kernel {name}, mse {mse:.4e}, "
               f"mean posterior var {report[flux]['mean_posterior_variance']:.3e}")
 
@@ -656,6 +684,7 @@ def cmd_train_gp(args) -> int:
 
     with open(os.path.join(args.output, "gp_report.json"), "w") as f:
         json.dump(report, f, indent=2)
+    figures.report()
     return 0
 
 
@@ -870,14 +899,6 @@ def cmd_calibrate_kpp(args) -> int:
     return 0
 
 
-# Flags of the JAX commands that need modules still to be ported (ROADMAP.md, queue 1).
-_FIGURES = "queue 1, item 10 (eval/animations.py)"
-
-
-def _refuse(flag: str, what: str, item: str):
-    raise SystemExit(f"{flag} {what}, which waits for the port of ROADMAP.md {item}")
-
-
 def _write_embedded_jld2(sim_dir: str, ev, ds, Nz: int) -> None:
     """The embedded pair of one evaluation as LESbrary-layout ``baseline.jld2`` / ``neural_network.jld2``.
 
@@ -917,16 +938,17 @@ def cmd_evaluate(args) -> int:
     pair (``embedded``, ``embedded_baseline``; 10 host steps per save
     interval) and ``--write-jld2`` writes it as LESbrary-layout
     ``<sim>/baseline.jld2`` and ``<sim>/neural_network.jld2`` (h5py). The
-    JAX command's figures are not drawn; ``--animate`` and ``--gif-stride`` raise.
+    JAX command's figures: ``training_regions.png``, ``final_profiles.png``,
+    ``loss.png`` of the first test sim, ``nde_uncertainty.png`` for an
+    ensemble checkpoint, ``loss_matrix.png`` for more than one test sim, and
+    with ``--animate`` ``comparison.<--animation-format>`` of the first
+    sim, every ``--gif-stride``-th frame.
     """
     from climateparameterizations_jl_tpu_torch.eval.profile import nde_profile
 
-    if args.animate:
-        _refuse("--animate", "draws the comparison animation", _FIGURES)
-    if args.gif_stride is not None:
-        _refuse("--gif-stride", "sets the comparison animation's frame stride", _FIGURES)
     if args.write_jld2 and not args.embedded:
         raise SystemExit("--write-jld2 requires --embedded (it writes the embedded pair)")
+    figures = _Figures(args.output, f"comparison.{args.animation_format}" if args.animate else None)
     device = resolve_device(args.device)
     test_sims = _sims(args.test_sims)
     nns, ckpt_meta = _load_nns(args.checkpoint, device)
@@ -957,12 +979,22 @@ def cmd_evaluate(args) -> int:
     print(f"evaluating {len(test_sims)} sim(s) over {len(tsteps)} frames (window {args.n_train_steps}, stride "
           f"{args.eval_stride}): {', '.join(test_sims)}", flush=True)
     print(f"scaling context from {sims_src}: {len(train_names)} sim(s)", flush=True)
+    # The forcing-space coverage (plot_training_regions.jl); no file when no name parses as a catalog entry.
+    figures.draw("training_regions.png", lambda anim, path: anim.plot_training_regions(train_names, test_sims, path))
 
+    members = ("nde", "mpp", "kpp", "embedded", "embedded_baseline")
     matrix: dict = {}
-    for name in test_sims:
+    final_frames: dict = {}
+    for sim_i, name in enumerate(test_sims):
         ds = _load_suite([name], args.nz, args.data_dir, args.n_save, args.dt_save, device=device)
         ev = nde_profile(model, nns, ds, tsteps, solver=args.method, n_substeps=args.n_substeps,
                          include_embedded=args.embedded, kpp_n_substeps=args.kpp_n_substeps)
+        # The final-profiles figure needs each member's last frame and the coordinates only.
+        final_frames[name] = {
+            k: (v[-1:] if getattr(v, "ndim", 0) >= 1 and k not in ("zc", "zf") else v)
+            for k, v in ev.to_dict().items()
+            if k in ("t", "zc", "zf") or (k.endswith(("_u", "_v", "_T")) and not k.startswith("losses_"))
+        }
         np.savez(os.path.join(args.output, f"evaluation_{name}.npz"), **ev.to_dict())
         if args.write_jld2:
             _write_embedded_jld2(os.path.join(args.output, name), ev, ds, args.nz)
@@ -972,13 +1004,29 @@ def cmd_evaluate(args) -> int:
             uq = nde_ensemble_uq(model, ensemble_nns, ds, tsteps, solver=args.method, n_substeps=args.n_substeps)
             np.savez(os.path.join(args.output, f"uncertainty_{name}.npz"), **uq)
             matrix.setdefault("nde_ensemble_mean", []).append(float(np.mean(uq["losses_ensemble_mean_T"])))
-        for m in ("nde", "mpp", "kpp", "embedded", "embedded_baseline"):
+            if sim_i == 0:
+                figures.draw("nde_uncertainty.png",
+                             lambda anim, path: anim.plot_nde_ensemble_uncertainty(uq, ev["truth_T"], path))
+        for m in members:
             if f"losses_{m}_T" in ev.keys():
                 matrix.setdefault(m, []).append(float(np.mean(ev[f"losses_{m}_T"])))
+        if sim_i == 0:
+            # The detailed figures for the first test sim; the loss matrix covers the rest.
+            figures.draw("loss.png", lambda anim, path: anim.plot_loss(
+                {m: ev[f"losses_{m}_T"] for m in members if f"losses_{m}_T" in ev.keys()}, ev["t"], path))
+            if args.animate:
+                models = ("truth", "nde", "mpp", "kpp") + (("embedded",) if args.embedded else ())
+                figures.draw(f"comparison.{args.animation_format}", lambda anim, path: (
+                    anim.animate_profiles_fluxes_comparison(ev, path, stride=args.gif_stride, models=models)))
 
+    figures.draw("final_profiles.png", lambda anim, path: anim.plot_final_profiles(final_frames, path))
+    if len(test_sims) > 1:
+        figures.draw("loss_matrix.png", lambda anim, path: anim.plot_loss_matrix(
+            {m: np.asarray(v) for m, v in matrix.items()}, test_sims, path))
     summary = {m: float(np.mean(v)) for m, v in matrix.items()}
     with open(os.path.join(args.output, "summary.json"), "w") as f:
         json.dump({"per_sim": matrix, "mean": summary}, f, indent=2)
+    figures.report()
     print(json.dumps(summary))
     return 0
 
@@ -994,8 +1042,9 @@ def cmd_evaluate_fc(args) -> int:
     ``uncertainty_sim<i>.npz`` for an ensemble checkpoint and
     ``summary.json`` (each member's mean T loss over the ids). ``--embedded``
     adds the conv-adj host-column pair and ``--netcdf`` writes it as the
-    reference's ``sim<i>/oceananigans_*.nc`` pair (h5py). The loss-matrix
-    figure is not drawn.
+    reference's ``sim<i>/oceananigans_*.nc`` pair (h5py). Figures:
+    ``loss_matrix.png`` over the ids and, for an ensemble checkpoint,
+    ``nde_uncertainty.png`` of the first id.
     """
     from climateparameterizations_jl_tpu_torch.core.scalings import ZeroMeanUnitVarianceScaling
     from climateparameterizations_jl_tpu_torch.data.free_convection import build_free_convection_model
@@ -1014,6 +1063,7 @@ def cmd_evaluate_fc(args) -> int:
               f"uncertainty_sim*.npz / 'nde_ensemble_mean' carry the ensemble", flush=True)
     ids = [int(s) for s in _sims(args.sim_ids)]
     os.makedirs(args.output, exist_ok=True)
+    figures = _Figures(args.output)
     saved = meta.get("scalings")
     base_closure = meta.get("base_closure", "convective_adjustment")
     if saved is None:
@@ -1051,13 +1101,19 @@ def cmd_evaluate_fc(args) -> int:
             uq = fc_ensemble_uq(model, ensemble_nn, ds, tsteps, n_substeps=args.n_substeps)
             np.savez(os.path.join(args.output, f"uncertainty_sim{i}.npz"), **uq)
             matrix.setdefault("nde_ensemble_mean", []).append(float(np.mean(uq["losses_ensemble_mean_T"])))
+            if k == 0:
+                figures.draw("nde_uncertainty.png",
+                             lambda anim, path: anim.plot_nde_ensemble_uncertainty(uq, ev["truth_T"], path))
         for m in ("nde", "conv_adj", "base", "kpp", "tke", "embedded", "embedded_baseline"):
             if f"losses_{m}_T" in ev.keys():
                 matrix.setdefault(m, []).append(float(np.mean(ev[f"losses_{m}_T"])))
 
+    matrix = {m: np.asarray(v) for m, v in matrix.items()}
+    figures.draw("loss_matrix.png", lambda anim, path: anim.plot_loss_matrix(matrix, [f"sim{i}" for i in ids], path))
     summary = {m: float(np.mean(v)) for m, v in matrix.items()}
     with open(os.path.join(args.output, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
+    figures.report()
     print(json.dumps(summary))
     return 0
 
@@ -1236,7 +1292,8 @@ def cmd_double_gyre(args) -> int:
     step runs three batched implicit solves, on the Thomas kernel on the
     card (``--tridiag-backend auto``). Writes ``double_gyre.npz`` (T, eta,
     the streamfunction psi in Sv, the surface velocities) and prints psi's
-    range; ``--animate`` raises (no figures).
+    range; ``--animate`` also draws every saved frame (SST, eta, psi) into
+    ``double_gyre.<--animation-format>`` (matplotlib).
     """
     from climateparameterizations_jl_tpu_torch.core.scalings import ZeroMeanUnitVarianceScaling
     from climateparameterizations_jl_tpu_torch.embed.double_gyre import (
@@ -1247,8 +1304,7 @@ def cmd_double_gyre(args) -> int:
     )
     from climateparameterizations_jl_tpu_torch.train.nde import resolve_tridiag_backend
 
-    if args.animate:
-        _refuse("--animate", "draws the basin animation", _FIGURES)
+    figures = _Figures(args.output, f"double_gyre.{args.animation_format}" if args.animate else None)
     device = resolve_device(args.device)
     model = DoubleGyreModel.default(Nx=args.nx, Ny=args.ny, Nz=args.nz_gyre, advection=args.advection,
                                     momentum_advection=args.momentum_advection, device=device)
@@ -1308,6 +1364,9 @@ def cmd_double_gyre(args) -> int:
     os.makedirs(args.output, exist_ok=True)
     np.savez(os.path.join(args.output, "double_gyre.npz"), T=as_np(traj.T), eta=as_np(traj.eta), psi=psi,
              u_surface=as_np(traj.u[..., -1]), v_surface=as_np(traj.v[..., -1]))
+    if args.animate:
+        figures.draw(f"double_gyre.{args.animation_format}",
+                     lambda anim, path: anim.animate_double_gyre(traj, model, path))
     print(json.dumps({"psi_min_Sv": float(psi.min()), "psi_max_Sv": float(psi.max()), "frames": int(traj.T.shape[0])}))
     return 0
 
@@ -1464,6 +1523,23 @@ def cmd_ensemble(args) -> int:
     return 0
 
 
+def cmd_benchmark(args) -> int:
+    """The JAX package's ``benchmark``, on the card.
+
+    ``--suite`` prints ``benchmarks.run_suite(quick=--quick)`` as indented
+    JSON; without it, the one JSON line of ``benchmarks.headline()`` (the
+    port's copy of ``bench.py``, which imports JAX and is never loaded here).
+    """
+    from climateparameterizations_jl_tpu_torch import benchmarks
+
+    device = resolve_device(args.device)
+    if args.suite:
+        print(json.dumps(benchmarks.run_suite(quick=args.quick, device=device), indent=2))
+    else:
+        print(json.dumps(benchmarks.headline(device=device)))
+    return 0
+
+
 def _add_common(p, with_sims: bool = True):
     p.add_argument("--config", default=None, help="JSON/YAML config file (flags typed on the command line win)")
     if with_sims:
@@ -1475,6 +1551,9 @@ def _add_common(p, with_sims: bool = True):
         p.add_argument("--dt-save", type=float, default=600.0)
     p.add_argument("--output", default="runs/latest")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--animation-format", default="gif", choices=["gif", "mp4"],
+                   help="container of the animations (gif through pillow, mp4 through OpenCV; the reference's "
+                        "animation suite writes mp4, animation.jl:14-56)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1634,8 +1713,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-substeps", type=int, default=4)
     p.add_argument("--n-train-steps", type=int, default=32)
     p.add_argument("--eval-stride", type=int, default=2)
-    p.add_argument("--animate", action="store_true", help="not ported: figures wait for " + _FIGURES)
-    p.add_argument("--gif-stride", type=int, default=None, help="not ported: the animation's frame stride")
+    p.add_argument("--animate", action="store_true",
+                   help="also animate the first test sim's profiles, fluxes and Ri (comparison.gif or .mp4; matplotlib)")
+    p.add_argument("--gif-stride", type=int, default=4, help="frame stride of the --animate animation")
     p.add_argument("--embedded", action="store_true", help="also run the host column model (baseline + NN)")
     p.add_argument("--write-jld2", action="store_true",
                    help="write the embedded pair as LESbrary-layout .jld2 sims (requires --embedded; h5py)")
@@ -1753,7 +1833,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nn-stability-gate", default="none",
                    help="taper the NN flux by sigmoid(-dT/dz / s): 'none' (the reference's ungated behavior), 'auto' "
                         "(s = 0.1 x bulk basin stratification), or a value s in K/m")
-    p.add_argument("--animate", action="store_true", help="not ported: figures wait for " + _FIGURES)
+    p.add_argument("--animate", action="store_true",
+                   help="also animate SST, eta and psi over the saved frames (double_gyre.gif or .mp4; matplotlib)")
     p.add_argument("--tridiag-backend", default="auto", choices=["auto", "scan", "pcr", "cuda"],
                    help="implicit vertical-mixing solves; auto is the CUDA kernel on the card, scan on the CPU")
     p.add_argument("--advection", default="weno5", choices=["weno5", "centered"],
@@ -1796,6 +1877,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--jld2-name", default=None, help="also write a reference-layout .jld2 under this catalog name")
     p.add_argument("--output", default="runs/les")
     p.set_defaults(fn=cmd_generate_les)
+
+    p = sub.add_parser("benchmark", help="the headline benchmark line (bench.py's payload), or the full suite")
+    p.add_argument("--config", default=None, help="JSON/YAML config file (flags typed on the command line win)")
+    p.add_argument("--suite", action="store_true", help="KPP/TKE/GP/NDE/gyre/LES/ensemble suite (Benchmarking.jl parity)")
+    p.add_argument("--quick", action="store_true", help="the suite at a quarter of its batch and step counts")
+    p.set_defaults(fn=cmd_benchmark)
     return parser
 
 

@@ -13,7 +13,9 @@ import torch
 def resolve_device(device=None) -> torch.device:
     """``cuda`` for ``None``; otherwise ``device`` as given.
 
-    Raises ``RuntimeError`` when a CUDA device is asked for (or implied by
+    A CUDA device without an index gets the current one (``cuda:0``), the
+    device its tensors report, so that device comparisons hold. Raises
+    ``RuntimeError`` when a CUDA device is asked for (or implied by
     ``None``) and ``torch.cuda.is_available()`` is false.
     """
     dev = torch.device("cuda" if device is None else device)
@@ -21,4 +23,6 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU explicitly"
         )
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

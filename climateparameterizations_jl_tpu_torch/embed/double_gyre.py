@@ -523,7 +523,9 @@ def barotropic_streamfunction(model: DoubleGyreModel, u):
 
     ``U = H mean_z(u)`` integrated in y from the southern wall; shows the
     double-gyre pattern (western intensification, two counter-rotating cells).
+    ``u`` is ``(..., Ny, Nx + 1, Nz)``: leading axes (a trajectory's time) are
+    batched, and each slice gives the single-field result.
     """
-    U = model.H * torch.mean(u, dim=-1)  # (Ny, Nx+1)
-    Uc = 0.5 * (U[:, 1:] + U[:, :-1])  # (Ny, Nx)
-    return -torch.cumsum(Uc, dim=0) * model.dy
+    U = model.H * torch.mean(u, dim=-1)  # (..., Ny, Nx+1)
+    Uc = 0.5 * (U[..., 1:] + U[..., :-1])  # (..., Ny, Nx)
+    return -torch.cumsum(Uc, dim=-2) * model.dy

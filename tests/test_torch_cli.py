@@ -1,5 +1,6 @@
 """The port's CLI on the CPU: ``catalog``, ``train-nde`` (deep ensembles too), ``extract``, ``--config``,
-``calibrate-kpp``, ``evaluate`` (with ``--embedded`` and ``--write-jld2``), ``train-embedded`` and ``double-gyre``.
+``calibrate-kpp``, ``evaluate`` (with ``--embedded``, ``--write-jld2`` and ``--animate``), ``train-embedded``,
+``double-gyre`` and ``benchmark``, and the parser against the JAX command's.
 
 The counterparts of ``tests/test_cli.py`` at its ``TINY`` sizes, with
 ``--device cpu``. Run directories are read across the packages: the port's
@@ -11,7 +12,10 @@ different generators, so their losses are not compared here
 (``tests/test_torch_nde_training.py`` holds training itself to JAX).
 ``evaluate --embedded --write-jld2`` and ``train-embedded`` are held to the
 JAX commands by value, in float64; ``double-gyre`` to the JAX command's
-output on the same basin and closure.
+output on the same basin and closure. The commands write the JAX commands'
+figures under their names; without matplotlib, ``evaluate``, ``evaluate-fc``
+and ``train-gp`` write every array and summary and name the figures they did
+not draw on stderr, and ``--animate`` exits non-zero.
 """
 
 import importlib
@@ -28,9 +32,9 @@ import jax
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from climateparameterizations_jl_tpu.data import containers as jc
-from climateparameterizations_jl_tpu.eval import animations as janim
 from climateparameterizations_jl_tpu.physics.mpp import MPPParameters as JMPP
 from climateparameterizations_jl_tpu_torch.bridge import from_reference
 from climateparameterizations_jl_tpu_torch.cli import main as tcli
@@ -353,8 +357,10 @@ def test_calibrate_kpp_command(tmp_path, capsys, method):
 
 
 def test_evaluate_command(tmp_path, capsys):
-    """``evaluate --embedded --write-jld2`` of the flagship closure equals the JAX command: every npz value, the
-    summary and, where h5py is installed, the embedded pair's ``.jld2`` files (read back by the port's LESbrary reader).
+    """``evaluate --embedded --write-jld2 --animate`` of the flagship closure equals the JAX command: every npz
+    value, the summary, the file names (figures and the comparison GIF included; the coverage figure, drawn from the
+    names alone, pixel for pixel) and, where h5py is installed, the embedded pair's ``.jld2`` files (read back by the
+    port's LESbrary reader).
 
     Both commands get the same simulations, one column made with numpy from
     a seed per catalog name, and the checkpoint's weights, in float64 (the
@@ -368,6 +374,7 @@ def test_evaluate_command(tmp_path, capsys):
     argv = ["evaluate", "--checkpoint", str(REPO / "runs" / "wm_flagship_fold"), "--sims", "strong_wind",
             "--test-sims", "strong_wind_weak_cooling", "--nz", "32", "--n-save", "12", "--n-train-steps", "9",
             "--eval-stride", "2", "--n-substeps", "2", "--kpp-n-substeps", "2"]
+    figures = ["--animate", "--animation-format", "gif", "--gif-stride", "4"]
     have_h5py = importlib.util.find_spec("h5py") is not None  # the .jld2 writer's; without it the pair is not written
     embedded = ["--embedded", "--write-jld2"] if have_h5py else ["--embedded"]
     seeds = {"strong_wind": 0, "strong_wind_weak_cooling": 1}
@@ -381,16 +388,17 @@ def test_evaluate_command(tmp_path, capsys):
     jout, tout = str(tmp_path / "jax"), str(tmp_path / "port")
     with pytest.MonkeyPatch.context() as mp:
         jit_reference_harness(mp)
-        for name in ("plot_training_regions", "plot_loss", "plot_final_profiles", "plot_loss_matrix"):
-            mp.setattr(janim, name, lambda *a, **k: None)
         mp.setattr(jcli, "_load_nns", lambda directory: (nns, meta))
         mp.setattr(tcli, "_load_nns", lambda directory, device=None: (from_reference(nns, device, torch.float64),
                                                                        meta))
         mp.setattr(jcli, "_load_suite", jax_suite)
         mp.setattr(tcli, "_load_suite", lambda names, *a, device=None, **k: _to_torch(jax_suite(names, *a)))
-        assert jcli.main([*argv, *embedded, "--output", jout]) == 0
-        assert _main([*argv, *embedded, "--output", tout]) == 0
+        assert jcli.main([*argv, *embedded, *figures, "--output", jout]) == 0
+        assert _main([*argv, *embedded, *figures, "--output", tout]) == 0
     capsys.readouterr()
+    assert sorted(os.listdir(tout)) == sorted(os.listdir(jout))
+    assert {"training_regions.png", "loss.png", "final_profiles.png", "comparison.gif"} <= set(os.listdir(tout))
+    assert np.array_equal(*(np.asarray(Image.open(os.path.join(d, "training_regions.png"))) for d in (tout, jout)))
     with np.load(os.path.join(tout, "evaluation_strong_wind_weak_cooling.npz")) as ev:
         assert set(ev.files) == EVALUATION_KEYS | EMBEDDED_KEYS and ev["kpp_T"].shape == (5, 32)
         assert ev["embedded_T"].shape == (5, 32) and ev["embedded_wT"].shape == (5, 33)
@@ -414,10 +422,8 @@ def test_evaluate_command(tmp_path, capsys):
             assert a.shape == b.shape, (tag, field)
             np.testing.assert_allclose(a, b, rtol=EVAL_RTOL, atol=EVAL_RTOL * max(float(np.abs(b).max()), 1e-30),
                                        err_msg=f"{tag} {field}")
-    for flags, message in ((["--animate"], "item 10"), (["--gif-stride", "2"], "item 10"),
-                           (["--write-jld2"], "requires --embedded")):
-        with pytest.raises(SystemExit, match=message):
-            _main([*argv, *flags, "--output", str(tmp_path / "refused")])
+    with pytest.raises(SystemExit, match="requires --embedded"):
+        _main([*argv, "--write-jld2", "--output", str(tmp_path / "refused")])
 
 
 def test_evaluate_ensemble_checkpoint(tmp_path, capsys):
@@ -510,7 +516,8 @@ def test_train_embedded_command(tmp_path, capsys):
 
 
 def test_double_gyre_command(tmp_path, capsys):
-    """``double-gyre`` with the free-convection closure equals the JAX command's output on a 16 x 12 x 32 basin.
+    """``double-gyre`` with the free-convection closure equals the JAX command's output on a 16 x 12 x 32 basin;
+    the port's ``--animate`` draws every saved frame into ``double_gyre.gif``.
 
     Both commands build the basin, the closure's remap and gate from the same flags and checkpoint, in float32:
     every saved field within ``F32_RTOL = 1e-4`` of its scale (the momentum starts from rest, so its first values
@@ -521,8 +528,10 @@ def test_double_gyre_command(tmp_path, capsys):
             "--nz-gyre", "32", "--days", "0.125", "--n-frames", "3", "--nn-stability-gate", "auto"]
     jout, tout = str(tmp_path / "jax"), str(tmp_path / "port")
     assert jcli.main([*argv, "--output", jout]) == 0
-    assert _main([*argv, "--output", tout]) == 0
+    assert _main([*argv, "--animate", "--output", tout]) == 0
     printed = capsys.readouterr().out.strip().splitlines()
+    with Image.open(os.path.join(tout, "double_gyre.gif")) as gif:
+        assert gif.n_frames == 4
     assert "NN stability gate" in "\n".join(printed) and json.loads(printed[-1])["frames"] == 4
     with np.load(os.path.join(tout, "double_gyre.npz")) as got, np.load(os.path.join(jout, "double_gyre.npz")) as want:
         assert sorted(got.files) == sorted(want.files) == ["T", "eta", "psi", "u_surface", "v_surface"]
@@ -530,6 +539,74 @@ def test_double_gyre_command(tmp_path, capsys):
             assert got[k].shape == want[k].shape and got[k].dtype == np.float32
             scale = float(np.abs(want[k]).max())
             assert float(np.abs(got[k] - want[k]).max()) <= F32_RTOL * scale, k
-    for flags, message in ((["--animate"], "item 10"), (["--nn-stability-gate", "0"], "positive")):
-        with pytest.raises(SystemExit, match=message):
-            _main([*argv, *flags, "--output", str(tmp_path / "refused")])
+    with pytest.raises(SystemExit, match="positive"):
+        _main([*argv, "--nn-stability-gate", "0", "--output", str(tmp_path / "refused")])
+
+
+def _options(parser) -> dict:
+    """``{subcommand: its option strings}`` of a parser."""
+    subs = parser._subparsers._group_actions[0].choices  # noqa: SLF001
+    return {name: {o for a in sp._actions for o in a.option_strings} for name, sp in subs.items()}  # noqa: SLF001
+
+
+def test_parser_has_every_jax_command_and_flag():
+    """Every JAX subcommand but ``fetch`` (the downloader, left out) parses in the port with every JAX flag."""
+    jax_cmds, port_cmds = _options(jcli.build_parser()), _options(tcli.build_parser())
+    assert set(jax_cmds) - set(port_cmds) == {"fetch"}
+    for name, flags in jax_cmds.items():
+        if name != "fetch":
+            assert flags <= port_cmds[name], (name, flags - port_cmds[name])
+    with_format = {n for n, f in port_cmds.items() if "--animation-format" in f}
+    assert with_format == {n for n, f in jax_cmds.items() if "--animation-format" in f} and len(with_format) == 11
+
+
+FC_CHECKPOINT = str(REPO / "runs" / "fc_flagship")
+NO_MPL = {
+    "evaluate": (["evaluate", "--checkpoint", str(REPO / "runs" / "wm_flagship_fold"), "--sims", "strong_wind",
+                  "--test-sims", "strong_wind_weak_cooling,strong_wind", "--nz", "32", "--n-save", "12",
+                  "--n-train-steps", "5", "--eval-stride", "2", "--n-substeps", "2"],
+                 ["evaluation_strong_wind.npz", "evaluation_strong_wind_weak_cooling.npz", "summary.json"],
+                 "training_regions.png, loss.png, final_profiles.png, loss_matrix.png"),
+    "evaluate-fc": (["evaluate-fc", "--checkpoint", FC_CHECKPOINT, "--sim-ids", "8,9", "--n-save", "8",
+                     "--n-eval-steps", "5", "--eval-stride", "2", "--n-substeps", "2"],
+                    ["sim8.npz", "sim9.npz", "summary.json"], "loss_matrix.png"),
+    "train-gp": (["train-gp", "--sims", "strong_wind", "--test-sims", "strong_wind_weak_cooling", *TINY, "--fluxes",
+                  "wT,uw", "--subsample", "8", "--kernel-ids", "1"], ["gp_report.json"],
+                 "gp_uncertainty_uw.png, gp_uncertainty_wT.png"),
+}
+
+
+@pytest.fixture
+def no_matplotlib(monkeypatch):
+    """matplotlib made unimportable, as on the card's machine (the figures module is imported anew)."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    monkeypatch.delitem(sys.modules, "climateparameterizations_jl_tpu_torch.eval.animations", raising=False)
+
+
+@pytest.mark.parametrize("command", list(NO_MPL))
+def test_commands_without_matplotlib_write_arrays_and_name_the_figures(no_matplotlib, command, tmp_path, capsys):
+    argv, files, undrawn = NO_MPL[command]
+    out = tmp_path / "out"
+    assert _main([*argv, "--output", str(out)]) == 0
+    assert sorted(os.listdir(out)) == files
+    err = capsys.readouterr().err.strip().splitlines()
+    assert err == [f"figures not drawn (matplotlib cannot be imported): {undrawn}"]
+
+
+@pytest.mark.parametrize("argv", [
+    NO_MPL["evaluate"][0],
+    ["double-gyre", "--nx", "8", "--ny", "8", "--nz-gyre", "4", "--days", "0.05"],
+], ids=["evaluate", "double-gyre"])
+def test_animate_without_matplotlib_exits_before_any_work(no_matplotlib, argv, tmp_path):
+    with pytest.raises(SystemExit, match="matplotlib cannot be imported"):
+        _main([*argv, "--animate", "--animation-format", "mp4", "--output", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+
+
+def test_benchmark_needs_a_card(tmp_path, monkeypatch):
+    for argv in (["benchmark", "--suite", "--quick"], ["benchmark"]):
+        with pytest.raises(RuntimeError, match="card"):
+            _main(argv)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli.main(["benchmark", "--suite", "--quick"])

@@ -43,11 +43,11 @@ from climateparameterizations_jl_tpu.physics import kpp as jkpp
 from climateparameterizations_jl_tpu.physics import tke as jtke
 from climateparameterizations_jl_tpu_torch.bridge import from_reference
 from climateparameterizations_jl_tpu_torch.data import containers as tc
-from climateparameterizations_jl_tpu_torch.eval import loss_matrix as tlm
 from climateparameterizations_jl_tpu_torch.eval import profile as tprof
 
 jcli = importlib.import_module("climateparameterizations_jl_tpu.cli.main")
 jlm = importlib.import_module("climateparameterizations_jl_tpu.eval.loss_matrix")  # the package exports a function of that name
+tlm = importlib.import_module("climateparameterizations_jl_tpu_torch.eval.loss_matrix")  # so does the port's
 RTOL, MATRIX_RTOL = 1e-8, 1e-12
 NZ = 16
 TSTEPS = np.arange(0, 12)

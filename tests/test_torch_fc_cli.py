@@ -34,7 +34,6 @@ import torch
 from climateparameterizations_jl_tpu.closures import mlp as jmlp
 from climateparameterizations_jl_tpu.data import containers as jc
 from climateparameterizations_jl_tpu.data import free_convection as jfcd
-from climateparameterizations_jl_tpu.eval import animations as janim
 from climateparameterizations_jl_tpu.train import nn as jnn
 from climateparameterizations_jl_tpu_torch.bridge import from_reference
 from climateparameterizations_jl_tpu_torch.cli import main as tcli
@@ -297,7 +296,8 @@ def same_npz_files(got_dir, want_dir, names, rtol, ri_rtol=None):
 
 def test_evaluate_fc_command(tmp_path, capsys):
     """``evaluate-fc --embedded --netcdf`` equals the JAX command on the same truth and checkpoint: every npz value,
-    the summary and, where h5py is installed, each id's NetCDF pair (read back by the port's reader)."""
+    the summary, the file names (the loss-matrix figure included) and, where h5py is installed, each id's NetCDF pair
+    (read back by the port's reader)."""
     from climateparameterizations_jl_tpu_torch.data.netcdf import read_netcdf
 
     have_h5py = importlib.util.find_spec("h5py") is not None  # the NetCDF writer's; without it the pair is not written
@@ -311,7 +311,6 @@ def test_evaluate_fc_command(tmp_path, capsys):
         mp.setattr(jcli, "_load_fc_nn", lambda directory: (nn, meta))
         mp.setattr(tcli, "_load_fc_nn", lambda directory, device=None: (from_reference(nn, device, torch.float64),
                                                                           meta))
-        mp.setattr(janim, "plot_loss_matrix", lambda *a, **k: None)
         mp.setattr(jfcd, "load_free_convection_simulation", lambda i, *a, **k: stored[i])
         assert jcli.main([*FC_EVAL_ARGV, *embedded, "--output", jout]) == 0
         # --source les3d reads the same truth from float64 cache files that the JAX package wrote.
@@ -321,6 +320,7 @@ def test_evaluate_fc_command(tmp_path, capsys):
         mp.setattr(tfcd, "load_free_convection_suite", lambda ids, *a, **k: [_to_torch(stored[i]) for i in ids])
         assert tcli.main(["--device", "cpu", *FC_EVAL_ARGV, *embedded, "--output", tout]) == 0
     capsys.readouterr()
+    assert sorted(os.listdir(tout)) == sorted(os.listdir(jout)) and "loss_matrix.png" in os.listdir(tout)
     same_npz_files(tout, jout, ["sim8.npz", "sim9.npz"], EVAL_RTOL)
     same_npz_files(tout + "_les3d", jout, ["sim8.npz", "sim9.npz"], EVAL_RTOL)
     with np.load(os.path.join(tout, "sim8.npz")) as ev:

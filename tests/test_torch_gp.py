@@ -26,8 +26,6 @@ import dataclasses
 import importlib
 import json
 import os
-import sys
-import types
 from unittest import mock
 
 import jax
@@ -327,11 +325,7 @@ def _run_cli(pkg, case, out):
     args = ["train-gp", "--test-sims", "strong_wind_weak_cooling", *TINY, *CLI_CASES[case], "--output", out]
     if pkg == "jax":
         args = [a.replace("cuda", "pallas") for a in args]
-        # The JAX command's PNG comes from a stand-in module: importing the
-        # real one loads matplotlib, seconds of test time for a plot unused here.
-        no_plot = types.SimpleNamespace(plot_gp_uncertainty=lambda *a, **k: None)
-        with mock.patch.object(jcli, "_load_suite", _f64_suite), \
-                mock.patch.dict(sys.modules, {"climateparameterizations_jl_tpu.eval.animations": no_plot}):
+        with mock.patch.object(jcli, "_load_suite", _f64_suite):
             assert jcli.main(["--platform", "cpu", *args]) == 0
     else:
         def handed(*a, device=None, **k):
@@ -347,7 +341,9 @@ def _run_cli(pkg, case, out):
 def test_train_gp_matches_jax(case, tmp_path, capsys):
     want = _run_cli("jax", case, str(tmp_path / "jax"))
     got = _run_cli("torch", case, str(tmp_path / "torch"))
-    assert not os.path.exists(tmp_path / "torch" / "gp_uncertainty_wT.png")
+    # The same files: the report and the posterior-band figure of each reported flux.
+    assert sorted(os.listdir(tmp_path / "torch")) == sorted(os.listdir(tmp_path / "jax")) == [
+        "gp_report.json", "gp_uncertainty_wT.png"]
     assert sorted(got) == sorted(want)
     tol = dict(rtol=1e-4) if "cuda" in case else F64
     for key, section in want.items():

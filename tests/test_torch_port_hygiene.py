@@ -50,7 +50,8 @@ def test_port_files_found():
             "models/free_convection.py", "data/lesbrary.py", "data/netcdf.py", "data/flux_reconstruction.py",
             "data/free_convection.py", "train/nn.py", "embed/column_model.py", "embed/double_gyre.py",
             "train/embedded.py", "core/advection.py", "data/les.py", "parallel/__init__.py",
-            "parallel/sharding.py"} <= names
+            "parallel/sharding.py", "eval/animations.py", "eval/report.py", "utils/__init__.py",
+            "utils/polynomial.py", "utils/predict.py", "utils/profiling.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -145,9 +146,11 @@ def test_constructors_raise_without_card(no_card, make):
     lambda: benchmarks.profile_double_gyre(8, 8, 4, 1, device="cpu"),
     lambda: benchmarks.bench_les(8, 8, 1, repeats=1, device="cpu"),
     lambda: benchmarks.bench_column_ensemble(8, 8, 2, repeats=1, device="cpu"),
+    lambda: benchmarks.run_suite(quick=True, device="cpu"),
+    lambda: benchmarks.headline(n_timed=1, n_repeats=1, device="cpu"),
 ], ids=["bench_nde_forward", "bench_train_step", "bench_tridiagonal", "bench_nde_train_step", "bench_fc_forward",
         "profile_fc_forward", "bench_host_column", "profile_host_column", "bench_double_gyre", "profile_double_gyre",
-        "bench_les", "bench_column_ensemble"])
+        "bench_les", "bench_column_ensemble", "run_suite", "headline"])
 def test_bench_refuses_cpu(bench):
     with pytest.raises(RuntimeError, match="card"):
         bench()
@@ -191,3 +194,16 @@ def test_commands_raise_without_card(no_card, argv, tmp_path):
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main([*argv, "--output", str(tmp_path / "out")])
+
+
+def test_matplotlib_stays_off_the_import_path():
+    """Only the figures module imports matplotlib (the card's machine has none): the package, the CLI, the
+    benchmarks, the report and the utilities import without it."""
+    import subprocess
+    import sys
+
+    code = ("import sys; sys.modules['matplotlib'] = None\n"
+            "import climateparameterizations_jl_tpu_torch.cli.main, climateparameterizations_jl_tpu_torch.benchmarks\n"
+            "import climateparameterizations_jl_tpu_torch.eval as e, climateparameterizations_jl_tpu_torch.utils\n"
+            "assert e.training_report and e.report.animations_or_none() is None\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO)
