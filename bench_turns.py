@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time a kernel of two trees in turns, on one card.
 
-    python3 bench_turns.py --parent DIR [--mode forward|gram|thomas] [--pairs 8] [--out FILE]
+    python3 bench_turns.py --parent DIR [--mode forward|gram|thomas|train] [--pairs 8] [--out FILE]
 
 ``DIR`` holds another tree's ``climateparameterizations_jl_tpu_torch``
 package (for example the parent commit, from ``git archive <commit>
@@ -30,6 +30,10 @@ requests, one case at a time:
   recorded launch), its us per launch in a CUDA graph of ``THOMAS_CALLS``
   launches, and the wall us per call back to back; compared by the
   kernel's us.
+- ``train``: ``benchmarks.bench_train_step`` on ``flagship_train_setup``
+  with the trained ``runs/wm_flagship_fold`` MLPs (18 sims, 1,152 split
+  substeps, IFT gradients, adam; one warm-up step, then one timed step
+  between CUDA events, host work included); compared by its ms.
 
 The workers run one at a time; the side that runs first alternates from pair
 to pair. It prints the card's name and power limit, one JSON line per pair
@@ -50,8 +54,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 THOMAS_SHAPES = {"16384x32": (16384, 32), "9216x32": (9216, 32), "4224x64": (4224, 64), "4224x128": (4224, 128)}
 CASES = {"forward": ("float32", "bfloat16"), "gram": ("squared_exponential", "matern12"),
-         "thomas": tuple(THOMAS_SHAPES)}
-METRIC = {"forward": "ms_median", "gram": "kernel_us", "thomas": "kernel_us"}
+         "thomas": tuple(THOMAS_SHAPES), "train": ("flagship",)}
+METRIC = {"forward": "ms_median", "gram": "kernel_us", "thomas": "kernel_us", "train": "ms_median"}
 GRAM_SHAPE = (1024, 1024, 96)
 GRAM_CALLS = 200
 THOMAS_CALLS = 200
@@ -190,9 +194,29 @@ def thomas_worker(tree: str):
     return run
 
 
+def train_worker(tree: str):
+    from climateparameterizations_jl_tpu_torch import benchmarks
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.train.checkpoint import load_flux_nns
+
+    import torch
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _cuda.THOMAS.load()
+    setup = benchmarks.flagship_train_setup(nns=load_flux_nns(str(HERE / "runs" / "wm_flagship_fold"), device=dev),
+                                            device=dev)
+
+    def run(_case: str) -> dict:
+        r = benchmarks.bench_train_step(setup, n_timed=1, device=dev)
+        return {"ms_median": r["ms_median"], "losses": r["losses"]}
+
+    return run
+
+
 def worker(tree: str, mode: str) -> None:
     sys.path.insert(0, str(Path(tree).resolve()))
-    run = {"forward": forward_worker, "gram": gram_worker, "thomas": thomas_worker}[mode](tree)
+    run = {"forward": forward_worker, "gram": gram_worker, "thomas": thomas_worker, "train": train_worker}[mode](tree)
     print(json.dumps({"ready": True}), flush=True)
     for line in sys.stdin:
         print(json.dumps(run(line.strip())), flush=True)

@@ -82,7 +82,16 @@ mish), Nz = 32:
   32,768-column peak row, one sequential and one ``shooting=16`` flagship
   step) and ``eval/report.py::training_report`` of the flagship closure on a
   held-out sim with matplotlib hidden (the card's machine has none): its
-  arrays, its summary and the stderr line naming the figures not drawn.
+  arrays, its summary and the stderr line naming the figures not drawn;
+- the parallel layer (phase 43): a world of ``torch.cuda.device_count()``
+  spawned NCCL ranks (one on a one-card machine) runs every path of
+  ``parallel/dryrun.py`` at the flagship widths (the data-parallel and
+  member-parallel steps, the embedded steps, the 1,024-member column
+  ensemble, the 2-D suite, the kernel search on phase 13's data, EKI with 64
+  members, the 64^3 LES and the 96 x 96 x 32 gyre), each held to the port's
+  single-device entry on the same inputs, with its collectives and its
+  Thomas / Gram launches; then, on one card, the 2-D suite's block solved
+  whole and as four tiles, equal bit for bit (``cut_control``).
 
 It builds the five kernels from ``csrc/`` (one ``nvcc`` each, side by
 side), holds each against its plain PyTorch version, times it, and checks
@@ -146,9 +155,8 @@ CHOLESKY_EARLIER_MS = {"jittered_se_gram": 2.2876, "dense_spd": 1.203}
 # the backward pass, and amplified where the mPP tanh switch is steep.
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_RTOL = 1e-3  # relative to the gradient's 2-norm
-# Two timed steps (three, and a separately timed scan-backed step, before the evaluation phases joined: a depth cut
-# that keeps the whole run inside its limit on a slower host).
-TRAIN_TIMED_STEPS = 2
+# One timed step after the warm-up: a depth cut that keeps the whole run inside its limit on a slower host.
+TRAIN_TIMED_STEPS = 1
 
 # Gram kernel vs gram_plain, the JAX test's tolerance (tests/test_gp.py::
 # TestPallasGram): two f32 Gram-trick evaluations that sum in other orders.
@@ -216,7 +224,7 @@ PEAK_BF16_FLOPS = 989e12
 # within the JAX suite's tolerance for the same comparison
 # (tests/test_fused_rhs.py::TestFastRK4::test_gradients_match).
 FAST_LOSS_RTOL, FAST_GRAD_RTOL, FAST_GRAD_ATOL = 1e-5, 1e-4, 1e-6
-FAST_TIMED_STEPS = 2
+FAST_TIMED_STEPS = 1
 
 # Phase 22: train-nde at full width. The curriculum of the JAX package's
 # calibrated-base shooting run (runs/wm_les_shoot16, studies/
@@ -382,6 +390,22 @@ LES_FC_N_SAVE = 1
 # scan-backed (equal), and the ensemble command at its defaults (256 members, 32 frames, 4 substeps per save) with the
 # flagship closure on phase 8's 18-sim suite (it perturbs the first sim).
 ENSEMBLE_MEMBERS, ENSEMBLE_STEPS, ENSEMBLE_REPEATS = 1024, 256, 3
+# Phase 43: the data-parallel step's window cut in depth to 288 substeps (32 saves x 9), the member-parallel step's
+# to 36 (4 saves x 9, its four members one solve each); the embedded steps over 4 saves x 10 host steps; EKI over
+# the KPP forward map of the first 8 saves; the kernel search on phase 13's data.
+PAR_SUBSTEPS, PAR_ENS_SUBSTEPS, PAR_EMB_FRAMES, PAR_EKI_FRAMES = 288, 36, 5, 9
+PAR_SUITE_MEMBERS, PAR_SUITE_SUBSTEPS, PAR_GYRE_STEPS = 64, 16, 6
+PAR_EKI_MEMBERS, PAR_EKI_ITERS, PAR_GP_VAL, PAR_GP_KERNELS = 64, 2, 256, (1, 2, 3, 4)
+# The CPU tests' tolerances (tests/test_torch_parallel.py, test_torch_parallel_fields.py).
+PAR_TOLERANCES = {
+    "nde_step": {"rtol": 1e-4, "atol": 1e-7}, "embedded_step": {"rtol": 1e-4, "atol": 1e-7},
+    "embedded_fc_step": {"rtol": 1e-4, "atol": 1e-7}, "deep_ensemble_step": {"rtol": 1e-6, "atol": 0.0},
+    "ensemble_solver": {"rtol": 1e-5, "atol": 1e-7}, "suite_ensemble_solver": {"rtol": 1e-5, "atol": 1e-7},
+    "kernel_search": {"rtol": 0.0, "atol": 0.0}, "eki": {"rtol": 1e-5, "atol": 1e-5},
+    "les": {"rtol": 2e-5, "atol": 1e-7}, "gyre": {"rtol": 2e-4, "atol": 1e-6},
+}
+# The kernels each path must launch.
+PAR_KERNELS = {name: ("thomas",) for name in PAR_TOLERANCES} | {"kernel_search": ("gram",)}
 # Phase 41: benchmark --suite --quick, its twelve rows (the JAX run_suite's keys) and the time each is checked by;
 # phase 42: the training report's window (frames 0, 9, ..., 63: 8 frames, 7 save intervals of 5,400 s) and its
 # substeps per save interval (300 s, the JAX report test's step).
@@ -2824,6 +2848,254 @@ def column_ensemble_phase(dev, setup, smi: str) -> dict:
     return record
 
 
+def _first_frames(ds, n: int):
+    """A suite cut to its first ``n`` saved frames, on the CPU (to hand to the spawned ranks)."""
+    cut = {f: getattr(ds, f)[..., :n, :] for f in ("u", "v", "T", "uw", "vw", "wT")}
+    return dataclasses.replace(ds, **cut, t=ds.t[..., :n]).to("cpu")
+
+
+def parallel_setups(dev, inputs: dict) -> dict:
+    """Phase 43's inputs for every path of ``parallel/dryrun.py``, at the flagship widths, on ``dev``."""
+    import numpy as np
+    import torch
+
+    from climateparameterizations_jl_tpu_torch import benchmarks
+    from climateparameterizations_jl_tpu_torch.core.scalings import ZeroMeanUnitVarianceScaling
+    from climateparameterizations_jl_tpu_torch.models.free_convection import FreeConvectionModel
+    from climateparameterizations_jl_tpu_torch.train.checkpoint import _map_leaves, load_fc_run, load_flux_nns, load_run
+    from climateparameterizations_jl_tpu_torch.train.deep_ensemble import ensemble_loss_scalings
+    from climateparameterizations_jl_tpu_torch.train.embedded import (
+        embedded_fc_training_tensors,
+        embedded_training_tensors,
+        host_from_fc_suite,
+        host_from_suite,
+    )
+    from climateparameterizations_jl_tpu_torch.train.kpp_calibration import DEFAULT_PRIORS, make_kpp_forward_fn
+    from climateparameterizations_jl_tpu_torch.train.nde import NDETrainConfig
+
+    to = lambda tree: _map_leaves(tree, lambda _k, x: x.to(dev))  # noqa: E731
+    model, batch, ds, config = to(inputs["model"]), to(inputs["batch"]), inputs["ds"].to(dev), inputs["config"]
+    nns = load_flux_nns(str(FLAGSHIP_RUN), dev)
+    stacked, _ = load_run(str(ENS_RUN), dev)
+    de_config = dataclasses.replace(config, training_fractions=None)
+    de_frames = PAR_ENS_SUBSTEPS // config.n_substeps + 1
+    de_batch = dataclasses.replace(batch, targets=batch.targets[:, :de_frames], t=batch.t[:de_frames])
+    fc_nn, fc_meta = load_fc_run(str(FC_RUN), dev)
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    sc = fc_meta["scalings"]
+    T_scaling = ZeroMeanUnitVarianceScaling(f(sc["T"]["mu"]), f(sc["T"]["sigma"]))
+    fc_model = FreeConvectionModel(H=model.H, tau=model.tau, T_scaling=T_scaling,
+                                   wT_scaling=ZeroMeanUnitVarianceScaling(f(sc["wT"]["mu"]), f(sc["wT"]["sigma"])),
+                                   bottom_flux=f(0.0), top_flux=f(0.0), kappa=model.kappa, Nz=NZ)
+    emb_config = NDETrainConfig(n_substeps=EMBEDDED_SUBSTEPS, learning_rate=config.learning_rate)
+    emb_tsteps = np.arange(PAR_EMB_FRAMES)
+    e_model, e_nns, e_bcs, e_x0 = benchmarks.column_ensemble_setup(ENSEMBLE_MEMBERS, NZ, dev)
+    gen = torch.Generator().manual_seed(43)
+    S = batch.x0.shape[0]
+    suite_x0 = batch.x0[:, None, :] + 0.05 * torch.randn((S, PAR_SUITE_MEMBERS, 3 * NZ), generator=gen).to(dev)
+    x_gp, ys_gp, z_gp = benchmarks.gp_inputs(GP_N, GP_D, device=dev)
+    x_val, ys_val, _ = benchmarks.gp_inputs(PAR_GP_VAL, GP_D, seed=1, device=dev)
+    kpp_forward, kpp_y = make_kpp_forward_fn(ds, np.arange(PAR_EKI_FRAMES), NZ)
+    les = benchmarks.les_setup(LES_N, LES_NZ, dev)
+    gyre = benchmarks.double_gyre_setup(GYRE_N, GYRE_N, GYRE_NZ, device=dev)
+    return {
+        "nde_step": dict(model=model, nns=nns, batch=batch, config=config, optimizer="adam"),
+        "deep_ensemble_step": dict(model=model, stacked=stacked, batch=de_batch, config=de_config, optimizer="adam",
+                                   scalings=ensemble_loss_scalings(model, stacked, de_batch, de_config)),
+        # sgd, as the JAX package's embedded-step tests: adam's m / sqrt(v) turns the reduction order's rounding
+        # on near-zero gradient components of the trained closures into full steps of either sign.
+        "embedded_step": dict(host=host_from_suite(model, ds), nns=nns, config=emb_config, optimizer="sgd",
+                              batch=embedded_training_tensors(ds, model.scalings, emb_tsteps)),
+        "embedded_fc_step": dict(host=host_from_fc_suite(fc_model, ds), nns=fc_nn, config=emb_config,
+                                 optimizer="sgd", batch=embedded_fc_training_tensors(ds, T_scaling, emb_tsteps)),
+        "ensemble_solver": dict(model=e_model, nns=e_nns, bcs=e_bcs, x0=e_x0, t0=0.0,
+                                config=NDETrainConfig(n_substeps=ENSEMBLE_STEPS, method="split"),
+                                dt_save=1e-5 * ENSEMBLE_STEPS, n_save=1),
+        "suite_ensemble_solver": dict(model=model, nns=nns, bcs=batch.bcs, x0=suite_x0, t0=0.0,
+                                      config=NDETrainConfig(n_substeps=PAR_SUITE_SUBSTEPS, method="split"),
+                                      dt_save=float(batch.t[1] - batch.t[0]), n_save=2),
+        "kernel_search": dict(x_train=x_gp, y_train=ys_gp[2], x_val=x_val, y_val=ys_val[2], z=z_gp,
+                              kernel_ids=PAR_GP_KERNELS, log_gammas=None),
+        "eki": dict(forward=kpp_forward, y_obs=kpp_y, priors=dict(DEFAULT_PRIORS), n_ensemble=PAR_EKI_MEMBERS,
+                    n_iterations=PAR_EKI_ITERS, seed=0),
+        "les": dict(config=les["config"], state=les["state0"], dt=les["dt"], method="rk3", n_steps=LES_RK3_STEPS),
+        "gyre": dict(model=gyre["model"], state=gyre["state0"], dt=1800.0, n_steps=PAR_GYRE_STEPS, nn=gyre["nn"],
+                     T_scaling=gyre["T_scaling"], wT_scaling=gyre["wT_scaling"]),
+    }
+
+
+def parallel_rank(inputs: dict) -> dict | None:
+    """One rank of phase 43 (spawned on NCCL): every path of ``dryrun_multichip`` at the flagship widths.
+
+    Returns rank 0's records (the other ranks return ``None``).
+    """
+    import torch
+
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.parallel import dryrun, sharding, world
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = time.perf_counter()
+    _cuda.load_all()  # built by phase 2: each library is loaded from its cache
+    mesh = sharding.make_mesh()
+    dev = world.device_of(mesh)
+    ready_s = time.perf_counter() - t
+    t = time.perf_counter()
+    setups = parallel_setups(dev, inputs)
+    setup_s = time.perf_counter() - t
+    if world.is_rank0():
+        log(f"rank 0: kernels loaded and mesh made in {ready_s:.2f} s, set-up {setup_s:.2f} s")
+    records = {}
+    for name in dryrun.PATHS:  # dryrun_multichip's loop, with a line per path
+        t = time.perf_counter()
+        records[name] = dryrun.run_path(name, setups[name], mesh)
+        if world.is_rank0():
+            log(f"rank 0: {name} and its unsharded run in {time.perf_counter() - t:.2f} s")
+    return {"records": records, "setup_s": setup_s} if world.is_rank0() else None
+
+
+def cut_control(dev, setup: dict) -> dict:
+    """The split solve against how its block is cut, on one card: phase 43's 2-D suite block (the first sims, an
+    even number, x 64 members) solved whole and as the four tiles of a (2, 2) ``("sim", "ens")`` mesh, with the packed
+    chain's products in fixed row blocks (``models/wind_mixing.py::_rows_product``, must be equal) and, as the
+    control, as plain ``@`` GEMMs (cuBLAS picks its kernel by the row count; printed, not checked); then the first
+    ``ROW_BLOCK`` rows of each packed layer's product at several row counts against the same rows at two blocks."""
+    import torch
+
+    from climateparameterizations_jl_tpu_torch.models import wind_mixing as wm
+    from climateparameterizations_jl_tpu_torch.train.checkpoint import _map_leaves, load_flux_nns
+    from climateparameterizations_jl_tpu_torch.train.nde import NDETrainConfig, solve_with_config
+
+    model, batch = setup["model"], setup["batch"]
+    nns = load_flux_nns(str(FLAGSHIP_RUN), dev)
+    S, E = batch.x0.shape[0] - batch.x0.shape[0] % 2, PAR_SUITE_MEMBERS
+    gen = torch.Generator().manual_seed(43)
+    x0 = (batch.x0[:S, None, :] + 0.05 * torch.randn((S, E, 3 * NZ), generator=gen).to(dev)).contiguous()
+    sims = lambda lo, hi: _map_leaves(batch.bcs, lambda _k, b: b[lo:hi] if b.dim() == 1 else b)  # noqa: E731
+    h, half = S // 2, E // 2
+    config = NDETrainConfig(n_substeps=PAR_SUITE_SUBSTEPS, method="split")
+    dt = float(batch.t[1] - batch.t[0])
+    record, original = {}, wm._rows_product
+    for name, product in (("rows_product", original), ("plain_gemm", lambda x, A: x @ A)):
+        wm._rows_product = product
+        try:
+            with torch.no_grad():
+                whole = solve_with_config(model, nns, sims(0, S), x0, 0.0, dt, 2, config)
+                cut = torch.cat([torch.cat([
+                    solve_with_config(model, nns, sims(i * h, (i + 1) * h),
+                                      x0[i * h:(i + 1) * h, j * half:(j + 1) * half].contiguous(), 0.0, dt, 2, config)
+                    for j in range(2)], dim=2) for i in range(2)], dim=1)
+        finally:
+            wm._rows_product = original
+        diff = (cut - whole).abs()
+        record[name] = {"differ": int((diff > 0).sum()), "max_abs": float(diff.max()), "entries": whole.numel()}
+        log(f"cut control, {name}: ({S}, {E}) block whole vs four ({h}, {half}) tiles, {PAR_SUITE_SUBSTEPS} "
+            f"substeps x 2 saves: {record[name]['differ']} of {whole.numel()} entries differ, max_abs "
+            f"{record[name]['max_abs']:.3e}")
+    counts = tuple(k * wm.ROW_BLOCK for k in (2, 3, 8, 9, 144))
+    packed = wm.pack_flux_nns(nns)
+    unit = lambda *r: torch.as_tensor(wm.divergence_matrix(*r, NZ), dtype=torch.float32, device=dev)  # noqa: E731
+    Ru, Rv, RT = wm._tendency_coefficients(model)
+    Dr = Ru * unit(1.0, 0.0, 0.0) + Rv * unit(0.0, 1.0, 0.0) + RT * unit(0.0, 0.0, 1.0)
+    # The three layers, then the last one padded and folded with the divergence, as the split solve runs it.
+    for layer, A in enumerate((*packed.matrices, wm._pad_packed_chain(packed, NZ)[0][-1] @ Dr)):
+        inputs = torch.randn((max(counts), A.shape[0]), generator=gen).to(dev)
+        for name, product in (("rows_product", original), ("plain_gemm", lambda x, A: x @ A)):
+            first = product(inputs[:counts[0]], A)[:wm.ROW_BLOCK]
+            differ = {n: int((product(inputs[:n], A)[:wm.ROW_BLOCK] != first).sum()) for n in counts[1:]}
+            record[f"layer{layer}_{name}"] = differ
+            log(f"cut control, layer {layer} {tuple(A.shape)}, {name}: the first {wm.ROW_BLOCK} rows at {counts[0]} "
+                f"rows against {list(differ)} rows, entries differing {list(differ.values())}")
+    if dev.type == "cuda":  # the folded chain's cost both ways: CUDA events, median of 50 after 10 warm-ups
+        mats, biases = wm._pad_packed_chain(packed, NZ)
+        mats, act = (*mats[:-1], mats[-1] @ Dr), wm._ACTIVATIONS[packed.activation]
+        for n in (S, S * E, 16384):
+            x = torch.randn((n, 3 * NZ), generator=gen).to(dev)
+            for name, product in (("rows_product", original), ("plain_gemm", lambda x, A: x @ A)) * 2:
+                times = []
+                for _ in range(60):
+                    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    y = x
+                    for i, A in enumerate(mats):
+                        y = product(y, A) + biases[i]
+                        y = act(y) if i < len(mats) - 1 else y
+                    b.record()
+                    torch.cuda.synchronize()
+                    times.append(a.elapsed_time(b))
+                ms = sorted(times[10:])[25]
+                record.setdefault(f"chain_ms_{n}_rows", {}).setdefault(name, []).append(ms)
+            log(f"cut control, the folded chain at {n} rows, ms (in turns, twice): {record[f'chain_ms_{n}_rows']}")
+    if record["rows_product"]["differ"] or any(v for k, d in record.items() if k.endswith("_rows_product")
+                                               for v in d.values()):
+        raise RuntimeError(f"cut control: the split solve's rows depend on how the block is cut: {record}")
+    return record
+
+
+def parallel_phase(dev, setup: dict, smi: str) -> dict:
+    """Phase 43: the parallel layer on a world of one NCCL rank per card, each path held to its single-device run;
+    then :func:`cut_control`."""
+    import numpy as np
+    import torch
+
+    from climateparameterizations_jl_tpu_torch.parallel import world
+    from climateparameterizations_jl_tpu_torch.train.checkpoint import _map_leaves
+
+    n = torch.cuda.device_count()
+    record: dict = {}
+    with phase(f"43 the parallel layer: dryrun_multichip on a world of {n} NCCL rank(s), every sharded path at the "
+               f"flagship widths (the data-parallel step's window cut in depth to {PAR_SUBSTEPS} substeps)"):
+        batch = setup["batch"]
+        S = batch.x0.shape[0]
+        sims = S - S % n  # the data-parallel paths split the sims evenly: a world that does not divide 18 takes fewer
+        cpu = lambda tree: _map_leaves(tree, lambda _k, x: (x[:sims] if x.dim() and x.shape[0] == S else x).detach().cpu())  # noqa: E731
+        frames = PAR_SUBSTEPS // setup["config"].n_substeps + 1
+        cut = dataclasses.replace(batch, targets=batch.targets[:, :frames], t=batch.t[:frames])
+        log(f"data-parallel step: {batch.x0.shape[0]} sims, window cut from {batch.t.shape[0]} to {frames} frames "
+            f"({(frames - 1) * setup['config'].n_substeps} of {setup['substeps']} substeps) for depth only; the "
+            f"member-parallel step's to {PAR_ENS_SUBSTEPS} substeps")
+        if sims != S:
+            log(f"{sims} of the {S} sims: the world of {n} ranks does not divide {S}")
+        inputs = {"model": cpu(setup["model"]), "batch": cpu(cut), "config": setup["config"],
+                  "ds": cpu(_first_frames(setup["ds"], max(PAR_EMB_FRAMES, PAR_EKI_FRAMES)))}
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        out = world.spawn_world(parallel_rank, n, (inputs,), backend="nccl")[0]
+        wall = time.perf_counter() - t
+        log(f"world of {n} rank(s) on NCCL: {wall:.2f} s in all (spawn, set-up {out['setup_s']:.2f} s, paths, the "
+            f"unsharded runs); card: {smi}")
+        failures = []  # every path is checked and printed before the phase fails
+        for name, rec in out["records"].items():
+            tol = PAR_TOLERANCES[name]
+            errors = {}
+            for key, got in rec["sharded"].items():
+                want = rec["unsharded"][key]
+                try:
+                    errors[key] = compare(f"{name}.{key}: world {rec['world']} vs unsharded", torch.from_numpy(
+                        np.asarray(got, np.float64)), torch.from_numpy(np.asarray(want, np.float64)), **tol)
+                except RuntimeError as e:
+                    failures.append(str(e))
+            expect = PAR_KERNELS[name]
+            log(f"{name}: world={rec['world']} backend={rec['backend']} {rec['seconds'] * 1e3:.1f} ms; collectives "
+                f"{rec['collectives']}; launches {rec['launches']}; local {rec['local']}; replicas equal "
+                f"{rec['replicas_equal']}; card: {smi}")
+            if rec["backend"] != "nccl" or rec["world"] != n:
+                failures.append(f"{name}: ran on {rec['backend']} at world {rec['world']}")
+            if any(rec["launches"][k] == 0 for k in expect) or rec["replicas_equal"] is False:
+                failures.append(f"{name}: no launch of {expect} in {rec['launches']}, or replicas differ")
+            record[name] = {"ms": rec["seconds"] * 1e3, "launches": rec["launches"], "collectives": rec["collectives"],
+                            "max_abs_err": errors}
+        try:  # the 2-D suite's tiles at world 1 are the whole block: cut it on the card here
+            record["cut_control"] = cut_control(dev, setup)
+        except RuntimeError as e:
+            failures.append(str(e))
+        if failures:
+            raise RuntimeError("phase 43: " + "; ".join(failures))
+        record["wall_s"] = wall
+    return record
+
+
 def _numbers(tree, path=""):
     """Every int and float of a JSON-like tree with its path (bools are not numbers here)."""
     if isinstance(tree, dict):
@@ -3281,6 +3553,7 @@ def main() -> int:
     thomas_record["column_ensemble"] = column_ensemble_phase(dev, setup, smi)
     thomas_record["suite"] = suite_phase(smi)
     thomas_record["headline_report"] = headline_report_phase(dev, setup, flagship, smi)
+    parallel_phase(dev, setup, smi)
     record["ptxas"] = ptxas_summary(kernel.ptxas_report)
     thomas_record["ptxas"] = ptxas_summary(thomas.ptxas_report)
     print(smi, flush=True)

@@ -1075,26 +1075,35 @@ def bench_column_ensemble(n_members: int = 1024, Nz: int = 32, n_steps: int = 25
     on a one-device mesh, i.e. one batched split solve with every member on
     the batch axis: one Thomas launch per substep on ``(3, n_members, Nz)``.
     CUDA events around each solve after one warm-up; ``calls`` counts the
-    solves and ``thomas_launches`` the launches of all of them.
+    solves and ``thomas_launches`` the launches of all of them. In a world
+    of N ranks (``torchrun``) the mesh spans them and each rank times its
+    ``n_members / N`` members (``members_per_rank``).
     """
     from climateparameterizations_jl_tpu_torch.ops import _cuda
-    from climateparameterizations_jl_tpu_torch.parallel.sharding import make_mesh, make_sharded_ensemble_solver
+    from climateparameterizations_jl_tpu_torch.parallel.sharding import (
+        make_mesh,
+        make_sharded_ensemble_solver,
+        shard_ensemble_members,
+    )
     from climateparameterizations_jl_tpu_torch.train.nde import NDETrainConfig
 
     device = _require_card(device, "bench_column_ensemble")
+    mesh = make_mesh(device=device)
     model, nns, bcs, x0 = column_ensemble_setup(n_members, Nz, device)
+    x0, bcs = shard_ensemble_members((x0, bcs), mesh)
+    local = x0.shape[0]
     config = NDETrainConfig(n_substeps=n_steps, method="split")
-    solver = make_sharded_ensemble_solver(model, config, make_mesh(device=device))
+    solver = make_sharded_ensemble_solver(model, config, mesh)
     before = _cuda.THOMAS.launches
     times, traj = _timed(lambda: solver(nns, bcs, x0, 0.0, 1e-5 * n_steps, 1), repeats, device)
     launches = _cuda.THOMAS.launches - before
-    if traj.shape != (2, n_members, 3 * Nz) or not bool(torch.isfinite(traj).all()):
+    if traj.shape != (2, local, 3 * Nz) or not bool(torch.isfinite(traj).all()):
         raise RuntimeError(f"ensemble solve gave shape {tuple(traj.shape)} or non-finite values")
     stats = _stats(times, device)
     return {
-        **stats, "n_members": n_members, "Nz": Nz, "n_steps": n_steps, "repeats": repeats,
+        **stats, "n_members": n_members, "members_per_rank": local, "Nz": Nz, "n_steps": n_steps, "repeats": repeats,
         "column_timesteps_per_sec": n_members * n_steps / (stats["ms_median"] * 1e-3), "calls": repeats + 1,
-        "thomas_launches": launches, "thomas_systems": 3 * n_members, "thomas_N": Nz,
+        "thomas_launches": launches, "thomas_systems": 3 * local, "thomas_N": Nz,
     }
 
 

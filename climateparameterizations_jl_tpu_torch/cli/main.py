@@ -45,8 +45,10 @@ installed) supplies flag values; flags typed on the command line win. Run
 directories use the JAX package's format and load in either package.
 ``--data-dir`` reads LESbrary ``.jld2`` files where they exist (h5py needed)
 and falls back to the synthetic stand-ins; the free-convection commands'
-``--source les3d`` generates their data with the 3-D LES instead. Every
-JAX subcommand but ``fetch`` (the downloader) is here, with the JAX flags.
+``--source les3d`` generates their data with the 3-D LES instead; ``fetch``
+downloads the free-convection files. Every JAX subcommand is here, with the
+JAX flags. ``ensemble`` started under ``torchrun`` splits its members over
+the ranks (``parallel/sharding.py``); rank 0 writes the files and prints.
 The commands write the JAX commands' files, figures included
 (``eval/animations.py``; ``--animation-format gif|mp4``). Where matplotlib
 cannot be imported (the card's machine has none), ``evaluate``,
@@ -395,6 +397,27 @@ def cmd_catalog(args) -> int:
         print(name)
     print("# free_convection ids:", ", ".join(str(i) for i in FREE_CONVECTION_IDS))
     return 0
+
+
+def cmd_fetch(args) -> int:
+    """Download the free-convection LESbrary datasets (``data/registry.py::fetch_free_convection``).
+
+    Prints one line per id; exits non-zero only when every download failed
+    (offline, the stand-ins remain).
+    """
+    from climateparameterizations_jl_tpu_torch.data.registry import fetch_free_convection
+
+    ids = [int(s) for s in _sims(args.sim_ids)]
+    failures = 0
+    for i in ids:
+        try:
+            print(f"fetch[{i}]: {fetch_free_convection(i, args.data_dir, timeout=args.timeout, force=args.force)}")
+        except ConnectionError as e:
+            failures += 1
+            print(f"fetch[{i}]: FAILED — {e}")
+    if failures:
+        print(f"fetch: {failures}/{len(ids)} downloads failed (offline stand-ins remain available)")
+    return 1 if failures == len(ids) else 0
 
 
 def cmd_extract(args) -> int:
@@ -1464,13 +1487,27 @@ def cmd_ensemble(args) -> int:
     ``torch.Generator`` seeded with ``--seed``, so the members are not the
     JAX command's. Writes ``ensemble.npz`` (per-frame mean and std over the
     members, dimensional t) and prints a JSON line.
+
+    Started under ``torchrun`` (or with its environment), the command joins
+    that world (NCCL, or gloo with ``--device cpu``) and each rank solves
+    ``--n-members / N`` members; the trajectories are gathered for the
+    statistics, and rank 0 alone writes and prints. Started alone it runs
+    on one device.
     """
     from climateparameterizations_jl_tpu_torch.data.containers import training_tensors
     from climateparameterizations_jl_tpu_torch.models.wind_mixing import BoundaryConditions, FluxNNs, pack_flux_nns
-    from climateparameterizations_jl_tpu_torch.parallel.sharding import make_mesh, make_sharded_ensemble_solver
+    from climateparameterizations_jl_tpu_torch.parallel import world
+    from climateparameterizations_jl_tpu_torch.parallel.sharding import (
+        make_mesh,
+        make_sharded_ensemble_solver,
+        shard_ensemble_members,
+    )
     from climateparameterizations_jl_tpu_torch.train.nde import NDETrainConfig
 
     device = resolve_device(args.device)
+    world.world_from_env("gloo" if device.type == "cpu" else "nccl")
+    mesh = make_mesh(device=device)
+    device = world.device_of(mesh)
     names = _sims(args.sims)
     ds = _load_suite(names, args.nz, args.data_dir, args.n_save, args.dt_save, device=device)
     if args.checkpoint:
@@ -1508,9 +1545,16 @@ def cmd_ensemble(args) -> int:
         for f in dataclasses.fields(BoundaryConditions)
     })
     config = NDETrainConfig(n_substeps=args.n_substeps, method="split")
-    solver = make_sharded_ensemble_solver(model, config, make_mesh(device=device))
+    solver = make_sharded_ensemble_solver(model, config, mesh)
+    x0, bcs = shard_ensemble_members((x0, bcs), mesh)
     t = batch.t.detach().cpu().numpy()
-    traj = solver(nns, bcs, x0, float(t[0]), float(t[1] - t[0]), len(t) - 1).cpu().numpy()  # (Nt, E, 3 Nz)
+    traj = solver(nns, bcs, x0, float(t[0]), float(t[1] - t[0]), len(t) - 1)  # (Nt, E_local, 3 Nz)
+    axis = world.axis_of(mesh)
+    if axis.size > 1:  # every rank's members, in rank order
+        traj = torch.cat(list(world.all_gather(traj, axis)), dim=1)
+    if not world.is_rank0():
+        return 0
+    traj = traj.cpu().numpy()
 
     os.makedirs(args.output, exist_ok=True)
     mean, std = traj.mean(axis=1), traj.std(axis=1)
@@ -1562,6 +1606,13 @@ def build_parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="command", required=True)
 
     sub.add_parser("catalog", help="list dataset catalog names").set_defaults(fn=cmd_catalog)
+
+    p = sub.add_parser("fetch", help="download the free-convection LESbrary datasets (DataDeps parity)")
+    p.add_argument("--sim-ids", default="1,2,3,4,5,6,7,8,9")
+    p.add_argument("--data-dir", required=True)
+    p.add_argument("--timeout", type=float, default=60.0)
+    p.add_argument("--force", action="store_true", help="re-download even if the file exists")
+    p.set_defaults(fn=cmd_fetch)
 
     p = sub.add_parser("train-nn", help="direct flux regression")
     _add_common(p)

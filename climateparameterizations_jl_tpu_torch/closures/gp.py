@@ -495,8 +495,15 @@ def error_per_gamma(x_train, y_train, x_val, y_val, z, kernel_id: int, log_gamma
     For kernel ids 1-5 the whole grid is one batch: the distance matrices
     are built once, then every gamma's Gram, jitter, Cholesky, solve and
     validation MSE run along a leading grid axis (the JAX package's vmap).
-    The spectral mixture (id 6) has no distance form and loops over the
-    grid. A grid point whose factorization fails scores NaN.
+    f32 inputs on the card loop over the grid instead: each gamma's two
+    Grams (training and validation) on the Gram kernel, two launches per
+    grid point, then its own factorization, so a gamma's error does not
+    depend on how many gammas share a batch (the card's batched linear
+    algebra rounds by the batch's size: ``chip_smoke.py`` phase 43 at world
+    4, where each rank fits 2 of the 8 gammas). CPU inputs, and f64 ones
+    that the f32 kernel would round, take the plain version. The spectral
+    mixture (id 6) has no distance form and loops over the grid. A grid
+    point whose factorization fails scores NaN.
     """
     x_train = torch.as_tensor(x_train)
     dev = x_train.device
@@ -511,12 +518,20 @@ def error_per_gamma(x_train, y_train, x_val, y_val, z, kernel_id: int, log_gamma
             pred = gp_predict(gp_fit(x_train, y_train, kernel, z), x_val)
             errs.append(torch.mean((pred - y_val) ** 2))
         return [float(e) for e in torch.stack(errs).tolist()]
-    kernel = GPKernel(
-        gamma=(10.0**log_gammas)[:, None, None],
-        sigma=torch.as_tensor(10.0**log_sigma, dtype=dtype, device=dev),
-        alpha=torch.as_tensor(1.0, dtype=dtype, device=dev),
-        family=_FAMILY_IDS[kernel_id], metric=metric,
-    )
+    sigma = torch.as_tensor(10.0**log_sigma, dtype=dtype, device=dev)
+    alpha = torch.as_tensor(1.0, dtype=dtype, device=dev)
+    if dev.type == "cuda" and dtype == torch.float32:
+        errs = []
+        for lg in log_gammas:
+            kernel = GPKernel(gamma=10.0**lg, sigma=sigma, alpha=alpha, family=_FAMILY_IDS[kernel_id], metric=metric,
+                              backend="cuda")
+            K = kernel.gram(x_train, x_train, z)
+            pred = _mm(kernel.gram(x_val, x_train, z), _cho_solve(_cholesky(_jittered(K, default_jitter(K.dtype))),
+                                                                   y_train))
+            errs.append(torch.mean((pred - y_val) ** 2))
+        return [float(e) for e in torch.stack(errs).tolist()]
+    kernel = GPKernel(gamma=(10.0**log_gammas)[:, None, None], sigma=sigma, alpha=alpha,
+                      family=_FAMILY_IDS[kernel_id], metric=metric)
     K = kernel(distance_matrix(x_train, x_train, z, metric))  # (G, n, n)
     alpha = _cho_solve(_cholesky(_jittered(K, default_jitter(K.dtype))), y_train)
     pred = _mm(kernel(distance_matrix(x_val, x_train, z, metric)), alpha)

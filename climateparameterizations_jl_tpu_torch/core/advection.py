@@ -53,11 +53,24 @@ def _pad3(q, axis: int, mode: str):
     return q.index_select(axis, idx)
 
 
-def weno5_face_values(q, axis: int = -1, boundary: str = "edge"):
+def weno5_padded_face_values(qp, axis: int, base: int, count: int):
+    """``(qL, qR)`` on ``count`` faces of an already padded ``qp``: face ``i`` reads cells ``base + i .. base + i + 5``.
+
+    The building block of :func:`weno5_face_values`, for callers that pad
+    themselves (halo rows from neighbouring ranks, ``parallel/``).
+    """
+    W = [qp.narrow(axis, base + m, count) for m in range(6)]
+    qL = _weno5(W[0], W[1], W[2], W[3], W[4])
+    qR = _weno5(W[5], W[4], W[3], W[2], W[1])
+    return qL, qR
+
+
+def weno5_face_values(q, axis: int = -1, boundary: str = "edge", pad=None):
     """``(qL, qR)`` WENO5 reconstructions on the faces along ``axis``.
 
     ``qL`` is the left-biased value (for a positive face velocity), ``qR``
-    the right-biased one.
+    the right-biased one. ``pad(q)``, where given, pads ``q`` by three
+    cells on both ends of ``axis`` in place of the wrap or edge copies.
     """
     axis = axis % q.dim()
     n = q.shape[axis]
@@ -67,18 +80,16 @@ def weno5_face_values(q, axis: int = -1, boundary: str = "edge"):
         pad_mode, count, base = "edge", n - 1, 1
     else:
         raise ValueError(f"unknown boundary {boundary!r}")
-    qp = _pad3(q, axis, pad_mode)
-    W = [qp.narrow(axis, base + m, count) for m in range(6)]
-    qL = _weno5(W[0], W[1], W[2], W[3], W[4])
-    qR = _weno5(W[5], W[4], W[3], W[2], W[1])
-    return qL, qR
+    qp = _pad3(q, axis, pad_mode) if pad is None else pad(q)
+    return weno5_padded_face_values(qp, axis, base, count)
 
 
-def weno5_advective_flux(u_face, q, axis: int = -1, boundary: str = "edge"):
+def weno5_advective_flux(u_face, q, axis: int = -1, boundary: str = "edge", pad=None):
     """Upwind advective flux ``u * q_face`` with WENO5 face reconstruction.
 
     ``u_face`` lives on the faces the ``boundary`` convention gives
     (``n - 1`` interior faces for ``"edge"``, ``n`` for ``"periodic"``).
+    ``pad`` is :func:`weno5_face_values`'s.
     """
-    qL, qR = weno5_face_values(q, axis, boundary)
+    qL, qR = weno5_face_values(q, axis, boundary, pad)
     return u_face * torch.where(u_face >= 0, qL, qR)

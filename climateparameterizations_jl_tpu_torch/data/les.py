@@ -203,13 +203,45 @@ def _yp(a):
     return torch.roll(a, -1, dims=0)
 
 
-def _divergence(config: LESConfig, u, v, w):
+class PeriodicY:
+    """The y axis of one device: the hooks through which the step sees y.
+
+    ``ym`` / ``yp`` shift by one row (periodic), ``pad3`` wraps three rows
+    onto both ends (the WENO5 stencil), ``poisson`` is the pressure solve.
+    ``parallel/les_sharding.py`` gives the same hooks over a y-decomposed
+    mesh (halo rows from the neighbouring ranks, a distributed FFT), so the
+    step body below is the one both run.
+    """
+
+    @staticmethod
+    def ym(a):
+        return _ym(a)
+
+    @staticmethod
+    def yp(a):
+        return _yp(a)
+
+    @staticmethod
+    def pad3(q):
+        from climateparameterizations_jl_tpu_torch.core.advection import _pad3
+
+        return _pad3(q, 0, "wrap")
+
+    @staticmethod
+    def poisson(config: "LESConfig", rhs, tridiag_backend: str):
+        return _poisson_solve(config, rhs, tridiag_backend)
+
+
+PERIODIC_Y = PeriodicY()
+
+
+def _divergence(config: LESConfig, u, v, w, y=PERIODIC_Y):
     """MAC divergence at centers."""
-    return (_xp(u) - u) / config.dx + (_yp(v) - v) / config.dy + (w[..., 1:] - w[..., :-1]) / config.dz
+    return (_xp(u) - u) / config.dx + (y.yp(v) - v) / config.dy + (w[..., 1:] - w[..., :-1]) / config.dz
 
 
-def _lap_xy(q, dx, dy):
-    return (_xp(q) - 2 * q + _xm(q)) / dx**2 + (_yp(q) - 2 * q + _ym(q)) / dy**2
+def _lap_xy(q, dx, dy, y=PERIODIC_Y):
+    return (_xp(q) - 2 * q + _xm(q)) / dx**2 + (y.yp(q) - 2 * q + y.ym(q)) / dy**2
 
 
 def _edge_pad_z(q):
@@ -222,11 +254,11 @@ def _lap_z_neumann(q, dz):
     return (qp[..., 2:] - 2 * q + qp[..., :-2]) / dz**2
 
 
-def _smagorinsky_nu(config: LESConfig, u, v, w):
+def _smagorinsky_nu(config: LESConfig, u, v, w, y=PERIODIC_Y):
     """Eddy viscosity at cell centers from the resolved strain rate."""
     dx, dy, dz = config.dx, config.dy, config.dz
     uc = 0.5 * (u + _xp(u))
-    vc = 0.5 * (v + _yp(v))
+    vc = 0.5 * (v + y.yp(v))
     wc = 0.5 * (w[..., :-1] + w[..., 1:])
 
     def ddz_c(q):  # centered d/dz of a center field, one-sided at the ends
@@ -234,11 +266,11 @@ def _smagorinsky_nu(config: LESConfig, u, v, w):
         return (qp[..., 2:] - qp[..., :-2]) / (2 * dz)
 
     S11 = (_xp(uc) - _xm(uc)) / (2 * dx)
-    S22 = (_yp(vc) - _ym(vc)) / (2 * dy)
+    S22 = (y.yp(vc) - y.ym(vc)) / (2 * dy)
     S33 = ddz_c(wc)
-    S12 = 0.5 * ((_yp(uc) - _ym(uc)) / (2 * dy) + (_xp(vc) - _xm(vc)) / (2 * dx))
+    S12 = 0.5 * ((y.yp(uc) - y.ym(uc)) / (2 * dy) + (_xp(vc) - _xm(vc)) / (2 * dx))
     S13 = 0.5 * (ddz_c(uc) + (_xp(wc) - _xm(wc)) / (2 * dx))
-    S23 = 0.5 * (ddz_c(vc) + (_yp(wc) - _ym(wc)) / (2 * dy))
+    S23 = 0.5 * (ddz_c(vc) + (y.yp(wc) - y.ym(wc)) / (2 * dy))
     S2 = S11**2 + S22**2 + S33**2 + 2 * (S12**2 + S13**2 + S23**2)
     delta = (dx * dy * dz) ** (1.0 / 3.0)
     return (config.Cs * delta) ** 2 * torch.sqrt(2 * S2)
@@ -280,7 +312,7 @@ def surface_theta_flux(config: LESConfig, t):
     return config.theta_top
 
 
-def _tendencies(config: LESConfig, state: LESState, t, coriolis: bool = True):
+def _tendencies(config: LESConfig, state: LESState, t, coriolis: bool = True, y=PERIODIC_Y):
     """``(du/dt, dv/dt, dw_int/dt, dT/dt)`` before the pressure projection.
 
     ``coriolis=False`` leaves out the rotation: the forward-Euler path applies
@@ -291,14 +323,14 @@ def _tendencies(config: LESConfig, state: LESState, t, coriolis: bool = True):
     dx, dy, dz = c.dx, c.dy, c.dz
     u, v, w, T = state.u, state.v, state.w, state.T
 
-    nu_e = _smagorinsky_nu(c, u, v, w)
+    nu_e = _smagorinsky_nu(c, u, v, w, y)
     nu_c = c.nu + nu_e  # at centers
     kap_c = c.nu + nu_e / c.Pr_t
 
     # --- interpolations ---------------------------------------------------
     w_zc = 0.5 * (w[..., :-1] + w[..., 1:])  # w at centers
     uc = 0.5 * (u + _xp(u))  # u at centers
-    vc = 0.5 * (v + _yp(v))  # v at centers
+    vc = 0.5 * (v + y.yp(v))  # v at centers
 
     def zface_of_center(q):  # interior z-faces 1..Nz-1
         return 0.5 * (q[..., :-1] + q[..., 1:])
@@ -308,19 +340,19 @@ def _tendencies(config: LESConfig, state: LESState, t, coriolis: bool = True):
         from climateparameterizations_jl_tpu_torch.core.advection import weno5_advective_flux
 
         FTx = weno5_advective_flux(u, T, axis=1, boundary="periodic")
-        FTy = weno5_advective_flux(v, T, axis=0, boundary="periodic")
+        FTy = weno5_advective_flux(v, T, axis=0, boundary="periodic", pad=y.pad3)
         FTz_int = weno5_advective_flux(w[..., 1:-1], T, axis=2, boundary="edge")
     elif c.advection == "centered":
         FTx = u * 0.5 * (T + _xm(T))
-        FTy = v * 0.5 * (T + _ym(T))
+        FTy = v * 0.5 * (T + y.ym(T))
         FTz_int = w[..., 1:-1] * zface_of_center(T)
     else:
         # A misspelt scheme that ran centered advection would corrupt the generated data.
         raise ValueError(f"unknown advection scheme {c.advection!r} (expected 'weno5' or 'centered')")
     zeros_f = torch.zeros_like(w[..., :1])
     FTz = torch.cat([zeros_f, FTz_int, zeros_f], dim=-1)
-    adv_T = (_xp(FTx) - FTx) / dx + (_yp(FTy) - FTy) / dy + (FTz[..., 1:] - FTz[..., :-1]) / dz
-    dTdt = -adv_T + kap_c * (_lap_xy(T, dx, dy) + _lap_z_neumann(T, dz))
+    adv_T = (_xp(FTx) - FTx) / dx + (y.yp(FTy) - FTy) / dy + (FTz[..., 1:] - FTz[..., :-1]) / dz
+    dTdt = -adv_T + kap_c * (_lap_xy(T, dx, dy, y) + _lap_z_neumann(T, dz))
     # Surface heat flux into the top cell; fixed-gradient bottom: the upward
     # flux -kappa dTdz leaves through the bottom face, which keeps the deep
     # stratification against the zero-flux Laplacian.
@@ -328,7 +360,7 @@ def _tendencies(config: LESConfig, state: LESState, t, coriolis: bool = True):
     dTdt[..., 0] += -kap_c[..., 0] * c.dTdz / dz
 
     # --- u momentum (x-faces) ----------------------------------------------
-    u_corner = 0.5 * (u + _ym(u))  # (x-face, y-face)
+    u_corner = 0.5 * (u + y.ym(u))  # (x-face, y-face)
     v_corner = 0.5 * (v + _xm(v))
     u_zf = zface_of_center(u)  # interior z-faces
     w_xf = 0.5 * (w + _xm(w))  # (x-face, z-faces)
@@ -338,7 +370,7 @@ def _tendencies(config: LESConfig, state: LESState, t, coriolis: bool = True):
         # Periodic face k lies between u-points k-1 and k, i.e. at T-center
         # k-1, where the advecting velocity is uc[k-1]: hence _xm, then _xp.
         Fuu = _xp(weno5_advective_flux(_xm(uc), u, axis=1, boundary="periodic"))  # centers
-        Fuv = weno5_advective_flux(v_corner, u, axis=0, boundary="periodic")  # corners
+        Fuv = weno5_advective_flux(v_corner, u, axis=0, boundary="periodic", pad=y.pad3)  # corners
         Fuw_int = weno5_advective_flux(w_xf[..., 1:-1], u, axis=2, boundary="edge")
     elif c.momentum_advection == "centered":
         Fuu = uc * uc  # centers
@@ -349,18 +381,18 @@ def _tendencies(config: LESConfig, state: LESState, t, coriolis: bool = True):
             f"unknown momentum advection scheme {c.momentum_advection!r} (expected 'weno5' or 'centered')"
         )
     Fuw = torch.cat([zeros_f, Fuw_int, zeros_f], dim=-1)
-    adv_u = (Fuu - _xm(Fuu)) / dx + (_yp(Fuv) - Fuv) / dy + (Fuw[..., 1:] - Fuw[..., :-1]) / dz
-    v_at_u = 0.5 * (v_corner + _yp(v_corner))
+    adv_u = (Fuu - _xm(Fuu)) / dx + (y.yp(Fuv) - Fuv) / dy + (Fuw[..., 1:] - Fuw[..., :-1]) / dz
+    v_at_u = 0.5 * (v_corner + y.yp(v_corner))
     nu_u = 0.5 * (nu_c + _xm(nu_c))
     f_u = c.f if coriolis else torch.zeros_like(c.f)
-    dudt = -adv_u + f_u * v_at_u + nu_u * (_lap_xy(u, dx, dy) + _lap_z_neumann(u, dz))
+    dudt = -adv_u + f_u * v_at_u + nu_u * (_lap_xy(u, dx, dy, y) + _lap_z_neumann(u, dz))
     dudt[..., -1] += -c.Qu / dz
 
     # --- v momentum (y-faces) ----------------------------------------------
     v_zf = zface_of_center(v)
-    w_yf = 0.5 * (w + _ym(w))
+    w_yf = 0.5 * (w + y.ym(w))
     if c.momentum_advection == "weno5":
-        Fvv = _yp(weno5_advective_flux(_ym(vc), v, axis=0, boundary="periodic"))
+        Fvv = y.yp(weno5_advective_flux(y.ym(vc), v, axis=0, boundary="periodic", pad=y.pad3))
         # The WENO corner flux upwinds v along x, so Fuv is not reused.
         Fvu = weno5_advective_flux(u_corner, v, axis=1, boundary="periodic")
         Fvw_int = weno5_advective_flux(w_yf[..., 1:-1], v, axis=2, boundary="edge")
@@ -369,26 +401,26 @@ def _tendencies(config: LESConfig, state: LESState, t, coriolis: bool = True):
         Fvu = Fuv  # the same corner product
         Fvw_int = v_zf * w_yf[..., 1:-1]
     Fvw = torch.cat([zeros_f, Fvw_int, zeros_f], dim=-1)
-    adv_v = (_xp(Fvu) - Fvu) / dx + (Fvv - _ym(Fvv)) / dy + (Fvw[..., 1:] - Fvw[..., :-1]) / dz
+    adv_v = (_xp(Fvu) - Fvu) / dx + (Fvv - y.ym(Fvv)) / dy + (Fvw[..., 1:] - Fvw[..., :-1]) / dz
     u_at_v = 0.5 * (u_corner + _xp(u_corner))
-    nu_v = 0.5 * (nu_c + _ym(nu_c))
-    dvdt = -adv_v - f_u * u_at_v + nu_v * (_lap_xy(v, dx, dy) + _lap_z_neumann(v, dz))
+    nu_v = 0.5 * (nu_c + y.ym(nu_c))
+    dvdt = -adv_v - f_u * u_at_v + nu_v * (_lap_xy(v, dx, dy, y) + _lap_z_neumann(v, dz))
 
     # --- w momentum (interior z-faces) --------------------------------------
     if c.momentum_advection == "weno5":
         Fww = weno5_advective_flux(w_zc, w, axis=2, boundary="edge")  # centers
         Fwu = weno5_advective_flux(u_zf, w[..., 1:-1], axis=1, boundary="periodic")
-        Fwv = weno5_advective_flux(v_zf, w[..., 1:-1], axis=0, boundary="periodic")
+        Fwv = weno5_advective_flux(v_zf, w[..., 1:-1], axis=0, boundary="periodic", pad=y.pad3)
     else:
         Fww = w_zc * w_zc  # centers
         Fwu = u_zf * w_xf[..., 1:-1]  # (x-face, interior z-face)
         Fwv = v_zf * w_yf[..., 1:-1]
-    adv_w = (_xp(Fwu) - Fwu) / dx + (_yp(Fwv) - Fwv) / dy + (Fww[..., 1:] - Fww[..., :-1]) / dz
+    adv_w = (_xp(Fwu) - Fwu) / dx + (y.yp(Fwv) - Fwv) / dy + (Fww[..., 1:] - Fww[..., :-1]) / dz
     T_zf = zface_of_center(T)
     b = c.g * c.alpha * (T_zf - c.T_surface)
     nu_w = zface_of_center(nu_c)
     w_int = w[..., 1:-1]
-    lap_w = _lap_xy(w_int, dx, dy) + (w[..., 2:] - 2 * w_int + w[..., :-2]) / dz**2
+    lap_w = _lap_xy(w_int, dx, dy, y) + (w[..., 2:] - 2 * w_int + w[..., :-2]) / dz**2
     dwdt = -adv_w + b + nu_w * lap_w
     return dudt, dvdt, dwdt, dTdt
 
@@ -400,32 +432,32 @@ def _add_interior_z(w, dw):
     return out
 
 
-def _project(config: LESConfig, u_star, v_star, w_star, dt, tridiag_backend: str = "auto"):
+def _project(config: LESConfig, u_star, v_star, w_star, dt, tridiag_backend: str = "auto", y=PERIODIC_Y):
     """Pressure projection: make ``(u, v, w)`` discretely divergence-free (one Poisson solve)."""
     c = config
-    div = _divergence(c, u_star, v_star, w_star)
-    phi = _poisson_solve(c, div / dt, tridiag_backend)
+    div = _divergence(c, u_star, v_star, w_star, y)
+    phi = y.poisson(c, div / dt, tridiag_backend)
     u = u_star - dt * (phi - _xm(phi)) / c.dx
-    v = v_star - dt * (phi - _ym(phi)) / c.dy
+    v = v_star - dt * (phi - y.ym(phi)) / c.dy
     w = _add_interior_z(w_star, -dt * (phi[..., 1:] - phi[..., :-1]) / c.dz)
     return u, v, w
 
 
 def _advance(config: LESConfig, state: LESState, dt, t, fb_coriolis: bool = False,
-             tridiag_backend: str = "auto") -> LESState:
+             tridiag_backend: str = "auto", y=PERIODIC_Y) -> LESState:
     """Tendencies, predictor and projection over a (sub)step of size ``dt``."""
-    dudt, dvdt, dwdt, dTdt = _tendencies(config, state, t, coriolis=not fb_coriolis)
+    dudt, dvdt, dwdt, dTdt = _tendencies(config, state, t, coriolis=not fb_coriolis, y=y)
     u_star = state.u + dt * dudt
     v_star = state.v + dt * dvdt
     if fb_coriolis:
         # Forward-backward rotation: v sees the rotated u (neutral for inertial oscillations).
         c = config
         v_corner = 0.5 * (v_star + _xm(v_star))
-        u_star = u_star + dt * c.f * 0.5 * (v_corner + _yp(v_corner))
-        u_corner = 0.5 * (u_star + _ym(u_star))
+        u_star = u_star + dt * c.f * 0.5 * (v_corner + y.yp(v_corner))
+        u_corner = 0.5 * (u_star + y.ym(u_star))
         v_star = v_star - dt * c.f * 0.5 * (u_corner + _xp(u_corner))
     w_star = _add_interior_z(state.w, dt * dwdt)
-    u, v, w = _project(config, u_star, v_star, w_star, dt, tridiag_backend)
+    u, v, w = _project(config, u_star, v_star, w_star, dt, tridiag_backend, y)
     return LESState(u=u, v=v, w=w, T=state.T + dt * dTdt)
 
 
@@ -434,7 +466,7 @@ def _mix(a: LESState, b: LESState, wa: float, wb: float) -> LESState:
 
 
 def les_step(config: LESConfig, state: LESState, dt, method: str = "euler", t=0.0,
-             tridiag_backend: str = "auto") -> LESState:
+             tridiag_backend: str = "auto", y=PERIODIC_Y) -> LESState:
     """One LES step at simulation time ``t`` (the diurnal forcing reads it).
 
     ``method``:
@@ -446,15 +478,17 @@ def les_step(config: LESConfig, state: LESState, dt, method: str = "euler", t=0.
       every stage; CFL up to about 0.8. Three Poisson solves.
 
     Each Poisson solve is one Thomas launch on the card
-    (``tridiag_backend="auto"``).
+    (``tridiag_backend="auto"``). ``y`` holds the y-axis hooks
+    (:class:`PeriodicY`): the default is this device's whole y axis;
+    ``parallel/les_sharding.py`` passes a y-decomposed one.
     """
     t = torch.as_tensor(t, dtype=state.T.dtype, device=state.T.device)
     if method == "euler":
-        return _advance(config, state, dt, t, fb_coriolis=True, tridiag_backend=tridiag_backend)
+        return _advance(config, state, dt, t, fb_coriolis=True, tridiag_backend=tridiag_backend, y=y)
     if method == "rk3":
-        s1 = _advance(config, state, dt, t, tridiag_backend=tridiag_backend)
-        s2 = _mix(state, _advance(config, s1, dt, t + dt, tridiag_backend=tridiag_backend), 0.75, 0.25)
-        s3 = _advance(config, s2, dt, t + 0.5 * dt, tridiag_backend=tridiag_backend)
+        s1 = _advance(config, state, dt, t, tridiag_backend=tridiag_backend, y=y)
+        s2 = _mix(state, _advance(config, s1, dt, t + dt, tridiag_backend=tridiag_backend, y=y), 0.75, 0.25)
+        s3 = _advance(config, s2, dt, t + 0.5 * dt, tridiag_backend=tridiag_backend, y=y)
         # Convex combinations of divergence-free fields stay divergence-free.
         return _mix(state, s3, 1.0 / 3.0, 2.0 / 3.0)
     raise ValueError(f"unknown LES method {method!r}")

@@ -8,8 +8,9 @@ suite: :func:`simulation_parameters` parses them, and
 :func:`load_simulation` reads ``<data_dir>/<lesbrary_relative_path(name)>``
 where that file exists (``data/lesbrary.py``, which needs h5py) and
 otherwise generates the name's synthetic stand-in (``data/synthetic.py``);
-``source="les3d"`` generates it with the 3-D LES (``data/les.py``). The JAX
-package's downloader (``fetch_free_convection``) is not ported.
+``source="les3d"`` generates it with the 3-D LES (``data/les.py``).
+:func:`fetch_free_convection` downloads the free-convection LESbrary files
+(the reference's DataDeps).
 """
 
 from __future__ import annotations
@@ -154,6 +155,47 @@ def _build_catalog() -> tuple:
 WIND_MIXING_CATALOG = _build_catalog()
 # The free-convection LESbrary runs (free_convection/src/data.jl:3-12).
 FREE_CONVECTION_IDS = tuple(range(1, 10))
+ENGAGING_LESBRARY_DIR = "https://engaging-web.mit.edu/~alir/lesbrary/neural_free_convection_training_data"
+
+
+def free_convection_url(simulation_id: int) -> str:
+    """URL of a numbered LESbrary free-convection dataset (``data.jl:3-12``)."""
+    if simulation_id not in FREE_CONVECTION_IDS:
+        raise KeyError(f"free-convection simulation id must be in 1..9, got {simulation_id}")
+    return f"{ENGAGING_LESBRARY_DIR}/free_convection_{simulation_id}/instantaneous_statistics_with_halos.jld2"
+
+
+def fetch_free_convection(simulation_id: int, data_dir: str, timeout: float = 60.0, force: bool = False) -> str:
+    """Download one free-convection dataset into ``<data_dir>/free_convection_<id>/``.
+
+    The reference registers these as DataDeps and fetches them on first use
+    (``free_convection/src/data.jl:3-12``); the file is
+    ``instantaneous_statistics_with_halos.jld2``. An existing file is kept unless
+    ``force``. The download streams to a ``.part`` file that is renamed
+    when complete, so an interrupted fetch never leaves a file the loader
+    would trust. Offline, it raises ``ConnectionError`` naming the URL and
+    leaves no ``.part`` file; the synthetic and ``les3d`` stand-ins remain.
+    """
+    import urllib.error
+    import urllib.request
+
+    url = free_convection_url(simulation_id)
+    dest = os.path.join(data_dir, f"free_convection_{simulation_id}", "instantaneous_statistics_with_halos.jld2")
+    if os.path.exists(dest) and not force:
+        return dest
+    os.makedirs(os.path.dirname(dest), exist_ok=True)
+    part = dest + ".part"
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r, open(part, "wb") as out:
+            while chunk := r.read(1 << 20):
+                out.write(chunk)
+        os.replace(part, dest)
+    except (urllib.error.URLError, OSError, TimeoutError) as e:
+        if os.path.exists(part):
+            os.remove(part)
+        raise ConnectionError(f"could not fetch {url}: {e}. Offline? Place the file at {dest}, or use the synthetic "
+                              "or les3d stand-ins.") from e
+    return dest
 
 
 def require_ported_source(source: str = "auto", allowed=("auto", "les3d")) -> None:

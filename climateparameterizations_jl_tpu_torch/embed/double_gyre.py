@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from climateparameterizations_jl_tpu_torch.closures.mlp import apply_closure
-from climateparameterizations_jl_tpu_torch.core.advection import weno5_advective_flux
+from climateparameterizations_jl_tpu_torch.core.advection import weno5_advective_flux, weno5_padded_face_values
 from climateparameterizations_jl_tpu_torch.core.scalings import ZeroMeanUnitVarianceScaling
 from climateparameterizations_jl_tpu_torch.device import resolve_device
 from climateparameterizations_jl_tpu_torch.ops.tridiagonal import implicit_diffusion_step
@@ -198,12 +198,68 @@ def vertical_velocity(model: DoubleGyreModel, u, v):
     return torch.cat([zeros, w_int], dim=-1)
 
 
-def _laplacian_h(phi, dx, dy, axis_x=1, axis_y=0):
-    """Horizontal Laplacian with zero-flux (free-slip) walls via edge padding."""
+class WalledY:
+    """The y axis of the basin as one device holds it: the hooks through which the step sees y.
+
+    Fields are held as ``n`` rows of cells from global row ``offset`` (and
+    ``n + 1`` rows of v-faces, the local cells' both sides); ``south_wall``
+    / ``north_wall`` say whether the block ends at a basin wall. Every
+    y-stencil of :func:`double_gyre_step` reads its neighbours through
+    :meth:`halo`: edge copies at a wall (the zero-flux padding), the
+    neighbouring rank's rows elsewhere. The default is the whole axis on one
+    device; ``parallel/gyre_sharding.py`` gives the y-decomposed one, so
+    both run this step body.
+    """
+
+    def __init__(self, Ny: int, n: int | None = None, offset: int = 0, south_wall: bool = True,
+                 north_wall: bool = True):
+        self.Ny, self.n, self.offset = Ny, Ny if n is None else n, offset
+        self.south_wall, self.north_wall = south_wall, north_wall
+
+    def rows(self, x):
+        """This block's rows of a global ``(Ny, ...)`` cell array."""
+        return x.narrow(0, self.offset, self.n)
+
+    def faces(self, x):
+        """This block's ``n + 1`` rows of a global ``(Ny + 1, ...)`` face array."""
+        return x.narrow(0, self.offset, self.n + 1)
+
+    def neighbours(self, x, k: int, faces: bool):
+        """``(south, north)``: the ``k`` rows beyond each end of ``x`` held elsewhere, ``None`` at a wall."""
+        return None, None
+
+    def halo(self, x, k: int, faces: bool = False):
+        """``x`` extended by ``k`` rows on both ends: the neighbours' rows, or copies of the edge row at a wall."""
+        south, north = self.neighbours(x, k, faces)
+        edge = lambda row: row.expand(k, *x.shape[1:])  # noqa: E731
+        south = edge(x[:1]) if south is None else south
+        north = edge(x[-1:]) if north is None else north
+        return torch.cat([south, x, north], dim=0)
+
+    def zero_walls(self, f):
+        """A face array ``(n + 1, ...)`` with the rows on basin walls set to 0."""
+        zero = torch.zeros_like(f[:1])
+        return torch.cat([zero if self.south_wall else f[:1], f[1:-1], zero if self.north_wall else f[-1:]], dim=0)
+
+    def weno_flux(self, v_face, q):
+        """WENO5 upwind flux of the cells ``q`` on this block's ``n + 1`` y-faces (``v_face`` there), walls zeroed."""
+        qL, qR = weno5_padded_face_values(self.halo(q, 3), 0, 0, q.shape[0] + 1)
+        return self.zero_walls(v_face * torch.where(v_face >= 0, qL, qR))
+
+    def free_surface(self, model, rhs, dt):
+        return solve_free_surface(model, rhs, dt)
+
+
+def _laplacian_h(phi, dx, dy, axis_x=1, axis_y=0, y=None, faces: bool = False):
+    """Horizontal Laplacian with zero-flux (free-slip) walls via edge padding.
+
+    ``y`` (a :class:`WalledY`, for ``axis_y = 0``) supplies the y
+    neighbours; ``faces`` marks a v-face array.
+    """
     px = _edge_pad(phi, axis_x)
     n = phi.shape[axis_x]
     d2x = (px.narrow(axis_x, 2, n) - 2 * phi + px.narrow(axis_x, 0, n)) / dx**2
-    py = _edge_pad(phi, axis_y)
+    py = _edge_pad(phi, axis_y) if y is None else y.halo(phi, 1, faces)
     m = phi.shape[axis_y]
     d2y = (py.narrow(axis_y, 2, m) - 2 * phi + py.narrow(axis_y, 0, m)) / dy**2
     return d2x + d2y
@@ -321,7 +377,7 @@ def _implicit_vertical_mixing(model: DoubleGyreModel, u, v, T, dt, tridiag_backe
     return u, v, T
 
 
-def _u_advection_weno(model: DoubleGyreModel, u, v, w):
+def _u_advection_weno(model: DoubleGyreModel, u, v, w, y: WalledY):
     """Flux-form WENO5 advection divergence for ``u`` at interior x-faces, ``(Ny, Nx-1, Nz)``.
 
     x-fluxes at T-cell centers, y-fluxes at corners (zero at the walls,
@@ -334,7 +390,7 @@ def _u_advection_weno(model: DoubleGyreModel, u, v, w):
     Fx = weno5_advective_flux(uc, u, axis=1, boundary="edge")  # (Ny, Nx, Nz)
     div = (Fx[:, 1:, :] - Fx[:, :-1, :]) / dx
     v_corner = 0.5 * (v[:, 1:, :] + v[:, :-1, :])  # (Ny+1, Nx-1, Nz)
-    Fy = _zero_pad(weno5_advective_flux(v_corner[1:-1], ui, axis=0, boundary="edge"), 0)
+    Fy = y.weno_flux(v_corner, ui)
     div = div + (Fy[1:, :, :] - Fy[:-1, :, :]) / dy
     w_u = 0.5 * (w[:, 1:, :] + w[:, :-1, :])  # (Ny, Nx-1, Nz+1)
     Fz_int = weno5_advective_flux(w_u[..., 1:-1], ui, axis=2, boundary="edge")
@@ -342,17 +398,23 @@ def _u_advection_weno(model: DoubleGyreModel, u, v, w):
     return div + (Fz[..., 1:] - Fz[..., :-1]) / dz
 
 
-def _v_advection_weno(model: DoubleGyreModel, u, v, w):
-    """Flux-form WENO5 advection divergence for ``v`` at interior y-faces, ``(Ny-1, Nx, Nz)``."""
+def _v_advection_weno(model: DoubleGyreModel, u, v, w, y: WalledY):
+    """Flux-form WENO5 advection divergence for ``v`` on the block's y-faces, ``(n + 1, Nx, Nz)`` (rows on walls
+    are not used)."""
     dx, dy, dz = model.dx, model.dy, model.dz
-    vi = v[1:-1, :, :]
-    vc = 0.5 * (v[1:, :, :] + v[:-1, :, :])
-    Fy = weno5_advective_flux(vc, v, axis=0, boundary="edge")  # (Ny, Nx, Nz)
+    vi = v
+    n = v.shape[0] - 1
+    vh = y.halo(v, 3, faces=True)  # faces offset-3 .. offset+n+3
+    vc = 0.5 * (vh[3:n + 5] + vh[2:n + 4])  # centers offset-1 .. offset+n
+    qL, qR = weno5_padded_face_values(vh, 0, 0, n + 2)
+    Fy = vc * torch.where(vc >= 0, qL, qR)
     div = (Fy[1:, :, :] - Fy[:-1, :, :]) / dy
-    u_corner = 0.5 * (u[1:, :, :] + u[:-1, :, :])  # (Ny-1, Nx+1, Nz)
+    uh = y.halo(u, 1)
+    u_corner = 0.5 * (uh[1:, :, :] + uh[:-1, :, :])  # (n+1, Nx+1, Nz)
     Fx = _zero_pad(weno5_advective_flux(u_corner[:, 1:-1, :], vi, axis=1, boundary="edge"), 1)
     div = div + (Fx[:, 1:, :] - Fx[:, :-1, :]) / dx
-    w_v = 0.5 * (w[1:, :, :] + w[:-1, :, :])  # (Ny-1, Nx, Nz+1)
+    wh = y.halo(w, 1)
+    w_v = 0.5 * (wh[1:, :, :] + wh[:-1, :, :])  # (n+1, Nx, Nz+1)
     Fz_int = weno5_advective_flux(w_v[..., 1:-1], vi, axis=2, boundary="edge")
     Fz = torch.cat([w_v[..., :1] * vi[..., :1], Fz_int, w_v[..., -1:] * vi[..., -1:]], dim=-1)
     return div + (Fz[..., 1:] - Fz[..., :-1]) / dz
@@ -366,7 +428,7 @@ def _v_advection_weno(model: DoubleGyreModel, u, v, w):
 def double_gyre_step(model: DoubleGyreModel, state: DoubleGyreState, dt, nn=None,
                      T_scaling: ZeroMeanUnitVarianceScaling | None = None,
                      wT_scaling: ZeroMeanUnitVarianceScaling | None = None, tridiag_backend: str = "auto",
-                     T_remap=None, nn_stability_gate=None) -> DoubleGyreState:
+                     T_remap=None, nn_stability_gate=None, y: WalledY | None = None) -> DoubleGyreState:
     """Advance one step: tracer step -> explicit momentum (pressure from the updated tracer) ->
     barotropic DCT correction -> implicit vertical mixing (+ the optional NN closure).
 
@@ -376,11 +438,14 @@ def double_gyre_step(model: DoubleGyreModel, state: DoubleGyreState, dt, nn=None
     and internal waves grow by about sqrt(1 + (omega dt)^2) per step), and
     v's Coriolis term sees the updated u (``u_star``). ``tridiag_backend="auto"``
     is the Thomas kernel for CUDA state and the plain scan on the CPU
-    (``train/nde.py::resolve_tridiag_backend``).
+    (``train/nde.py::resolve_tridiag_backend``). ``y`` holds the y-axis
+    hooks (:class:`WalledY`; default: the whole axis on this device); with a
+    y-decomposed one the state is this rank's block of rows.
     """
     from climateparameterizations_jl_tpu_torch.train.nde import resolve_tridiag_backend
 
     tridiag_backend = resolve_tridiag_backend(tridiag_backend, 1, state.T.device)
+    y = WalledY(model.Ny) if y is None else y
     u, v, T, eta = state.u, state.v, state.T, state.eta
     dx, dy, dz = model.dx, model.dy, model.dz
     dtype = T.dtype
@@ -390,14 +455,14 @@ def double_gyre_step(model: DoubleGyreModel, state: DoubleGyreState, dt, nn=None
     # ---- temperature: flux-form advection + diffusion + forcings ---------
     if model.advection == "weno5":
         Fx = _zero_pad(weno5_advective_flux(u[:, 1:-1, :], T, axis=1, boundary="edge"), 1)
-        Fy = _zero_pad(weno5_advective_flux(v[1:-1, :, :], T, axis=0, boundary="edge"), 0)
+        Fy = y.weno_flux(v, T)
         Fz_int = weno5_advective_flux(w[..., 1:-1], T, axis=2, boundary="edge")
         Fz = torch.cat([w[..., :1] * T[..., :1], Fz_int, w[..., -1:] * T[..., -1:]], dim=-1)
     elif model.advection == "centered":
         T_at_u = 0.5 * (T[:, 1:, :] + T[:, :-1, :])
         Fx = _zero_pad(u[:, 1:-1, :] * T_at_u, 1)
-        T_at_v = 0.5 * (T[1:, :, :] + T[:-1, :, :])
-        Fy = _zero_pad(v[1:-1, :, :] * T_at_v, 0)
+        Th = y.halo(T, 1)
+        Fy = y.zero_walls(v * (0.5 * (Th[1:, :, :] + Th[:-1, :, :])))
         Tz = torch.cat([T[..., :1], 0.5 * (T[..., 1:] + T[..., :-1]), T[..., -1:]], dim=-1)
         Fz = w * Tz
     else:
@@ -406,10 +471,10 @@ def double_gyre_step(model: DoubleGyreModel, state: DoubleGyreState, dt, nn=None
         -(Fx[:, 1:, :] - Fx[:, :-1, :]) / dx
         - (Fy[1:, :, :] - Fy[:-1, :, :]) / dy
         - (Fz[..., 1:] - Fz[..., :-1]) / dz
-        + model.kappa_h * _laplacian_h(T, dx, dy)
+        + model.kappa_h * _laplacian_h(T, dx, dy, y=y)
     )
     # Surface restoring toward T*(y) in the top cell (double_gyre.jl's restoring flux BC).
-    sst_target = model.restoring_sst(dtype)
+    sst_target = y.rows(model.restoring_sst(dtype))
     GT = _set_at(GT, -1, -1, GT[..., -1] + (sst_target[:, None] - T[..., -1]) / model.t_restore)
     if nn is not None:
         GT = GT + nn_closure_forcing(model, nn, T, T_scaling, wT_scaling, T_remap, nn_stability_gate)
@@ -417,8 +482,8 @@ def double_gyre_step(model: DoubleGyreModel, state: DoubleGyreState, dt, nn=None
 
     p = hydrostatic_pressure(model, T_new)
 
-    yc = model.y_centers(dtype)
-    yf = torch.arange(model.Ny + 1, dtype=dtype, device=T.device) * dy
+    yc = y.rows(model.y_centers(dtype))
+    yf = y.faces(torch.arange(model.Ny + 1, dtype=dtype, device=T.device) * dy)
     f_c = model.f0 + model.beta * yc  # at u rows
     f_f = model.f0 + model.beta * yf  # at v rows
 
@@ -427,14 +492,14 @@ def double_gyre_step(model: DoubleGyreModel, state: DoubleGyreState, dt, nn=None
     dpdx = (p[:, 1:, :] - p[:, :-1, :]) / dx
     detadx = (eta[:, 1:] - eta[:, :-1])[..., None] / dx
     Gu = f_c[:, None, None] * v_at_u - dpdx - model.g * detadx
-    Gu = Gu + model.Ah * _laplacian_h(u, dx, dy)[:, 1:-1, :]
+    Gu = Gu + model.Ah * _laplacian_h(u, dx, dy, y=y)[:, 1:-1, :]
     if not model.linear_momentum:
         if model.momentum_advection == "weno5":
-            Gu = Gu - _u_advection_weno(model, u, v, w)
+            Gu = Gu - _u_advection_weno(model, u, v, w, y)
         elif model.momentum_advection == "centered":
             ui = u[:, 1:-1, :]
             dudx = (u[:, 2:, :] - u[:, :-2, :]) / (2 * dx)
-            up = _edge_pad(u, 0)
+            up = y.halo(u, 1)
             dudy = (up[2:, 1:-1, :] - up[:-2, 1:-1, :]) / (2 * dy)
             uz = _edge_pad(u, 2)
             dudz = (uz[:, 1:-1, 2:] - uz[:, 1:-1, :-2]) / (2 * dz)
@@ -445,53 +510,57 @@ def double_gyre_step(model: DoubleGyreModel, state: DoubleGyreState, dt, nn=None
             raise ValueError(f"unknown momentum advection scheme {model.momentum_advection!r} "
                              "(expected 'weno5' or 'centered')")
     # Wind stress (top cell) + bottom drag (bottom cell).
-    tau_x = model.wind_stress(dtype)
+    tau_x = y.rows(model.wind_stress(dtype))
     Gu = _set_at(Gu, -1, -1, Gu[..., -1] + tau_x[:, None] / dz)
     Gu = _set_at(Gu, -1, 0, Gu[..., 0] + (-model.r_drag * u[:, 1:-1, 0]))
     u_star = u + dt * _zero_pad(Gu, 1)
 
-    # ---- v tendency at interior y-faces (j = 1..Ny-1) --------------------
+    # ---- v tendency on the block's y-faces (those on walls are zeroed) ---
     # Forward-backward Coriolis: v sees the updated u (u_star).
-    u_fb = u_star
-    u_at_v = 0.25 * (u_fb[:-1, :-1, :] + u_fb[:-1, 1:, :] + u_fb[1:, :-1, :] + u_fb[1:, 1:, :])  # (Ny-1, Nx, Nz)
-    dpdy = (p[1:, :, :] - p[:-1, :, :]) / dy
-    detady = (eta[1:, :] - eta[:-1, :])[..., None] / dy
-    Gv = -f_f[1:-1, None, None] * u_at_v - dpdy - model.g * detady
-    Gv = Gv + model.Ah * _laplacian_h(v, dx, dy)[1:-1, :, :]
+    u_fb = y.halo(u_star, 1)
+    u_at_v = 0.25 * (u_fb[:-1, :-1, :] + u_fb[:-1, 1:, :] + u_fb[1:, :-1, :] + u_fb[1:, 1:, :])  # (n+1, Nx, Nz)
+    ph, eh = y.halo(p, 1), y.halo(eta, 1)
+    dpdy = (ph[1:, :, :] - ph[:-1, :, :]) / dy
+    detady = (eh[1:, :] - eh[:-1, :])[..., None] / dy
+    Gv = -f_f[:, None, None] * u_at_v - dpdy - model.g * detady
+    Gv = Gv + model.Ah * _laplacian_h(v, dx, dy, y=y, faces=True)
     if not model.linear_momentum:
         if model.momentum_advection == "weno5":
             # Advects the pre-rotation v with the pre-step u (the forward-backward trick is the Coriolis term's).
-            Gv = Gv - _v_advection_weno(model, u, v, w)
+            Gv = Gv - _v_advection_weno(model, u, v, w, y)
         else:  # "centered" (the scheme was checked in the u block)
-            vi = v[1:-1, :, :]
-            dvdy = (v[2:, :, :] - v[:-2, :, :]) / (2 * dy)
+            vi = v
+            vh = y.halo(v, 1, faces=True)
+            dvdy = (vh[2:, :, :] - vh[:-2, :, :]) / (2 * dy)
             vp = _edge_pad(v, 1)
-            dvdx = (vp[1:-1, 2:, :] - vp[1:-1, :-2, :]) / (2 * dx)
+            dvdx = (vp[:, 2:, :] - vp[:, :-2, :]) / (2 * dx)
             vz = _edge_pad(v, 2)
-            dvdz = (vz[1:-1, :, 2:] - vz[1:-1, :, :-2]) / (2 * dz)
-            w_at_v = 0.5 * (w[1:, :, :] + w[:-1, :, :])
+            dvdz = (vz[:, :, 2:] - vz[:, :, :-2]) / (2 * dz)
+            wh = y.halo(w, 1)
+            w_at_v = 0.5 * (wh[1:, :, :] + wh[:-1, :, :])
             w_at_v = 0.5 * (w_at_v[..., 1:] + w_at_v[..., :-1])
             Gv = Gv - (u_at_v * dvdx + vi * dvdy + w_at_v * dvdz)
-    Gv = _set_at(Gv, -1, 0, Gv[..., 0] + (-model.r_drag * v[1:-1, :, 0]))
-    v_star = v + dt * _zero_pad(Gv, 0)
+    Gv = _set_at(Gv, -1, 0, Gv[..., 0] + (-model.r_drag * v[:, :, 0]))
+    v_star = v + dt * y.zero_walls(Gv)
 
     # ---- barotropic correction (semi-implicit free surface) --------------
     ubar = torch.mean(u_star, dim=-1)
     vbar = torch.mean(v_star, dim=-1)
     div_bar = (ubar[:, 1:] - ubar[:, :-1]) / dx + (vbar[1:, :] - vbar[:-1, :]) / dy
     rhs = -dt * model.H * div_bar
-    d_eta = solve_free_surface(model, rhs, dt)
+    d_eta = y.free_surface(model, rhs, dt)
     eta_new = eta + d_eta
     corr_x = -model.g * dt * (d_eta[:, 1:] - d_eta[:, :-1])[..., None] / dx
-    corr_y = -model.g * dt * (d_eta[1:, :] - d_eta[:-1, :])[..., None] / dy
+    dh = y.halo(d_eta, 1)
+    corr_y = -model.g * dt * (dh[1:, :] - dh[:-1, :])[..., None] / dy
     u_new = torch.cat([u_star[:, :1], u_star[:, 1:-1] + corr_x, u_star[:, -1:]], dim=1)
-    v_new = torch.cat([v_star[:1], v_star[1:-1] + corr_y, v_star[-1:]], dim=0)
+    v_new = v_star + y.zero_walls(corr_y)
 
     # ---- implicit vertical mixing + convective adjustment -----------------
     u_new, v_new, T_new = _implicit_vertical_mixing(model, u_new, v_new, T_new, dt, tridiag_backend)
     # Re-pin the walls (the implicit solve keeps them, but explicitly).
     u_new = _zero_pad(u_new[:, 1:-1, :], 1)
-    v_new = _zero_pad(v_new[1:-1, :, :], 0)
+    v_new = y.zero_walls(v_new)
     return DoubleGyreState(u=u_new, v=v_new, T=T_new, eta=eta_new)
 
 

@@ -53,6 +53,33 @@ class FluxNNs(NamedTuple):
     wT: MLP | None
 
 
+# Rows per block of the packed chain's products on the card (:func:`_rows_product`).
+ROW_BLOCK = 128
+
+
+def _rows_product(x, A):
+    """``x @ A`` over the last axis, each row's result independent of how many rows share the product.
+
+    cuBLAS chooses its GEMM kernel by the row count, and two kernels round a
+    row's sums differently: on an H100 the flagship chain's folded last
+    layer (60 -> 96) gives other bits at 512 rows than at 256, so a member's
+    trajectory depended on how many members were solved beside it
+    (``chip_smoke.py`` phase 43). On CUDA tensors the rows therefore go in
+    blocks of :data:`ROW_BLOCK`, at least two (cuBLAS takes a batch of one
+    as a plain GEMM), the last zero-padded, through ONE strided batched GEMM
+    of a fixed shape. CPU tensors take the plain product.
+    """
+    if not x.is_cuda:
+        return x @ A
+    rows = x.reshape(-1, x.shape[-1])
+    n = rows.shape[0]
+    n_blocks = max(2, -(-n // ROW_BLOCK))
+    if n_blocks * ROW_BLOCK != n:
+        rows = torch.cat([rows, rows.new_zeros(n_blocks * ROW_BLOCK - n, rows.shape[1])])
+    out = torch.bmm(rows.reshape(n_blocks, ROW_BLOCK, -1), A.expand(n_blocks, *A.shape))
+    return out.reshape(-1, A.shape[-1])[:n].reshape(*x.shape[:-1], A.shape[-1])
+
+
 @dataclasses.dataclass(frozen=True)
 class PackedFluxNNs:
     """The three flux MLPs fused into ONE block matmul chain.
@@ -66,11 +93,12 @@ class PackedFluxNNs:
     activation: str = "mish"
 
     def __call__(self, x):
-        """Concatenated interior fluxes ``(..., 3 (Nz-1))`` in uw|vw|wT order."""
+        """Concatenated interior fluxes ``(..., 3 (Nz-1))`` in uw|vw|wT order (each row on its own:
+        :func:`_rows_product`)."""
         act = _ACTIVATIONS[self.activation]
         n = len(self.matrices)
         for i, (A, b) in enumerate(zip(self.matrices, self.biases)):
-            x = x @ A + b
+            x = _rows_product(x, A) + b
             if i < n - 1:
                 x = act(x)
         return x
@@ -498,7 +526,7 @@ def _fast_explicit_tendencies(model: WindMixingModel, packed, Dr, bcs: BoundaryC
     """Matmul-assembled :func:`_explicit_rhs_split`: packed chain + divergence matmul + BC row."""
     bcs_t = _effective_bcs(model, bcs, t)
     y = _pad_to_block(packed(x), model.Nz)
-    return y @ Dr + _split_bc_row(model, bcs_t, tuple(x.shape[:-1]))
+    return _rows_product(y, Dr) + _split_bc_row(model, bcs_t, tuple(x.shape[:-1]))
 
 
 def _pad_packed_chain(packed: PackedFluxNNs, Nz: int):

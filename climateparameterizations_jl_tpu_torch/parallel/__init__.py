@@ -1,1 +1,3 @@
-"""Device layout of the port: one card, described as the JAX package's 1-D mesh (``parallel/sharding.py``)."""
+"""The parallel layer on ``torch.distributed``: the JAX package's ``parallel/`` (``sharding.py``, ``les_sharding.py``,
+``gyre_sharding.py``) with one process per device; ``world.py`` joins and spawns worlds and logs every collective,
+``dryrun.py`` runs every sharded path on a mesh."""

@@ -10,8 +10,11 @@ is ``{"params": nns, "opt_state": opt_state}`` with ``opt_state`` in optax's
 layout (:func:`optax_state`); ``torch.optim.Adam``'s state maps onto it.
 
 The JAX package's orbax variants (``save_checkpoint_orbax``,
-``load_checkpoint_orbax``) write sharded multi-host checkpoints through
-orbax, which has no PyTorch twin; they are not ported.
+``load_checkpoint_orbax``) write sharded checkpoints; their counterparts
+here are :func:`save_checkpoint_dcp` and :func:`load_checkpoint_dcp`, on
+``torch.distributed.checkpoint``: each rank writes the shards it owns,
+replicated leaves are written once, and a checkpoint restores into a world
+of another size.
 """
 
 from __future__ import annotations
@@ -112,6 +115,65 @@ def load_checkpoint(directory: str, skeleton):
             return torch.tensor(arr, dtype=leaf.dtype, device=leaf.device)
 
         state = _map_leaves(skeleton, restore)
+    return state, _read_meta(directory)
+
+
+def _dcp_state_dict(state, mesh, sharded: tuple):
+    """``{key: tensor}`` of ``state``'s leaves; those under a ``sharded`` key prefix become row-sharded ``DTensor``s."""
+    import torch.distributed as dist
+
+    flat = {}
+
+    def collect(key, leaf):
+        if leaf.dim() >= 1 and any(key.startswith(p) for p in sharded) and dist.is_initialized():
+            from torch.distributed.tensor import DTensor, Shard
+
+            leaf = DTensor.from_local(leaf, mesh, [Shard(0)], run_check=False)
+        flat[key] = leaf
+        return leaf
+
+    _map_leaves(state, collect)
+    return flat
+
+
+def save_checkpoint_dcp(directory: str, state, meta: dict | None = None, mesh=None, sharded: tuple = ()):
+    """Sharded checkpoint through ``torch.distributed.checkpoint`` (the JAX package's ``save_checkpoint_orbax``).
+
+    Every rank calls it. Leaves whose key (the ``state.npz`` spelling,
+    e.g. ``['params'].wT.weights[0]``) starts with one of the ``sharded``
+    prefixes (``""`` for every leaf) are this rank's block of a leading axis
+    split evenly over the 1-D ``mesh`` (the member-sharded deep ensemble):
+    each rank writes its own. The other leaves are replicated and written
+    once. The tree goes to ``<directory>/dcp``; rank 0 writes ``meta.json``
+    beside it, as in the npz layout. 0-d leaves are always replicated.
+    """
+    import torch.distributed.checkpoint as dcp
+
+    from climateparameterizations_jl_tpu_torch.parallel import world
+
+    directory = os.path.abspath(directory)
+    os.makedirs(directory, exist_ok=True)
+    dcp.save(_dcp_state_dict(state, mesh, tuple(sharded)), checkpoint_id=os.path.join(directory, "dcp"))
+    if world.is_rank0():
+        with open(os.path.join(directory, "meta.json"), "w") as f:
+            json.dump(meta or {}, f, indent=2, default=str)
+
+
+def load_checkpoint_dcp(directory: str, skeleton, mesh=None, sharded: tuple = ()):
+    """Restore a :func:`save_checkpoint_dcp` checkpoint into ``skeleton``; returns ``(state, meta)``.
+
+    The JAX package's ``load_checkpoint_orbax`` with a skeleton. Every rank
+    calls it with its own skeleton: under a ``sharded`` prefix a leaf is
+    this rank's block on ``mesh``, elsewhere the whole tensor. The world
+    may differ in size from the one that saved, down to no world at all
+    (then every leaf is whole).
+    """
+    import torch.distributed.checkpoint as dcp
+
+    directory = os.path.abspath(directory)
+    targets = _dcp_state_dict(_map_leaves(skeleton, lambda _k, leaf: torch.empty_like(leaf)), mesh, tuple(sharded))
+    dcp.load(targets, checkpoint_id=os.path.join(directory, "dcp"))
+    state = _map_leaves(skeleton, lambda key, _leaf: getattr(targets[key], "to_local", lambda: targets[key])())
     return state, _read_meta(directory)
 
 

@@ -21,6 +21,12 @@ the forward map takes the whole ``(J, p)`` population and returns ``(J, d)``
 (:func:`eki_calibrate`): the calibrations put the J parameter sets on the
 solve's batch axis, so one forward evaluation is one solve. The noise is
 drawn from an explicit ``torch.Generator``.
+
+Over a mesh (``parallel/sharding.py::make_mesh``) each rank evaluates its
+``J / N`` members and one ``all_gather`` per evaluation assembles ``g``;
+every rank then runs the same Kalman update. The draws (the initial
+ensemble and every ``eta``) are rank 0's, broadcast, so the ranks' updates
+cannot drift apart whatever their generators hold.
 """
 
 from __future__ import annotations
@@ -83,12 +89,6 @@ def eki_update(u, g, y, noise_std, generator: torch.Generator | None = None):
     return kalman_step(u, g, y, eta, noise_std)
 
 
-def _refuse_mesh(mesh, where: str):
-    if mesh is not None:
-        raise NotImplementedError(f'{where}(mesh=...) shards the population over devices; the parallel '
-                                  'modules are not ported yet (ROADMAP.md, queue 1, item 11, "Parallel")')
-
-
 def eki_calibrate(forward_fn: Callable, y_obs, priors: dict, generator: torch.Generator | None = None,
                   n_ensemble: int = 64, n_iterations: int = 10, noise_std: float | None = None,
                   batch_size: int | None = None, mesh=None, inflation: float = 1.0,
@@ -109,10 +109,10 @@ def eki_calibrate(forward_fn: Callable, y_obs, priors: dict, generator: torch.Ge
     model error dwarfs ``noise_std`` (as for a physics closure against LES
     data), the first update collapses the ensemble onto a corner of the
     prior box, where it freezes. ``inflation > 1`` multiplies the spread
-    after each update. ``mesh`` (sharding the population over devices)
-    waits for the parallel port (``ROADMAP.md``, queue 1, item 11) and raises.
+    after each update. ``mesh`` splits the population over its ranks (module
+    docstring): ``n_ensemble`` must divide by the mesh size (``ValueError``),
+    and ``batch_size`` is then ignored, as in the JAX package.
     """
-    _refuse_mesh(mesh, "eki_calibrate")
     generator = generator if generator is not None else torch.Generator().manual_seed(0)
     names = tuple(priors.keys())
     y = torch.as_tensor(y_obs)
@@ -120,12 +120,29 @@ def eki_calibrate(forward_fn: Callable, y_obs, priors: dict, generator: torch.Ge
     hi = torch.tensor([priors[n][1] for n in names], dtype=y.dtype, device=y.device)
     if noise_std is None:
         noise_std = 0.01 * float(torch.std(y, correction=0))
-    theta0 = lo + (hi - lo) * torch.rand((n_ensemble, len(names)), generator=generator, dtype=y.dtype).to(y.device)
+    axis = None
+    if mesh is not None:
+        from climateparameterizations_jl_tpu_torch.parallel import world
+
+        axis = world.axis_of(mesh)
+        if n_ensemble % axis.size:
+            raise ValueError(f"n_ensemble={n_ensemble} must divide over the {axis.size}-rank mesh")
+        batch_size = None
+
+    def draw(fn, shape):  # rank 0's draw on every rank
+        x = fn(shape, generator=generator, dtype=y.dtype).to(y.device)
+        return x if axis is None else world.broadcast(x, axis)
+
+    theta0 = lo + (hi - lo) * draw(torch.rand, (n_ensemble, len(names)))
     u = _to_unconstrained(theta0, lo, hi)
     # Tempering: each of the N steps assimilates likelihood^(1/N), noise std sqrt(N) s.
     step_noise = noise_std * (float(n_iterations) ** 0.5 if tempered else 1.0)
 
     def evaluate(theta):
+        if axis is not None:
+            k = n_ensemble // axis.size
+            g = forward_fn(theta[axis.rank * k: (axis.rank + 1) * k])
+            return world.all_gather(g.contiguous(), axis).reshape(n_ensemble, *g.shape[1:])
         if batch_size is None:
             return forward_fn(theta)
         return torch.cat([forward_fn(theta[i: i + batch_size]) for i in range(0, theta.shape[0], batch_size)])
@@ -145,7 +162,7 @@ def eki_calibrate(forward_fn: Callable, y_obs, priors: dict, generator: torch.Ge
     for _ in range(n_iterations):
         g = sanitized_eval(_to_constrained(u, lo, hi))
         misfits.append(float(torch.mean((g - y[None, :]) ** 2)))
-        u = eki_update(u, g, y, step_noise, generator)
+        u = kalman_step(u, g, y, step_noise * draw(torch.randn, g.shape), step_noise)
         if inflation != 1.0:
             u_mean = torch.mean(u, dim=0, keepdim=True)
             u = u_mean + inflation * (u - u_mean)
@@ -167,7 +184,8 @@ def calibrate_kpp_eki(ds, tsteps, Nz: int, generator: torch.Generator | None = N
     spread is the posterior uncertainty. The forward map is the population
     map of ``train/kpp_calibration.py``: the J parameter sets ride the KPP
     solve's batch axis, so each forward evaluation is one solve (one Thomas
-    launch per step on the card). ``mesh`` raises, as in :func:`eki_calibrate`.
+    launch per step on the card). ``mesh`` splits the population over its
+    ranks, as in :func:`eki_calibrate`.
     """
     from climateparameterizations_jl_tpu_torch.physics.kpp import KPPParameters
     from climateparameterizations_jl_tpu_torch.train.kpp_calibration import (
@@ -176,12 +194,11 @@ def calibrate_kpp_eki(ds, tsteps, Nz: int, generator: torch.Generator | None = N
         make_kpp_forward_fn,
     )
 
-    _refuse_mesh(mesh, "calibrate_kpp_eki")
     priors = priors if priors is not None else dict(DEFAULT_PRIORS)
     names = tuple(priors.keys())
     base = base_params if base_params is not None else KPPParameters.default(device=ds.T.device)
     forward, y = make_kpp_forward_fn(ds, tsteps, Nz, base, names, n_substeps)
     result = eki_calibrate(forward, y, priors, generator=generator, n_ensemble=n_ensemble,
-                           n_iterations=n_iterations, inflation=inflation)
+                           n_iterations=n_iterations, mesh=mesh, inflation=inflation)
     calibrated = _with_overrides(base, names, [result.theta_mean[i] for i in range(len(names))])
     return calibrated, result

@@ -172,10 +172,21 @@ def test_eki_tempering_prevents_saturation_collapse():
     np.testing.assert_allclose(good.theta_mean.numpy(), [1.0, 5.0], atol=0.05)
 
 
-def test_eki_mesh_names_its_roadmap_item():
+def test_eki_mesh_names_its_roadmap_item(monkeypatch):
+    """``mesh=`` is accepted: on a one-device mesh the run is the mesh-less one; an ``n_ensemble`` that does not
+    divide over the mesh raises ``ValueError`` (worlds of 2 ranks: ``test_torch_parallel.py``)."""
+    from climateparameterizations_jl_tpu_torch.parallel import sharding, world
+
     A, y, forward = _linear_problem(12, [0.7, 2.5])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        teki.eki_calibrate(forward, y, {"a": (0.0, 1.0), "b": (0.0, 5.0)}, mesh=object())
+    priors = {"a": (0.0, 1.0), "b": (0.0, 5.0)}
+    kw = dict(n_ensemble=16, n_iterations=3, noise_std=1e-3)
+    plain = teki.eki_calibrate(forward, y, priors, generator=torch.Generator().manual_seed(1), **kw)
+    meshed = teki.eki_calibrate(forward, y, priors, generator=torch.Generator().manual_seed(1),
+                                mesh=sharding.make_mesh(device="cpu"), **kw)
+    assert torch.equal(plain.ensemble, meshed.ensemble) and plain.misfit_history == meshed.misfit_history
+    monkeypatch.setattr(world, "axis_of", lambda mesh, name=None: world.Axis(None, 0, 3))
+    with pytest.raises(ValueError, match="n_ensemble=16 must divide over the 3-rank mesh"):
+        teki.eki_calibrate(forward, y, priors, mesh=sharding.make_mesh(device="cpu"), **kw)
 
 
 def test_calibrate_mpp_eki_reduces_misfit(problem):

@@ -550,12 +550,11 @@ def _options(parser) -> dict:
 
 
 def test_parser_has_every_jax_command_and_flag():
-    """Every JAX subcommand but ``fetch`` (the downloader, left out) parses in the port with every JAX flag."""
+    """Every JAX subcommand, ``fetch`` included, parses in the port with every JAX flag."""
     jax_cmds, port_cmds = _options(jcli.build_parser()), _options(tcli.build_parser())
-    assert set(jax_cmds) - set(port_cmds) == {"fetch"}
+    assert set(jax_cmds) - set(port_cmds) == set()
     for name, flags in jax_cmds.items():
-        if name != "fetch":
-            assert flags <= port_cmds[name], (name, flags - port_cmds[name])
+        assert flags <= port_cmds[name], (name, flags - port_cmds[name])
     with_format = {n for n, f in port_cmds.items() if "--animation-format" in f}
     assert with_format == {n for n, f in jax_cmds.items() if "--animation-format" in f} and len(with_format) == 11
 

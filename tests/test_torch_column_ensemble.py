@@ -3,8 +3,8 @@
 On one device the JAX package's mesh-sharded ensemble solver is the batched
 split solve, so the port's ``make_sharded_ensemble_solver`` must equal
 ``train/nde.py::solve_with_config`` on the same batch (bit for bit: the
-same function). ``make_mesh`` of more than one device raises (queue 1, item
-4). The ``ensemble`` command runs in both packages on the same suite (the
+same function). ``make_mesh`` of more than one device needs a world of that
+many ranks and raises without one. The ``ensemble`` command runs in both packages on the same suite (the
 JAX stand-in columns in float32, handed over through numpy), the same
 deep-ensemble checkpoint (member 0 of ``runs/wm_flagship_ens4``) and the
 same perturbation (the JAX command's ``jax.random`` draw, handed to the
@@ -40,10 +40,13 @@ ENS_RTOL = 1e-4
 
 
 def test_make_mesh_is_one_device():
+    """With no process group the mesh is one device; a mesh of 2 needs a world of 2 and says how to start one."""
     assert sharding.make_mesh(device="cpu") == torch.device("cpu")
     assert sharding.make_mesh(1, device="cpu") == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node N"):
         sharding.make_mesh(2, device="cpu")
+    with pytest.raises(RuntimeError, match="spawn_world"):
+        sharding.make_mesh_2d(2, 1)
     with pytest.raises(ValueError):
         sharding.make_mesh(0, device="cpu")
 

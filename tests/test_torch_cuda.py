@@ -547,3 +547,28 @@ def test_gp_closure_shares_one_gram_per_stage(card):
     traj = gp_closure.solve_gp_closure(model, gp_closure.FluxGPs(*models), x0, 0.0, 1e-4, 2, n_substeps=2)
     torch.cuda.synchronize()
     assert _cuda.GRAM.launches - before == 2 * 2 * 4 and bool(torch.isfinite(traj).all())
+
+
+@pytest.mark.cuda
+def test_split_solve_rows_do_not_depend_on_the_cut(card):
+    """The packed chain's products run in fixed row blocks on the card (``models/wind_mixing.py::_rows_product``),
+    so a (16, 64) block of perturbed flagship columns solved whole equals its four (8, 32) tiles bit for bit, and
+    the first block of each layer's product is the same at every row count (cuBLAS picks its GEMM kernel by the
+    row count: a plain ``@`` differs between 256 and 1,024 rows)."""
+    from climateparameterizations_jl_tpu_torch.train.nde import NDETrainConfig, solve_with_config
+
+    model, nns, bcs, x0 = _setup(card, 16)
+    gen = torch.Generator().manual_seed(43)
+    x = (x0[:, None, :] + 0.05 * torch.randn((16, 64, x0.shape[-1]), generator=gen).to(card)).contiguous()
+    config = NDETrainConfig(n_substeps=16, method="split")
+    with torch.no_grad():
+        whole = solve_with_config(model, nns, bcs, x, 0.0, 16 * DT, 2, config)
+        cut = torch.cat([torch.cat([solve_with_config(model, nns, bcs, x[i * 8:(i + 1) * 8, j * 32:(j + 1) * 32]
+                                                      .contiguous(), 0.0, 16 * DT, 2, config) for j in range(2)],
+                                   dim=2) for i in range(2)], dim=1)
+    assert torch.equal(cut, whole), int((cut != whole).sum())
+    for A in twm.pack_flux_nns(nns).matrices:
+        rows = torch.randn((16384, A.shape[0]), generator=gen).to(card)
+        first = twm._rows_product(rows[:256], A)[:twm.ROW_BLOCK]
+        for n in (384, 1024, 1152, 16384):
+            assert torch.equal(twm._rows_product(rows[:n], A)[:twm.ROW_BLOCK], first), (tuple(A.shape), n)

@@ -171,5 +171,14 @@ def test_calibrate_kpp_eki_reduces_misfit(suite):
     assert result.ensemble.shape == (16, 4) and result.names == tuple(tkc.DEFAULT_PRIORS)
     assert result.misfit_history[-1] < result.misfit_history[0]
     assert bool(torch.isfinite(result.theta_std).all()) and float(params.CSL) == float(result.theta_mean[0])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        teki.calibrate_kpp_eki(tds, TSTEPS, NZ, mesh=object())
+    # mesh= is accepted: a one-device mesh gives the mesh-less run; an n_ensemble that does not divide raises.
+    from climateparameterizations_jl_tpu_torch.parallel import sharding, world
+
+    mesh = sharding.make_mesh(device="cpu")
+    _, meshed = teki.calibrate_kpp_eki(tds, TSTEPS, NZ, generator=torch.Generator().manual_seed(0), n_ensemble=16,
+                                       n_iterations=4, mesh=mesh)
+    assert torch.equal(meshed.ensemble, result.ensemble)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(world, "axis_of", lambda mesh, name=None: world.Axis(None, 0, 3))
+        with pytest.raises(ValueError, match="must divide over the 3-rank mesh"):
+            teki.calibrate_kpp_eki(tds, TSTEPS, NZ, n_ensemble=16, n_iterations=1, mesh=mesh)
