@@ -91,7 +91,15 @@ mish), Nz = 32:
   members, the 64^3 LES and the 96 x 96 x 32 gyre), each held to the port's
   single-device entry on the same inputs, with its collectives and its
   Thomas / Gram launches; then, on one card, the 2-D suite's block solved
-  whole and as four tiles, equal bit for bit (``cut_control``).
+  whole and as four tiles, equal bit for bit (``cut_control``);
+- the studies (phase 44): ``studies/flagship_training.py`` of the port at
+  full width (18 sims x 1,153 frames), ``--mode train --calibrate-mpp``
+  (pretraining, L-BFGS, the four curriculum stages at their full windows, one
+  iteration each) with the Thomas launches of each stage against their
+  derivation, then ``--eval-checkpoint runs/wm_flagship_fold``: the held-out
+  evaluation against mPP and KPP beside the stored JAX run; and
+  ``studies/adjoint_parity.py``: its dt refinement in f32 on the kernel and in
+  f64 on scan.
 
 It builds the five kernels from ``csrc/`` (one ``nvcc`` each, side by
 side), holds each against its plain PyTorch version, times it, and checks
@@ -233,15 +241,17 @@ FAST_TIMED_STEPS = 1
 # Run C repeats the first two stages (the plain 200:20, 18 rows of 180
 # substeps, and the first shooting stage 577:12, K = 16, 288 rows of 36
 # substeps: the Thomas kernel at (3, 18, 32) and (3, 288, 32)) on a
-# 577-frame suite for two iterations each, once with the kernel and once
-# with the plain scan. Every loss is held to phase 9's STEP_LOSS_RTOL, for
+# 577-frame suite (phase 8's first 577 frames) for NDE_C_ITERS iterations
+# each, once with the kernel and once with the plain scan. Every loss is held to phase 9's STEP_LOSS_RTOL, for
 # phase 9's reason: per-solve f32 differences of a few ulps through the
 # substeps, and after the first loss through the backward passes (checkpoint
 # recompute and transposed IFT solves) and adam steps, amplified where the
 # mPP tanh switch is steep.
 NDE_CURRICULUM, NDE_SHOOTING, NDE_LR = "200:20,577:12,1153:9", 16, "2e-4"
 NDE_N_SAVE = 1152  # 1,153 frames (8 days of 600 s saves)
-NDE_C_STAGES, NDE_C_N_SAVE, NDE_C_ITERS = "200:20,577:12", 576, 2  # run C: the first two stages on 577 frames
+# Run C ran two iterations per stage until phase 44 joined (a depth cut: the second stage's loss still follows the
+# first stage's backward pass and adam step).
+NDE_C_STAGES, NDE_C_N_SAVE, NDE_C_ITERS = "200:20,577:12", 576, 1  # run C: the first two stages on 577 frames
 NDE_FRACTIONS = ["--auto-balance", "--fraction-T", "0.8", "--fraction-dTdz", "0.8", "--fraction-profile", "0.5"]
 
 # Phase 23: bench_fc_forward at the JAX benchmark's size (benchmarks.py:444 there): 1,024 physics-only
@@ -251,12 +261,13 @@ NDE_FRACTIONS = ["--auto-balance", "--fraction-T", "0.8", "--fraction-dTdz", "0.
 FC_COLUMNS, FC_STEPS, FC_REPEATS = 1024, 1152, 5
 FC_PROFILE_STEPS = 288  # the profiled run: its op count per substep and idle share, without 1,152 substeps of tracing
 # Phase 24: train-fc-nde at full width: all nine ids, Nz = 32, 1,153 frames (8 days of 600 s saves), split
-# solver with 4 substeps per save, flux pre-training, and a two-stage curriculum of 576 and 2,304 substeps per solve
-# (depth cuts: a 2,304-substep middle stage of 577:8 ran before the evaluation phases joined, and the last stage
-# spanned the window, 1153:16 or 4,608 substeps, before the embedding phases joined), 2 iterations per stage. Then
+# solver with 4 substeps per save, flux pre-training, and a two-stage curriculum of 576 and 1,152 substeps per solve
+# (depth cuts: a 2,304-substep middle stage of 577:8 ran before the evaluation phases joined, the last stage spanned
+# the window, 1153:16 or 4,608 substeps, before the embedding phases joined, and was 577:16, 2,304 substeps, before
+# phase 44 joined), 2 iterations per stage. Then
 # the first stage again with --tridiag-backend scan: both losses must equal the kernel-backed run's, for the reason
 # above.
-FC_IDS, FC_N_SAVE, FC_CURRICULUM, FC_ITERS = "1,2,3,4,5,6,7,8,9", 1152, "145:8,577:16", 2
+FC_IDS, FC_N_SAVE, FC_CURRICULUM, FC_ITERS = "1,2,3,4,5,6,7,8,9", 1152, "145:8,289:16", 2
 FC_ARGS = ["--nz", str(NZ), "--n-save", str(FC_N_SAVE), "--dt-save", "600", "--method", "split", "--n-substeps", "4",
            "--pretrain-epochs", "20", "--lr", "1e-3", "--maxiters", str(FC_ITERS)]
 
@@ -266,23 +277,25 @@ FC_ARGS = ["--nz", str(NZ), "--n-save", str(FC_N_SAVE), "--dt-save", "600", "--m
 # (tests/test_deep_ensemble.py::TestMemberFold), the gradient relative to its 2-norm.
 ENS_RUN = REPO / "runs" / "wm_flagship_ens4"
 ENS_K, ENS_TIMED_STEPS = 4, 1  # one timed folded step (two before the KPP/TKE phases joined; depth cut, not width)
-# The member loop, and the folded-vs-loop and kernel-vs-scan comparisons, over the first 32 of the window's 128 saves
-# (288 split substeps; the whole window before the KPP/TKE phases joined, then 64 saves: depth cuts, the widths are
-# unchanged).
-ENS_LOOP_SAVES = 32
+# The member loop, and the folded-vs-loop and kernel-vs-scan comparisons, over the first 16 of the window's 128 saves
+# (144 split substeps; the whole window before the KPP/TKE phases joined, then 64 saves, then 32 before phase 44
+# joined: depth cuts, the widths are unchanged).
+ENS_LOOP_SAVES = 16
 ENS_LOSS_RTOL, ENS_GRAD_RTOL = 1e-5, 5e-4
-ENS_CURRICULUM = "200:20,1153:9"  # phase 26: two stages, one iteration each
+# Phase 26: two stages, one iteration each; the second was 1153:9 (1,152 substeps) until phase 44 joined (a depth cut).
+ENS_CURRICULUM = "200:20,577:12"
 # Phase 27: the held-out sims of studies/flagship_training.py:58, every 9th of 1,153 frames, 9 split substeps per
 # save; a band calibration fit on the first, applied to the other two (evaluate_ensemble there).
 UQ_TEST_FILES = ("wind_-4.5e-4_cooling_2.5e-8", "wind_-2.5e-4_cooling_1.5e-8", "wind_-4.5e-4_heating_-2.5e-8")
 UQ_STRIDE = 9
+UQ_SIMS = 2  # the bands of the first two (the validation sim and one test sim): all three until phase 44 joined
 # Phase 28: optimise-mpp with the JAX command's defaults (32 saves x 4 substeps; EKI: 64 parameter sets, 8
 # iterations) on the 18 TRAIN_FILES; the gradient runs cut to 5 iterations.
 MPP_ITERS, MPP_N_SAVE, MPP_EKI_J, MPP_EKI_ITERS, MPP_SUBSTEPS = 5, 96, 64, 8, 4
 # Phase 29: train-fc-nde --ensemble 4 at phase 24's size, its first stage alone, then fc_ensemble_uq on id 1 over
-# the first half of the window, 4 days (every 8th of 577 frames, 4 substeps per 600 s save; the whole window before
-# the KPP/TKE phases joined: a depth cut, the widths are unchanged).
-FC_ENS_STAGE, FC_UQ_STRIDE, FC_UQ_FRAMES = "145:8", 8, 577
+# the first quarter of the window, 2 days (every 8th of 289 frames, 4 substeps per 600 s save; the whole window
+# before the KPP/TKE phases joined, then 577 frames before phase 44 joined: depth cuts, the widths are unchanged).
+FC_ENS_STAGE, FC_UQ_STRIDE, FC_UQ_FRAMES = "145:8", 8, 289
 # Free-convection suites generated once and shared by phases 24 and 29; wind-mixing suites shared by phases 27, 28,
 # 31 and 33 (keyed as cached_suites keys them).
 FC_SUITES: dict = {}
@@ -341,11 +354,12 @@ BGP_N, BGP_D, BGP_BLOCK, BGP_RTOL = 16384, 96, 4096, 1e-8
 # subnormal entries are counted and printed); the scan pair is the slow side, so the whole run is timed on the kernel
 # only.
 HOST_COLUMNS, HOST_SAVES, HOST_SUBSTEPS, HOST_CHECK_SAVES, HOST_PROFILE_SAVES = 1024, 128, 10, 8, 2
-# Phase 36: train-embedded from runs/wm_flagship_fold on the 18 TRAIN_FILES (phase 8's suite) and train-embedded-fc
+# Phase 36 (its second stage 8,32 until phase 44 joined: a depth cut): train-embedded from runs/wm_flagship_fold on
+# the 18 TRAIN_FILES (phase 8's suite) and train-embedded-fc
 # from runs/fc_flagship on the nine stand-in ids (phase 24's suite), two iterations per stage, 10 host steps per save;
 # the first stage again on scan, its losses held to phase 9's STEP_LOSS_RTOL (per-solve f32 differences through the
 # host steps, the checkpoint recompute and the transposed IFT solves).
-EMB_CURRICULUM, EMB_FC_CURRICULUM, EMB_ITERS, EMB_SUBSTEPS, EMB_LR = "8,32", "17", 2, 10, "2e-4"
+EMB_CURRICULUM, EMB_FC_CURRICULUM, EMB_ITERS, EMB_SUBSTEPS, EMB_LR = "8,16", "17", 2, 10, "2e-4"
 # Phase 37: the embedded pairs of phases 31 and 32 (evaluate --embedded of runs/wm_flagship_default,
 # evaluate-fc --embedded of runs/fc_flagship), beside the stored JAX run runs/wm_flagship_default_eval.
 EMBEDDED_RUN, EMBEDDED_EVAL = REPO / "runs" / "wm_flagship_default", REPO / "runs" / "wm_flagship_default_eval"
@@ -390,10 +404,10 @@ LES_FC_N_SAVE = 1
 # scan-backed (equal), and the ensemble command at its defaults (256 members, 32 frames, 4 substeps per save) with the
 # flagship closure on phase 8's 18-sim suite (it perturbs the first sim).
 ENSEMBLE_MEMBERS, ENSEMBLE_STEPS, ENSEMBLE_REPEATS = 1024, 256, 3
-# Phase 43: the data-parallel step's window cut in depth to 288 substeps (32 saves x 9), the member-parallel step's
-# to 36 (4 saves x 9, its four members one solve each); the embedded steps over 4 saves x 10 host steps; EKI over
-# the KPP forward map of the first 8 saves; the kernel search on phase 13's data.
-PAR_SUBSTEPS, PAR_ENS_SUBSTEPS, PAR_EMB_FRAMES, PAR_EKI_FRAMES = 288, 36, 5, 9
+# Phase 43: the data-parallel step's window cut in depth to 144 substeps (16 saves x 9; 288 until phase 44 joined),
+# the member-parallel step's to 36 (4 saves x 9, its four members one solve each); the embedded steps over 4 saves x
+# 10 host steps; EKI over the KPP forward map of the first 8 saves; the kernel search on phase 13's data.
+PAR_SUBSTEPS, PAR_ENS_SUBSTEPS, PAR_EMB_FRAMES, PAR_EKI_FRAMES = 144, 36, 5, 9
 PAR_SUITE_MEMBERS, PAR_SUITE_SUBSTEPS, PAR_GYRE_STEPS = 64, 16, 6
 PAR_EKI_MEMBERS, PAR_EKI_ITERS, PAR_GP_VAL, PAR_GP_KERNELS = 64, 2, 256, (1, 2, 3, 4)
 # The CPU tests' tolerances (tests/test_torch_parallel.py, test_torch_parallel_fields.py).
@@ -407,13 +421,38 @@ PAR_TOLERANCES = {
 # The kernels each path must launch.
 PAR_KERNELS = {name: ("thomas",) for name in PAR_TOLERANCES} | {"kernel_search": ("gram",)}
 # Phase 41: benchmark --suite --quick, its twelve rows (the JAX run_suite's keys) and the time each is checked by;
-# phase 42: the training report's window (frames 0, 9, ..., 63: 8 frames, 7 save intervals of 5,400 s) and its
+# phase 42: the training report's window (frames 0, 9, 18, 27: 4 frames, 3 save intervals of 5,400 s) and its
 # substeps per save interval (300 s, the JAX report test's step).
 SUITE_KEYS = ("kpp_2day_columns", "tke_2day_columns", "gp_build", "gp_build_pallas", "gp_ml2_step",
               "fc_conv_adj_forward", "nde_forward", "nde_train_step", "double_gyre_nn", "column_ensemble", "les_3d",
               "tridiagonal")
 SUITE_TIME_KEYS = {"tridiagonal": "cuda_graph_ms"}
-REPORT_WINDOW, REPORT_SUBSTEPS = 64, 18
+# The report's window was 64 frames (8 saved frames) until phase 44 joined (a depth cut).
+REPORT_WINDOW, REPORT_SUBSTEPS = 28, 18
+# Phase 44: the flagship study (climateparameterizations_jl_tpu_torch/studies/flagship_training.py) at full width:
+# the 18 TRAIN_FILES x 1,153 frames (phase 8's suite), Nz = 32, the 96 -> 50 -> 20 -> 31 mish MLPs, every implicit
+# solve on the Thomas kernel. (a) --mode train --calibrate-mpp: pretraining at the study's 150 epochs, L-BFGS cut to
+# FLAG_LBFGS_ITERS iteration (60 in the study; one iteration evaluates the loss at the start and along its line
+# search, and the best evaluated point is the start), the four STAGES at their full windows and strides with
+# FLAG_ITERS iteration each (150 / 100 / 130 / 200 in the study), then the held-out evaluation on the first
+# FLAG_HELD_OUT of the three held-out sims ((b) runs the same evaluate on all three). Thomas launches per stage: the
+# loss-scaling pre-solve (one per substep) and 3 per substep per iteration (forward, checkpoint recompute, transposed
+# IFT solve); per L-BFGS loss evaluation 3 per substep (no pre-solve: the calibration has fixed channel weights); per
+# held-out sim 3 x 1,152 (NDE, mPP alone, KPP at 600 s) + 128 (KPP at the save spacing, kpp_ref_dt). (b)
+# --eval-checkpoint runs/wm_flagship_fold on the three held-out sims, beside the stored docs/flagship_run_fold.json
+# (made by the JAX script on a TPU): the gaps are printed, and any above FLAG_STORED_NOTE with the reason below.
+# (c) The adjoint-parity study: dt_refinement on its stiff column (AP_FRAMES saves, the ladder AP_SUBSTEPS against
+# AP_FINE substeps), f32 on the kernel and f64 on scan, each ladder's split gradient error falling monotonically as
+# the JAX test requires, and on the kernel every split solve launched (scan: none). The f32 solves' distance from f64
+# over the whole flagship window (studies/adjoint_parity.py --problem flagship: the kernel, scan and pcr) is measured
+# outside the smoke (PERF.md section 6). Depth cuts made when the phase joined, after its first runs took 194.8 and
+# 131.7 s: L-BFGS 1 iteration (2), no held-out sim in (a) (3, then 1), the stiff column over 4 saves with the
+# ladder (1, 4, 8) against 16 substeps (12 saves, (1, 4, 16) against 64 in the JAX test; 6 and 32 first), and the
+# precision gap over two flagship sims moved out of the smoke.
+FLAG_ITERS, FLAG_LBFGS_ITERS, FLAG_PRETRAIN_EPOCHS, FLAG_HELD_OUT = 1, 1, 150, 0
+FLAG_RUN_JSON = REPO / "docs" / "flagship_run_fold.json"
+FLAG_STORED_NOTE = 0.01
+AP_FRAMES, AP_SUBSTEPS, AP_FINE = 4, (1, 4, 8), 16
 
 
 def log(msg: str) -> None:
@@ -1176,8 +1215,11 @@ def train_nde_phase(dev, setup, k0_step: dict, smi: str) -> dict:
         sims = ",".join(benchmarks.TRAIN_FILES)
         full = ["train-nde", "--sims", sims, "--nz", str(NZ), "--n-save", str(NDE_N_SAVE), "--dt-save", "600",
                 "--n-substeps", "1", "--method", "split", "--lr", NDE_LR, "--maxiters", "1", *NDE_FRACTIONS]
-        # Runs B and C (scan) take the suites runs A and C (kernel) generated.
-        cli._load_suite = timed("suite", cached_suites(cli, {}))
+        # Phase 8's suite, and its first 577 frames for run C (equal to a 577-frame generation, bit for bit).
+        names = tuple(benchmarks.TRAIN_FILES)
+        cli._load_suite = timed("suite", cached_suites(cli, {
+            (names, NZ, None, NDE_N_SAVE, 600.0, 128): setup["ds"],
+            (names, NZ, None, NDE_C_N_SAVE, 600.0, 128): _first_frames(setup["ds"], NDE_C_N_SAVE + 1, dev)}))
         nde._train_loop = timed("train_loop", nde._train_loop)
         nde.determine_loss_scalings = timed("presolve", nde.determine_loss_scalings)
         try:
@@ -1701,7 +1743,7 @@ def ensemble_uq_phase(dev, setup, smi: str) -> dict:
     model = setup["model"]  # fitted on the 18 training sims, the default mPP base: the ensemble's own
     tsteps = np.arange(0, NDE_N_SAVE + 1, UQ_STRIDE)
     record = {"sims": {}}
-    with phase(f"27 nde_ensemble_uq of {ENS_RUN.name} on the {len(UQ_TEST_FILES)} held-out sims, every "
+    with phase(f"27 nde_ensemble_uq of {ENS_RUN.name} on {UQ_SIMS} of the {len(UQ_TEST_FILES)} held-out sims, every "
                f"{UQ_STRIDE}th of {NDE_N_SAVE + 1} frames, {UQ_STRIDE} split substeps per save"):
         t = time.perf_counter()
         suite = cli._load_suite(list(UQ_TEST_FILES), NZ, None, NDE_N_SAVE, 600.0, device=dev)
@@ -1709,7 +1751,7 @@ def ensemble_uq_phase(dev, setup, smi: str) -> dict:
         for i, name in enumerate(UQ_TEST_FILES):  # phase 31 evaluates the same sims, one by one
             WM_SUITES[((name,), NZ, None, NDE_N_SAVE, 600.0, 128)] = cli._select_sims(suite, i)
         calibration = None
-        for i, name in enumerate(UQ_TEST_FILES):
+        for i, name in enumerate(UQ_TEST_FILES[:UQ_SIMS]):
             ds = cli._select_sims(suite, [i])  # a stacked suite of one
             _cuda.reset_launch_counts()
             t = time.perf_counter()
@@ -2848,10 +2890,11 @@ def column_ensemble_phase(dev, setup, smi: str) -> dict:
     return record
 
 
-def _first_frames(ds, n: int):
-    """A suite cut to its first ``n`` saved frames, on the CPU (to hand to the spawned ranks)."""
+def _first_frames(ds, n: int, device="cpu"):
+    """A suite cut to its first ``n`` saved frames, on ``device`` (the CPU: to hand to the spawned ranks). The
+    stand-ins are generated save by save, so this equals the suite generated with ``n`` frames, bit for bit."""
     cut = {f: getattr(ds, f)[..., :n, :] for f in ("u", "v", "T", "uw", "vw", "wT")}
-    return dataclasses.replace(ds, **cut, t=ds.t[..., :n]).to("cpu")
+    return dataclasses.replace(ds, **cut, t=ds.t[..., :n]).to(device)
 
 
 def parallel_setups(dev, inputs: dict) -> dict:
@@ -3030,6 +3073,156 @@ def cut_control(dev, setup: dict) -> dict:
     if record["rows_product"]["differ"] or any(v for k, d in record.items() if k.endswith("_rows_product")
                                                for v in d.values()):
         raise RuntimeError(f"cut control: the split solve's rows depend on how the block is cut: {record}")
+    return record
+
+
+def flagship_study_phase(dev, setup: dict, smi: str) -> dict:
+    """Phase 44: the flagship study (train with --calibrate-mpp, --eval-checkpoint) and the adjoint-parity study."""
+    import torch
+
+    from climateparameterizations_jl_tpu_torch.cli import main as cli
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.studies import adjoint_parity as ap
+    from climateparameterizations_jl_tpu_torch.studies import flagship_training as fst
+    from climateparameterizations_jl_tpu_torch.train import mpp_calibration, nde
+
+    record: dict = {}
+    stages = [(w, s, FLAG_ITERS, lr) for w, s, _, lr in fst.STAGES]
+    n_frames, n_sims = fst.N_FRAMES, len(fst.TRAIN_FILES_STANDARD)
+    n_held, eval_saves = len(fst.TEST_FILES_STANDARD), len(range(0, fst.N_FRAMES, 9)) - 1
+    per_sim_eval = 3 * eval_saves * 9 + eval_saves
+    with phase(f"44 the flagship study at full width ({n_sims} sims x {n_frames} frames, Nz = {NZ}): --mode train "
+               f"--calibrate-mpp (L-BFGS {FLAG_LBFGS_ITERS} iteration, stages {stages}), --eval-checkpoint "
+               f"{FLAGSHIP_RUN.name}, then the adjoint-parity study (f32 kernel, f64 scan)"), \
+            tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        WM_SUITES[(tuple(fst.TRAIN_FILES_STANDARD), NZ, None, n_frames - 1, 600.0, 128)] = setup["ds"]  # phase 8's
+        originals = (cli._load_suite, fst.STAGES, fst.calibrate_mpp, nde.train_wind_mixing_nde,
+                     mpp_calibration._solve, fst.TEST_FILES_STANDARD)
+        stage_log, evals = [], [0]
+
+        def counted_stage(*args, **kw):
+            torch.cuda.synchronize()
+            before, t = _cuda.THOMAS.launches, time.perf_counter()
+            out = originals[3](*args, **kw)
+            torch.cuda.synchronize()
+            batch, config = args[2], args[3]
+            stage_log.append({"rows": batch.x0.shape[0], "substeps": (batch.t.shape[0] - 1) * config.n_substeps,
+                              "iterations": config.maxiters, "s": time.perf_counter() - t,
+                              "launches": _cuda.THOMAS.launches - before})
+            return out
+
+        def counted_solve(*args, **kw):
+            evals[0] += 1
+            return originals[4](*args, **kw)
+
+        def calibrate(ds, model, maxiters=60, **kw):
+            return originals[2](ds, model, maxiters=FLAG_LBFGS_ITERS, **kw)
+
+        cli._load_suite = cached_suites(cli, WM_SUITES)  # phase 8's suite and phase 27's held-out sims
+        fst.STAGES, fst.calibrate_mpp = stages, calibrate
+        nde.train_wind_mixing_nde, mpp_calibration._solve = counted_stage, counted_solve
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _cuda.reset_launch_counts()
+            fst.TEST_FILES_STANDARD = originals[5][:FLAG_HELD_OUT]
+            train = fst.main(["--mode", "train", "--calibrate-mpp", "--pretrain-epochs", str(FLAG_PRETRAIN_EPOCHS),
+                              "--save-nns", str(tmp / "a"), "--out", str(tmp / "a.json")])
+            torch.cuda.synchronize()
+            train_s, train_launches = time.perf_counter() - t, _cuda.THOMAS.launches
+            fst.TEST_FILES_STANDARD = originals[5]
+            t = time.perf_counter()
+            _cuda.reset_launch_counts()
+            held = fst.main(["--eval-checkpoint", str(FLAGSHIP_RUN), "--out", str(tmp / "b.json")])
+            torch.cuda.synchronize()
+            eval_s, eval_launches = time.perf_counter() - t, _cuda.THOMAS.launches
+        finally:
+            (cli._load_suite, fst.STAGES, fst.calibrate_mpp, nde.train_wind_mixing_nde,
+             mpp_calibration._solve, fst.TEST_FILES_STANDARD) = originals
+        # (a) the pipeline: keys, stages and their launches, the calibration, the held-out losses.
+        mpp = train["mpp_calibration"]
+        cal_substeps = (len(range(0, min(200, n_frames), 20)) - 1) * 20
+        want_cal = 3 * cal_substeps * evals[0]
+        log(f"train: {train_s:.2f} s (data {train['data_s']:.2f} s, pretraining {train['pretrain_s']:.2f} s at "
+            f"{FLAG_PRETRAIN_EPOCHS} epochs: {train['pretrain']}); L-BFGS {mpp['wall_s']:.2f} s, {evals[0]} loss "
+            f"evaluations: {mpp['loss_initial']:.4e} -> {mpp['loss_final']:.4e}, {mpp['params']}")
+        want_stages, stage_launches = [], 0
+        for (w, s, iters, _), e, r in zip(stages, stage_log, train["stages"]):
+            sub = (len(range(0, w, s)) - 1) * s
+            want = sub + 3 * sub * iters
+            want_stages.append((n_sims, sub, iters, want))
+            stage_launches += e["launches"]
+            log(f"  stage {w}:{s}: {e['rows']} rows x {e['substeps']} substeps, {e['iterations']} iteration(s): "
+                f"{e['s']:.2f} s ({r['s_per_iter']:.2f} s per iteration, pre-solve included), loss "
+                f"{r['loss_initial']:.4e}; thomas {e['launches']} (derived {want} = {sub} pre-solve + 3 x {sub} x "
+                f"{iters})")
+        eval_a = train_launches - stage_launches - (want_cal if mpp else 0)
+        log(f"  L-BFGS thomas {want_cal} = 3 x {cal_substeps} substeps x {evals[0]} evaluations (derived, not counted "
+            f"apart); held-out evaluation thomas {eval_a} (derived {FLAG_HELD_OUT * per_sim_eval} = {FLAG_HELD_OUT} "
+            f"sim(s) x (3 x {eval_saves} x 9 + {eval_saves})); total {train_launches}")
+        for name, row in train["held_out"].items():
+            log(f"  held-out {name}: nde {row['nde']:.4e}, mpp (calibrated base) {row['mpp']:.4e}, kpp {row['kpp']:.4e} "
+                f"(win_vs_mpp {row['win_vs_mpp']:.2f}, win_vs_kpp {row['win_vs_kpp']:.1f}; one iteration per stage)")
+        keys_ok = (set(train) == {"sims", "frames", "data_s", "mpp_calibration", "ensemble", "shooting", "data_dir",
+                                  "host_matched_substeps", "pretrain", "pretrain_s", "stages", "held_out",
+                                  "total_wall_s"}
+                   and all(set(r) == {"window", "stride", "maxiters", "lr", "shooting", "n_saveat", "inner_steps",
+                                      "loss_initial", "loss_final", "wall_s", "s_per_iter", "loss_curve"}
+                           for r in train["stages"]))
+        numbers = [v for _, v in _numbers({"s": train["stages"], "h": train["held_out"], "m": mpp})]
+        got_stages = [(e["rows"], e["substeps"], e["iterations"], e["launches"]) for e in stage_log]
+        saved, meta = cli._load_nns(str(tmp / "a"), dev)
+        if (not keys_ok or got_stages != want_stages or eval_a != FLAG_HELD_OUT * per_sim_eval or evals[0] < 1
+                or not all(math.isfinite(v) for v in numbers)
+                or set(train["held_out"]) != set(UQ_TEST_FILES[:FLAG_HELD_OUT])
+                or meta["mpp"] != {k: mpp["params"][k] for k in meta["mpp"]}):
+            raise RuntimeError(f"flagship train: keys {keys_ok}, stages {got_stages} (derived {want_stages}), held-out "
+                               f"launches {eval_a}, evaluations {evals[0]}, meta {meta.get('mpp')}")
+        record["train"] = {"s": train_s, "launches": train_launches, "stages": stage_log, "lbfgs_evaluations": evals[0],
+                           "mpp_calibration": mpp, "held_out": train["held_out"]}
+
+        # (b) the stored checkpoint on the held-out sims, beside the stored run.
+        stored = json.loads(FLAG_RUN_JSON.read_text())["held_out"]
+        gaps = {}
+        for name, row in held["held_out"].items():
+            gaps[name] = {k: row[k] / stored[name][k] - 1 for k in ("nde", "mpp", "kpp", "kpp_ref_dt")}
+            log(f"  {FLAGSHIP_RUN.name} on {name}: " + ", ".join(
+                f"{k} {row[k]:.4e} (stored {stored[name][k]:.4e}, {100 * g:+.2f} %)" for k, g in gaps[name].items()))
+        worst = max(abs(g) for row in gaps.values() for g in row.values())
+        log(f"--eval-checkpoint: {eval_s:.2f} s, thomas {eval_launches} (derived {n_held * per_sim_eval}); largest gap "
+            f"to the stored TPU run {100 * worst:.2f} %" + (
+                "" if worst <= FLAG_STORED_NOTE else
+                " (above 1 %: the held-out truth differs, not the evaluation. The port generates its synthetic "
+                "stand-ins itself in f32, and over 1,152 saves they drift from the JAX package's by up to 4.4e-4 K in "
+                "T; on the JAX package's own suite the port's evaluation of this checkpoint equals the JAX package's "
+                "within 8e-5 (3.7e-4 for kpp_ref_dt), and the JAX package lands within 0.15 % of the stored run: "
+                "CPU runs, PERF.md section 6)"))
+        if (eval_launches != n_held * per_sim_eval or held["ensemble"] != 0
+                or not all(math.isfinite(v) and v > 0 for row in held["held_out"].values() for v in row.values())):
+            raise RuntimeError(f"--eval-checkpoint: launches {eval_launches}, held-out {held['held_out']}")
+        record["eval_checkpoint"] = {"s": eval_s, "launches": eval_launches, "held_out": held["held_out"],
+                                     "gap_to_stored": gaps}
+
+        # (c) the adjoint-parity study: f32 on the kernel against f64 on scan.
+        model, batch, nns = ap.build_problem(stiff=True, n_frames=AP_FRAMES, device=dev)
+        refinement = {}
+        for label, args, backend in (("f32 kernel", (model, batch, nns), "cuda"),
+                                     ("f64 scan", ap.to_f64((model, batch, nns)), "scan")):
+            t = time.perf_counter()
+            _cuda.reset_launch_counts()
+            rows, meta_r = ap.dt_refinement(*args, substeps=AP_SUBSTEPS, fine=AP_FINE, tridiag_backend=backend)
+            split = [r["grad_rel_err"] for r in rows if r["method"] == "split"]
+            refinement[label] = {"rows": rows, "meta": meta_r, "s": time.perf_counter() - t,
+                                 "launches": _cuda.THOMAS.launches}
+            rk4 = [round(r["grad_rel_err"], 6) for r in rows if r["method"] == "rk4"]
+            log(f"  dt_refinement {label}: {refinement[label]['s']:.2f} s, thomas {_cuda.THOMAS.launches}; L* "
+                f"{meta_r['L_star']:.6e}; gradient error against it at {AP_SUBSTEPS} substeps: split "
+                f"{[round(e, 6) for e in split]}, rk4 {rk4}")
+            if not (split[0] > split[1] > split[2]) or (backend == "cuda") != (_cuda.THOMAS.launches > 0):
+                raise RuntimeError(f"dt_refinement {label}: split errors {split}, launches {_cuda.THOMAS.launches}")
+        record["adjoint_parity"] = {"refinement": refinement}
+        log(f"card: {smi}")
     return record
 
 
@@ -3554,6 +3747,7 @@ def main() -> int:
     thomas_record["suite"] = suite_phase(smi)
     thomas_record["headline_report"] = headline_report_phase(dev, setup, flagship, smi)
     parallel_phase(dev, setup, smi)
+    thomas_record["flagship_study"] = flagship_study_phase(dev, setup, smi)
     record["ptxas"] = ptxas_summary(kernel.ptxas_report)
     thomas_record["ptxas"] = ptxas_summary(thomas.ptxas_report)
     print(smi, flush=True)

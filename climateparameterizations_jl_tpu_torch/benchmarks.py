@@ -69,25 +69,13 @@ from climateparameterizations_jl_tpu_torch.models.wind_mixing import (
 )
 from climateparameterizations_jl_tpu_torch.ops.fused_rhs import make_fused_runner_mxu
 from climateparameterizations_jl_tpu_torch.physics.mpp import MPPParameters
+from climateparameterizations_jl_tpu_torch.studies import flagship_training as fst
 
 FORWARD_DT = 1e-5  # non-dimensional step of the JAX package's forward benchmark
 
-# The flagship training suite (studies/flagship_training.py:45-55, reference
-# train_NDE_args.jl:39-59) and its final curriculum stage
-# (window, stride, maxiters, learning rate), studies/flagship_training.py:87.
-TRAIN_FILES = (
-    "wind_-5e-4_cooling_3e-8_new", "wind_-5e-4_cooling_1e-8_new",
-    "wind_-2e-4_cooling_3e-8_new", "wind_-2e-4_cooling_1e-8_new",
-    "wind_-5e-4_heating_-3e-8_new", "wind_-2e-4_heating_-1e-8_new",
-    "wind_-2e-4_heating_-3e-8_new", "wind_-5e-4_heating_-1e-8_new",
-    "wind_-3.5e-4_cooling_2e-8_new", "wind_-3.5e-4_heating_-2e-8_new",
-    "wind_-5e-4_cooling_2e-8_new", "wind_-3.5e-4_cooling_3e-8_new",
-    "wind_-3.5e-4_cooling_1e-8_new", "wind_-2e-4_cooling_2e-8_new",
-    "wind_-3.5e-4_heating_-3e-8_new", "wind_-3.5e-4_heating_-1e-8_new",
-    "wind_-2e-4_heating_-2e-8_new", "wind_-5e-4_heating_-2e-8_new",
-)
-N_FRAMES = 1153  # 8 days of 600 s saves
-FINAL_STAGE = (1153, 9, 200, 2e-4)
+# The flagship training suite, its frames and its final curriculum stage (window, stride, maxiters, learning
+# rate): the flagship study's.
+TRAIN_FILES, N_FRAMES, FINAL_STAGE = fst.TRAIN_FILES_STANDARD, fst.N_FRAMES, fst.STAGES[-1]
 
 
 def make_setup(Nz: int = 32, n_columns: int = 1024, seed: int = 0, nns=None, device=None):

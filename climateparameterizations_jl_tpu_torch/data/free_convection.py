@@ -7,8 +7,8 @@ id reads ``<data_dir>/free_convection_<id>/instantaneous_statistics_with_halos.j
 where that file exists (the reference's DataDeps layout; needs h5py), and
 otherwise generates the id's synthetic stand-in on the CPU; ``source="les3d"``
 generates it with the 3-D LES (``data/les.py``), optionally through a cache
-directory that either package's files can fill. The JAX package's
-downloader is not ported.
+directory that either package's files can fill. The files are downloaded
+by ``data/registry.py::fetch_free_convection`` (the ``fetch`` command).
 """
 
 from __future__ import annotations

@@ -20,7 +20,9 @@ REPO = Path(__file__).resolve().parents[1]
 SCRIPTS = [REPO / name for name in ("chip_smoke.py", "bench_turns.py", "fused_rk4_phases.py", "gram_phases.py",
                                     "embedded_stored_truth.py")]
 PORT_FILES = sorted((REPO / "climateparameterizations_jl_tpu_torch").rglob("*.py")) + SCRIPTS
-FORBIDDEN = {"jax", "jaxlib", "climateparameterizations_jl_tpu"}
+# The repo's studies/ scripts are JAX programs: the port keeps its own copies (climateparameterizations_jl_tpu_torch/
+# studies/), whose top-level name is the port's.
+FORBIDDEN = {"jax", "jaxlib", "climateparameterizations_jl_tpu", "studies"}
 
 
 def _top_level_imports(path):
@@ -51,7 +53,8 @@ def test_port_files_found():
             "data/free_convection.py", "train/nn.py", "embed/column_model.py", "embed/double_gyre.py",
             "train/embedded.py", "core/advection.py", "data/les.py", "parallel/__init__.py",
             "parallel/sharding.py", "eval/animations.py", "eval/report.py", "utils/__init__.py",
-            "utils/polynomial.py", "utils/predict.py", "utils/profiling.py"} <= names
+            "utils/polynomial.py", "utils/predict.py", "utils/profiling.py", "studies/__init__.py",
+            "studies/flagship_training.py", "studies/adjoint_parity.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -79,6 +82,17 @@ def test_scan_catches_forbidden_import(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import climateparameterizations_jl_tpu_torch\nfrom climateparameterizations_jl_tpu.ops import x\n")
     assert set(_top_level_imports(f)) & FORBIDDEN == {"climateparameterizations_jl_tpu"}
+
+
+@pytest.mark.parametrize("source,found", [
+    ("from studies.flagship_training import STAGES\n", {"studies"}),
+    ("def f():\n    import studies.adjoint_parity\n", {"studies"}),
+    ("from climateparameterizations_jl_tpu_torch.studies import flagship_training\n", set()),
+])
+def test_scan_refuses_the_repo_studies_package(tmp_path, source, found):
+    f = tmp_path / "m.py"
+    f.write_text(source)
+    assert set(_top_level_imports(f)) & FORBIDDEN == found
 
 
 @pytest.fixture
@@ -207,3 +221,15 @@ def test_matplotlib_stays_off_the_import_path():
             "import climateparameterizations_jl_tpu_torch.eval as e, climateparameterizations_jl_tpu_torch.utils\n"
             "assert e.training_report and e.report.animations_or_none() is None\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO)
+
+
+def test_studies_raise_without_card(no_card, tmp_path):
+    """The studies run on the card unless --device cpu is given: without one they raise before any work."""
+    from climateparameterizations_jl_tpu_torch.studies import adjoint_parity, flagship_training
+
+    for argv in (["--eval-checkpoint", str(REPO / "runs" / "wm_flagship_fold")], ["--mode", "step-bench"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            flagship_training.main(argv)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        adjoint_parity.main(["--out", str(tmp_path / "ap.json")])
+    assert not (tmp_path / "ap.json").exists()
