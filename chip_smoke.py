@@ -61,11 +61,11 @@ mish), Nz = 32:
   on (3, 1024, 32) per host step, the first saves against the scan-backed
   pair); ``train-embedded`` and ``train-embedded-fc`` in-process (a resume,
   the first stage again on scan); ``evaluate --embedded`` of
-  ``runs/wm_flagship_default`` on the three held-out sims (beside the stored
+  ``runs/wm_flagship_default`` on one of the three held-out sims (beside the stored
   JAX run) and ``evaluate-fc --embedded``; and the 96x96x32 double gyre with
   the FC MLP (``bench_double_gyre``, three launches per step on (96, 96, 32),
   (96, 97, 32) and (97, 96, 32), kernel against scan, then the
-  ``double-gyre`` command for 10 days with its volume and wall invariants);
+  ``double-gyre`` command for 5 days with its volume and wall invariants);
 - the 3-D LES (phase 39): ``bench_les`` at 64^3 (one Thomas launch per
   Euler step on the 4,224 x 64 pressure systems), 20 Euler and 4 RK3 steps
   kernel-backed against scan-backed (equal, divergence-free), the
@@ -94,12 +94,19 @@ mish), Nz = 32:
   whole and as four tiles, equal bit for bit (``cut_control``);
 - the studies (phase 44): ``studies/flagship_training.py`` of the port at
   full width (18 sims x 1,153 frames), ``--mode train --calibrate-mpp``
-  (pretraining, L-BFGS, the four curriculum stages at their full windows, one
+  (pretraining, L-BFGS, the first three curriculum stages at their full windows, one
   iteration each) with the Thomas launches of each stage against their
   derivation, then ``--eval-checkpoint runs/wm_flagship_fold``: the held-out
   evaluation against mPP and KPP beside the stored JAX run; and
   ``studies/adjoint_parity.py``: its dt refinement in f32 on the kernel and in
-  f64 on scan.
+  f64 on scan;
+- the studies, continued (phase 45): ``studies/forward_scaling.py`` at 1,024
+  and 131,072 columns on the fused RK4 kernel (chunked launches equal to one
+  launch bit for bit, both kernels' time there against their bounds),
+  ``fused_kernel_sweep.py``'s every distinct route against the f32 kernel,
+  ``fc_fair_substep_check.py``'s KPP and TKE baselines on the Thomas kernel
+  equal to scan, and ``gp_at_scale.py --smoke`` and ``--gram-only`` with the
+  Gram kernel at 8,192 x 8,192 x 96 against its plain version.
 
 It builds the five kernels from ``csrc/`` (one ``nvcc`` each, side by
 side), holds each against its plain PyTorch version, times it, and checks
@@ -165,6 +172,10 @@ STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_RTOL = 1e-3  # relative to the gradient's 2-norm
 # One timed step after the warm-up: a depth cut that keeps the whole run inside its limit on a slower host.
 TRAIN_TIMED_STEPS = 1
+# The kernel-vs-scan loss and gradient over the window's first 144 substeps (16 saves x 9), the timed step over all
+# 1,152: a depth cut (the whole window until phase 45 joined: 16.6 s on the kernel and 38.3 s on scan on a slow
+# host; then 288 substeps, 13.0 s for both).
+TRAIN_COMPARE_SUBSTEPS = 144
 
 # Gram kernel vs gram_plain, the JAX test's tolerance (tests/test_gp.py::
 # TestPallasGram): two f32 Gram-trick evaluations that sum in other orders.
@@ -257,17 +268,18 @@ NDE_FRACTIONS = ["--auto-balance", "--fraction-T", "0.8", "--fraction-dTdz", "0.
 # Phase 23: bench_fc_forward at the JAX benchmark's size (benchmarks.py:444 there): 1,024 physics-only
 # columns x 1,152 split substeps, one Thomas launch per substep. The kernel runs the scan's sweep in its
 # roundings (phase 7 counts the differing entries), so the kernel-backed trajectory must equal the
-# scan-backed one exactly.
-FC_COLUMNS, FC_STEPS, FC_REPEATS = 1024, 1152, 5
+# scan-backed one exactly. Three timed runs (five until after phase 45 joined: a depth cut of 1.2 s a run).
+FC_COLUMNS, FC_STEPS, FC_REPEATS = 1024, 1152, 3
 FC_PROFILE_STEPS = 288  # the profiled run: its op count per substep and idle share, without 1,152 substeps of tracing
 # Phase 24: train-fc-nde at full width: all nine ids, Nz = 32, 1,153 frames (8 days of 600 s saves), split
-# solver with 4 substeps per save, flux pre-training, and a two-stage curriculum of 576 and 1,152 substeps per solve
+# solver with 4 substeps per save, flux pre-training, and a two-stage curriculum of 288 and 576 substeps per solve
 # (depth cuts: a 2,304-substep middle stage of 577:8 ran before the evaluation phases joined, the last stage spanned
 # the window, 1153:16 or 4,608 substeps, before the embedding phases joined, and was 577:16, 2,304 substeps, before
-# phase 44 joined), 2 iterations per stage. Then
+# phase 44 joined; the first stage was 145:8, 576 substeps, and the second 289:16, 1,152 substeps, until phase 45
+# joined), 2 iterations per stage. Then
 # the first stage again with --tridiag-backend scan: both losses must equal the kernel-backed run's, for the reason
 # above.
-FC_IDS, FC_N_SAVE, FC_CURRICULUM, FC_ITERS = "1,2,3,4,5,6,7,8,9", 1152, "145:8,289:16", 2
+FC_IDS, FC_N_SAVE, FC_CURRICULUM, FC_ITERS = "1,2,3,4,5,6,7,8,9", 1152, "73:8,145:16", 2
 FC_ARGS = ["--nz", str(NZ), "--n-save", str(FC_N_SAVE), "--dt-save", "600", "--method", "split", "--n-substeps", "4",
            "--pretrain-epochs", "20", "--lr", "1e-3", "--maxiters", str(FC_ITERS)]
 
@@ -277,9 +289,14 @@ FC_ARGS = ["--nz", str(NZ), "--n-save", str(FC_N_SAVE), "--dt-save", "600", "--m
 # (tests/test_deep_ensemble.py::TestMemberFold), the gradient relative to its 2-norm.
 ENS_RUN = REPO / "runs" / "wm_flagship_ens4"
 ENS_K, ENS_TIMED_STEPS = 4, 1  # one timed folded step (two before the KPP/TKE phases joined; depth cut, not width)
+# The folded step (its warm-up and its timed step) over the first 64 of the window's 128 saves, 576 split substeps:
+# a depth cut made after phase 45 joined (the whole window took 18.9 s per step on a slow host). Its launches per
+# substep are still held to phase 9's.
+ENS_STEP_SAVES = 64
 # The member loop, and the folded-vs-loop and kernel-vs-scan comparisons, over the first 16 of the window's 128 saves
 # (144 split substeps; the whole window before the KPP/TKE phases joined, then 64 saves, then 32 before phase 44
-# joined: depth cuts, the widths are unchanged).
+# joined: depth cuts, the widths are unchanged). Not fewer: the gradient shrinks with the window while the
+# folded-vs-loop rounding gap does not, so at 8 saves the gap can pass ENS_GRAD_RTOL.
 ENS_LOOP_SAVES = 16
 ENS_LOSS_RTOL, ENS_GRAD_RTOL = 1e-5, 5e-4
 # Phase 26: two stages, one iteration each; the second was 1153:9 (1,152 substeps) until phase 44 joined (a depth cut).
@@ -290,8 +307,8 @@ UQ_TEST_FILES = ("wind_-4.5e-4_cooling_2.5e-8", "wind_-2.5e-4_cooling_1.5e-8", "
 UQ_STRIDE = 9
 UQ_SIMS = 2  # the bands of the first two (the validation sim and one test sim): all three until phase 44 joined
 # Phase 28: optimise-mpp with the JAX command's defaults (32 saves x 4 substeps; EKI: 64 parameter sets, 8
-# iterations) on the 18 TRAIN_FILES; the gradient runs cut to 5 iterations.
-MPP_ITERS, MPP_N_SAVE, MPP_EKI_J, MPP_EKI_ITERS, MPP_SUBSTEPS = 5, 96, 64, 8, 4
+# iterations) on the 18 TRAIN_FILES; the gradient runs cut to 3 iterations (5 until phase 45 joined: a depth cut).
+MPP_ITERS, MPP_N_SAVE, MPP_EKI_J, MPP_EKI_ITERS, MPP_SUBSTEPS = 3, 96, 64, 8, 4
 # Phase 29: train-fc-nde --ensemble 4 at phase 24's size, its first stage alone, then fc_ensemble_uq on id 1 over
 # the first quarter of the window, 2 days (every 8th of 289 frames, 4 substeps per 600 s save; the whole window
 # before the KPP/TKE phases joined, then 577 frames before phase 44 joined: depth cuts, the widths are unchanged).
@@ -306,19 +323,26 @@ WM_SUITES: dict = {}
 # the scan-backed one exactly.
 COL_COLUMNS, COL_STEPS, COL_REPEATS = 1024, 288, 3
 COL_PROFILE_STEPS = 32  # the profiled run: its op count per step and idle share, without 288 steps of tracing
-# Phase 31: evaluate --embedded of runs/wm_flagship_default on the three held-out sims at the layout of
+# Phase 31: evaluate --embedded of runs/wm_flagship_default on the first EVAL_SIMS (phase 45's constants; all three
+# until phase 45 joined) of the three held-out sims at the layout of
 # runs/wm_flagship_default_eval (written by the JAX command): every 9th of the 1,152 saves (128 frames), 9 split
 # substeps and 9 KPP steps (KPP's native 600 s) per save, and the host column's 10 steps per save. Until the embedding
 # joined this phase evaluated runs/wm_flagship_fold without the embedded pair at the layout of
 # runs/wm_flagship_fold_eval; one run of the command now serves phases 31 and 37 (a depth cut: the run of the other
 # checkpoint went).
 EVAL_STRIDE = 9
+# The KPP trajectory against scan over its first 33 frames (288 of 1,152 KPP steps; the kernel's whole trajectory is
+# still the npz's): a depth cut made after phase 45 joined (scan over all 128 frames took 13.7 s on a slow host).
+EVAL_SCAN_FRAMES = 33
 # Phase 32: evaluate-fc of runs/fc_flagship on its held-out ids 8 and 9 at the layout of runs/fc_flagship_eval: every
 # 16th save, the command's 8 split substeps per save, KPP and TKE at 600 s (16 per save); over the first 576 of the
 # 1,152 saves (36 frames, 4 days), a depth cut made when phases 41-42 joined (the whole window took 22.8 s for the
 # command and 27 s for its KPP / TKE rerun on kernel and scan). The stored runs' own truth below keeps its frames.
 FC_RUN, FC_EVAL = REPO / "runs" / "fc_flagship", REPO / "runs" / "fc_flagship_eval"
 FC_EVAL_IDS, FC_EVAL_STRIDE, FC_EVAL_SUBSTEPS, FC_EVAL_WINDOW = (8, 9), 16, 8, 576
+# The KPP and TKE trajectories against scan over their first 10 frames (144 of 560 steps; the kernel's whole
+# trajectories are still the npz's): a depth cut made after phase 45 joined (scan over all 36 took 10.7 s).
+FC_EVAL_SCAN_FRAMES = 10
 # runs/fc_flagship and runs/fc_flagship_eval were made by the JAX commands with --source les3d (the 3-D LES at its
 # full 64 x 64 x 128 box, 1,153 saves; studies/chip_session_fc.sh), far beyond this run's time; its evaluate-fc runs
 # the 1-D stand-ins of the same ids. Phase 32 therefore also runs the port's profile of each stored FC run on that
@@ -347,13 +371,14 @@ KPP_LOSS_SLACK = 1e-6
 # exponential at gamma = sqrt(D) (K is not the identity), 33 random targets, against the unblocked fit.
 BGP_N, BGP_D, BGP_BLOCK, BGP_RTOL = 16384, 96, 4096, 1e-8
 # Phase 35: the embedded wind-mixing host column (embed/column_model.py) over 1,024 columns with the flagship MLPs,
-# baseline and +NN, 128 saves x 10 host steps of 60 s: one stacked Thomas launch on (3, 1024, 32) per host step. Here
+# baseline and +NN, 64 saves x 10 host steps of 60 s (128 saves until after phase 45 joined: a depth cut, 10.0 s per
+# paired run on a slow host): one stacked Thomas launch on (3, 1024, 32) per host step. Here
 # the momentum diffusing down from the surface decays into the subnormal range (below 2^-126) in the deep levels. The
 # kernel's quotients fall back to IEEE division wherever its fast path is not exact (csrc/thomas.cu, quotient), so
 # over the first HOST_CHECK_SAVES saves the kernel-backed pair must equal the scan-backed one in every entry (the
 # subnormal entries are counted and printed); the scan pair is the slow side, so the whole run is timed on the kernel
 # only.
-HOST_COLUMNS, HOST_SAVES, HOST_SUBSTEPS, HOST_CHECK_SAVES, HOST_PROFILE_SAVES = 1024, 128, 10, 8, 2
+HOST_COLUMNS, HOST_SAVES, HOST_SUBSTEPS, HOST_CHECK_SAVES, HOST_PROFILE_SAVES = 1024, 64, 10, 8, 2
 # Phase 36 (its second stage 8,32 until phase 44 joined: a depth cut): train-embedded from runs/wm_flagship_fold on
 # the 18 TRAIN_FILES (phase 8's suite) and train-embedded-fc
 # from runs/fc_flagship on the nine stand-in ids (phase 24's suite), two iterations per stage, 10 host steps per save;
@@ -365,8 +390,9 @@ EMB_CURRICULUM, EMB_FC_CURRICULUM, EMB_ITERS, EMB_SUBSTEPS, EMB_LR = "8,16", "17
 EMBEDDED_RUN, EMBEDDED_EVAL = REPO / "runs" / "wm_flagship_default", REPO / "runs" / "wm_flagship_default_eval"
 EMBEDDED_SUBSTEPS = 10  # eval/profile.py's embedded_substeps default, which the commands use
 # Phase 38: bench_double_gyre at the JAX defaults (96 x 96 x 32, WENO5, 32 steps of 1,800 s, the FC MLP), three
-# Thomas launches per step on (96, 96, 32), (96, 97, 32) and (97, 96, 32); then the double-gyre command for 10 days.
-GYRE_N, GYRE_NZ, GYRE_STEPS, GYRE_REPEATS, GYRE_PROFILE_STEPS, GYRE_DAYS = 96, 32, 32, 3, 8, 10
+# Thomas launches per step on (96, 96, 32), (96, 97, 32) and (97, 96, 32); then the double-gyre command for 5 days
+# (10 until phase 45 joined: a depth cut).
+GYRE_N, GYRE_NZ, GYRE_STEPS, GYRE_REPEATS, GYRE_PROFILE_STEPS, GYRE_DAYS = 96, 32, 32, 3, 8, 5
 GYRE_SHAPES = {(GYRE_N, GYRE_N, GYRE_NZ), (GYRE_N, GYRE_N + 1, GYRE_NZ), (GYRE_N + 1, GYRE_N, GYRE_NZ)}
 # The JAX test's volume bound (tests/test_embed.py::TestDoubleGyre::test_volume_conserved): |mean eta| per frame.
 GYRE_VOLUME_ATOL = 1e-6
@@ -393,7 +419,8 @@ GYRE_VOLUME_ATOL = 1e-6
 LES_THOMAS_SHAPES = ((2 * 32 * 17, 32), (2 * 64 * 33, 64), (2 * 64 * 33, 128))
 # Phase 10 times those shapes over 10 calls per backend, not 50: the plain backends and the densified library solve
 # at 128 levels take 19 s over 50 (a depth cut that keeps the smoke near 900 s). Since phases 41-42 joined, the
-# five shapes of phases 30, 33 and 38 are timed over 10 calls too (they took 4.1-5.2 s each over 50).
+# five shapes of phases 30, 33 and 38 are timed over 10 calls too (they took 4.1-5.2 s each over 50), and since
+# phase 45 joined every other shape of thomas_bench_record (phases 23, 25 and 28: 4.8-7.5 s each over 50).
 LES_BENCH_REPEATS = 10
 LES_N, LES_NZ, LES_STEPS, LES_REPEATS, LES_PROFILE_STEPS = 64, 64, 100, 3, 5
 LES_EULER_STEPS, LES_RK3_STEPS, LES_DIV_LIMIT = 20, 4, 2e-6
@@ -439,7 +466,8 @@ REPORT_WINDOW, REPORT_SUBSTEPS = 28, 18
 # loss-scaling pre-solve (one per substep) and 3 per substep per iteration (forward, checkpoint recompute, transposed
 # IFT solve); per L-BFGS loss evaluation 3 per substep (no pre-solve: the calibration has fixed channel weights); per
 # held-out sim 3 x 1,152 (NDE, mPP alone, KPP at 600 s) + 128 (KPP at the save spacing, kpp_ref_dt). (b)
-# --eval-checkpoint runs/wm_flagship_fold on the three held-out sims, beside the stored docs/flagship_run_fold.json
+# --eval-checkpoint runs/wm_flagship_fold on the first FLAG_EVAL_HELD_OUT held-out sims (all three until phase 45
+# joined), beside the stored docs/flagship_run_fold.json
 # (made by the JAX script on a TPU): the gaps are printed, and any above FLAG_STORED_NOTE with the reason below.
 # (c) The adjoint-parity study: dt_refinement on its stiff column (AP_FRAMES saves, the ladder AP_SUBSTEPS against
 # AP_FINE substeps), f32 on the kernel and f64 on scan, each ladder's split gradient error falling monotonically as
@@ -450,9 +478,33 @@ REPORT_WINDOW, REPORT_SUBSTEPS = 28, 18
 # ladder (1, 4, 8) against 16 substeps (12 saves, (1, 4, 16) against 64 in the JAX test; 6 and 32 first), and the
 # precision gap over two flagship sims moved out of the smoke.
 FLAG_ITERS, FLAG_LBFGS_ITERS, FLAG_PRETRAIN_EPOCHS, FLAG_HELD_OUT = 1, 1, 150, 0
+# The first two of the four STAGES, the 200- and 577-frame windows: the fourth repeats the third's window and stride
+# at another learning rate, and the third spans the whole window as phase 9's step does (depth cuts made after phase
+# 45 joined: they took 19.1 s and 13.9 s on slow hosts).
+FLAG_STAGES = 2
 FLAG_RUN_JSON = REPO / "docs" / "flagship_run_fold.json"
 FLAG_STORED_NOTE = 0.01
 AP_FRAMES, AP_SUBSTEPS, AP_FINE = 4, (1, 4, 8), 16
+# Phase 45: the other four studies of climateparameterizations_jl_tpu_torch/studies/. (a) forward_scaling on the f32
+# kernel at 1,024 and 131,072 columns x 1,024 steps (one timed run each after its warm-up: 2 launches per size), then
+# at 131,072 columns with the flagship MLPs one launch against --chunk-columns 32,768 (4 launches), equal bit for bit,
+# and the run's last 1,024 columns (its highest CTA indices) against the plain version. (b) fused_kernel_sweep at 1,024
+# x 64 with the flagship MLPs, one timed call per distinct route (three calls each: the state, the first call, one
+# timed; the JAX no-op variants are aliases and not run), each held to the f32 kernel (bf16 to the JAX bf16 limit of
+# phase 18). (c) fc_fair_substep_check's baselines
+# on sim 8's first 49 frames of runs/fc_les3d_eval at 1 and 8 substeps in f32 (T shifted by its initial column mean,
+# as the study runs it): 48 + 384 KPP and as many TKE steps, each one launch, equal on kernel and scan. (d)
+# gp_at_scale --smoke on phase 8's suite and the held-out sims of phase 27, then --gram-only at n = 8,192 (its gamma = 1
+# leaves K the identity in f32: timing only), and one 8,192 x 8,192 x 96 training Gram at gamma^2 = median(d^2) / 2,
+# kernel against plain at phase 11's limits, and timed there. Paid for by depth cuts: phase 31 on the
+# first EVAL_SIMS held-out sim (three before) and phase 44 (b) on the first FLAG_EVAL_HELD_OUT (three before); the
+# first clean-tree smoke with phase 45 and two sims in each took 1,080.6 s on a slow host, so both went to one; after
+# it reached 1,108.1 s, phases 9, 24, 28, 31, 32, 38 and 44 were cut in depth too (each named beside its constant).
+STUDY_COLUMNS, STUDY_CHUNK, STUDY_TAIL = (1024, 131072), 32768, 1024
+SWEEP_COLUMNS, SWEEP_STEPS = 1024, 64
+FAIR_FRAMES, FAIR_SIM = 49, 8
+GRAM_AB_N = 8192
+EVAL_SIMS, FLAG_EVAL_HELD_OUT = 1, 1
 
 
 def log(msg: str) -> None:
@@ -1481,7 +1533,7 @@ def thomas_shapes(tri):
     return recording, shapes
 
 
-def thomas_bench_record(benchmarks, dev, n_sys: int, N: int = NZ, repeats: int = 50) -> dict:
+def thomas_bench_record(benchmarks, dev, n_sys: int, N: int = NZ, repeats: int = LES_BENCH_REPEATS) -> dict:
     """``bench_tridiagonal`` at ``n_sys`` x ``N`` (``repeats`` calls per backend), with its byte bound, logged and
     returned.
 
@@ -1523,10 +1575,16 @@ def ensemble_step_phase(dev, setup, k0_step: dict, smi: str) -> dict:
     ens, meta = load_run(str(ENS_RUN), dev)
     record = {}
     with phase(f"25 deep-ensemble training step: {ENS_RUN.name} (K = {ENS_K}) on the {len(benchmarks.TRAIN_FILES)}-sim "
-               f"flagship step, folded ({ENS_TIMED_STEPS} timed steps) and one solve per member"):
+               f"flagship step, folded over its first {ENS_STEP_SAVES} saves ({ENS_TIMED_STEPS} timed steps) and one "
+               f"solve per member"):
         if meta.get("ensemble") != ENS_K or "mpp" in meta:
             raise RuntimeError(f"{ENS_RUN.name}: meta {meta.get('ensemble')} members, mpp {meta.get('mpp')}")
         batch = setup["batch"]
+        saves = batch.t.shape[0] - 1
+        head = dict(setup, batch=dataclasses.replace(batch, targets=batch.targets[:, : ENS_STEP_SAVES + 1],
+                                                     t=batch.t[: ENS_STEP_SAVES + 1]),
+                    tsteps=setup["tsteps"][: ENS_STEP_SAVES + 1],
+                    substeps=setup["substeps"] * ENS_STEP_SAVES // saves)
         part = dict(setup, batch=dataclasses.replace(batch, targets=batch.targets[:, : ENS_LOOP_SAVES + 1],
                                                      t=batch.t[: ENS_LOOP_SAVES + 1]))
         recording, shapes = thomas_shapes(tri)
@@ -1534,7 +1592,7 @@ def ensemble_step_phase(dev, setup, k0_step: dict, smi: str) -> dict:
         tri._thomas_cuda = recording
         try:
             _cuda.reset_launch_counts()
-            folded = benchmarks.bench_train_step(setup, n_timed=ENS_TIMED_STEPS, device=dev, ensemble=ENS_K,
+            folded = benchmarks.bench_train_step(head, n_timed=ENS_TIMED_STEPS, device=dev, ensemble=ENS_K,
                                                  member_fold=True, stacked_nns=ens)
             launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
             fold_shapes = sorted(set(shapes))
@@ -1547,18 +1605,20 @@ def ensemble_step_phase(dev, setup, k0_step: dict, smi: str) -> dict:
             tri._thomas_cuda = original
         substeps = folded["substeps"]
         expected = folded["presolve_substeps"] + 3 * substeps * folded["steps"]
-        solo_per_step = 3 * k0_step["substeps"]
-        log(f"folded: ms per step min={folded['ms_min']:.1f} median={folded['ms_median']:.1f} "
-            f"all={[round(t, 1) for t in folded['ms']]}; phase 9's solo step median {k0_step['ms_median']:.1f}; "
-            f"losses (member sums) {folded['losses']}")
+        solo_per_step = 3 * k0_step["substeps"] * ENS_STEP_SAVES // saves  # phase 9's over the same saves
+        log(f"folded over the first {ENS_STEP_SAVES} of {saves} saves ({substeps} substeps): ms per step "
+            f"min={folded['ms_min']:.1f} median={folded['ms_median']:.1f} all={[round(t, 1) for t in folded['ms']]}; "
+            f"phase 9's solo step over all {saves} saves, median {k0_step['ms_median']:.1f}; losses (member sums) "
+            f"{folded['losses']}")
         log(f"folded launch counts {launches}; expected thomas {expected} = {folded['presolve_substeps']} (one folded "
             f"pre-solve) + 3 x {substeps} x {folded['steps']} steps, i.e. {3 * substeps} per step as phase 9's "
-            f"{solo_per_step}; shapes {fold_shapes}")
+            f"{3 * k0_step['substeps']} over {saves} saves gives over {ENS_STEP_SAVES} ({solo_per_step}); shapes "
+            f"{fold_shapes}")
         want_fold = [(3, len(benchmarks.TRAIN_FILES), ENS_K, NZ)]
         if (launches["thomas"] != expected or 3 * substeps != solo_per_step or folded["presolve_substeps"] != substeps
                 or fold_shapes != want_fold):
             raise RuntimeError(f"folded step: thomas {launches['thomas']} (expected {expected}), shapes {fold_shapes}")
-        loop_substeps = substeps * ENS_LOOP_SAVES // (batch.t.shape[0] - 1)
+        loop_substeps = substeps * ENS_LOOP_SAVES // ENS_STEP_SAVES
         loop_expected = ENS_K * loop_substeps + ENS_K * 3 * loop_substeps
         log(f"member loop over the first {ENS_LOOP_SAVES} saves ({loop_substeps} substeps): pre-solve "
             f"{loop['presolve_ms']:.1f} ms, one loss + gradient {loop['step_ms']:.1f} ms (no adam); launch counts "
@@ -1599,8 +1659,8 @@ def ensemble_step_phase(dev, setup, k0_step: dict, smi: str) -> dict:
         record["thomas_72x32"] = thomas_bench_record(benchmarks, dev, 3 * len(benchmarks.TRAIN_FILES) * ENS_K)
         log(f"card: {smi}")
     record.update(
-        folded={"ms": folded["ms"], "ms_median": folded["ms_median"], "launches": launches["thomas"],
-                "expected": expected, "shapes": fold_shapes, "losses": folded["losses"]},
+        folded={"saves": ENS_STEP_SAVES, "ms": folded["ms"], "ms_median": folded["ms_median"],
+                "launches": launches["thomas"], "expected": expected, "shapes": fold_shapes, "losses": folded["losses"]},
         loop={"saves": ENS_LOOP_SAVES, "presolve_ms": loop["presolve_ms"], "step_ms": loop["step_ms"],
               "launches": loop_launches["thomas"], "expected": loop_expected, "shapes": loop_shapes},
         k0_step_ms_median=k0_step["ms_median"], folded_vs_loop={"loss_rel": fl_loss, "grad_rel": fl_grad},
@@ -1936,8 +1996,12 @@ def train_fc_nde_ensemble_phase(dev, smi: str) -> dict:
         if rel > STEP_LOSS_RTOL:
             raise RuntimeError("train-fc-nde --ensemble: the history does not hold the member mean")
         stacked_out, meta = cli._load_fc_nn(str(out), dev)
-        # Id 1 on its own, with the training scalings and its own boundary fluxes.
-        suite = cli._load_fc_suite([1], NZ, None, FC_N_SAVE, 600.0, device=dev)
+        # Id 1 on its own, with the training scalings and its own boundary fluxes (taken from the suite kept above).
+        fcd.load_free_convection_suite = cached_suite
+        try:
+            suite = cli._load_fc_suite([1], NZ, None, FC_N_SAVE, 600.0, device=dev)
+        finally:
+            fcd.load_free_convection_suite = originals[0]
         model_1 = fcd.build_free_convection_model(suite, model.T_scaling, model.wT_scaling, model.base_closure)
         tsteps = np.arange(0, FC_UQ_FRAMES, FC_UQ_STRIDE)
         _cuda.reset_launch_counts()
@@ -2062,11 +2126,13 @@ def evaluate_phase(dev, setup, smi: str) -> dict:
     from climateparameterizations_jl_tpu_torch.ops import _cuda
 
     names = tuple(benchmarks.TRAIN_FILES)
+    sims = UQ_TEST_FILES[:EVAL_SIMS]
     tsteps = np.arange(0, NDE_N_SAVE, EVAL_STRIDE)  # --n-train-steps 1152: the stored run's 128 frames
     saves = len(tsteps) - 1
     per_sim = 3 * saves * EVAL_STRIDE + 2 * saves * EMBEDDED_SUBSTEPS  # NDE, mPP alone, KPP; the host pair
-    expected = per_sim * len(UQ_TEST_FILES)
-    with phase(f"31 evaluate --embedded of {EMBEDDED_RUN.name} on the {len(UQ_TEST_FILES)} held-out sims: "
+    expected = per_sim * len(sims)
+    with phase(f"31 evaluate --embedded of {EMBEDDED_RUN.name} on {len(sims)} of the {len(UQ_TEST_FILES)} held-out "
+               f"sims: "
                f"{len(tsteps)} frames (every {EVAL_STRIDE}th of {NDE_N_SAVE} saves), {EVAL_STRIDE} split substeps and "
                f"{EVAL_STRIDE} KPP steps per save, {EMBEDDED_SUBSTEPS} host steps per save"), \
             tempfile.TemporaryDirectory() as tmp:
@@ -2079,7 +2145,7 @@ def evaluate_phase(dev, setup, smi: str) -> dict:
             t = time.perf_counter()
             _cuda.reset_launch_counts()
             rc = cli.main(["evaluate", "--embedded", "--checkpoint", str(EMBEDDED_RUN), "--test-sims",
-                           ",".join(UQ_TEST_FILES), "--nz", str(NZ), "--n-save", str(NDE_N_SAVE), "--dt-save", "600",
+                           ",".join(sims), "--nz", str(NZ), "--n-save", str(NDE_N_SAVE), "--dt-save", "600",
                            "--n-train-steps", str(NDE_N_SAVE), "--eval-stride", str(EVAL_STRIDE), "--n-substeps",
                            str(EVAL_STRIDE), "--kpp-n-substeps", str(EVAL_STRIDE), "--output", str(out)])
             launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
@@ -2089,8 +2155,8 @@ def evaluate_phase(dev, setup, smi: str) -> dict:
         finally:
             cli._load_suite = original
         summary = json.loads((out / "summary.json").read_text())
-        log(f"exit {rc} in {wall:.2f} s ({wall / len(UQ_TEST_FILES):.2f} s per sim); launch counts {launches}; expected "
-            f"thomas {expected} = {len(UQ_TEST_FILES)} sims x (3 solves (NDE, mPP alone, KPP) x {saves} saves x "
+        log(f"exit {rc} in {wall:.2f} s ({wall / len(sims):.2f} s per sim); launch counts {launches}; expected "
+            f"thomas {expected} = {len(sims)} sims x (3 solves (NDE, mPP alone, KPP) x {saves} saves x "
             f"{EVAL_STRIDE} + 2 host runs x {saves} saves x {EMBEDDED_SUBSTEPS})")
         if rc != 0 or launches["thomas"] != expected or any(v for k, v in launches.items() if k != "thomas"):
             raise RuntimeError(f"evaluate: exit {rc}, launches {launches} (expected thomas {expected})")
@@ -2099,16 +2165,17 @@ def evaluate_phase(dev, setup, smi: str) -> dict:
             finite = all(bool(np.isfinite(ev[k]).all()) for k in ev.files)
             keys = sorted(ev.files)
         kernel, = _kpp_tke_trajectories(first, t_dim, EVAL_STRIDE, "cuda", wind=True, tke=False)
-        scan_ms, (scan,) = cuda_ms(lambda: _kpp_tke_trajectories(first, t_dim, EVAL_STRIDE, "scan", wind=True,
-                                                                  tke=False))
+        scan_ms, (scan,) = cuda_ms(lambda: _kpp_tke_trajectories(first, t_dim[:EVAL_SCAN_FRAMES], EVAL_STRIDE, "scan",
+                                                                  wind=True, tke=False))
+        head = kernel[:EVAL_SCAN_FRAMES]
         same_file = bool(np.array_equal(kernel.cpu().numpy(), kpp_T))
-        log(f"{UQ_TEST_FILES[0]}: KPP trajectory {tuple(kernel.shape)} kernel vs scan torch.equal "
-            f"{torch.equal(kernel, scan)} (differing entries {int((kernel != scan).sum())}; scan {scan_ms:.0f} ms), the "
-            f"npz's kpp_T is the kernel run: {same_file}; {len(keys)} keys, all finite {finite}")
-        if not (torch.equal(kernel, scan) and same_file and finite):
+        log(f"{UQ_TEST_FILES[0]}: KPP trajectory {tuple(kernel.shape)}; its first {EVAL_SCAN_FRAMES} frames kernel vs "
+            f"scan torch.equal {torch.equal(head, scan)} (differing entries {int((head != scan).sum())}; scan "
+            f"{scan_ms:.0f} ms), the npz's kpp_T is the kernel run: {same_file}; {len(keys)} keys, all finite {finite}")
+        if not (torch.equal(head, scan) and same_file and finite):
             raise RuntimeError("evaluate: the KPP baseline differs on kernel and scan, or the profile is not finite")
         log(f"card: {smi}")
-    return {"s": wall, "s_per_sim": wall / len(UQ_TEST_FILES), "launches": launches["thomas"], "expected": expected,
+    return {"s": wall, "s_per_sim": wall / len(sims), "sims": len(sims), "launches": launches["thomas"], "expected": expected,
             "frames": len(tsteps), "summary": summary["mean"], "kpp_kernel_equals_scan": True, "keys": keys}
 
 
@@ -2161,12 +2228,15 @@ def evaluate_fc_phase(dev, smi: str) -> dict:
             finite = all(bool(np.isfinite(ev[k]).all()) for k in ev.files)
             keys = sorted(ev.files)
         kernel = _kpp_tke_trajectories(ds, t_dim, FC_EVAL_STRIDE, "cuda", wind=False, tke=True)
-        scan_ms, scan = cuda_ms(lambda: _kpp_tke_trajectories(ds, t_dim, FC_EVAL_STRIDE, "scan", wind=False, tke=True))
+        scan_ms, scan = cuda_ms(lambda: _kpp_tke_trajectories(ds, t_dim[:FC_EVAL_SCAN_FRAMES], FC_EVAL_STRIDE, "scan",
+                                                              wind=False, tke=True))
         ok = finite
         for label, k, s_, f in zip(("KPP", "TKE"), kernel, scan, stored):
-            same, same_file = torch.equal(k, s_), bool(np.array_equal(k.cpu().numpy(), f))
-            log(f"id {FC_EVAL_IDS[0]} {label} trajectory {tuple(k.shape)}: kernel vs scan torch.equal {same} "
-                f"(differing entries {int((k != s_).sum())}); the npz's is the kernel run: {same_file}")
+            head = k[:FC_EVAL_SCAN_FRAMES]
+            same, same_file = torch.equal(head, s_), bool(np.array_equal(k.cpu().numpy(), f))
+            log(f"id {FC_EVAL_IDS[0]} {label} trajectory {tuple(k.shape)}: its first {FC_EVAL_SCAN_FRAMES} frames kernel "
+                f"vs scan torch.equal {same} (differing entries {int((head != s_).sum())}); the npz's is the kernel "
+                f"run: {same_file}")
             ok = ok and same and same_file
         log(f"(both scan runs {scan_ms:.0f} ms); all npz values finite {finite}")
         if not ok:
@@ -2557,7 +2627,7 @@ def evaluate_embedded_phase(evaluate: dict, evaluate_fc: dict, smi: str) -> dict
         fc_keys = {"embedded_T", "embedded_baseline_T", "embedded_wT"}
         missing = sorted((wm_keys - set(evaluate["keys"])) | (fc_keys - set(evaluate_fc["keys"])))
         absent = [m for m in members if m not in evaluate["summary"] or m not in evaluate_fc["summary"]]
-        log(f"evaluate --embedded: {evaluate['s']:.2f} s for {len(UQ_TEST_FILES)} sims, thomas {evaluate['launches']}; "
+        log(f"evaluate --embedded: {evaluate['s']:.2f} s for {evaluate['sims']} sims, thomas {evaluate['launches']}; "
             f"evaluate-fc --embedded: {evaluate_fc['s']:.2f} s for ids {FC_EVAL_IDS}, thomas {evaluate_fc['launches']}; "
             f"embedded channels missing {missing}, members missing from a summary {absent}")
         if missing or absent:
@@ -2568,6 +2638,7 @@ def evaluate_embedded_phase(evaluate: dict, evaluate_fc: dict, smi: str) -> dict
             "run's stand-ins had a bottom gradient of 0.002 K/m, the port's (as the JAX package's now) 0; on the "
             "stored truth with that gradient, embedded_stored_truth.py --stored-bottom-gradient gives embedded "
             "8.905e-5 against the stored 8.918e-5, on the CPU):")
+        log(f"  (the port's mean over the first {evaluate['sims']} held-out sims, the stored run's over all three)")
         _summary_beside(evaluate["summary"], EMBEDDED_EVAL / "summary.json", flat=False)
         log(f"evaluate-fc --embedded, the stand-ins of ids {FC_EVAL_IDS}: "
             + ", ".join(f"{m} {evaluate_fc['summary'][m]:.6e}" for m in members))
@@ -2576,7 +2647,7 @@ def evaluate_embedded_phase(evaluate: dict, evaluate_fc: dict, smi: str) -> dict
 
 
 def double_gyre_phase(dev, smi: str) -> dict:
-    """Phase 38: bench_double_gyre on the Thomas kernel against scan, then the double-gyre command for 10 days."""
+    """Phase 38: bench_double_gyre on the Thomas kernel against scan, then the double-gyre command for 5 days."""
     import numpy as np
     import torch
 
@@ -3087,13 +3158,14 @@ def flagship_study_phase(dev, setup: dict, smi: str) -> dict:
     from climateparameterizations_jl_tpu_torch.train import mpp_calibration, nde
 
     record: dict = {}
-    stages = [(w, s, FLAG_ITERS, lr) for w, s, _, lr in fst.STAGES]
+    stages = [(w, s, FLAG_ITERS, lr) for w, s, _, lr in fst.STAGES[:FLAG_STAGES]]
     n_frames, n_sims = fst.N_FRAMES, len(fst.TRAIN_FILES_STANDARD)
-    n_held, eval_saves = len(fst.TEST_FILES_STANDARD), len(range(0, fst.N_FRAMES, 9)) - 1
+    n_held, eval_saves = FLAG_EVAL_HELD_OUT, len(range(0, fst.N_FRAMES, 9)) - 1
     per_sim_eval = 3 * eval_saves * 9 + eval_saves
     with phase(f"44 the flagship study at full width ({n_sims} sims x {n_frames} frames, Nz = {NZ}): --mode train "
                f"--calibrate-mpp (L-BFGS {FLAG_LBFGS_ITERS} iteration, stages {stages}), --eval-checkpoint "
-               f"{FLAGSHIP_RUN.name}, then the adjoint-parity study (f32 kernel, f64 scan)"), \
+               f"{FLAGSHIP_RUN.name} on {FLAG_EVAL_HELD_OUT} held-out sims, then the adjoint-parity study (f32 kernel, "
+               f"f64 scan)"), \
             tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         WM_SUITES[(tuple(fst.TRAIN_FILES_STANDARD), NZ, None, n_frames - 1, 600.0, 128)] = setup["ds"]  # phase 8's
@@ -3131,7 +3203,7 @@ def flagship_study_phase(dev, setup: dict, smi: str) -> dict:
                               "--save-nns", str(tmp / "a"), "--out", str(tmp / "a.json")])
             torch.cuda.synchronize()
             train_s, train_launches = time.perf_counter() - t, _cuda.THOMAS.launches
-            fst.TEST_FILES_STANDARD = originals[5]
+            fst.TEST_FILES_STANDARD = originals[5][:FLAG_EVAL_HELD_OUT]
             t = time.perf_counter()
             _cuda.reset_launch_counts()
             held = fst.main(["--eval-checkpoint", str(FLAGSHIP_RUN), "--out", str(tmp / "b.json")])
@@ -3222,6 +3294,200 @@ def flagship_study_phase(dev, setup: dict, smi: str) -> dict:
             if not (split[0] > split[1] > split[2]) or (backend == "cuda") != (_cuda.THOMAS.launches > 0):
                 raise RuntimeError(f"dt_refinement {label}: split errors {split}, launches {_cuda.THOMAS.launches}")
         record["adjoint_parity"] = {"refinement": refinement}
+        log(f"card: {smi}")
+    return record
+
+
+def studies_phase(dev, flagship, smi: str) -> dict:
+    """Phase 45: forward_scaling, fused_kernel_sweep, fc_fair_substep_check and gp_at_scale on their kernels."""
+    import numpy as np
+    import torch
+
+    from climateparameterizations_jl_tpu_torch import benchmarks
+    from climateparameterizations_jl_tpu_torch.cli import main as cli
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+    from climateparameterizations_jl_tpu_torch.ops import gram as ops_gram
+    from climateparameterizations_jl_tpu_torch.ops.fused_rhs import make_fused_runner_mxu
+    from climateparameterizations_jl_tpu_torch.studies import fc_fair_substep_check as fair
+    from climateparameterizations_jl_tpu_torch.studies import forward_scaling as fs
+    from climateparameterizations_jl_tpu_torch.studies import fused_kernel_sweep as fks
+    from climateparameterizations_jl_tpu_torch.studies import gp_at_scale as gps
+
+    record: dict = {}
+    with phase(f"45 the studies, continued: forward_scaling at {STUDY_COLUMNS} columns x {BENCH_STEPS} steps, "
+               f"fused_kernel_sweep at {SWEEP_COLUMNS} x {SWEEP_STEPS}, fc_fair_substep_check on sim {FAIR_SIM}'s first "
+               f"{FAIR_FRAMES} frames, gp_at_scale --smoke and --gram-only (n = {GRAM_AB_N})"), \
+            tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (a) forward_scaling: one launch per run on the f32 kernel.
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _cuda.reset_launch_counts()
+        rows = fs.main(["--columns", ",".join(map(str, STUDY_COLUMNS)), "--n-steps", str(BENCH_STEPS), "--repeats",
+                        "1", "--out", str(tmp / "fs.jsonl")])
+        launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+        want = 2 * len(STUDY_COLUMNS)
+        for r in rows:
+            log(f"  forward_scaling {r['n_columns']} x {r['n_steps']}: {r['median_s'] * 1e3:.3f} ms, "
+                f"{r['col_ts_per_s']:.4e} column-timesteps/s, mfu {r['mfu_pct']:.2f} %")
+        log(f"forward_scaling: {time.perf_counter() - t:.2f} s, launch counts {launches} (derived fused_rk4 {want}: "
+            f"one warm-up and one timed run per size)")
+        if (len(rows) != len(STUDY_COLUMNS) or launches["fused_rk4"] != want
+                or not all(math.isfinite(r["col_ts_per_s"]) and r["col_ts_per_s"] > 0 for r in rows)):
+            raise RuntimeError(f"forward_scaling: rows {rows}, launches {launches}")
+        n = STUDY_COLUMNS[-1]
+        model, nns, bcs, x0 = benchmarks.make_setup(NZ, n, nns=flagship, device=dev)
+        whole = benchmarks.nde_forward_route(model, nns, bcs, BENCH_STEPS, n, device=dev)[0](x0)
+        chunked = benchmarks.nde_forward_route(model, nns, bcs, BENCH_STEPS, n, chunk_columns=STUDY_CHUNK,
+                                               device=dev)[0](x0)
+        equal = torch.equal(whole, chunked)
+        tail = make_fused_runner_mxu(model, nns, bcs, benchmarks.FORWARD_DT, BENCH_STEPS, STUDY_TAIL, device=dev)
+        tail_err = compare(f"the {n}-column kernel run's last {STUDY_TAIL} columns vs the plain version", whole[-STUDY_TAIL:],
+                           tail.plain(x0[-STUDY_TAIL:].contiguous()))
+        log(f"  {n} columns: one launch vs --chunk-columns {STUDY_CHUNK} ({n // STUDY_CHUNK} launches) torch.equal "
+            f"{equal}; grid {n // _cuda.FUSED_RK4.load().fused_rk4_columns_per_block()} CTAs")
+        if not equal:
+            raise RuntimeError("forward_scaling: the chunked run differs from one launch")
+        del whole, chunked, x0
+        # Both kernels' device time at the largest batch against their bounds (rows 2 and 2b of PERF.md: the 1,024 x
+        # 1,024 bounds scaled by the column count).
+        h1, h2 = flagship.uw.weights[0].shape[0], flagship.uw.weights[1].shape[0]
+        mm_flops, ew_flops = benchmarks.fused_rk4_flops(n, BENCH_STEPS, NZ, h1, h2)
+        big = {}
+        for mdt, bound_ms in (("float32", (mm_flops + ew_flops) / PEAK_F32_FLOPS * 1e3),
+                              ("bfloat16", max(ew_flops / PEAK_F32_FLOPS, mm_flops / PEAK_BF16_FLOPS) * 1e3)):
+            stats = benchmarks.bench_nde_forward(n, NZ, BENCH_STEPS, 1, nns=flagship, device=dev, matmul_dtype=mdt)
+            big[mdt] = {"ms": stats["ms_median"], "bound_ms": bound_ms, "share_of_bound": bound_ms / stats["ms_median"]}
+            log(f"  bench_nde_forward {n} x {BENCH_STEPS} {mdt}: {stats['ms_median']:.2f} ms, bound {bound_ms:.2f} ms "
+                f"(operations), share {bound_ms / stats['ms_median']:.3f}")
+        record["forward_scaling"] = {"rows": rows, "launches": want, "chunk_equal": equal,
+                                     "tail_max_abs_vs_plain": tail_err, "at_131072": big}
+
+        # (b) fused_kernel_sweep: every distinct route against the f32 kernel, bf16 to the JAX bf16 limit.
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _cuda.reset_launch_counts()
+        states: dict = {}
+        rows = fks.sweep(SWEEP_COLUMNS, SWEEP_STEPS, dev, tmp / "sweep.jsonl", iters=1, warmup=0, nns=flagship,
+                         states=states)
+        launches = {k: v.launches for k, v in _cuda.KERNELS.items()}
+        timed = [r for r in rows if r["alias_of"] is None]  # each distinct computation, timed once
+        f32_names = [r["config"] for r in timed if r["kernel"] == "fused_rk4"]
+        bf16_names = [r["config"] for r in timed if r["kernel"] == "fused_rk4_bf16"]
+        want_f32 = 3 * (len(f32_names) - 1) + 3 * SWEEP_STEPS  # the single-step loop: SWEEP_STEPS launches a call
+        want_bf16 = 3 * len(bf16_names)
+        reference = next(states[r["config"]] for r in timed if r["config"].endswith(" float32")
+                         and r["config"].startswith("cuda mxu fused_rk4 "))
+        errors = {}
+        for r in timed:
+            bf16 = r["kernel"] == "fused_rk4_bf16"
+            errors[r["config"]] = compare(
+                f"  sweep route {r['config']!r} ({r['col_ts_per_sec']:.4e} column-timesteps/s) vs the f32 kernel",
+                states[r["config"]], reference, **({"rtol": JAX_BF16_RTOL, "atol": JAX_BF16_ATOL} if bf16 else {}))
+        aliases = {r["config"]: r["alias_of"] for r in rows if r["alias_of"] is not None}
+        log(f"fused_kernel_sweep: {time.perf_counter() - t:.2f} s, {len(rows)} routes of which {len(timed)} timed "
+            f"and {len(aliases)} aliases ({aliases}), launch counts {launches} (derived fused_rk4 {want_f32}, "
+            f"fused_rk4_bf16 {want_bf16} over {len(bf16_names)} launch shapes)")
+        if ((launches["fused_rk4"], launches["fused_rk4_bf16"]) != (want_f32, want_bf16) or len(rows) != 16
+                or len(f32_names) != 2 or len(timed) != 5 + len(bf16_names)):
+            raise RuntimeError(f"fused_kernel_sweep: {len(rows)} rows ({len(timed)} timed), launches {launches}")
+        record["fused_kernel_sweep"] = {"rows": rows, "launches": {k: launches[k] for k in ("fused_rk4",
+                                                                                            "fused_rk4_bf16")}}
+        del states, reference
+
+        # (c) fc_fair_substep_check: every KPP and TKE step one launch, kernel equal to scan.
+        z = np.load(fair.RUNS / "fc_les3d_eval" / f"sim{FAIR_SIM}.npz")
+        truth = torch.tensor(z["truth_T"][:FAIR_FRAMES], dtype=torch.float64, device=dev)
+        shift = float(truth[0].mean())
+        T0, t_dim = (truth[0] - shift).float(), torch.tensor(z["t"][:FAIR_FRAMES], device=dev)
+        fair_rec = {}
+        for nsub in (1, 8):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _cuda.reset_launch_counts()
+            kernel = fair.run_baselines(T0, t_dim, z["zf"], z["zc"], FAIR_SIM, nsub)
+            torch.cuda.synchronize()
+            k_s, k_launches = time.perf_counter() - t, _cuda.THOMAS.launches
+            t = time.perf_counter()
+            scan = fair.run_baselines(T0, t_dim, z["zf"], z["zc"], FAIR_SIM, nsub, tridiag_backend="scan")
+            torch.cuda.synchronize()
+            s_s = time.perf_counter() - t
+            pairs = [(kernel[0].T, scan[0].T), (kernel[0].U, scan[0].U), (kernel[1], scan[1]), (kernel[2].T, scan[2].T),
+                     (kernel[2].e, scan[2].e), (kernel[3], scan[3])]
+            equal = all(torch.equal(a, b) for a, b in pairs)
+            want = 2 * (FAIR_FRAMES - 1) * nsub
+            loss = float(torch.mean(((kernel[0].T.double() + shift) - truth) ** 2))
+            log(f"  fc_fair sim {FAIR_SIM} at {nsub} substep(s): kernel {k_s:.2f} s, thomas {k_launches} (derived {want} "
+                f"= {FAIR_FRAMES - 1} x {nsub} KPP + as many TKE steps); scan {s_s:.2f} s; every trajectory and flux "
+                f"torch.equal {equal}; KPP T mean squared error {loss:.4e} K^2")
+            if k_launches != want or not equal:
+                raise RuntimeError(f"fc_fair at {nsub} substeps: launches {k_launches} (derived {want}), equal {equal}")
+            fair_rec[nsub] = {"launches": k_launches, "kernel_s": k_s, "scan_s": s_s, "equal": equal}
+        record["fc_fair"] = fair_rec
+
+        # (d) gp_at_scale --smoke on the cached suites, then the Gram A/B at 8,192 and one Gram there.
+        original = cli._load_suite
+        cli._load_suite = cached_suites(cli, WM_SUITES)  # phase 8's suite and phase 27's held-out sims
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _cuda.reset_launch_counts()
+            smoke = gps.main(["--smoke", "--out", str(tmp / "gp.json")])
+            torch.cuda.synchronize()
+            smoke_s, smoke_launches = time.perf_counter() - t, _cuda.GRAM.launches
+        finally:
+            cli._load_suite = original
+        numbers = [v for _, v in _numbers({k: smoke[k] for k in ("build_f32", "build_f64", "gp_full", "gp_de")})]
+        log(f"gp_at_scale --smoke: {smoke_s:.2f} s; selection {[smoke['selection'][f]['kernel'] for f in smoke['selection']]}"
+            f"; final fit {smoke['final_fit']}; GP-DE {smoke['gp_de']['frames']} frames, T mse "
+            f"{smoke['gp_de']['trajectory_mse_T']:.4e}; gram launches {smoke_launches} (derived 18: the A/B's "
+            f"kernel builds, 6 x 3)")
+        if (smoke_launches != 18 or smoke["gp_de"]["frames"] != 49 or smoke["n_full"] != 2048
+                or not all(math.isfinite(v) for v in numbers)):
+            raise RuntimeError(f"gp_at_scale --smoke: launches {smoke_launches}, {smoke['final_fit']}, {smoke['gp_de']}")
+        _cuda.reset_launch_counts()
+        ab = gps.main(["--gram-only", "--out", str(tmp / "gram.json")])
+        ab_launches = _cuda.GRAM.launches
+        # The A/B's gamma = 1 leaves this Gram the identity in f32 (see GP_WIDE_GAMMA), so the kernel is held to
+        # plain, and timed, where K is not trivial: gamma^2 = median(d^2) / 2 on the same inputs, as phase 11.
+        x, _, _ = benchmarks.gp_inputs(GRAM_AB_N, GP_D, device=dev)
+        gamma = math.sqrt(0.5 * float(ops_gram._sq_distances(x.double(), x.double())[0].median()))
+        got = ops_gram.gram_cuda(x, x, gamma, 1.0)
+        torch.cuda.synchronize()
+        want = ops_gram.gram_plain(x, x, gamma, 1.0)
+        off = ~torch.eye(GRAM_AB_N, dtype=torch.bool, device=dev)
+        k_off = want[off]
+        log(f"  gram at {GRAM_AB_N} x {GRAM_AB_N} x {GP_D}, gamma = {gamma:.5g}: off-diagonal K median "
+            f"{float(k_off.median()):.3e}, min {float(k_off.min()):.3e}, max {float(k_off.max()):.3e}")
+        err_off, err_co, _ = compare_gram(f"gram {GRAM_AB_N}x{GRAM_AB_N}x{GP_D} squared_exponential gamma={gamma:.5g} "
+                                          f"(the --gram-only inputs) vs gram_plain", got, want, x, x,
+                                          "squared_exponential", (gamma, 1.0, 1.0))
+        exact = int((got.diagonal() == 1.0).sum())
+        del got, want, k_off, off
+        # Device time at 8,192 x 8,192 x 96 on those inputs (PERF.md row 4): kernel, plain version and torch.cdist
+        # (the distance part alone), against the bound of 2 n^2 D FLOP at the f32 peak (the output's bytes take
+        # less).
+        kernel_ms, _ = cuda_ms(lambda: ops_gram.gram_cuda(x, x, gamma, 1.0), repeats=5)
+        plain_ms, _ = cuda_ms(lambda: ops_gram.gram_plain(x, x, gamma, 1.0), repeats=5)
+        cdist_ms, _ = cuda_ms(lambda: torch.cdist(x, x), repeats=5)
+        g_ops = 2.0 * GRAM_AB_N * GRAM_AB_N * GP_D / PEAK_F32_FLOPS * 1e3
+        g_bytes = 4.0 * (2 * GRAM_AB_N * GP_D + GRAM_AB_N * GRAM_AB_N) / PEAK_BYTES_PER_S * 1e3
+        log(f"  gram at {GRAM_AB_N} x {GRAM_AB_N} x {GP_D}, gamma = {gamma:.5g}: kernel {kernel_ms:.4f} ms, "
+            f"gram_plain {plain_ms:.4f} ms, torch.cdist {cdist_ms:.4f} ms (CUDA events, median of 5); bound "
+            f"{max(g_ops, g_bytes):.4f} ms (operations {g_ops:.4f} ms, bytes {g_bytes:.4f} ms), share "
+            f"{max(g_ops, g_bytes) / kernel_ms:.3f}")
+        log(f"gp_at_scale --gram-only at n = {GRAM_AB_N} (the study's gamma = 1, timing only): three builds "
+            f"{ab['gram_plain']['ms_median']:.2f} ms plain, {ab['gram_cuda']['ms_median']:.2f} ms on the kernel; gram "
+            f"launches {ab_launches} (derived 18); the training Gram's diagonal equal to sigma exactly: {exact} of "
+            f"{GRAM_AB_N}")
+        if ab_launches != 18 or exact != GRAM_AB_N:
+            raise RuntimeError(f"gp_at_scale --gram-only: launches {ab_launches}, exact diagonal {exact}")
+        record["gp_at_scale"] = {"smoke_s": smoke_s, "smoke_gram_launches": smoke_launches,
+                                 "final_fit": smoke["final_fit"], "gp_de": smoke["gp_de"], "gram_ab": ab,
+                                 "gram_launches": ab_launches, "gram_max_abs_vs_plain": err_off,
+                                 "gram_coincident_max_abs": err_co, "gram_8192_ms": kernel_ms,
+                                 "gram_8192_plain_ms": plain_ms, "cdist_8192_ms": cdist_ms, "gram_8192_gamma": gamma,
+                                 "gram_8192_bound_ms": max(g_ops, g_bytes)}
         log(f"card: {smi}")
     return record
 
@@ -3632,15 +3898,19 @@ def main() -> int:
         if train_launches["thomas"] != expected or expected == 0:
             raise RuntimeError(f"thomas counted {train_launches['thomas']} launches, expected {expected}")
 
+        # Kernel against scan over the window's first TRAIN_COMPARE_SUBSTEPS substeps (a depth cut).
+        frames = TRAIN_COMPARE_SUBSTEPS // setup["config"].n_substeps + 1
+        cut = dict(setup, batch=dataclasses.replace(batch, targets=batch.targets[:, :frames], t=batch.t[:frames]))
         timed_grads = []  # the setup's backend (the kernel), then scan: (loss, gradient), host ms
         for overrides in ({}, {"tridiag_backend": "scan"}):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            loss_grad = benchmarks.train_step_loss_and_grad(setup, **overrides)
+            loss_grad = benchmarks.train_step_loss_and_grad(cut, **overrides)
             torch.cuda.synchronize()
             timed_grads.append((loss_grad, (time.perf_counter() - t) * 1e3))
         ((loss_k, grad_k), kernel_ms), ((loss_s, grad_s), scan_ms) = timed_grads
-        log(f"one loss and gradient (no adam), host clock: kernel {kernel_ms:.1f} ms, tridiag_backend='scan' "
+        log(f"one loss and gradient (no adam) over the first {frames} frames ({TRAIN_COMPARE_SUBSTEPS} of "
+            f"{train['substeps']} substeps), host clock: kernel {kernel_ms:.1f} ms, tridiag_backend='scan' "
             f"{scan_ms:.1f} ms (information)")
         loss_rel = abs(float(loss_k) - float(loss_s)) / abs(float(loss_s))
         grad_rel = float((grad_k - grad_s).norm() / grad_s.norm())
@@ -3649,7 +3919,7 @@ def main() -> int:
             f"limit {STEP_LOSS_RTOL}); gradient ({grad_k.numel()} entries) |g_k - g_s| / |g_s| = {grad_rel:.3e} "
             f"(limit {STEP_GRAD_RTOL}); max abs {float((grad_k - grad_s).abs().max()):.3e} of "
             f"max |g| {float(grad_s.abs().max()):.3e}. Reason: per-solve f32 differences between kernel and scan "
-            f"through 1,152 substeps and the backward pass, amplified by the mPP tanh switch")
+            f"through the substeps and the backward pass, amplified by the mPP tanh switch")
         if not ok:
             raise RuntimeError("kernel-backed and scan-backed steps disagree")
 
@@ -3685,12 +3955,12 @@ def main() -> int:
             f"{THOMAS_EARLIER_MS['54x32'] * 1e3:.2f} us: {small_bound / THOMAS_EARLIER_MS['54x32']:.4f})")
         thomas_errors["bench_16384x32"] = big["max_abs_err_vs_scan"]
         # The shapes of phases 30, 33 and 38, measured here while the profiler still records every launch.
-        kpp_tke_shapes = {f"{n_sys}x{NZ}": thomas_bench_record(benchmarks, dev, n_sys, repeats=LES_BENCH_REPEATS)
+        kpp_tke_shapes = {f"{n_sys}x{NZ}": thomas_bench_record(benchmarks, dev, n_sys)
                           for n_sys in (3 * COL_COLUMNS, 4 * COL_COLUMNS, 3 * KPP_PLUGIN * len(benchmarks.TRAIN_FILES),
                                         GYRE_N * GYRE_N, GYRE_N * (GYRE_N + 1))}
         # The LES pressure solves of phase 39 (generate-les at 32^3, bench_les at 64^3, the les3d sources at
         # 64 x 64 x 128): equal to _thomas_scan, within the phase's limit of _thomas_pcr.
-        les_shapes = {f"{n_sys}x{n}": thomas_bench_record(benchmarks, dev, n_sys, n, repeats=LES_BENCH_REPEATS)
+        les_shapes = {f"{n_sys}x{n}": thomas_bench_record(benchmarks, dev, n_sys, n)
                       for n_sys, n in LES_THOMAS_SHAPES}
 
     thomas_record = {
@@ -3713,7 +3983,7 @@ def main() -> int:
                            "plain_ms": tbench[54]["scan_ms"], "library_ms": tbench[54]["library_ms"],
                            "bound_ms": small_bound, "bound_by": "bytes"},
         "train_step_ms": {"kernel": train["ms"]},
-        "loss_and_grad_ms": {"kernel": kernel_ms, "scan": scan_ms},
+        "loss_and_grad_ms": {"kernel": kernel_ms, "scan": scan_ms, "substeps": TRAIN_COMPARE_SUBSTEPS},
         "train_step_vs_scan": {"kernel": {"loss_rel": loss_rel, "grad_rel": grad_rel}},
         "train_step_profile": {k: prof[k] for k in ("substeps", "wall_ms", "device_busy_ms", "device_idle_share",
                                                     "device_ops_per_substep")},
@@ -3748,6 +4018,11 @@ def main() -> int:
     thomas_record["headline_report"] = headline_report_phase(dev, setup, flagship, smi)
     parallel_phase(dev, setup, smi)
     thomas_record["flagship_study"] = flagship_study_phase(dev, setup, smi)
+    studies = studies_phase(dev, flagship, smi)
+    record["studies"] = {k: studies[k] for k in ("forward_scaling", "fused_kernel_sweep")}
+    bf16_record["studies"] = {"fused_kernel_sweep": studies["fused_kernel_sweep"]["launches"]["fused_rk4_bf16"]}
+    thomas_record["fc_fair"] = studies["fc_fair"]
+    gram_record["gp_at_scale"] = studies["gp_at_scale"]
     record["ptxas"] = ptxas_summary(kernel.ptxas_report)
     thomas_record["ptxas"] = ptxas_summary(thomas.ptxas_report)
     print(smi, flush=True)

@@ -107,8 +107,16 @@ def make_setup(Nz: int = 32, n_columns: int = 1024, seed: int = 0, nns=None, dev
 
 
 def _timed(fn, repeats: int, device) -> tuple[list, object]:
-    """CUDA-event ms of ``repeats`` calls of ``fn`` after one warm-up; returns ``(times, last result)``."""
+    """CUDA-event ms of ``repeats`` calls of ``fn`` after one warm-up (host-clock ms off the card); returns
+    ``(times, last result)``."""
     out = fn()
+    if device.type != "cuda":
+        times = []
+        for _ in range(repeats):
+            t = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        return times, out
     torch.cuda.synchronize(device)
     times = []
     for _ in range(repeats):
@@ -122,22 +130,101 @@ def _timed(fn, repeats: int, device) -> tuple[list, object]:
 
 
 def _stats(times: list, device) -> dict:
-    return {"device": torch.cuda.get_device_name(device), "ms": times, "ms_min": min(times),
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else str(device)
+    return {"device": name, "ms": times, "ms_min": min(times),
             "ms_median": statistics.median(times), "ms_max": max(times)}
 
 
+FORWARD_VARIANTS = ("packed", "fast", "fold")
+
+
+def rk4_loop(rhs, n_steps: int, dt: float = FORWARD_DT):
+    """``run(x0)``: ``n_steps`` eager RK4 steps of ``rhs(x, t)`` from t = 0, without autograd."""
+    from climateparameterizations_jl_tpu_torch.models.timestepper import rk4_step
+
+    def run(x):
+        with torch.no_grad():
+            for i in range(n_steps):
+                x = rk4_step(rhs, x, i * dt, dt)
+        return x
+
+    return run
+
+
+def nde_forward_route(model, nns, bcs, n_steps: int, n_columns: int, rhs_variant: str = "packed",
+                      chunk_columns: int | None = None, dt: float = FORWARD_DT, matmul_dtype: str = "float32",
+                      device=None):
+    """``(run, launches_per_call, weight_count)`` of one forward route: ``run(x0)`` is the state after ``n_steps``.
+
+    ``rhs_variant="packed"`` is the fused runner, i.e. the kernel
+    ``csrc/fused_rk4.cu`` (or ``fused_rk4_bf16.cu``) on the card and its
+    plain version on the CPU; ``"fast"`` and ``"fold"`` are a plain RK4
+    loop over :func:`ops.fused_rhs.make_fast_rhs` (without or with the
+    divergence folded), the counterpart of the JAX package's XLA scan over
+    the same twin. ``chunk_columns`` runs the route once per column chunk
+    (one kernel launch each): columns are independent, so the result equals
+    one whole run bit for bit. ``weight_count`` is the kernel's packed
+    weights (read once per launch), 0 for the eager loops.
+    """
+    from climateparameterizations_jl_tpu_torch.ops.fused_rhs import make_fast_rhs
+
+    if rhs_variant not in FORWARD_VARIANTS:
+        raise ValueError(f"rhs_variant must be 'packed', 'fast' or 'fold', got {rhs_variant!r}")
+    if chunk_columns is not None and n_columns % chunk_columns:
+        raise ValueError(f"chunk_columns={chunk_columns} must divide n_columns={n_columns}")
+    if rhs_variant != "packed" and matmul_dtype != "float32":
+        raise ValueError(f"rhs_variant={rhs_variant!r} runs f32 products only")
+    width = chunk_columns if chunk_columns is not None and n_columns > chunk_columns else n_columns
+    n_chunks = n_columns // width
+    weights = 0
+    if rhs_variant == "packed":
+        evolve = make_fused_runner_mxu(model, nns, bcs, dt, n_steps, width, matmul_dtype=matmul_dtype, device=device)
+        if evolve.kernel_weights is not None:
+            weights = evolve.kernel_weights.numel()
+            if evolve.kernel_frags is not None:
+                weights += evolve.kernel_frags.numel() // 2  # bf16: two per f32 word
+    else:
+        evolve = rk4_loop(make_fast_rhs(model, nns, bcs, fold_divergence=rhs_variant == "fold", device=device),
+                          n_steps, dt)
+
+    def run(x0):
+        if n_chunks == 1:
+            return evolve(x0)
+        return torch.cat([evolve(x0[i * width:(i + 1) * width]) for i in range(n_chunks)])
+
+    return run, (n_chunks if rhs_variant == "packed" else 0), weights
+
+
 def bench_nde_forward(n_columns: int = 1024, Nz: int = 32, n_steps: int = 1024, repeats: int = 5,
-                      nns=None, seed: int = 0, device=None, matmul_dtype: str = "float32") -> dict:
-    """Time the fused forward solve; returns ms (min/median/max) and column-timesteps/s.
+                      nns=None, seed: int = 0, device=None, matmul_dtype: str = "float32", packed: bool = True,
+                      unroll: int = 4, chunk_columns: int | None = None, rhs_variant: str = "packed") -> dict:
+    """Time the forward solve; returns ms (min/median/max) and column-timesteps/s.
 
     ``matmul_dtype="bfloat16"`` times the bf16 kernel ``csrc/fused_rk4_bf16.cu``.
-    ``calls`` is the number of runner calls made (warm-up included), each
-    one kernel launch.
+    ``calls`` is the number of runs made (warm-up included); ``launches``
+    the kernel launches they made (one per run and column chunk).
+    ``chunk_columns`` and ``rhs_variant`` have the JAX package's meaning
+    (:func:`nde_forward_route`); ``unroll`` (the scan unroll) and ``packed``
+    are accepted with the JAX checks and recorded: the kernel and the
+    eager loops have no scan to unroll.
     """
-    device = _require_card(device, "bench_nde_forward")
+    return nde_forward_stats(n_columns, Nz, n_steps, repeats, nns, seed, _require_card(device, "bench_nde_forward"),
+                             matmul_dtype, packed, unroll, chunk_columns, rhs_variant)
+
+
+def nde_forward_stats(n_columns: int, Nz: int, n_steps: int, repeats: int, nns, seed: int, device,
+                      matmul_dtype: str = "float32", packed: bool = True, unroll: int = 4,
+                      chunk_columns: int | None = None, rhs_variant: str = "packed") -> dict:
+    """:func:`bench_nde_forward`'s measurement on ``device`` as given: CUDA events on the card, the host clock on
+    the CPU (where the kernel's plain version runs)."""
+    device = torch.device(device)
+    if rhs_variant in ("fast", "fold") and not packed:
+        raise ValueError("rhs_variant='fast'/'fold' requires packed=True (keeps the scan unroll comparable)")
+    if packed and n_steps % unroll:
+        raise ValueError(f"unroll={unroll} must divide n_steps={n_steps}")
     model, nns, bcs, x0 = make_setup(Nz, n_columns, seed, nns, device)
-    run = make_fused_runner_mxu(model, nns, bcs, FORWARD_DT, n_steps, n_columns, matmul_dtype=matmul_dtype,
-                                device=device)
+    run, launches_per_call, weights = nde_forward_route(model, nns, bcs, n_steps, n_columns, rhs_variant,
+                                                        chunk_columns, matmul_dtype=matmul_dtype, device=device)
     # The warm-up call builds and loads the kernel on first use.
     times, out = _timed(lambda: run(x0), repeats, device)
     if not bool(torch.isfinite(out).all()):
@@ -145,13 +232,13 @@ def bench_nde_forward(n_columns: int = 1024, Nz: int = 32, n_steps: int = 1024, 
     stats = _stats(times, device)
     h1, h2 = nns.uw.weights[0].shape[0], nns.uw.weights[1].shape[0]
     matmul_flops, other_flops = fused_rk4_flops(n_columns, n_steps, Nz, h1, h2)
-    n_bytes = 4 * (2 * n_columns * 3 * Nz + run.kernel_weights.numel())
-    if run.kernel_frags is not None:
-        n_bytes += 2 * run.kernel_frags.numel()
     return {
-        **stats, "n_columns": n_columns, "n_steps": n_steps, "repeats": repeats,
+        **stats, "n_columns": n_columns, "n_steps": n_steps, "repeats": repeats, "median_s": stats["ms_median"] * 1e-3,
         "column_timesteps_per_sec": n_columns * n_steps / (stats["ms_median"] * 1e-3),
-        "calls": repeats + 1, "matmul_flops": matmul_flops, "other_flops": other_flops, "bytes": n_bytes,
+        "calls": repeats + 1, "launches": (repeats + 1) * launches_per_call, "matmul_flops": matmul_flops,
+        "other_flops": other_flops, "bytes": 4 * (2 * n_columns * 3 * Nz + launches_per_call * weights),
+        "rhs_variant": rhs_variant, "packed": packed, "unroll": unroll,
+        "chunk_columns": chunk_columns,
     }
 
 

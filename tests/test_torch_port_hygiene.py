@@ -54,7 +54,8 @@ def test_port_files_found():
             "train/embedded.py", "core/advection.py", "data/les.py", "parallel/__init__.py",
             "parallel/sharding.py", "eval/animations.py", "eval/report.py", "utils/__init__.py",
             "utils/polynomial.py", "utils/predict.py", "utils/profiling.py", "studies/__init__.py",
-            "studies/flagship_training.py", "studies/adjoint_parity.py"} <= names
+            "studies/flagship_training.py", "studies/adjoint_parity.py", "studies/forward_scaling.py",
+            "studies/fused_kernel_sweep.py", "studies/fc_fair_substep_check.py", "studies/gp_at_scale.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -233,3 +234,19 @@ def test_studies_raise_without_card(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         adjoint_parity.main(["--out", str(tmp_path / "ap.json")])
     assert not (tmp_path / "ap.json").exists()
+    from climateparameterizations_jl_tpu_torch.studies import (
+        fc_fair_substep_check,
+        forward_scaling,
+        fused_kernel_sweep,
+        gp_at_scale,
+    )
+
+    for name, main, argv in (
+            ("fs.jsonl", forward_scaling.main, ["--columns", "8", "--n-steps", "4"]),
+            ("sweep.jsonl", fused_kernel_sweep.main, ["--quick"]),
+            ("fair.npy", fc_fair_substep_check.main, []),
+            ("gp.json", gp_at_scale.main, ["--smoke"]),
+            ("gram.json", gp_at_scale.main, ["--gram-only", "--smoke"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main([*argv, "--out", str(tmp_path / name)])
+        assert not (tmp_path / name).exists()
