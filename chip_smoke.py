@@ -106,7 +106,16 @@ mish), Nz = 32:
   ``fused_kernel_sweep.py``'s every distinct route against the f32 kernel,
   ``fc_fair_substep_check.py``'s KPP and TKE baselines on the Thomas kernel
   equal to scan, and ``gp_at_scale.py --smoke`` and ``--gram-only`` with the
-  Gram kernel at 8,192 x 8,192 x 96 against its plain version.
+  Gram kernel at 8,192 x 8,192 x 96 against its plain version;
+- the data files (phase 46): ``generate-les --jld2-name`` at its 32^3
+  default, its ``.jld2`` equal to its npz bit for bit; ``train-nde
+  --data-dir`` on a catalog name's stand-in written as a LESbrary file,
+  its first loss and Thomas launches those of the stand-in's run; and a
+  free-convection id's ``instantaneous_statistics_with_halos.jld2`` read
+  by ``load_free_convection_suite`` to the stand-in suite. Phases 31 and 32
+  write the embedded pairs (``--write-jld2``, ``--netcdf``) and read them
+  back. Every file goes through the port's own HDF5 code
+  (``data/hdf5.py``): every phase fails if h5py was imported.
 
 It builds the five kernels from ``csrc/`` (one ``nvcc`` each, side by
 side), holds each against its plain PyTorch version, times it, and checks
@@ -426,6 +435,18 @@ LES_N, LES_NZ, LES_STEPS, LES_REPEATS, LES_PROFILE_STEPS = 64, 64, 100, 3, 5
 LES_EULER_STEPS, LES_RK3_STEPS, LES_DIV_LIMIT = 20, 4, 2e-6
 LES_GEN_N_SAVE, LES_HEAT_RATIO_CPU, LES_HEAT_RATIO_RTOL = 4, 10.70, 0.03
 LES_FC_N_SAVE = 1
+# Phase 46: the data files. (a) generate-les --jld2-name DATA_NAME (the default run's forcing: Qu = -5e-4, Qb = 3e-8,
+# f = 1e-4, constant) at its 32^3 default with DATA_GEN_N_SAVE saves: the .jld2 read back equals the run's
+# les_profiles.npz bit for bit in u, v, T, the fluxes and t; the boundary constants too, theta_top within DATA_ULPS
+# f32 ulps (the file keeps the buoyancy flux theta alpha g, the reader divides by alpha g in f64, as JAX's does; for
+# f32 inputs that rounds back exactly, the bound allows one ulp). (b) DATA_NAME's stand-in (DATA_N_SAVE saves at 128
+# levels) written with write_les_profiles under its lesbrary_relative_path, then train-nde --data-dir, one stage
+# DATA_CURRICULUM and one iteration, against the same run on the stand-in: the suites are equal bit for bit (f32 through
+# the file), so the first loss is held to DATA_LOSS_RTOL and the Thomas launches are equal. (c) free-convection id
+# DATA_FC_ID's stand-in written with write_fc_fieldset, loaded by load_free_convection_suite(data_dir=...): equal to
+# the stand-in suite after coarsening in every field the layout carries (all but f and beta, which it does not record).
+DATA_NAME, DATA_GEN_N_SAVE, DATA_ULPS = "wind_-5e-4_cooling_3e-8_new", 8, 1
+DATA_N_SAVE, DATA_CURRICULUM, DATA_LOSS_RTOL, DATA_FC_ID = 96, "97:4", 1e-6, 1
 # Phase 40: the column ensemble on one card: bench_column_ensemble at the JAX defaults (1,024 members, Nz = 32, one
 # save of 256 split substeps: one Thomas launch per substep on (3, 1024, 32)), the same solve kernel-backed and
 # scan-backed (equal), and the ensemble command at its defaults (256 members, 32 frames, 4 substeps per save) with the
@@ -517,6 +538,8 @@ def phase(name: str):
     t = time.perf_counter()
     try:
         yield
+        if "h5py" in sys.modules:  # the card's machine has none: the port reads and writes HDF5 with its own code
+            raise RuntimeError(f"phase {name.split()[0]}: h5py was imported")
     except BaseException:
         log(f"FAILED {name} after {time.perf_counter() - t:.2f}s")
         raise
@@ -570,6 +593,28 @@ def demangled(symbol: str) -> str:
         name, rest = rest[len(m.group(1)):len(m.group(1)) + n], rest[len(m.group(1)) + n:]
     args = re.findall(r"Li(\d+)E", rest.split("Ev", 1)[0]) if rest.startswith("I") else []
     return name + (f"<{','.join(args)}>" if args else "")
+
+
+def timed_calls(module, name: str, seconds: list):
+    """Replace ``module.<name>`` by a wrapper that appends each call's seconds to ``seconds``; returns the original."""
+    original = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        t = time.perf_counter()
+        out = original(*args, **kw)
+        seconds.append(time.perf_counter() - t)
+        return out
+
+    setattr(module, name, wrapper)
+    return original
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bytes (numpy arrays or CPU tensors)."""
+    import numpy as np
+
+    a, b = (np.asarray(x.numpy() if hasattr(x, "numpy") else x) for x in (a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
 
 
 def gamma_bound(k: int) -> float:
@@ -2123,6 +2168,8 @@ def evaluate_phase(dev, setup, smi: str) -> dict:
 
     from climateparameterizations_jl_tpu_torch import benchmarks
     from climateparameterizations_jl_tpu_torch.cli import main as cli
+    from climateparameterizations_jl_tpu_torch.data import lesbrary
+    from climateparameterizations_jl_tpu_torch.eval import profile as prof
     from climateparameterizations_jl_tpu_torch.ops import _cuda
 
     names = tuple(benchmarks.TRAIN_FILES)
@@ -2131,8 +2178,8 @@ def evaluate_phase(dev, setup, smi: str) -> dict:
     saves = len(tsteps) - 1
     per_sim = 3 * saves * EVAL_STRIDE + 2 * saves * EMBEDDED_SUBSTEPS  # NDE, mPP alone, KPP; the host pair
     expected = per_sim * len(sims)
-    with phase(f"31 evaluate --embedded of {EMBEDDED_RUN.name} on {len(sims)} of the {len(UQ_TEST_FILES)} held-out "
-               f"sims: "
+    with phase(f"31 evaluate --embedded --write-jld2 of {EMBEDDED_RUN.name} on {len(sims)} of the "
+               f"{len(UQ_TEST_FILES)} held-out sims: "
                f"{len(tsteps)} frames (every {EVAL_STRIDE}th of {NDE_N_SAVE} saves), {EVAL_STRIDE} split substeps and "
                f"{EVAL_STRIDE} KPP steps per save, {EMBEDDED_SUBSTEPS} host steps per save"), \
             tempfile.TemporaryDirectory() as tmp:
@@ -2140,11 +2187,20 @@ def evaluate_phase(dev, setup, smi: str) -> dict:
         original = cli._load_suite
         WM_SUITES[(names, NZ, None, NDE_N_SAVE, 600.0, 128)] = setup["ds"]  # phase 8's suite: the scaling context
         cli._load_suite = cached_suites(cli, WM_SUITES)  # the held-out sims of phase 27
+        write_s, evaluated = [], []  # each .jld2 write's seconds; (model, truth, tsteps) of each sim's nde_profile
+        original_write = timed_calls(lesbrary, "write_les_profiles", write_s)
+        original_profile = prof.nde_profile
+
+        def recording_profile(model, nns, ds, ts, **kw):
+            evaluated.append((model, ds, ts))
+            return original_profile(model, nns, ds, ts, **kw)
+
+        prof.nde_profile = recording_profile
         try:
             torch.cuda.synchronize()
             t = time.perf_counter()
             _cuda.reset_launch_counts()
-            rc = cli.main(["evaluate", "--embedded", "--checkpoint", str(EMBEDDED_RUN), "--test-sims",
+            rc = cli.main(["evaluate", "--embedded", "--write-jld2", "--checkpoint", str(EMBEDDED_RUN), "--test-sims",
                            ",".join(sims), "--nz", str(NZ), "--n-save", str(NDE_N_SAVE), "--dt-save", "600",
                            "--n-train-steps", str(NDE_N_SAVE), "--eval-stride", str(EVAL_STRIDE), "--n-substeps",
                            str(EVAL_STRIDE), "--kpp-n-substeps", str(EVAL_STRIDE), "--output", str(out)])
@@ -2153,7 +2209,7 @@ def evaluate_phase(dev, setup, smi: str) -> dict:
             wall = time.perf_counter() - t
             first = cli._load_suite([UQ_TEST_FILES[0]], NZ, None, NDE_N_SAVE, 600.0, device=dev)
         finally:
-            cli._load_suite = original
+            cli._load_suite, lesbrary.write_les_profiles, prof.nde_profile = original, original_write, original_profile
         summary = json.loads((out / "summary.json").read_text())
         log(f"exit {rc} in {wall:.2f} s ({wall / len(sims):.2f} s per sim); launch counts {launches}; expected "
             f"thomas {expected} = {len(sims)} sims x (3 solves (NDE, mPP alone, KPP) x {saves} saves x "
@@ -2174,9 +2230,41 @@ def evaluate_phase(dev, setup, smi: str) -> dict:
             f"{scan_ms:.0f} ms), the npz's kpp_T is the kernel run: {same_file}; {len(keys)} keys, all finite {finite}")
         if not (torch.equal(head, scan) and same_file and finite):
             raise RuntimeError("evaluate: the KPP baseline differs on kernel and scan, or the profile is not finite")
+        files = embedded_pair_read_back(out, UQ_TEST_FILES[0], evaluated[0], write_s)
         log(f"card: {smi}")
     return {"s": wall, "s_per_sim": wall / len(sims), "sims": len(sims), "launches": launches["thomas"], "expected": expected,
-            "frames": len(tsteps), "summary": summary["mean"], "kpp_kernel_equals_scan": True, "keys": keys}
+            "frames": len(tsteps), "summary": summary["mean"], "kpp_kernel_equals_scan": True, "keys": keys,
+            "jld2": files}
+
+
+def embedded_pair_read_back(out: Path, sim: str, evaluated: tuple, write_s: list) -> dict:
+    """Phase 31's ``<sim>/baseline.jld2`` and ``neural_network.jld2``, read back through the port's reader and
+    through ``nde_profile_from_saved``: every profile and flux equal to the command's in-memory (npz) values."""
+    import numpy as np
+
+    from climateparameterizations_jl_tpu_torch.data.lesbrary import read_les_profiles
+    from climateparameterizations_jl_tpu_torch.eval.profile import nde_profile_from_saved
+
+    pairs = (("baseline", "embedded_baseline"), ("neural_network", "embedded"))
+    with np.load(out / f"evaluation_{sim}.npz") as z:
+        ev = {k: z[k] for k in z.files}
+    t = time.perf_counter()
+    saved = {tag: read_les_profiles(str(out / sim / f"{tag}.jld2"), dtype=ev["embedded_T"].dtype) for tag, _ in pairs}
+    read_s = time.perf_counter() - t
+    model, truth, tsteps = evaluated
+    t = time.perf_counter()
+    from_saved = nde_profile_from_saved(str(out / sim), model, truth, tsteps).to_dict()
+    from_saved_s = time.perf_counter() - t
+    fields = ("u", "v", "T", "uw", "vw", "wT")
+    equal = {tag: all(same_bits(getattr(saved[tag], f), ev[f"{m}_{f}"]) for f in fields)
+             and same_bits(saved[tag].t, ev["t"].astype(ev["embedded_T"].dtype)) for tag, m in pairs}
+    via_profile = all(same_bits(from_saved[f"{m}_{f}"], ev[f"{m}_{f}"]) for _, m in pairs for f in fields)
+    log(f"--write-jld2: {len(write_s)} files written in {sum(write_s):.3f} s, read back in {read_s:.3f} s "
+        f"({tuple(saved['baseline'].T.shape)} frames x levels each); equal to the npz bit for bit in "
+        f"{', '.join(fields)} and t: {equal}; through nde_profile_from_saved ({from_saved_s:.2f} s): {via_profile}")
+    if len(write_s) != 2 or not all(equal.values()) or not via_profile:
+        raise RuntimeError("evaluate --write-jld2: the saved pair is not the command's in-memory profiles")
+    return {"write_s": sum(write_s), "read_s": read_s, "from_saved_s": from_saved_s, "equal": True}
 
 
 def evaluate_fc_phase(dev, smi: str) -> dict:
@@ -2186,6 +2274,7 @@ def evaluate_fc_phase(dev, smi: str) -> dict:
 
     from climateparameterizations_jl_tpu_torch.cli import main as cli
     from climateparameterizations_jl_tpu_torch.data import free_convection as fcd
+    from climateparameterizations_jl_tpu_torch.data import netcdf
     from climateparameterizations_jl_tpu_torch.ops import _cuda
 
     tsteps = np.arange(0, FC_EVAL_WINDOW, FC_EVAL_STRIDE)  # --n-eval-steps 576 of 1,153 frames
@@ -2194,18 +2283,21 @@ def evaluate_fc_phase(dev, smi: str) -> dict:
     per_id = 2 * saves * FC_EVAL_SUBSTEPS + 2 * saves * FC_EVAL_STRIDE + 2 * saves * EMBEDDED_SUBSTEPS
     expected = per_id * len(FC_EVAL_IDS)
     ids = ",".join(map(str, FC_EVAL_IDS))
-    with phase(f"32 evaluate-fc --embedded of {FC_RUN.name} on ids {ids}: {len(tsteps)} frames (every "
+    with phase(f"32 evaluate-fc --embedded --netcdf of {FC_RUN.name} on ids {ids}: {len(tsteps)} frames (every "
                f"{FC_EVAL_STRIDE}th of the first {FC_EVAL_WINDOW} saves), {FC_EVAL_SUBSTEPS} split substeps, {FC_EVAL_STRIDE} KPP / TKE "
                f"steps and {EMBEDDED_SUBSTEPS} host steps per save"), \
             tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "eval_fc"
         original = fcd.load_free_convection_suite
         fcd.load_free_convection_suite = fc_suites(original)  # ids 8 and 9 of phase 24's nine-id suite
+        write_s = []  # each id's pair of .nc files: seconds
+        original_write = timed_calls(netcdf, "write_paired_column_netcdf", write_s)
         try:
             torch.cuda.synchronize()
             t = time.perf_counter()
             _cuda.reset_launch_counts()
-            rc = cli.main(["evaluate-fc", "--embedded", "--checkpoint", str(FC_RUN), "--sim-ids", ids, "--nz", str(NZ),
+            rc = cli.main(["evaluate-fc", "--embedded", "--netcdf", "--checkpoint", str(FC_RUN), "--sim-ids", ids,
+                           "--nz", str(NZ),
                            "--n-save", str(FC_N_SAVE), "--dt-save", "600", "--n-eval-steps", str(FC_EVAL_WINDOW), "--eval-stride",
                            str(FC_EVAL_STRIDE), "--n-substeps", str(FC_EVAL_SUBSTEPS), "--kpp-n-substeps",
                            str(FC_EVAL_STRIDE), "--output", str(out)])
@@ -2214,7 +2306,7 @@ def evaluate_fc_phase(dev, smi: str) -> dict:
             wall = time.perf_counter() - t
             suite = cli._load_fc_suite(list(FC_EVAL_IDS), NZ, None, FC_N_SAVE, 600.0, device=dev)
         finally:
-            fcd.load_free_convection_suite = original
+            fcd.load_free_convection_suite, netcdf.write_paired_column_netcdf = original, original_write
         summary = json.loads((out / "summary.json").read_text())
         log(f"exit {rc} in {wall:.2f} s; launch counts {launches}; "
             f"expected thomas {expected} = {len(FC_EVAL_IDS)} ids x ({saves} saves x {FC_EVAL_SUBSTEPS} substeps x 2 "
@@ -2245,9 +2337,40 @@ def evaluate_fc_phase(dev, smi: str) -> dict:
             "information only: the stored run's truth is the 3-D LES, the port's the 1-D stand-ins):")
         _summary_beside(summary, FC_EVAL / "summary.json", flat=True)
         on_stored = _fc_profile_on_stored_truth(cli, dev, [cli._select_sims(suite, k) for k in range(len(FC_EVAL_IDS))])
+        files = netcdf_pairs_read_back(out, write_s)
         log(f"card: {smi}")
     return {"s": wall, "launches": launches["thomas"], "expected": expected, "frames": len(tsteps),
-            "summary": summary, "kernel_equals_scan": True, "on_stored_truth": on_stored, "keys": keys}
+            "summary": summary, "kernel_equals_scan": True, "on_stored_truth": on_stored, "keys": keys,
+            "netcdf": files}
+
+
+def netcdf_pairs_read_back(out: Path, write_s: list) -> dict:
+    """Phase 32's ``sim<i>/oceananigans_*.nc`` pairs, read back through ``read_netcdf``: the variables, their
+    dimensions and coordinates equal to the command's in-memory (npz) values bit for bit."""
+    import numpy as np
+
+    from climateparameterizations_jl_tpu_torch.data.netcdf import read_netcdf
+
+    equal, read_s = {}, 0.0
+    for i in FC_EVAL_IDS:
+        with np.load(out / f"sim{i}.npz") as z:
+            ev = {k: z[k] for k in z.files}
+        for name, want in (("oceananigans_convective_adjustment.nc", {"T": ("zC", ev["embedded_baseline_T"])}),
+                           ("oceananigans_neural_network.nc", {"T": ("zC", ev["embedded_T"]),
+                                                               "wT": ("zF", ev["embedded_wT"])})):
+            t = time.perf_counter()
+            variables, coords, attrs = read_netcdf(str(out / f"sim{i}" / name))
+            read_s += time.perf_counter() - t
+            equal[f"sim{i}/{name}"] = (
+                sorted(variables) == sorted(want) and int(attrs["simulation_id"]) == i
+                and all(variables[k][0] == ("time", z) and same_bits(variables[k][1], v) for k, (z, v) in want.items())
+                and all(same_bits(coords[d], ev[key]) for d, key in (("time", "t"), ("zC", "zc"), ("zF", "zf"))
+                        if d in coords))
+    log(f"--netcdf: {len(write_s)} pairs written in {sum(write_s):.3f} s, read back in {read_s:.3f} s; variables, "
+        f"dimensions and coordinates equal to the npz bit for bit: {equal}")
+    if len(write_s) != len(FC_EVAL_IDS) or not all(equal.values()):
+        raise RuntimeError("evaluate-fc --netcdf: a saved pair is not the command's in-memory profiles")
+    return {"write_s": sum(write_s), "read_s": read_s, "equal": True}
 
 
 def _fc_profile_on_stored_truth(cli, dev, stand_ins: list) -> dict:
@@ -3690,6 +3813,115 @@ def headline_report_phase(dev, setup, flagship, smi: str) -> dict:
     return record
 
 
+def data_files_phase(dev, smi: str) -> dict:
+    """Phase 46: the LESbrary and netCDF files on the card, through the port's own HDF5 code (no h5py)."""
+    import numpy as np
+    import torch
+
+    from climateparameterizations_jl_tpu_torch.cli import main as cli
+    from climateparameterizations_jl_tpu_torch.data import free_convection as fcd
+    from climateparameterizations_jl_tpu_torch.data import lesbrary
+    from climateparameterizations_jl_tpu_torch.data import registry
+    from climateparameterizations_jl_tpu_torch.data.synthetic import (
+        _synthetic_free_convection_les_batch,
+        _synthetic_wind_mixing_les_batch,
+    )
+    from climateparameterizations_jl_tpu_torch.ops import _cuda
+
+    record: dict = {}
+    fields = ("u", "v", "T", "uw", "vw", "wT", "t")
+    with phase(f"46 the data files: generate-les --jld2-name {DATA_NAME} (32^3, {DATA_GEN_N_SAVE} saves), train-nde "
+               f"--data-dir on its stand-in ({DATA_N_SAVE} saves, {DATA_CURRICULUM}), free-convection id "
+               f"{DATA_FC_ID} through write_fc_fieldset"), tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (a) generate-les writes the .jld2 beside its npz
+        _cuda.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rc = cli.main(["generate-les", "--jld2-name", DATA_NAME, "--n-save", str(DATA_GEN_N_SAVE), "--output",
+                       str(tmp / "les")])
+        wall = time.perf_counter() - t
+        launches = _cuda.THOMAS.launches
+        npz = fcd.load_column_npz(str(tmp / "les" / "les_profiles.npz"))
+        path = tmp / "les" / registry.lesbrary_relative_path(DATA_NAME)
+        t = time.perf_counter()
+        back = lesbrary.read_les_profiles(str(path))
+        read_s = time.perf_counter() - t
+        steps = DATA_GEN_N_SAVE * int(round(600.0 / 24.0))
+        profiles = {f: same_bits(getattr(back, f), getattr(npz, f)) for f in fields}
+        ulps = {c: abs(int(np.float32(float(getattr(back, c))).view(np.int32))
+                       - int(np.float32(float(getattr(npz, c))).view(np.int32)))
+                for c in ("H", "f", "g", "alpha", "beta", "u_top", "theta_top", "theta_bottom")}
+        log(f"(a) generate-les: exit {rc} in {wall:.2f} s; thomas launches {launches} (expected {3 * steps} = 3 x "
+            f"{steps} RK3 steps); {path.relative_to(tmp / 'les')} ({path.stat().st_size} B) read back in "
+            f"{read_s:.3f} s: equal to les_profiles.npz bit for bit {profiles}; f32 ulps apart per constant {ulps} "
+            f"(theta_top within {DATA_ULPS}, the others 0)")
+        if (rc != 0 or launches != 3 * steps or not all(profiles.values()) or ulps["theta_top"] > DATA_ULPS
+                or any(v for c, v in ulps.items() if c != "theta_top")):
+            raise RuntimeError(f"generate-les --jld2-name: exit {rc}, launches {launches}, or the file differs from "
+                               "the npz")
+        record["generate_les"] = {"s": wall, "read_s": read_s, "launches": launches, "bytes": path.stat().st_size,
+                                  "theta_top_ulps": ulps["theta_top"]}
+
+        # (b) train-nde --data-dir on the name's stand-in written as a LESbrary file, against the stand-in itself
+        spec = registry.simulation_parameters(DATA_NAME)
+        raw, = _synthetic_wind_mixing_les_batch([registry.signed_momentum_flux(spec)], [spec.Qb], f=spec.f,
+                                                diurnal=spec.diurnal, Nz=128, n_save=DATA_N_SAVE, dt_save=600.0)
+        data_dir = tmp / "lesbrary"
+        t = time.perf_counter()
+        lesbrary.write_les_profiles(str(data_dir / registry.lesbrary_relative_path(DATA_NAME)), raw)
+        write_s = time.perf_counter() - t
+        runs = {}
+        for label, extra in (("file", ["--data-dir", str(data_dir)]), ("stand-in", [])):
+            out = tmp / f"nde_{label}"
+            _cuda.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rc = cli.main(["train-nde", "--sims", DATA_NAME, "--nz", str(NZ), "--n-save", str(DATA_N_SAVE),
+                           "--dt-save", "600", "--method", "split", "--n-substeps", "1", "--maxiters", "1",
+                           "--curriculum", DATA_CURRICULUM, *extra, "--output", str(out)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            with open(out / "history.jsonl") as f:
+                loss = json.loads(f.readline())["loss"]
+            runs[label] = {"rc": rc, "s": wall, "loss": loss, "launches": _cuda.THOMAS.launches,
+                           "others": sum(k.launches for k in _cuda.KERNELS.values()) - _cuda.THOMAS.launches}
+        _, stages = curriculum_thomas_launches(DATA_CURRICULUM, DATA_N_SAVE + 1, 0, 1)
+        expected = 3 * sum(substeps for _, substeps in stages)  # no --auto-balance: no loss-scaling pre-solve
+        a, b = runs["file"], runs["stand-in"]
+        rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        log(f"(b) {DATA_NAME}'s stand-in ({tuple(raw.T.shape)}) written in {write_s:.3f} s; train-nde on the file: "
+            f"exit {a['rc']} in {a['s']:.2f} s, first loss {a['loss']!r}, thomas {a['launches']}; on the stand-in: "
+            f"exit {b['rc']} in {b['s']:.2f} s, first loss {b['loss']!r}, thomas {b['launches']} (expected {expected}); "
+            f"relative difference {rel:.3e} (limit {DATA_LOSS_RTOL}; bit for bit: {a['loss'] == b['loss']})")
+        if (a["rc"] or b["rc"] or a["launches"] != b["launches"] or a["launches"] != expected or a["others"]
+                or b["others"] or not math.isfinite(a["loss"]) or rel > DATA_LOSS_RTOL):
+            raise RuntimeError(f"train-nde --data-dir: {runs} (expected thomas {expected})")
+        record["train_nde_data_dir"] = {"write_s": write_s, "runs": runs, "loss_rel_diff": rel}
+
+        # (c) a free-convection id written in the FieldDataset layout, loaded as a suite
+        qb, strat = fcd._SYNTHETIC_PARAMS[DATA_FC_ID]
+        raw_fc, = _synthetic_free_convection_les_batch([qb], [strat], Nz=128, n_save=DATA_N_SAVE, dt_save=600.0)
+        fc_path = tmp / "fc" / f"free_convection_{DATA_FC_ID}" / "instantaneous_statistics_with_halos.jld2"
+        t = time.perf_counter()
+        lesbrary.write_fc_fieldset(str(fc_path), raw_fc)
+        write_fc_s = time.perf_counter() - t
+        t = time.perf_counter()
+        got, = fcd.load_free_convection_suite([DATA_FC_ID], str(tmp / "fc"), NZ, n_save=DATA_N_SAVE)
+        read_fc_s = time.perf_counter() - t
+        want, = fcd.load_free_convection_suite([DATA_FC_ID], None, NZ, n_save=DATA_N_SAVE)
+        carried = ("u", "v", "T", "uw", "vw", "wT", "t", "H", "g", "alpha", "u_top", "theta_top", "theta_bottom")
+        equal = {f: same_bits(getattr(got, f), getattr(want, f)) for f in carried}
+        log(f"(c) free_convection_{DATA_FC_ID}: written in {write_fc_s:.3f} s ({fc_path.stat().st_size} B), loaded "
+            f"and coarsened in {read_fc_s:.3f} s to {tuple(got.T.shape)}; equal to the stand-in suite bit for bit: "
+            f"{equal}")
+        if not all(equal.values()):
+            raise RuntimeError("load_free_convection_suite(data_dir=...): the file's suite is not the stand-in's")
+        record["fc_fieldset"] = {"write_s": write_fc_s, "read_s": read_fc_s, "equal": True}
+        log(f"card: {smi}")
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -4023,6 +4255,7 @@ def main() -> int:
     bf16_record["studies"] = {"fused_kernel_sweep": studies["fused_kernel_sweep"]["launches"]["fused_rk4_bf16"]}
     thomas_record["fc_fair"] = studies["fc_fair"]
     gram_record["gp_at_scale"] = studies["gp_at_scale"]
+    thomas_record["data_files"] = data_files_phase(dev, smi)
     record["ptxas"] = ptxas_summary(kernel.ptxas_report)
     thomas_record["ptxas"] = ptxas_summary(thomas.ptxas_report)
     print(smi, flush=True)

@@ -43,9 +43,10 @@ They run on the card unless ``--device cpu`` is given (the JAX package's
 ``--platform`` flag). ``--config FILE`` (JSON, or YAML where PyYAML is
 installed) supplies flag values; flags typed on the command line win. Run
 directories use the JAX package's format and load in either package.
-``--data-dir`` reads LESbrary ``.jld2`` files where they exist (h5py needed)
-and falls back to the synthetic stand-ins; the free-convection commands'
-``--source les3d`` generates their data with the 3-D LES instead; ``fetch``
+``--data-dir`` reads LESbrary ``.jld2`` files where they exist (the port's
+own HDF5 reader, ``data/hdf5.py``, on the card too) and falls back to the
+synthetic stand-ins; the free-convection commands' ``--source les3d``
+generates their data with the 3-D LES instead; ``fetch``
 downloads the free-convection files. Every JAX subcommand is here, with the
 JAX flags. ``ensemble`` started under ``torchrun`` splits its members over
 the ranks (``parallel/sharding.py``); rank 0 writes the files and prints.
@@ -960,7 +961,7 @@ def cmd_evaluate(args) -> int:
     ``mean`` of each member's T loss). ``--embedded`` adds the host-column
     pair (``embedded``, ``embedded_baseline``; 10 host steps per save
     interval) and ``--write-jld2`` writes it as LESbrary-layout
-    ``<sim>/baseline.jld2`` and ``<sim>/neural_network.jld2`` (h5py). The
+    ``<sim>/baseline.jld2`` and ``<sim>/neural_network.jld2`` (``data/hdf5.py``). The
     JAX command's figures: ``training_regions.png``, ``final_profiles.png``,
     ``loss.png`` of the first test sim, ``nde_uncertainty.png`` for an
     ensemble checkpoint, ``loss_matrix.png`` for more than one test sim, and
@@ -1065,7 +1066,7 @@ def cmd_evaluate_fc(args) -> int:
     ``uncertainty_sim<i>.npz`` for an ensemble checkpoint and
     ``summary.json`` (each member's mean T loss over the ids). ``--embedded``
     adds the conv-adj host-column pair and ``--netcdf`` writes it as the
-    reference's ``sim<i>/oceananigans_*.nc`` pair (h5py). Figures:
+    reference's ``sim<i>/oceananigans_*.nc`` pair (``data/hdf5.py``). Figures:
     ``loss_matrix.png`` over the ids and, for an ensemble checkpoint,
     ``nde_uncertainty.png`` of the first id.
     """
@@ -1405,8 +1406,8 @@ def cmd_generate_les(args) -> int:
     the card. ``--jld2-name`` takes the catalog entry's signed fluxes,
     Coriolis and diurnal flag (a contradicting ``--qu`` / ``--qb`` or a
     ``--diurnal`` on a constant-flux name is refused before the run) and also
-    writes the reference-layout ``.jld2`` under that name (h5py; refused
-    before the run where it is not installed). The initial noise comes from a
+    writes the reference-layout ``.jld2`` under that name (the port's own
+    HDF5 writer, on the card too). The initial noise comes from a
     ``torch.Generator`` seeded with 0, so the fields are not the JAX
     command's. Prints a JSON line.
     """
@@ -1415,7 +1416,6 @@ def cmd_generate_les(args) -> int:
 
     diurnal = args.diurnal
     if args.jld2_name:
-        from climateparameterizations_jl_tpu_torch.data.lesbrary import HAVE_H5PY
         from climateparameterizations_jl_tpu_torch.data.registry import (
             lesbrary_relative_path,
             signed_momentum_flux,
@@ -1434,8 +1434,6 @@ def cmd_generate_les(args) -> int:
             if value is not None and abs(value - spec_value) > 1e-12 * max(abs(spec_value), 1e-30):
                 raise SystemExit(f"{flag}={value} contradicts catalog entry {args.jld2_name!r} ({flag[2:]}="
                                  f"{spec_value}); drop the flag (the spec's value is the default) or use a matching name")
-        if not HAVE_H5PY:
-            raise SystemExit("--jld2-name writes a .jld2 file, which needs h5py; it is not installed")
         qu = spec_qu if args.qu is None else args.qu
         qb = spec.Qb if args.qb is None else args.qb
         f_cor = spec.f
@@ -1589,7 +1587,8 @@ def _add_common(p, with_sims: bool = True):
     if with_sims:
         p.add_argument("--sims", default="strong_wind", help="comma-separated catalog names")
         p.add_argument("--data-dir", default=None,
-                       help="root of local LESbrary .jld2 files (h5py needed; synthetic stand-ins otherwise)")
+                       help="root of local LESbrary .jld2 files (read by the port's own HDF5 reader; synthetic "
+                            "stand-ins otherwise)")
         p.add_argument("--nz", type=int, default=32)
         p.add_argument("--n-save", type=int, default=96, help="LES frames to generate or load")
         p.add_argument("--dt-save", type=float, default=600.0)
@@ -1694,7 +1693,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(p, with_sims=False)
     p.add_argument("--sim-ids", default="1", help="comma-separated LESbrary free-convection ids (1..9)")
     p.add_argument("--data-dir", default=None,
-                   help="root of free_convection_<id>/instantaneous_statistics_with_halos.jld2 files (h5py needed)")
+                   help="root of free_convection_<id>/instantaneous_statistics_with_halos.jld2 files (read by "
+                        "the port's own HDF5 reader)")
     p.add_argument("--source", default="auto", choices=["auto", "synthetic", "les3d"],
                    help="les3d generates the data with the 3-D LES (on the card unless --device cpu)")
     p.add_argument("--les-cache-dir", default=None,
@@ -1769,7 +1769,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gif-stride", type=int, default=4, help="frame stride of the --animate animation")
     p.add_argument("--embedded", action="store_true", help="also run the host column model (baseline + NN)")
     p.add_argument("--write-jld2", action="store_true",
-                   help="write the embedded pair as LESbrary-layout .jld2 sims (requires --embedded; h5py)")
+                   help="write the embedded pair as LESbrary-layout .jld2 sims (requires --embedded; the port's "
+                        "own HDF5 writer)")
     p.add_argument("--kpp-n-substeps", type=int, default=1,
                    help="inner KPP steps per save interval: 1 = the reference harness (KPP at the save spacing); "
                         "the eval stride gives KPP its native 600 s step on strided evaluations")
@@ -1792,7 +1793,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-substeps", type=int, default=8)
     p.add_argument("--embedded", action="store_true")
     p.add_argument("--netcdf", action="store_true",
-                   help="also write the reference-layout oceananigans_*.nc pair per sim (requires --embedded; h5py)")
+                   help="also write the reference-layout oceananigans_*.nc pair per sim (requires --embedded; the "
+                        "port's own HDF5 writer)")
     p.add_argument("--output", default="runs/eval_fc")
     p.add_argument("--kpp-n-substeps", type=int, default=1,
                    help="inner KPP (and TKE) steps per save interval: 1 = the reference harness; the eval stride "
@@ -1807,7 +1809,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(checkpoints record and restore them)")
     p.add_argument("--sims", default=None, help="comma-separated catalog names (default: the --init-from checkpoint's)")
     p.add_argument("--data-dir", default=None,
-                   help="root of local LESbrary .jld2 files (h5py needed; synthetic stand-ins otherwise)")
+                   help="root of local LESbrary .jld2 files (read by the port's own HDF5 reader; synthetic "
+                            "stand-ins otherwise)")
     p.add_argument("--nz", type=int, default=32)
     p.add_argument("--n-save", type=int, default=96, help="LES frames to generate or load")
     p.add_argument("--dt-save", type=float, default=600.0)

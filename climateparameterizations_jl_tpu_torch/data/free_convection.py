@@ -4,7 +4,8 @@ Port of ``climateparameterizations_jl_tpu/data/free_convection.py``
 (reference ``free_convection/src/data.jl``, ``validate_simulation_ids`` and
 ``load_data``, and ``free_convection/src/training_data.jl``). A simulation
 id reads ``<data_dir>/free_convection_<id>/instantaneous_statistics_with_halos.jld2``
-where that file exists (the reference's DataDeps layout; needs h5py), and
+where that file exists (the reference's DataDeps layout, read by the port's
+own HDF5 reader on every host), and
 otherwise generates the id's synthetic stand-in on the CPU; ``source="les3d"``
 generates it with the 3-D LES (``data/les.py``), optionally through a cache
 directory that either package's files can fill. The files are downloaded

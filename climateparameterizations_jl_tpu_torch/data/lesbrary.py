@@ -1,4 +1,4 @@
-"""LESbrary ``.jld2`` readers and writers (JLD2 files are HDF5, read with h5py).
+"""LESbrary ``.jld2`` readers and writers (JLD2 files are HDF5, read and written by ``data/hdf5.py``).
 
 Port of ``climateparameterizations_jl_tpu/data/lesbrary.py``. Two on-disk
 layouts, as the reference's two loaders read them:
@@ -15,33 +15,20 @@ layouts, as the reference's two loaders read them:
   the surface flux at ``parameters/temperature_flux``.
 
 :func:`read_les_profiles` returns a time-major :class:`ColumnTimeSeries` of
-CPU tensors, ready for ``coarsen_dataset`` and scaling. h5py is imported
-inside the readers and writers, never when the module is imported:
-``HAVE_H5PY`` says whether it is installed, and without it (a GPU host
-that has only PyTorch) the package still imports and the readers and
-writers raise.
+CPU tensors, ready for ``coarsen_dataset`` and scaling. The files go
+through the port's own HDF5 reader and writer (numpy only), so they are
+read and written on every host the port runs on, the card's included.
 """
 
 from __future__ import annotations
 
-import importlib.util
 import os
 
 import numpy as np
 import torch
 
+from climateparameterizations_jl_tpu_torch.data import hdf5
 from climateparameterizations_jl_tpu_torch.data.containers import ColumnTimeSeries
-
-HAVE_H5PY = importlib.util.find_spec("h5py") is not None
-
-
-def _h5py(what: str):
-    """The ``h5py`` module, imported on first use; raises where it is not installed."""
-    if not HAVE_H5PY:
-        raise RuntimeError(f"h5py is required to {what} .jld2 LES files")
-    import h5py
-
-    return h5py
 
 
 def _numpy(x) -> np.ndarray:
@@ -72,8 +59,8 @@ def _strip_halo(arr: np.ndarray, Nz: int, halo: int) -> np.ndarray:
 def _profile_series(f, name: str, Nz: int, halo: int) -> np.ndarray:
     """Stack ``timeseries/<name>/<iter>`` into ``(Nt, Nz[+1])``, halos stripped."""
     g = f["timeseries"][name]
-    # Julia writes (1, 1, N); h5py sees the dims reversed as (N, 1, 1).
-    return np.stack([_strip_halo(np.asarray(g[it]).reshape(-1), Nz, halo) for it in _iterations(g)], axis=0)
+    # Julia writes (1, 1, N); HDF5 readers see the dims reversed as (N, 1, 1).
+    return np.stack([_strip_halo(np.asarray(g[it][()]).reshape(-1), Nz, halo) for it in _iterations(g)], axis=0)
 
 
 _MISSING = object()
@@ -81,13 +68,8 @@ _MISSING = object()
 
 def _first(f, paths, default=_MISSING):
     for p in paths:
-        try:
-            node = f
-            for part in p.split("/"):
-                node = node[part]
-            return np.asarray(node)[()]
-        except KeyError:
-            continue
+        if p in f:
+            return f[p][()]
     if default is not _MISSING:
         return default
     raise KeyError(f"none of {paths} found in file")
@@ -101,18 +83,17 @@ def read_les_profiles(path: str, halo: int = 3, dtype=np.float32) -> ColumnTimeS
     per variable by their length. ``dtype`` is a numpy dtype; the tensors
     are on the CPU.
     """
-    h5py = _h5py("read")
-    with h5py.File(path, "r") as f:
-        if "grid" in f and "Hz" in f["grid"]:
-            halo = int(np.asarray(f["grid"]["Hz"])[()])
-        zc = np.asarray(f["grid"]["zC"]).reshape(-1) if "grid" in f and "zC" in f["grid"] else None
+    with hdf5.File(path, "r") as f:
+        if "grid/Hz" in f:
+            halo = int(f["grid/Hz"][()])
+        zc = np.asarray(f["grid/zC"][()]).reshape(-1) if "grid/zC" in f else None
 
         tgroup = f["timeseries"]["t"]
-        t = np.asarray([np.asarray(tgroup[it])[()] for it in _iterations(tgroup)], dtype)
+        t = np.asarray([np.asarray(tgroup[it][()]) for it in _iterations(tgroup)], dtype)
 
         # Probe the first T frame against the grid to fix Nz for this file.
         tg = f["timeseries"]["T"]
-        n_probe = int(np.asarray(tg[_iterations(tg)[0]]).size)
+        n_probe = int(np.prod(tg[_iterations(tg)[0]].shape))
         if zc is None:
             Nz = n_probe
         elif n_probe == zc.size - 2 * halo:  # statistics layout: profiles unpadded
@@ -187,12 +168,11 @@ def write_les_profiles(path: str, ds: ColumnTimeSeries, halo: int = 3, iteration
     ``grid/Lz``, ``buoyancy/model/...``, ``coriolis/f`` and four
     ``parameters/*`` BC entries, the surface flux as a buoyancy flux.
     """
-    h5py = _h5py("write")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     t = _numpy(ds.t).astype(np.float64)
     series = {"t": t, "u": _numpy(ds.u), "v": _numpy(ds.v), "T": _numpy(ds.T),
               "wu": _numpy(ds.uw), "wv": _numpy(ds.vw), "wT": _numpy(ds.wT)}
-    with h5py.File(path, "w") as f:
+    with hdf5.File(path, "w") as f:
         for name, arr in series.items():
             g = f.create_group(f"timeseries/{name}")
             for i in range(t.shape[0]):
@@ -222,7 +202,6 @@ def write_fc_fieldset(path: str, ds: ColumnTimeSeries, halo: int = 3, iteration_
     group, ``grid/{Nz, Hz, Lz, zC, zF}``, and the surface flux at
     ``parameters/temperature_flux`` (``add_surface_fluxes.jl:2``).
     """
-    h5py = _h5py("write")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     t = _numpy(ds.t).astype(np.float64)
     Nz = ds.T.shape[-1]
@@ -230,7 +209,7 @@ def write_fc_fieldset(path: str, ds: ColumnTimeSeries, halo: int = 3, iteration_
     def pad(row):
         return np.concatenate([np.zeros(halo, row.dtype), row, np.zeros(halo, row.dtype)])
 
-    with h5py.File(path, "w") as f:
+    with hdf5.File(path, "w") as f:
         for name in ("t", "T", "wT"):
             g = f.create_group(f"timeseries/{name}")
             if name != "t":

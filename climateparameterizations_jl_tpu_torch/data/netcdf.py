@@ -1,9 +1,9 @@
-"""Minimal netCDF-4 writer and reader on h5py (no netCDF library needed).
+"""Minimal netCDF-4 writer and reader on the port's HDF5 codec (no netCDF library, no h5py).
 
 Port of ``climateparameterizations_jl_tpu/data/netcdf.py``. The
 reference's host-model embedding writes its paired simulations with
 Oceananigans' ``NetCDFOutputWriter`` (``free_convection/src/oceananigans_nn.jl:167-210``).
-netCDF-4 is HDF5 with the dimension-scale convention, so with h5py alone:
+netCDF-4 is HDF5 with the dimension-scale convention, so with ``data/hdf5.py`` alone:
 
 - every dimension is a 1-D dimension-scale dataset holding its coordinates;
 - every variable attaches the scales of its dimensions (the HDF5
@@ -11,8 +11,7 @@ netCDF-4 is HDF5 with the dimension-scale convention, so with h5py alone:
 - the root ``_NCProperties`` attribute marks the file as netCDF-4.
 
 Flat (root-group) classic-model files only, as the reference writes them.
-Arrays may be numpy arrays or tensors (moved to the CPU). h5py is imported
-inside the functions, never when the module is imported.
+Arrays may be numpy arrays or tensors (moved to the CPU).
 """
 
 from __future__ import annotations
@@ -22,7 +21,9 @@ import os
 import numpy as np
 import torch
 
-_NC_PROPERTIES = "version=2,climateparameterizations_jl_tpu_torch=1,h5py=?"
+from climateparameterizations_jl_tpu_torch.data import hdf5
+
+_NC_PROPERTIES = "version=2,climateparameterizations_jl_tpu_torch=1"
 
 
 def _numpy(x) -> np.ndarray:
@@ -36,8 +37,6 @@ def write_netcdf(path, variables: dict, coords: dict, attrs: dict | None = None)
     array.ndim``; ``coords`` is ``{dim_name: 1-D coordinates}`` for every
     dimension a variable uses; ``attrs`` are optional root attributes.
     """
-    import h5py
-
     variables = {name: (dims, _numpy(arr)) for name, (dims, arr) in variables.items()}
     coords = {dim: _numpy(values) for dim, values in coords.items()}
     for name, (dims, arr) in variables.items():
@@ -49,7 +48,7 @@ def write_netcdf(path, variables: dict, coords: dict, attrs: dict | None = None)
             if len(coords[d]) != n:
                 raise ValueError(f"variable {name!r}: dim {d!r} is {len(coords[d])}, data has {n}")
 
-    with h5py.File(path, "w") as f:
+    with hdf5.File(path, "w") as f:
         f.attrs["_NCProperties"] = np.bytes_(_NC_PROPERTIES)
         scales = {}
         for dim, values in coords.items():
@@ -71,22 +70,20 @@ def read_netcdf(path):
     Returns ``(variables, coords, attrs)``: ``{name: (dims, np.ndarray)}``,
     ``{dim: np.ndarray}`` and the root attributes but ``_NCProperties``.
     """
-    import h5py
-
     variables, coords, attrs = {}, {}, {}
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         for key, value in f.attrs.items():
             if key != "_NCProperties":
                 attrs[key] = value
         for name, ds in f.items():
             if ds.attrs.get("CLASS") == b"DIMENSION_SCALE":
-                coords[name] = np.asarray(ds)
+                coords[name] = np.asarray(ds[()])
                 continue
             if "_dims" in ds.attrs:
                 dims = tuple(d.decode() for d in ds.attrs["_dims"])
             else:  # the attached dimension scales' names
                 dims = tuple((dim[0].name.lstrip("/") if len(dim) else f"dim_{i}") for i, dim in enumerate(ds.dims))
-            variables[name] = (dims, np.asarray(ds))
+            variables[name] = (dims, np.asarray(ds[()]))
     return variables, coords, attrs
 
 

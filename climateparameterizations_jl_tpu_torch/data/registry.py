@@ -6,7 +6,7 @@ surface momentum flux ``Qu``, buoyancy flux ``Qb``, Coriolis ``f`` and the
 suite: :func:`simulation_parameters` parses them, and
 :func:`lesbrary_relative_path` rebuilds the reference's ``.jld2`` paths.
 :func:`load_simulation` reads ``<data_dir>/<lesbrary_relative_path(name)>``
-where that file exists (``data/lesbrary.py``, which needs h5py) and
+where that file exists (``data/lesbrary.py`` on the port's own HDF5 reader, so on the card too) and
 otherwise generates the name's synthetic stand-in (``data/synthetic.py``);
 ``source="les3d"`` generates it with the 3-D LES (``data/les.py``).
 :func:`fetch_free_convection` downloads the free-convection LESbrary files

@@ -322,7 +322,7 @@ def nde_profile_from_saved(sim_dir: str, model: WindMixingModel, ds_truth: Colum
     Parity: ``NDE_profile_oceananigans`` (``training_postprocessing.jl:808-1156``):
     the saved profiles are matched to the truth by TIME (any save interval)
     and give the ``embedded_*`` / ``embedded_baseline_*`` channels with
-    their per-timestep losses. h5py is imported by the reader only.
+    their per-timestep losses. The files are read by ``data/lesbrary.py`` (the port's own HDF5 reader).
     """
     import os
 

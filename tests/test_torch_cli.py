@@ -359,8 +359,8 @@ def test_calibrate_kpp_command(tmp_path, capsys, method):
 def test_evaluate_command(tmp_path, capsys):
     """``evaluate --embedded --write-jld2 --animate`` of the flagship closure equals the JAX command: every npz
     value, the summary, the file names (figures and the comparison GIF included; the coverage figure, drawn from the
-    names alone, pixel for pixel) and, where h5py is installed, the embedded pair's ``.jld2`` files (read back by the
-    port's LESbrary reader).
+    names alone, pixel for pixel) and the embedded pair's ``.jld2`` files: the port's, read back by its LESbrary
+    reader, equal its npz bit for bit, and where h5py is installed (the JAX writer's) they equal the JAX command's.
 
     Both commands get the same simulations, one column made with numpy from
     a seed per catalog name, and the checkpoint's weights, in float64 (the
@@ -375,8 +375,9 @@ def test_evaluate_command(tmp_path, capsys):
             "--test-sims", "strong_wind_weak_cooling", "--nz", "32", "--n-save", "12", "--n-train-steps", "9",
             "--eval-stride", "2", "--n-substeps", "2", "--kpp-n-substeps", "2"]
     figures = ["--animate", "--animation-format", "gif", "--gif-stride", "4"]
-    have_h5py = importlib.util.find_spec("h5py") is not None  # the .jld2 writer's; without it the pair is not written
-    embedded = ["--embedded", "--write-jld2"] if have_h5py else ["--embedded"]
+    embedded = ["--embedded", "--write-jld2"]
+    jax_has_h5py = importlib.util.find_spec("h5py") is not None  # the JAX writer's; the port writes with its own code
+    jax_embedded = embedded if jax_has_h5py else ["--embedded"]
     seeds = {"strong_wind": 0, "strong_wind_weak_cooling": 1}
 
     def jax_suite(names, Nz, *args):
@@ -393,10 +394,11 @@ def test_evaluate_command(tmp_path, capsys):
                                                                        meta))
         mp.setattr(jcli, "_load_suite", jax_suite)
         mp.setattr(tcli, "_load_suite", lambda names, *a, device=None, **k: _to_torch(jax_suite(names, *a)))
-        assert jcli.main([*argv, *embedded, *figures, "--output", jout]) == 0
+        assert jcli.main([*argv, *jax_embedded, *figures, "--output", jout]) == 0
         assert _main([*argv, *embedded, *figures, "--output", tout]) == 0
     capsys.readouterr()
-    assert sorted(os.listdir(tout)) == sorted(os.listdir(jout))
+    sim_dir = [] if jax_has_h5py else ["strong_wind_weak_cooling"]
+    assert sorted(os.listdir(tout)) == sorted(os.listdir(jout) + sim_dir)
     assert {"training_regions.png", "loss.png", "final_profiles.png", "comparison.gif"} <= set(os.listdir(tout))
     assert np.array_equal(*(np.asarray(Image.open(os.path.join(d, "training_regions.png"))) for d in (tout, jout)))
     with np.load(os.path.join(tout, "evaluation_strong_wind_weak_cooling.npz")) as ev:
@@ -413,7 +415,13 @@ def test_evaluate_command(tmp_path, capsys):
             np.testing.assert_allclose(got[part][k], want[part][k], rtol=EVAL_RTOL, err_msg=f"{part} {k}")
     from climateparameterizations_jl_tpu_torch.data.lesbrary import read_les_profiles
 
-    for tag in ("baseline", "neural_network") if have_h5py else ():
+    with np.load(os.path.join(tout, "evaluation_strong_wind_weak_cooling.npz")) as ev:
+        for tag, m in (("baseline", "embedded_baseline"), ("neural_network", "embedded")):
+            saved = read_les_profiles(os.path.join(tout, "strong_wind_weak_cooling", f"{tag}.jld2"), dtype=np.float64)
+            for field in ("u", "v", "T", "uw", "vw", "wT"):
+                np.testing.assert_array_equal(getattr(saved, field).numpy(), ev[f"{m}_{field}"], err_msg=tag)
+            np.testing.assert_array_equal(saved.t.numpy(), ev["t"])
+    for tag in ("baseline", "neural_network") if jax_has_h5py else ():
         got_f, want_f = (read_les_profiles(os.path.join(d, "strong_wind_weak_cooling", f"{tag}.jld2"))
                          for d in (tout, jout))
         for field in ("u", "v", "T", "uw", "vw", "wT", "t", "H", "f", "g", "alpha", "beta", "u_top", "theta_top",

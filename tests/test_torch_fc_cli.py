@@ -296,12 +296,14 @@ def same_npz_files(got_dir, want_dir, names, rtol, ri_rtol=None):
 
 def test_evaluate_fc_command(tmp_path, capsys):
     """``evaluate-fc --embedded --netcdf`` equals the JAX command on the same truth and checkpoint: every npz value,
-    the summary, the file names (the loss-matrix figure included) and, where h5py is installed, each id's NetCDF pair
-    (read back by the port's reader)."""
+    the summary, the file names (the loss-matrix figure included) and each id's NetCDF pair: the port's, read back
+    by its reader, equals its npz bit for bit, and where h5py is installed (the JAX writer's) it equals the JAX
+    command's."""
     from climateparameterizations_jl_tpu_torch.data.netcdf import read_netcdf
 
-    have_h5py = importlib.util.find_spec("h5py") is not None  # the NetCDF writer's; without it the pair is not written
-    embedded = ["--embedded", "--netcdf"] if have_h5py else ["--embedded"]
+    embedded = ["--embedded", "--netcdf"]
+    jax_has_h5py = importlib.util.find_spec("h5py") is not None  # the JAX writer's; the port writes with its own code
+    jax_embedded = embedded if jax_has_h5py else ["--embedded"]
     stored = {i: _f64(_stored_fc_truth(i)) for i in (8, 9)}
     nn, meta = jcli._load_fc_nn(str(FC_FLAGSHIP))
     nn = _f64(nn)
@@ -312,7 +314,7 @@ def test_evaluate_fc_command(tmp_path, capsys):
         mp.setattr(tcli, "_load_fc_nn", lambda directory, device=None: (from_reference(nn, device, torch.float64),
                                                                           meta))
         mp.setattr(jfcd, "load_free_convection_simulation", lambda i, *a, **k: stored[i])
-        assert jcli.main([*FC_EVAL_ARGV, *embedded, "--output", jout]) == 0
+        assert jcli.main([*FC_EVAL_ARGV, *jax_embedded, "--output", jout]) == 0
         # --source les3d reads the same truth from float64 cache files that the JAX package wrote.
         cache = _stored_truth_cache(tmp_path, stored)
         assert tcli.main(["--device", "cpu", *FC_EVAL_ARGV, "--embedded", "--source", "les3d", "--les-cache-dir",
@@ -320,7 +322,8 @@ def test_evaluate_fc_command(tmp_path, capsys):
         mp.setattr(tfcd, "load_free_convection_suite", lambda ids, *a, **k: [_to_torch(stored[i]) for i in ids])
         assert tcli.main(["--device", "cpu", *FC_EVAL_ARGV, *embedded, "--output", tout]) == 0
     capsys.readouterr()
-    assert sorted(os.listdir(tout)) == sorted(os.listdir(jout)) and "loss_matrix.png" in os.listdir(tout)
+    sim_dirs = [] if jax_has_h5py else ["sim8", "sim9"]
+    assert sorted(os.listdir(tout)) == sorted(os.listdir(jout) + sim_dirs) and "loss_matrix.png" in os.listdir(tout)
     same_npz_files(tout, jout, ["sim8.npz", "sim9.npz"], EVAL_RTOL)
     same_npz_files(tout + "_les3d", jout, ["sim8.npz", "sim9.npz"], EVAL_RTOL)
     with np.load(os.path.join(tout, "sim8.npz")) as ev:
@@ -329,7 +332,16 @@ def test_evaluate_fc_command(tmp_path, capsys):
         got, want = json.load(f), json.load(g)
     assert list(got) == list(want) == ["nde", "conv_adj", "kpp", "tke", "embedded", "embedded_baseline"]
     _close([got[k] for k in want], [want[k] for k in want], EVAL_RTOL)
-    for i in (8, 9) if have_h5py else ():
+    for i in (8, 9):
+        with np.load(os.path.join(tout, f"sim{i}.npz")) as ev:
+            for name, want in (("oceananigans_convective_adjustment.nc", {"T": ev["embedded_baseline_T"]}),
+                               ("oceananigans_neural_network.nc", {"T": ev["embedded_T"], "wT": ev["embedded_wT"]})):
+                variables, coords, attrs = read_netcdf(os.path.join(tout, f"sim{i}", name))
+                assert sorted(variables) == sorted(want) and int(attrs["simulation_id"]) == i
+                for k, v in want.items():
+                    np.testing.assert_array_equal(variables[k][1], v, err_msg=f"sim{i} {name} {k}")
+                np.testing.assert_array_equal(coords["time"], ev["t"])
+    for i in (8, 9) if jax_has_h5py else ():
         for name in ("oceananigans_convective_adjustment.nc", "oceananigans_neural_network.nc"):
             (gv, gc, ga), (wv, wc, wa) = (read_netcdf(os.path.join(d, f"sim{i}", name)) for d in (tout, jout))
             assert sorted(gv) == sorted(wv) and sorted(gc) == sorted(wc) and int(ga["simulation_id"]) == i

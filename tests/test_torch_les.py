@@ -5,7 +5,7 @@ The JAX package's ``data/les.py`` is the reference. Its cases of
 (``Nx = Ny = 8``, ``Nz = 16``, float64 unless stated): the Poisson solve,
 the physics budgets, the advection dispatch, the momentum schemes, the
 output contract, the catalog source, RK3, the diurnal cycle and the
-``.jld2`` round trip (where h5py is installed). The parity cases hand the
+``.jld2`` round trip (through the port's own HDF5 code). The parity cases hand the
 JAX package's state over through numpy (the two packages draw their noise
 from different generators) and hold the port to it:
 
@@ -237,18 +237,20 @@ def test_free_convection_les3d_source_and_caches(monkeypatch, tmp_path):
 
 
 def test_generate_les_command_matches_jax(monkeypatch, tmp_path, capsys):
-    """``generate-les`` in both packages from the JAX initial state: the npz, the JSON line and (with h5py) the
-    ``.jld2`` under the catalog name, by value; then the command's refusals before any run."""
-    have_h5py = importlib.util.find_spec("h5py") is not None
+    """``generate-les`` in both packages from the JAX initial state: the npz, the JSON line and the ``.jld2`` under
+    the catalog name, by value (the port's file equals its npz bit for bit; the JAX command writes its file where
+    h5py is installed); then the command's refusals before any run."""
+    jax_has_h5py = importlib.util.find_spec("h5py") is not None  # the JAX writer's; the port writes with its own code
     name = "wind_-5e-4_diurnal_5e-8"
     argv = ["generate-les", "--n-horizontal", "8", "--nz-les", "8", "--n-save", "2", "--dt-save", "600"]
-    argv += ["--jld2-name", name] if have_h5py else ["--diurnal", "--qu", "-5e-4", "--qb", "5e-8"]
+    port_argv = [*argv, "--jld2-name", name]
+    argv = port_argv if jax_has_h5py else [*argv, "--diurnal", "--qu", "-5e-4", "--qb", "5e-8"]
     jc = jles.LESConfig.default(Nx=8, Ny=8, Nz=8, Qu=-5e-4, Qb=5e-8, f=1e-4, diurnal=True)
     _handed_over(monkeypatch, jles.initial_state(jc, jax.random.PRNGKey(0)))
     jout, tout = str(tmp_path / "jax"), str(tmp_path / "port")
     assert jcli.main([*argv, "--output", jout]) == 0
     want_line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert tcli.main(["--device", "cpu", *argv, "--output", tout]) == 0
+    assert tcli.main(["--device", "cpu", *port_argv, "--output", tout]) == 0
     got_line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert got_line["dt"] == want_line["dt"] and got_line["save_every"] == want_line["save_every"]
     assert got_line["frames"] == want_line["frames"] == 3 and got_line["finite"]
@@ -256,9 +258,12 @@ def test_generate_les_command_matches_jax(monkeypatch, tmp_path, capsys):
     got, want = (tfcd.load_column_npz(os.path.join(d, "les_profiles.npz")) for d in (tout, jout))
     _same_profiles(got, want, f32=True)
     assert float(got.diurnal_amplitude) == float(want.diurnal_amplitude) != 0.0
-    if have_h5py:
-        from climateparameterizations_jl_tpu_torch.data.lesbrary import read_les_profiles
+    from climateparameterizations_jl_tpu_torch.data.lesbrary import read_les_profiles
 
+    saved = read_les_profiles(got_line["jld2"])
+    for field in ("u", "v", "T", "uw", "vw", "wT", "t"):
+        assert torch.equal(getattr(saved, field), getattr(got, field).to(torch.float32)), field
+    if jax_has_h5py:
         assert os.path.relpath(got_line["jld2"], tout) == os.path.relpath(want_line["jld2"], jout)
         _same_profiles(read_les_profiles(got_line["jld2"]), read_les_profiles(want_line["jld2"]), f32=True)
     monkeypatch.setattr(tles, "initial_state", None)  # every refusal comes before the run
@@ -506,10 +511,8 @@ class TestDiurnalLES:
 
 class TestJLD2RoundTrip:
     def test_write_then_read(self, tmp_path):
-        from climateparameterizations_jl_tpu_torch.data.lesbrary import HAVE_H5PY, read_les_profiles, write_les_profiles
+        from climateparameterizations_jl_tpu_torch.data.lesbrary import read_les_profiles, write_les_profiles
 
-        if not HAVE_H5PY:
-            pytest.skip("h5py not available")
         c = small_config(Nz=12)
         ds = tles.run_les(c, dt=20.0, n_save=3, save_every=5, generator=torch.Generator().manual_seed(11))
         path = str(tmp_path / "gen.jld2")

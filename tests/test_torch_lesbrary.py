@@ -5,17 +5,22 @@ download tests: the port has no downloader). Its byte-faithful fixtures of
 the reference's two layouts, built with raw h5py calls, are imported from
 that file. The port's reader must return the JAX reader's arrays bit for
 bit; each package's writers must produce the same HDF5 datasets; and each
-package reads the other's files to the same arrays. Skips where h5py is
-missing, as the JAX file does.
+package reads the other's files to the same arrays. The port reads and
+writes with its own HDF5 code (``data/hdf5.py``): its round trips run with
+h5py blocked. The JAX package and the fixtures need h5py, so the cases that
+use them skip where it is missing.
 """
 
 import dataclasses
 import importlib
+import importlib.util
+import sys
 
 import numpy as np
 import pytest
 import torch
 
+from climateparameterizations_jl_tpu.data import containers as jc
 from climateparameterizations_jl_tpu.data import free_convection as jfcd
 from climateparameterizations_jl_tpu.data import lesbrary as jl
 from climateparameterizations_jl_tpu.data import netcdf as jnc
@@ -29,10 +34,11 @@ from climateparameterizations_jl_tpu_torch.data import netcdf as tnc
 from climateparameterizations_jl_tpu_torch.data import registry as tr
 from test_reference_layouts import HALO, ITERS, make_fc_fieldset_fixture, make_windmixing_statistics_fixture
 
-if tl.HAVE_H5PY:
+HAVE_H5PY = importlib.util.find_spec("h5py") is not None
+if HAVE_H5PY:
     import h5py
 
-pytestmark = pytest.mark.skipif(not tl.HAVE_H5PY, reason="h5py not available")
+needs_h5py = pytest.mark.skipif(not HAVE_H5PY, reason="the JAX package's readers and writers need h5py")
 jcli = importlib.import_module("climateparameterizations_jl_tpu.cli.main")
 FIELDS = [f.name for f in dataclasses.fields(tc.ColumnTimeSeries)]
 WM_NAME = "wind_-5e-4_cooling_3e-8_new"
@@ -83,6 +89,7 @@ def _same_files(a, b):
 # ---------------------------------------------------------------------------
 
 
+@needs_h5py
 @pytest.mark.parametrize("variant", ["model", "flat"])
 def test_statistics_layout_parses_bit_for_bit(tmp_path, variant):
     path = str(tmp_path / f"stats_{variant}.jld2")
@@ -98,6 +105,7 @@ def test_statistics_layout_parses_bit_for_bit(tmp_path, variant):
     np.testing.assert_array_equal(_np(f64.T), expect["data"]["T"])
 
 
+@needs_h5py
 def test_iteration_keys_sort_numerically(tmp_path):
     path = str(tmp_path / "stats.jld2")
     expect = make_windmixing_statistics_fixture(path)
@@ -106,6 +114,7 @@ def test_iteration_keys_sort_numerically(tmp_path):
     np.testing.assert_array_equal(t, expect["t"].astype(np.float32))
 
 
+@needs_h5py
 def test_fc_fieldset_parses_with_halos_and_serialized_groups(tmp_path):
     path = str(tmp_path / "instantaneous_statistics_with_halos.jld2")
     expect = make_fc_fieldset_fixture(path)
@@ -117,6 +126,7 @@ def test_fc_fieldset_parses_with_halos_and_serialized_groups(tmp_path):
     assert not ds.u.any() and not ds.v.any()
 
 
+@needs_h5py
 def test_fc_loader_reads_the_datadeps_layout(tmp_path):
     (tmp_path / "free_convection_3").mkdir()
     expect = make_fc_fieldset_fixture(str(tmp_path / "free_convection_3" / "instantaneous_statistics_with_halos.jld2"))
@@ -134,6 +144,7 @@ def test_fc_loader_reads_the_datadeps_layout(tmp_path):
     assert torch.equal(suite[1].T, tfcd.load_free_convection_simulation(1, Nz=8, Nz_les=16, n_save=3).T)
 
 
+@needs_h5py
 def test_load_simulation_reads_data_dir(tmp_path):
     """``data_dir`` no longer raises: the name's file is read (diurnal flag from the catalog), else synthetic."""
     path = tmp_path / tr.lesbrary_relative_path(WM_NAME)
@@ -151,6 +162,7 @@ def test_load_simulation_reads_data_dir(tmp_path):
     assert tr.lesbrary_file("strong_wind", str(tmp_path)) is None
 
 
+@needs_h5py
 def test_cli_suite_mixes_files_and_stand_ins(tmp_path):
     path = tmp_path / tr.lesbrary_relative_path(WM_NAME)
     path.parent.mkdir(parents=True)
@@ -182,6 +194,7 @@ def fc_ds():
     return js.synthetic_free_convection_les(Qb=5e-8, Nz=16, n_save=3, dt_save=600.0)
 
 
+@needs_h5py
 def test_statistics_writer_matches_jax(tmp_path, wm_ds):
     port_path, jax_path = str(tmp_path / "port" / "out.jld2"), str(tmp_path / "jax" / "out.jld2")
     tl.write_les_profiles(port_path, _to_torch(wm_ds), iteration_stride=600)
@@ -195,6 +208,7 @@ def test_statistics_writer_matches_jax(tmp_path, wm_ds):
     np.testing.assert_allclose(_np(tl.read_les_profiles(port_path).T), np.asarray(wm_ds.T), rtol=1e-6)
 
 
+@needs_h5py
 def test_fc_writer_matches_jax(tmp_path, fc_ds):
     port_path = str(tmp_path / "port" / "instantaneous_statistics_with_halos.jld2")
     jax_path = str(tmp_path / "jax" / "instantaneous_statistics_with_halos.jld2")
@@ -211,12 +225,73 @@ def test_fc_writer_matches_jax(tmp_path, fc_ds):
     assert float(back.theta_top) == float(fc_ds.theta_top)
 
 
-def test_readers_and_writers_raise_without_h5py(tmp_path, monkeypatch, fc_ds):
-    monkeypatch.setattr(tl, "HAVE_H5PY", False)
-    with pytest.raises(RuntimeError, match="h5py"):
-        tl.read_les_profiles(str(tmp_path / "x.jld2"))
-    with pytest.raises(RuntimeError, match="h5py"):
-        tl.write_fc_fieldset(str(tmp_path / "x.jld2"), _to_torch(fc_ds))
+@needs_h5py
+@pytest.mark.parametrize("layout", ["statistics", "fc_fieldset"])
+def test_600_iterations_across_packages(tmp_path, layout):
+    """600 frames: the JAX writer's file (a multi-level B-tree under h5py's defaults) read by the port equals
+    JAX's read, and the port's file (600 link messages in one header) read by JAX equals the port's read."""
+    ds = _random_series(600, 8, seed=1)
+    as_jax = jc.ColumnTimeSeries(**{k: _np(getattr(ds, k)) for k in FIELDS if getattr(ds, k) is not None})
+    jwrite, twrite = ((jl.write_les_profiles, tl.write_les_profiles) if layout == "statistics"
+                      else (jl.write_fc_fieldset, tl.write_fc_fieldset))
+    jax_path, port_path = str(tmp_path / "jax.jld2"), str(tmp_path / "port.jld2")
+    jwrite(jax_path, as_jax, iteration_stride=600)
+    twrite(port_path, ds, iteration_stride=600)
+    _same_files(port_path, jax_path)
+    _same_dataset(tl.read_les_profiles(jax_path), jl.read_les_profiles(jax_path))
+    _same_dataset(tl.read_les_profiles(port_path), jl.read_les_profiles(port_path))
+    for dtype in (np.float32, np.float64):
+        _same_dataset(tl.read_les_profiles(jax_path, dtype=dtype), tl.read_les_profiles(port_path, dtype=dtype))
+    assert tl.read_les_profiles(port_path).T.shape == (600, 8)
+
+
+def _random_series(Nt, Nz, seed=0):
+    """A :class:`ColumnTimeSeries` of random f32 profiles and constants (any values: the files carry them)."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda *shape: torch.tensor(rng.normal(size=shape).astype(np.float32))  # noqa: E731
+    return tc.ColumnTimeSeries(u=f32(Nt, Nz), v=f32(Nt, Nz), T=20 + f32(Nt, Nz), uw=f32(Nt, Nz + 1),
+                               vw=f32(Nt, Nz + 1), wT=f32(Nt, Nz + 1), t=torch.arange(Nt, dtype=torch.float32) * 600,
+                               H=torch.tensor(256.0), f=torch.tensor(1e-4), g=torch.tensor(9.80665),
+                               alpha=torch.tensor(2e-4), beta=torch.tensor(8e-4), u_top=torch.tensor(-5e-4),
+                               theta_top=torch.tensor(3e-5), theta_bottom=torch.tensor(0.01))
+
+
+def _buoyancy_round_trip(ds) -> float:
+    """``theta_top`` as a statistics file gives it back: stored as ``theta alpha g``, read as ``/ alpha / g``."""
+    c = [float(getattr(ds, k)) for k in ("theta_top", "alpha", "g")]
+    return float(np.float32(c[0] * c[1] * c[2] / c[1] / c[2]))
+
+
+@pytest.mark.parametrize("layout", ["statistics", "fc_fieldset", "netcdf"])
+def test_port_round_trips_without_h5py(tmp_path, monkeypatch, layout):
+    """The port writes and reads both ``.jld2`` layouts and the netCDF pair with h5py unimportable."""
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    ds = _random_series(5, 12)
+    if layout == "netcdf":
+        t, zc, zf, T_base, T_nn, wT = _nc_inputs()
+        paths = tnc.write_paired_column_netcdf(str(tmp_path), zc, zf, t, T_base, T_nn, wT, {"simulation_id": 8})
+        for path, want in zip(paths, ({"T": T_base}, {"T": T_nn, "wT": wT})):
+            variables, coords, attrs = tnc.read_netcdf(path)
+            assert sorted(variables) == sorted(want) and attrs == {"simulation_id": 8}
+            for name, value in want.items():
+                dims, got = variables[name]
+                assert dims == ("time", "zF" if name == "wT" else "zC") and got.dtype == value.dtype
+                np.testing.assert_array_equal(got, value)
+            for dim, value in (("time", t), ("zC", zc), ("zF", zf)):
+                if dim in coords:
+                    np.testing.assert_array_equal(coords[dim], value)
+        return
+    path = str(tmp_path / f"{layout}.jld2")
+    writer = tl.write_les_profiles if layout == "statistics" else tl.write_fc_fieldset
+    writer(path, ds, iteration_stride=600)
+    back = tl.read_les_profiles(path)
+    fields = ["T", "wT", "t", "H", "theta_bottom"] + (
+        ["u", "v", "uw", "vw", "f", "g", "alpha", "beta", "u_top"] if layout == "statistics" else ["theta_top"])
+    _same_dataset(back, ds, fields)
+    if layout == "statistics":
+        assert float(back.theta_top) == _buoyancy_round_trip(ds)
+    else:
+        assert not back.u.any() and not back.uw.any()
 
 
 # ---------------------------------------------------------------------------
@@ -244,6 +319,7 @@ def _same_netcdf(a, b):
         np.testing.assert_array_equal(aa[key], ab[key])
 
 
+@needs_h5py
 def test_netcdf_round_trips_across_packages(tmp_path):
     t, zc, zf, T_base, T_nn, wT = _nc_inputs()
     attrs = {"simulation": "free_convection_3", "dt": 600.0}
